@@ -1,0 +1,595 @@
+// Device functions shared by the Hopper kernels of this package
+// (negdiv_sweep.cu and fused_stage.cu): reconstruction, the Riemann solvers
+// and cons_to_prim.
+//
+// Every function is the scalar transcription, operation by operation, of
+// its plain PyTorch version: recon/schemes.py (plm, ppm),
+// riemann/solvers.py (_euler_hlle, _euler_hllc, _glm_hlld) and
+// eos/adiabatic.py (cons_to_prim).  Scalar constants that the plain code
+// folds as Python floats are folded in double on the host (make_params) and
+// rounded to T once; build with --fmad=false so no multiply-add is
+// contracted and the two versions differ by rounding only.
+
+#pragma once
+
+#include <cuda_runtime.h>
+
+namespace hydro {
+
+constexpr int IDN = 0, IPR = 4, IEN = 4, IPS = 8;
+
+enum { RECON_DC = 0, RECON_PLM = 1, RECON_PPM = 2 };
+// (fluid, Riemann solver) pairs the kernels take
+enum { SOLVER_EULER_HLLE = 0, SOLVER_EULER_HLLC = 1, SOLVER_GLMMHD_HLLD = 2 };
+
+// variables per cell: rho, v1, v2, v3, p (Euler) + B1, B2, B3, psi (GLM-MHD)
+template <int SOLVER>
+struct NVar { static constexpr int value = SOLVER == SOLVER_GLMMHD_HLLD ? 9 : 5; };
+
+// cells of stencil on each side of a face (DC 1, PLM 2, PPM 3)
+template <int RECON>
+struct Halo { static constexpr int h = RECON == RECON_DC ? 1 : (RECON == RECON_PLM ? 2 : 3); };
+
+template <typename T>
+struct Params {
+  T gamma;         // adiabatic index
+  T gm1;           // gamma - 1
+  T igm1;          // 1 / (gamma - 1)
+  T hllc_coef;     // (gamma + 1) / (2 gamma)
+  T half_over_ch;  // 0.5 / c_h
+  T half_ch;       // 0.5 * c_h
+  T ch2;           // c_h * c_h
+  // cons_to_prim floors and ceilings (eos/adiabatic.py); has_* says whether
+  // each one is enabled (a floor <= 0 and an infinite ceiling are off)
+  T dfloor, pfloor, pfloor_over_gm1, efloor, vceil, vceil2, eceil;
+  bool has_dfloor, has_pfloor, has_efloor, has_vceil, has_eceil;
+};
+
+// The EOS scalars as the wrapper passes them: gamma, density, pressure and
+// internal-energy floors, velocity and internal-energy ceilings (infinite
+// when off).
+struct EosArgs {
+  double gamma, dfloor, pfloor, efloor, vceil, eceil;
+};
+constexpr double NO_CEILING = 1.0e308;   // any ceiling >= 1e300 is off
+
+template <typename T>
+inline Params<T> make_params(const EosArgs& e, double c_h) {
+  Params<T> p;
+  const double gm1 = e.gamma - 1.0;
+  p.gamma = T(e.gamma);
+  p.gm1 = T(gm1);
+  p.igm1 = T(1.0 / gm1);
+  p.hllc_coef = T((e.gamma + 1.0) / (2.0 * e.gamma));
+  p.half_over_ch = T(0.5 / c_h);
+  p.half_ch = T(0.5 * c_h);
+  p.ch2 = T(c_h * c_h);
+  p.has_dfloor = e.dfloor > 0.0;
+  p.has_pfloor = e.pfloor > 0.0;
+  p.has_efloor = e.efloor > 0.0;
+  p.has_vceil = e.vceil < 1.0e300;
+  p.has_eceil = e.eceil < 1.0e300;
+  p.dfloor = T(e.dfloor);
+  p.pfloor = T(e.pfloor);
+  p.pfloor_over_gm1 = T(e.pfloor / gm1);
+  p.efloor = T(e.efloor);
+  p.vceil = p.has_vceil ? T(e.vceil) : T(0);
+  p.vceil2 = p.has_vceil ? T(e.vceil * e.vceil) : T(0);
+  p.eceil = p.has_eceil ? T(e.eceil) : T(0);
+  return p;
+}
+
+template <typename T>
+__device__ __forceinline__ T sgn(T x) { return x >= T(0) ? T(1) : T(-1); }
+
+// minimum and maximum that pass a NaN operand on, as torch.minimum and
+// torch.maximum do (fmin and fmax drop it): a reconstructed edge state with
+// negative pressure gives NaN wave speeds, and the solvers' selects must
+// then take the same side as the plain version's
+template <typename T>
+__device__ __forceinline__ T nan_min(T a, T b) { return (b < a || b != b) ? b : a; }
+template <typename T>
+__device__ __forceinline__ T nan_max(T a, T b) { return (b > a || b != b) ? b : a; }
+
+// ------------------------------------------------------------------ recon
+template <typename T>
+__device__ __forceinline__ void plm_edges(T qm1, T q, T qp1, T& qm, T& qp) {
+  T dql = q - qm1;
+  T dqr = qp1 - q;
+  T dq2 = dql * dqr;
+  T denom = dq2 > T(0) ? dql + dqr : T(1);
+  T dqm = dq2 > T(0) ? dq2 / denom : T(0);
+  qm = q - dqm;
+  qp = q + dqm;
+}
+
+// PPM with the Colella-Sekora 2008 limiter; recon/schemes.py:ppm.
+template <typename T>
+__device__ __forceinline__ void ppm_edges(T qm2, T qm1, T q, T qp1, T qp2,
+                                          T& qm_out, T& qp_out) {
+  const T C2 = T(1.25);
+  T qa0 = q - qm1;
+  T qb0 = qp1 - q;
+  T dd_im1 = T(0.5) * qa0 + T(0.5) * (qm1 - qm2);
+  T dd = T(0.5) * qb0 + T(0.5) * qa0;
+  T dd_ip1 = T(0.5) * (qp2 - qp1) + T(0.5) * qb0;
+
+  T dph = T(0.5) * (qm1 + q) + (dd_im1 - dd) / T(6);
+  T dph_ip1 = T(0.5) * (q + qp1) + (dd - dd_ip1) / T(6);
+
+  T d2qc_im1 = qm2 + q - T(2) * qm1;
+  T d2qc = qm1 + qp1 - T(2) * q;
+  T d2qc_ip1 = q + qp2 - T(2) * qp1;
+
+  {  // limit the i-1/2 face value at local extrema
+    T qa_t = dph - qm1;
+    T qb_t = q - dph;
+    T qa = T(3) * (qm1 + q - T(2) * dph);
+    T qb = d2qc_im1;
+    T qc = d2qc;
+    bool same = (sgn(qa) == sgn(qb)) && (sgn(qa) == sgn(qc));
+    T qd = same ? sgn(qa) * fmin(C2 * fabs(qb), fmin(C2 * fabs(qc), fabs(qa)))
+                : T(0);
+    if (qa_t * qb_t < T(0)) dph = T(0.5) * (qm1 + q) - qd / T(6);
+  }
+  {  // limit the i+1/2 face value
+    T qa_t = dph_ip1 - q;
+    T qb_t = qp1 - dph_ip1;
+    T qa = T(3) * (q + qp1 - T(2) * dph_ip1);
+    T qb = d2qc;
+    T qc = d2qc_ip1;
+    bool same = (sgn(qa) == sgn(qb)) && (sgn(qa) == sgn(qc));
+    T qd = same ? sgn(qa) * fmin(C2 * fabs(qb), fmin(C2 * fabs(qc), fabs(qa)))
+                : T(0);
+    if (qa_t * qb_t < T(0)) dph_ip1 = T(0.5) * (q + qp1) - qd / T(6);
+  }
+
+  T d2qf = T(6) * (dph + dph_ip1 - T(2) * q);
+  T qm = dph;
+  T qp = dph_ip1;
+  T dqf_minus = q - qm;
+  T dqf_plus = qp - q;
+  bool extrema = (dqf_minus * dqf_plus <= T(0)) || ((qp1 - q) * (q - qm1) <= T(0));
+
+  T qe;
+  {
+    T qa = d2qc_im1, qb = d2qc, qc = d2qc_ip1, qd = d2qf;
+    bool same = (sgn(qa) == sgn(qb)) && (sgn(qa) == sgn(qc)) && (sgn(qa) == sgn(qd));
+    qe = same ? sgn(qd) * fmin(fmin(C2 * fabs(qa), C2 * fabs(qb)),
+                               fmin(C2 * fabs(qc), fabs(qd)))
+              : T(0);
+  }
+  T mag_m = fmax(fabs(qm1), fabs(qm2));
+  T mag_p = fmax(fmax(fabs(q), fabs(qp1)), fabs(qp2));
+  bool big = fabs(d2qf) > T(1.0e-12) * fmax(mag_m, mag_p);
+  T rho = big ? qe / d2qf : T(0);
+
+  T tmp_m = q - rho * dqf_minus;
+  T tmp_p = q + rho * dqf_plus;
+  T tmp2_m = q - T(2) * dqf_plus;
+  T tmp2_p = q + T(2) * dqf_minus;
+
+  bool limit_sm = rho <= (T(1) - T(1.0e-12));
+  if (extrema && limit_sm) { qm = tmp_m; qp = tmp_p; }
+  bool over_m = fabs(dqf_minus) >= T(2) * fabs(dqf_plus);
+  bool over_p = fabs(dqf_plus) >= T(2) * fabs(dqf_minus);
+  if (!extrema && over_m) qm = tmp2_m;
+  if (!extrema && over_p) qp = tmp2_p;
+  qm_out = qm;
+  qp_out = qp;
+}
+
+// Edge states (qm, qp) of the cell at q[0], whose neighbours along the
+// reconstruction axis sit at q[k * stride].
+template <typename T, int RECON>
+__device__ __forceinline__ void cell_edges(const T* q, int stride, T& qm, T& qp) {
+  if constexpr (RECON == RECON_PPM)
+    ppm_edges(q[-2 * stride], q[-stride], q[0], q[stride], q[2 * stride], qm, qp);
+  else if constexpr (RECON == RECON_PLM)
+    plm_edges(q[-stride], q[0], q[stride], qm, qp);
+  else
+    qm = qp = q[0];
+}
+
+// ---------------------------------------------------------------- Riemann
+template <typename T>
+__device__ __forceinline__ T fast_speed(T gamma, T rho, T p, T bx, T by, T bz) {
+  T asq = gamma * p;
+  T ct2 = by * by + bz * bz;
+  T qsq = bx * bx + ct2 + asq;
+  T tmp = bx * bx + ct2 - asq;
+  return sqrt(T(0.5) * (qsq + sqrt(tmp * tmp + T(4) * asq * ct2)) / rho);
+}
+
+// L/R face states of the Euler solvers (riemann/solvers.py:_euler_faces)
+// and the HLL-type flux of one side.
+template <typename T>
+struct EulerSide {
+  T d, vx, vy, vz, p, e;
+};
+
+template <typename T, int DIR>
+__device__ __forceinline__ EulerSide<T> euler_side(const T* w, const Params<T>& p) {
+  constexpr int IVX = 1 + (DIR - 1), IVY = 1 + DIR % 3, IVZ = 1 + (DIR + 1) % 3;
+  EulerSide<T> s;
+  s.d = w[IDN]; s.vx = w[IVX]; s.vy = w[IVY]; s.vz = w[IVZ]; s.p = w[IPR];
+  s.e = s.p / p.gm1 + T(0.5) * s.d * (s.vx * s.vx + s.vy * s.vy + s.vz * s.vz);
+  return s;
+}
+
+template <typename T, int DIR>
+__device__ __forceinline__ void euler_store(T fd, T fmx, T fmy, T fmz, T fe, T* F) {
+  constexpr int IVX = 1 + (DIR - 1), IVY = 1 + DIR % 3, IVZ = 1 + (DIR + 1) % 3;
+  F[IDN] = fd; F[IVX] = fmx; F[IVY] = fmy; F[IVZ] = fmz; F[IEN] = fe;
+}
+
+// HLLE with Roe-averaged wave-speed bounds; riemann/solvers.py:_euler_hlle.
+template <typename T, int DIR>
+__device__ __forceinline__ void euler_hlle(const T* wl, const T* wr,
+                                           const Params<T>& p, T* F) {
+  const T TINY = T(1.0e-20);
+  const EulerSide<T> L = euler_side<T, DIR>(wl, p), R = euler_side<T, DIR>(wr, p);
+  const T sqrtdl = sqrt(L.d);
+  const T sqrtdr = sqrt(R.d);
+  const T isdlpdr = T(1) / (sqrtdl + sqrtdr);
+  const T v1roe = (sqrtdl * L.vx + sqrtdr * R.vx) * isdlpdr;
+  const T v2roe = (sqrtdl * L.vy + sqrtdr * R.vy) * isdlpdr;
+  const T v3roe = (sqrtdl * L.vz + sqrtdr * R.vz) * isdlpdr;
+  const T hroe = ((L.e + L.p) / sqrtdl + (R.e + R.p) / sqrtdr) * isdlpdr;
+  const T cl = sqrt(p.gamma * L.p / L.d);
+  const T cr = sqrt(p.gamma * R.p / R.d);
+  const T q = hroe - T(0.5) * (v1roe * v1roe + v2roe * v2roe + v3roe * v3roe);
+  const T a = q < T(0) ? T(0) : sqrt(p.gm1 * (q < T(0) ? T(0) : q));
+  const T al = nan_min(v1roe - a, L.vx - cl);
+  const T ar = nan_max(v1roe + a, R.vx + cr);
+  const T bp = ar > T(0) ? ar : TINY;
+  const T bm = al < T(0) ? al : TINY;
+
+  const T uxl = L.vx - bm;
+  const T uxr = R.vx - bp;
+  const T fld = L.d * uxl;
+  const T frd = R.d * uxr;
+  const T flmx = L.d * L.vx * uxl + L.p;
+  const T frmx = R.d * R.vx * uxr + R.p;
+  const T flmy = L.d * L.vy * uxl;
+  const T frmy = R.d * R.vy * uxr;
+  const T flmz = L.d * L.vz * uxl;
+  const T frmz = R.d * R.vz * uxr;
+  const T fle = L.e * uxl + L.p * L.vx;
+  const T fre = R.e * uxr + R.p * R.vx;
+
+  const T tmp = bp != bm ? T(0.5) * (bp + bm) / (bp - bm) : T(0);
+  euler_store<T, DIR>(T(0.5) * (fld + frd) + (fld - frd) * tmp,
+                      T(0.5) * (flmx + frmx) + (flmx - frmx) * tmp,
+                      T(0.5) * (flmy + frmy) + (flmy - frmy) * tmp,
+                      T(0.5) * (flmz + frmz) + (flmz - frmz) * tmp,
+                      T(0.5) * (fle + fre) + (fle - fre) * tmp, F);
+}
+
+// HLLC with the PVRS middle pressure (Toro 10.5.2);
+// riemann/solvers.py:_euler_hllc.
+template <typename T, int DIR>
+__device__ __forceinline__ void euler_hllc(const T* wl, const T* wr,
+                                           const Params<T>& p, T* F) {
+  const T TINY = T(1.0e-20);
+  const EulerSide<T> L = euler_side<T, DIR>(wl, p), R = euler_side<T, DIR>(wr, p);
+  const T cl = sqrt(p.gamma * L.p / L.d);
+  const T cr = sqrt(p.gamma * R.p / R.d);
+  const T rhoa = T(0.5) * (L.d + R.d);
+  const T ca = T(0.5) * (cl + cr);
+  const T pmid = T(0.5) * (L.p + R.p + (L.vx - R.vx) * rhoa * ca);
+  const T ql = pmid <= L.p ? T(1)
+                           : sqrt(T(1) + p.hllc_coef * (pmid / L.p - T(1)));
+  const T qr = pmid <= R.p ? T(1)
+                           : sqrt(T(1) + p.hllc_coef * (pmid / R.p - T(1)));
+  const T al = L.vx - cl * ql;
+  const T ar = R.vx + cr * qr;
+  const T bp = ar > T(0) ? ar : TINY;
+  const T bm = al < T(0) ? al : -TINY;
+
+  // contact speed and pressure
+  T uxl = L.vx - al;
+  T uxr = R.vx - ar;
+  const T tl = L.p + uxl * L.d * L.vx;
+  const T tr = R.p + uxr * R.d * R.vx;
+  const T ml = L.d * uxl;
+  const T mr = -(R.d * uxr);
+  const T am = (tl - tr) / (ml + mr);
+  const T cp_raw = (ml * tr + mr * tl) / (ml + mr);
+  const T cp = cp_raw < T(0) ? T(0) : cp_raw;
+
+  uxl = L.vx - bm;
+  uxr = R.vx - bp;
+  const T fld = L.d * uxl;
+  const T frd = R.d * uxr;
+  const T flmx = L.d * L.vx * uxl + L.p;
+  const T frmx = R.d * R.vx * uxr + R.p;
+  const T flmy = L.d * L.vy * uxl;
+  const T frmy = R.d * R.vy * uxr;
+  const T flmz = L.d * L.vz * uxl;
+  const T frmz = R.d * R.vz * uxr;
+  const T fle = L.e * uxl + L.p * L.vx;
+  const T fre = R.e * uxr + R.p * R.vx;
+
+  const bool pos = am >= T(0);
+  const T sl = pos ? am / (am - bm) : T(0);
+  const T sr = pos ? T(0) : -am / (bp - am);
+  const T sm = pos ? -bm / (am - bm) : bp / (bp - am);
+
+  euler_store<T, DIR>(sl * fld + sr * frd,
+                      sl * flmx + sr * frmx + sm * cp,
+                      sl * flmy + sr * frmy,
+                      sl * flmz + sr * frmz,
+                      sl * fle + sr * fre + sm * cp * am, F);
+}
+
+// GLM-HLLD (Miyoshi & Kusano 2005) for direction DIR; riemann/solvers.py:
+// _glm_hlld, the same branch-free lattice per face.
+template <typename T, int DIR>
+__device__ __forceinline__ void glm_hlld(const T* wl, const T* wr,
+                                         const Params<T>& p, T* F) {
+  constexpr int IVX = 1 + (DIR - 1), IVY = 1 + DIR % 3, IVZ = 1 + (DIR + 1) % 3;
+  constexpr int IBX = IVX + 4, IBY = IVY + 4, IBZ = IVZ + 4;
+  const T SMALL = T(1.0e-4);
+
+  const T dl = wl[IDN], vxl = wl[IVX], vyl = wl[IVY], vzl = wl[IVZ], pl = wl[IPR];
+  const T bxl = wl[IBX], byl = wl[IBY], bzl = wl[IBZ], psil = wl[IPS];
+  const T dr = wr[IDN], vxr = wr[IVX], vyr = wr[IVY], vzr = wr[IVZ], pr = wr[IPR];
+  const T bxr = wr[IBX], byr = wr[IBY], bzr = wr[IBZ], psir = wr[IPS];
+
+  // GLM 2x2 subsystem solved exactly (Dedner et al. 2002)
+  const T bxi = T(0.5) * (bxl + bxr) - p.half_over_ch * (psir - psil);
+  const T psii = T(0.5) * (psil + psir) - p.half_ch * (bxr - bxl);
+
+  const T bxsq = bxi * bxi;
+  const T pbl = T(0.5) * (bxsq + byl * byl + bzl * bzl);
+  const T pbr = T(0.5) * (bxsq + byr * byr + bzr * bzr);
+  const T kel = T(0.5) * dl * (vxl * vxl + vyl * vyl + vzl * vzl);
+  const T ker = T(0.5) * dr * (vxr * vxr + vyr * vyr + vzr * vzr);
+
+  // conserved L/R states
+  const T ul_mx = vxl * dl, ul_my = vyl * dl, ul_mz = vzl * dl;
+  const T ul_e = pl * p.igm1 + kel + pbl;
+  const T ur_mx = vxr * dr, ur_my = vyr * dr, ur_mz = vzr * dr;
+  const T ur_e = pr * p.igm1 + ker + pbr;
+
+  const T cfl = fast_speed(p.gamma, dl, pl, bxl, byl, bzl);
+  const T cfr = fast_speed(p.gamma, dr, pr, bxr, byr, bzr);
+  const T spd0 = nan_min(vxl - cfl, vxr - cfr);
+  const T spd4 = nan_max(vxl + cfl, vxr + cfr);
+
+  const T ptl = pl + pbl;
+  const T ptr = pr + pbr;
+
+  const T fl[7] = {ul_mx,
+                   ul_mx * vxl + ptl - bxsq,
+                   ul_my * vxl - bxi * byl,
+                   ul_mz * vxl - bxi * bzl,
+                   vxl * (ul_e + ptl - bxsq) - bxi * (vyl * byl + vzl * bzl),
+                   byl * vxl - bxi * vyl,
+                   bzl * vxl - bxi * vzl};
+  const T fr[7] = {ur_mx,
+                   ur_mx * vxr + ptr - bxsq,
+                   ur_my * vxr - bxi * byr,
+                   ur_mz * vxr - bxi * bzr,
+                   vxr * (ur_e + ptr - bxsq) - bxi * (vyr * byr + vzr * bzr),
+                   byr * vxr - bxi * vyr,
+                   bzr * vxr - bxi * vzr};
+
+  const T sdl = spd0 - vxl;
+  const T sdr = spd4 - vxr;
+  const T spd2 = (sdr * ur_mx - sdl * ul_mx + (ptl - ptr)) / (sdr * dr - sdl * dl);
+  const T sdml = spd0 - spd2;
+  const T sdmr = spd4 - spd2;
+  const T sdml_inv = T(1) / sdml;
+  const T sdmr_inv = T(1) / sdmr;
+
+  const T ulst_d = dl * sdl * sdml_inv;
+  const T urst_d = dr * sdr * sdmr_inv;
+  const T ulst_d_inv = T(1) / ulst_d;
+  const T urst_d_inv = T(1) / urst_d;
+  const T sqrtdl = sqrt(ulst_d);
+  const T sqrtdr = sqrt(urst_d);
+  const T spd1 = spd2 - fabs(bxi) / sqrtdl;
+  const T spd3 = spd2 + fabs(bxi) / sqrtdr;
+
+  const T ptstl = ptl + dl * sdl * (spd2 - vxl);
+  const T ptstr = ptr + dr * sdr * (spd2 - vxr);
+  const T ptst = T(0.5) * (ptstr + ptstl);
+
+  // star states: {d, mx, my, mz, e, by, bz}
+  T ulst[7], urst[7], vbstl, vbstr;
+  {
+    const T denom = dl * sdl * sdml - bxsq;
+    const bool degen = fabs(denom) < SMALL * ptst;
+    const T safe = degen ? T(1) : denom;
+    const T tmp = bxi * (sdl - sdml) / safe;
+    const T my = degen ? ulst_d * vyl : ulst_d * (vyl - byl * tmp);
+    const T mz = degen ? ulst_d * vzl : ulst_d * (vzl - bzl * tmp);
+    const T tmp2 = (dl * sdl * sdl - bxsq) / safe;
+    const T by = degen ? byl : byl * tmp2;
+    const T bz = degen ? bzl : bzl * tmp2;
+    const T mx = ulst_d * spd2;
+    vbstl = (mx * bxi + my * by + mz * bz) / ulst_d;
+    const T e = (sdl * ul_e - ptl * vxl + ptst * spd2
+                 + bxi * (vxl * bxi + vyl * byl + vzl * bzl - vbstl)) * sdml_inv;
+    ulst[0] = ulst_d; ulst[1] = mx; ulst[2] = my; ulst[3] = mz;
+    ulst[4] = e; ulst[5] = by; ulst[6] = bz;
+  }
+  {
+    const T denom = dr * sdr * sdmr - bxsq;
+    const bool degen = fabs(denom) < SMALL * ptst;
+    const T safe = degen ? T(1) : denom;
+    const T tmp = bxi * (sdr - sdmr) / safe;
+    const T my = degen ? urst_d * vyr : urst_d * (vyr - byr * tmp);
+    const T mz = degen ? urst_d * vzr : urst_d * (vzr - bzr * tmp);
+    const T tmp2 = (dr * sdr * sdr - bxsq) / safe;
+    const T by = degen ? byr : byr * tmp2;
+    const T bz = degen ? bzr : bzr * tmp2;
+    const T mx = urst_d * spd2;
+    vbstr = (mx * bxi + my * by + mz * bz) / urst_d;
+    const T e = (sdr * ur_e - ptr * vxr + ptst * spd2
+                 + bxi * (vxr * bxi + vyr * byr + vzr * bzr - vbstr)) * sdmr_inv;
+    urst[0] = urst_d; urst[1] = mx; urst[2] = my; urst[3] = mz;
+    urst[4] = e; urst[5] = by; urst[6] = bz;
+  }
+
+  // double-star states (Alfven-rotated)
+  const bool weak_b = T(0.5) * bxsq < SMALL * ptst;
+  const T invsumd = T(1) / (sqrtdl + sqrtdr);
+  const T bxsig = bxi > T(0) ? T(1) : T(-1);
+  const T vy_dst = invsumd * (sqrtdl * (ulst[2] * ulst_d_inv) +
+                              sqrtdr * (urst[2] * urst_d_inv) +
+                              bxsig * (urst[5] - ulst[5]));
+  const T vz_dst = invsumd * (sqrtdl * (ulst[3] * ulst_d_inv) +
+                              sqrtdr * (urst[3] * urst_d_inv) +
+                              bxsig * (urst[6] - ulst[6]));
+  const T by_dst = invsumd * (sqrtdl * urst[5] + sqrtdr * ulst[5] +
+                              bxsig * sqrtdl * sqrtdr *
+                                  ((urst[2] * urst_d_inv) - (ulst[2] * ulst_d_inv)));
+  const T bz_dst = invsumd * (sqrtdl * urst[6] + sqrtdr * ulst[6] +
+                              bxsig * sqrtdl * sqrtdr *
+                                  ((urst[3] * urst_d_inv) - (ulst[3] * ulst_d_inv)));
+  const T vb_dst = spd2 * bxi + vy_dst * by_dst + vz_dst * bz_dst;
+
+  const T uldst[7] = {
+      ulst[0], ulst[1],
+      weak_b ? ulst[2] : ulst[0] * vy_dst,
+      weak_b ? ulst[3] : ulst[0] * vz_dst,
+      weak_b ? ulst[4] : ulst[4] - sqrtdl * bxsig * (vbstl - vb_dst),
+      weak_b ? ulst[5] : by_dst,
+      weak_b ? ulst[6] : bz_dst};
+  const T urdst[7] = {
+      urst[0], urst[1],
+      weak_b ? urst[2] : urst[0] * vy_dst,
+      weak_b ? urst[3] : urst[0] * vz_dst,
+      weak_b ? urst[4] : urst[4] + sqrtdr * bxsig * (vbstr - vb_dst),
+      weak_b ? urst[5] : by_dst,
+      weak_b ? urst[6] : bz_dst};
+  const T ul[7] = {dl, ul_mx, ul_my, ul_mz, ul_e, byl, bzl};
+  const T ur[7] = {dr, ur_mx, ur_my, ur_mz, ur_e, byr, bzr};
+
+  T f7[7];
+#pragma unroll
+  for (int k = 0; k < 7; ++k) {
+    const T d_uldst = spd1 * (uldst[k] - ulst[k]);
+    const T d_ulst = spd0 * (ulst[k] - ul[k]);
+    const T d_urdst = spd3 * (urdst[k] - urst[k]);
+    const T d_urst = spd4 * (urst[k] - ur[k]);
+    f7[k] = spd0 >= T(0) ? fl[k]
+          : spd4 <= T(0) ? fr[k]
+          : spd1 >= T(0) ? fl[k] + d_ulst
+          : spd2 >= T(0) ? fl[k] + d_ulst + d_uldst
+          : spd3 > T(0)  ? fr[k] + d_urst + d_urdst
+                         : fr[k] + d_urst;
+  }
+  F[IDN] = f7[0];
+  F[IVX] = f7[1];
+  F[IVY] = f7[2];
+  F[IVZ] = f7[3];
+  F[IEN] = f7[4];
+  F[IBY] = f7[5];
+  F[IBZ] = f7[6];
+  F[IBX] = psii;
+  F[IPS] = p.ch2 * bxi;
+}
+
+// Flux of all NVar<SOLVER> variables at one face of direction DIR from its
+// primitive L/R states.
+template <typename T, int SOLVER, int DIR>
+__device__ __forceinline__ void riemann_flux(const T* wl, const T* wr,
+                                             const Params<T>& p, T* F) {
+  if constexpr (SOLVER == SOLVER_EULER_HLLE) euler_hlle<T, DIR>(wl, wr, p, F);
+  else if constexpr (SOLVER == SOLVER_EULER_HLLC) euler_hllc<T, DIR>(wl, wr, p, F);
+  else glm_hlld<T, DIR>(wl, wr, p, F);
+}
+
+// ------------------------------------------------------------ cons_to_prim
+// eos/adiabatic.py:cons_to_prim for one cell: u (conserved) -> uf (conserved
+// with the floors and ceilings applied) and w (primitive).  u, uf and w hold
+// NV values; uf or w may alias u.
+template <typename T, int NV>
+__device__ __forceinline__ void cons_to_prim(const T* u, const Params<T>& p,
+                                             T* uf, T* w) {
+  constexpr bool MHD = NV == 9;
+  T u_d = u[0];
+  if (p.has_dfloor) u_d = u_d < p.dfloor ? p.dfloor : u_d;
+  T u_m1 = u[1], u_m2 = u[2], u_m3 = u[3], u_e = u[4];
+  T b1 = T(0), b2 = T(0), b3 = T(0), psi = T(0);
+
+  const T di = T(1) / u_d;
+  T w_vx = u_m1 * di;
+  T w_vy = u_m2 * di;
+  T w_vz = u_m3 * di;
+
+  T e_k = T(0.5) * di * (u_m1 * u_m1 + u_m2 * u_m2 + u_m3 * u_m3);
+  T e_b = T(0);
+  if constexpr (MHD) {
+    b1 = u[5]; b2 = u[6]; b3 = u[7]; psi = u[8];
+    e_b = T(0.5) * (b1 * b1 + b2 * b2 + b3 * b3);
+  }
+
+  if (p.has_vceil) {
+    const T w_v2 = w_vx * w_vx + w_vy * w_vy + w_vz * w_vz;
+    const T w_v = sqrt(w_v2);
+    const bool over = w_v2 > p.vceil2;
+    const T scale = over ? p.vceil / w_v : T(1);
+    w_vx = w_vx * scale;
+    w_vy = w_vy * scale;
+    w_vz = w_vz * scale;
+    u_m1 = u_m1 * scale;
+    u_m2 = u_m2 * scale;
+    u_m3 = u_m3 * scale;
+    const T e_k_new = over ? T(0.5) * u_d * p.vceil2 : e_k;
+    u_e = u_e - (e_k - e_k_new);
+    e_k = e_k_new;
+  }
+
+  T w_p = p.gm1 * (u_e - e_k - e_b);
+
+  if (p.has_pfloor) {
+    const bool under = w_p < p.pfloor;
+    u_e = under ? p.pfloor_over_gm1 + e_k + e_b : u_e;
+    w_p = under ? p.pfloor : w_p;
+  }
+  if (p.has_efloor) {
+    const T eff_floor = p.gm1 * u_d * p.efloor;
+    const bool under = w_p < eff_floor;
+    u_e = under ? u_d * p.efloor + e_k + e_b : u_e;
+    w_p = under ? eff_floor : w_p;
+  }
+  if (p.has_eceil) {
+    const T eff_ceil = p.gm1 * u_d * p.eceil;
+    const bool over = w_p > eff_ceil;
+    u_e = over ? u_d * p.eceil + e_k + e_b : u_e;
+    w_p = over ? eff_ceil : w_p;
+  }
+
+  uf[0] = u_d; uf[1] = u_m1; uf[2] = u_m2; uf[3] = u_m3; uf[4] = u_e;
+  w[0] = u_d; w[1] = w_vx; w[2] = w_vy; w[3] = w_vz; w[4] = w_p;
+  if constexpr (MHD) {
+    uf[5] = b1; uf[6] = b2; uf[7] = b3; uf[8] = psi;
+    w[5] = b1; w[6] = b2; w[7] = b3; w[8] = psi;
+  }
+}
+
+// min_d dx_d / (|v_d| + lam_d) of one primitive state: the raw hyperbolic
+// CFL bound of a cell (HydroPackage.estimate_timestep), d over x, y, z.
+template <typename T, int NV>
+__device__ __forceinline__ T cell_cfl_dt(const T* w, const Params<T>& p,
+                                         T dx1, T dx2, T dx3) {
+  T l1, l2, l3;
+  if constexpr (NV == 9) {
+    l1 = fast_speed(p.gamma, w[0], w[4], w[5], w[6], w[7]);
+    l2 = fast_speed(p.gamma, w[0], w[4], w[6], w[7], w[5]);
+    l3 = fast_speed(p.gamma, w[0], w[4], w[7], w[5], w[6]);
+  } else {
+    l1 = l2 = l3 = sqrt(p.gamma * w[4] / w[0]);
+  }
+  const T t1 = dx1 / (fabs(w[1]) + l1);
+  const T t2 = dx2 / (fabs(w[2]) + l2);
+  const T t3 = dx3 / (fabs(w[3]) + l3);
+  return nan_min(nan_min(t1, t2), t3);
+}
+
+}  // namespace hydro

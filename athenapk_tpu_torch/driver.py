@@ -16,7 +16,13 @@ where there is none raises.  ``hydro/precision = single|double`` sets the
 state's dtype.
 
 Not ported yet (``NotImplementedError``): hdf5 and rst outputs, tracers,
-restart (``-r``), refined meshes, diffusion, cooling.
+restart (``-r``), profiler traces (``-t``), refined meshes, diffusion,
+cooling, first-order flux correction, the ``weno3``/``limo3``/``wenoz``
+reconstructions, and the problems ``diffusion``, ``rand_blast``,
+``turbulence``, ``cloud`` and ``cluster`` (with their source terms and
+boundary hooks).  On a CUDA device the kernels take Euler with HLLE or HLLC
+and GLM-MHD with HLLD, without passive scalars; ``llf``, GLM-MHD ``hlle``
+and ``nscalars > 0`` run on the CPU only.
 """
 
 from __future__ import annotations

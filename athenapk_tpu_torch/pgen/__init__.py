@@ -5,7 +5,9 @@ The reference dispatches pgen callbacks by ``<job> problem_id``
 ``problem_generator(pin, mesh, cfg, eos) -> cons`` (a numpy array) plus
 optional hooks (``init_user_mesh_data``, ``history_columns``,
 ``user_work_after_loop``).  Only the ported problems are listed; the others
-of the JAX package raise ``NotImplementedError``.
+of the JAX package raise ``NotImplementedError``.  A deck with
+``nscalars > 0`` (``advection`` can carry scalars) runs on the CPU only: the
+CUDA kernels take no passive scalars yet.
 """
 
 from importlib import import_module
@@ -13,12 +15,18 @@ from importlib import import_module
 _PGEN_MODULES = {
     "linear_wave": "athenapk_tpu_torch.pgen.linear_wave",
     "linear_wave_mhd": "athenapk_tpu_torch.pgen.linear_wave_mhd",
+    "sod": "athenapk_tpu_torch.pgen.sod",
+    "cpaw": "athenapk_tpu_torch.pgen.cpaw",
+    "orszag_tang": "athenapk_tpu_torch.pgen.orszag_tang",
+    "blast": "athenapk_tpu_torch.pgen.blast",
+    "advection": "athenapk_tpu_torch.pgen.advection",
+    "kh": "athenapk_tpu_torch.pgen.kh",
+    "field_loop": "athenapk_tpu_torch.pgen.field_loop",
+    "lw_implode": "athenapk_tpu_torch.pgen.lw_implode",
 }
 
 # problem generators of the JAX package that this port does not have yet
-_NOT_PORTED = ("sod", "cpaw", "orszag_tang", "blast", "advection", "kh",
-               "field_loop", "lw_implode", "diffusion", "rand_blast",
-               "turbulence", "cloud", "cluster")
+_NOT_PORTED = ("diffusion", "rand_blast", "turbulence", "cloud", "cluster")
 
 
 def get_pgen(problem_id: str):

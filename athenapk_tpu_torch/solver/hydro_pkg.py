@@ -7,6 +7,19 @@ eagerly: a stage is straight-line tensor code, ``advance_cycles`` a Python
 loop.  Each stage's -div(F) goes through ``sweep.fused_negdiv`` (the CUDA
 kernel on the card, its plain twin on the CPU).
 
+Two opt-in rungs, read from the environment once, when the package is
+built (the names are the JAX package's, so a reader finds the
+counterpart):
+
+* ``ATHENAPK_PALLAS_STAGE=1`` — every stage of a 3-D deck is one call of
+  ``stage.fused_stage`` (cons_to_prim + -div(F) + the stage update; on the
+  ghost-free layout the last stage also emits the CFL bound, so no
+  separate cons_to_prim or dt pass runs in a cycle);
+* ``ATHENAPK_PALLAS_HYBRID=1`` — only the donor-cell stages (VL2's
+  predictor) take ``stage.fused_stage``; full-order stages keep the sweep.
+
+The default is the sweep path.
+
 State layout: conserved ``u`` is ``[nblocks, nvar, NZ, NY, NX]`` (ghost-
 inclusive); fluxes are co-indexed with cells (index i = face i-1/2).
 
@@ -19,17 +32,18 @@ from __future__ import annotations
 
 import dataclasses
 import math
+import os
 from typing import Callable, Optional
 
 import torch
 
 from ..core.boundaries import check_reflecting_mhd, make_boundary_fn
-from ..core.indices import (IDN, IPR, IPS, IB1, IB2, IB3, IM1, IM2, IM3, IEN,
+from ..core.indices import (IPS, IB1, IB2, IB3, IM1, IM2, IM3, IEN,
                             EULER, GLMMHD, nvar_for_fluid)
 from ..core.mesh import Mesh
-from ..eos.adiabatic import EOS, cons_to_prim, fast_magnetosonic_speed
+from ..eos.adiabatic import EOS, cons_to_prim
 from ..recon import RECONSTRUCTIONS, nghost_for
-from . import sweep
+from . import stage, sweep
 from .integrators import INTEGRATORS
 from .sweep import AXIS_OF_DIR, active_dirs
 
@@ -131,10 +145,67 @@ class HydroPackage:
                 f"reconstruction '{cfg.reconstruction}' needs nghost >= "
                 f"{need}, got {mesh.nghost} (set parthenon/mesh/nghost)")
         self._active_dirs = active_dirs(mesh)
+        self._stage_rung = os.environ.get("ATHENAPK_PALLAS_STAGE") == "1"
+        self._hybrid_rung = os.environ.get("ATHENAPK_PALLAS_HYBRID") == "1"
 
     # ------------------------------------------------------------------ prim
     def cons_to_prim(self, u):
         return cons_to_prim(self.eos, u, self.cfg.fluid, self.cfg.nscalars)
+
+    # ---------------------------------------------------- whole-stage rungs
+    def _is_3d(self):
+        return self.mesh.nx2 > 1 and self.mesh.nx3 > 1
+
+    def _stage_needs_prim(self):
+        """Does an epilogue after the stage kernel read the stage-start
+        prim?  (The extended Dedner divB terms; served by ``emit_prim``.)"""
+        return (self.cfg.fluid == GLMMHD
+                and self.cfg.glmmhd_source == "dedner_extended")
+
+    def _use_fused_stage(self):
+        """Whole-stage rung: asked for, a 3-D layout (ghost-free or
+        ghosted), and nothing else in the stage needs the raw face fluxes
+        (no first-order flux correction)."""
+        return (self._stage_rung and self._is_3d()
+                and not self.cfg.first_order_flux_correct)
+
+    def _use_hybrid_dc_stage(self):
+        """Hybrid rung: donor-cell stages (VL2's predictor; every stage of
+        a ``reconstruction = dc`` deck) through the whole-stage function,
+        full-order stages through the sweep.  Ghost-free 3-D only."""
+        return (self._hybrid_rung
+                and (self.cfg.integrator == "vl2"
+                     or self.cfg.reconstruction == "dc")
+                and self.mesh.nghost == 0 and self._is_3d()
+                and not self.cfg.first_order_flux_correct)
+
+    def _use_fused_stage_dt(self):
+        """May the last stage emit the next dt?  Needs the whole-stage rung
+        and a dt estimate that is the pure hyperbolic CFL bound over every
+        cell: ghost-free layout, hyperbolic dt enabled, and no epilogue that
+        reads prim (it would change the state after the bound was taken)."""
+        return (self._use_fused_stage() and self.mesh.nghost == 0
+                and self.cfg.calc_dt_hyp and not self._stage_needs_prim())
+
+    def _fused_stage_update(self, u0, u1, gam0, gam1, beta_dt, c_h,
+                            recon: str, emit_dt: bool = False):
+        """One 2S stage through ``stage.fused_stage``; the Dedner source
+        and the boundary fill stay outside.  Returns ``u_new``, or
+        ``(u_new, raw_dt)`` with ``emit_dt``."""
+        emit_prim = self._stage_needs_prim()
+        out = stage.fused_stage(u0, u1, gam0, gam1, beta_dt, c_h, self.mesh,
+                                self.cfg, self.eos, recon, emit_dt=emit_dt,
+                                emit_prim=emit_prim)
+        rest = list(out) if emit_dt or emit_prim else [out]
+        u_new = rest.pop(0)
+        raw_dt = rest.pop(0) if emit_dt else None
+        prim = rest.pop(0) if emit_prim else None
+        if self.cfg.fluid == GLMMHD:
+            # the plain source needs no prim, the extended one reads the
+            # kernel's
+            u_new = self._dedner_source(u_new, prim, beta_dt, c_h)
+        u_new = self.apply_boundaries(u_new)
+        return (u_new, raw_dt) if emit_dt else u_new
 
     # ----------------------------------------------------------------- fluxes
     def _compute_fluxes(self, prim, c_h, recon: str):
@@ -195,25 +266,51 @@ class HydroPackage:
             u_new = self._dedner_source(u_new, prim, beta_dt, c_h)
         return self.apply_boundaries(u_new)
 
-    def step(self, u, dt, c_h):
+    def step(self, u, dt, c_h, emit_dt: bool = False):
         """Advance one full cycle (all integrator stages); ``u`` enters
-        ghost-filled and ``u(t+dt)`` leaves ghost-filled."""
+        ghost-filled and ``u(t+dt)`` leaves ghost-filled.  ``emit_dt``
+        (whole-stage rung on the ghost-free layout only): the last stage
+        also emits the raw CFL bound; returns ``(u', raw_dt)``."""
         cfg = self.cfg
         tab = INTEGRATORS[cfg.integrator]
         u0 = u
         u1 = u
+        raw_dt = None
+        fused_stage = self._use_fused_stage()
+        hybrid_dc = not fused_stage and self._use_hybrid_dc_stage()
+        if emit_dt and not self._use_fused_stage_dt():
+            raise ValueError("emit_dt needs the whole-stage rung on the "
+                             "ghost-free layout with calc_dt_hyp")
         for s in range(tab["nstages"]):
+            last = s == tab["nstages"] - 1
             recon = cfg.reconstruction
             if cfg.integrator == "vl2" and s == 0:
                 recon = "dc"   # first-order predictor (hydro.cpp:459-464)
-            u0f, prim = self.cons_to_prim(u0)
-            u0 = self._stage_update(u0f, u1, prim, tab["gam0"][s],
-                                    tab["gam1"][s], tab["beta"][s] * dt, c_h,
-                                    recon)
-        return u0
+            if fused_stage or (hybrid_dc and recon == "dc"):
+                # cons_to_prim happens inside the stage function
+                out = self._fused_stage_update(
+                    u0, u1, tab["gam0"][s], tab["gam1"][s],
+                    tab["beta"][s] * dt, c_h, recon,
+                    emit_dt=emit_dt and last)
+                u0, raw_dt = out if emit_dt and last else (out, raw_dt)
+            else:
+                u0f, prim = self.cons_to_prim(u0)
+                u0 = self._stage_update(u0f, u1, prim, tab["gam0"][s],
+                                        tab["gam1"][s], tab["beta"][s] * dt,
+                                        c_h, recon)
+        return (u0, raw_dt) if emit_dt else u0
 
     def step_with_dt(self, u, dt, c_h):
-        """One cycle + the next dt estimate: ``(u', (dt, dt_hyp, dt_diff))``."""
+        """One cycle + the next dt estimate: ``(u', (dt, dt_hyp, dt_diff))``.
+        Where the last stage can emit the CFL bound it does, and no
+        cons_to_prim or reduction pass over the new state runs."""
+        if self._use_fused_stage_dt():
+            u_new, raw = self.step(u, dt, c_h, emit_dt=True)
+            dt_hyp = self.cfg.cfl * float(torch.min(raw))
+            dt_full = dt_hyp
+            if self.cfg.max_dt > 0.0:
+                dt_full = min(dt_full, self.cfg.max_dt)
+            return u_new, (dt_full, dt_hyp, math.inf)
         u_new = self.step(u, dt, c_h)
         _, prim = self.cons_to_prim(u_new)
         return u_new, self.estimate_timestep(prim)
@@ -243,23 +340,9 @@ class HydroPackage:
         ``(dt_full, dt_hyp, dt_diff)`` as floats; dt_diff is inf (no
         diffusion in this port yet)."""
         cfg = self.cfg
-        mesh = self.mesh
-        eos = self.eos
-        w = prim[mesh.interior_slices]
-        rho = w[:, IDN]
-        p = w[:, IPR]
-        if cfg.fluid == EULER:
-            c = torch.sqrt(eos.gamma * p / rho)
-            lam = (c, c, c)
-        else:
-            b1, b2, b3 = w[:, IB1], w[:, IB2], w[:, IB3]
-            lam = (fast_magnetosonic_speed(eos, rho, p, b1, b2, b3),
-                   fast_magnetosonic_speed(eos, rho, p, b2, b3, b1),
-                   fast_magnetosonic_speed(eos, rho, p, b3, b1, b2))
-        mins = torch.stack([
-            torch.min(mesh.dx[d - 1] / (torch.abs(w[:, d]) + lam[d - 1]))
-            for d in self._active_dirs])
-        dt_hyp = cfg.cfl * float(torch.min(mins))
+        w = prim[self.mesh.interior_slices]
+        dt_hyp = cfg.cfl * float(torch.min(stage.raw_cfl_dt(
+            w, self.mesh, cfg, self.eos, self._active_dirs)))
         dt = dt_hyp if cfg.calc_dt_hyp else math.inf
         if cfg.max_dt > 0.0:
             dt = min(dt, cfg.max_dt)

@@ -1,0 +1,156 @@
+"""The whole-stage function: cons_to_prim + -div(F) + the 2S stage update.
+
+Counterpart of ``athenapk_tpu/solver/pallas_sweep.py:make_fused_stage``:
+for 3-D ``[nb, nvar, NZ, NY, NX]`` conserved states ``u0`` and ``u1``,
+
+    u0f, prim = cons_to_prim(u0)                    (floors applied)
+    u_new = gam0 * u0f + gam1 * u1 + beta_dt * (-div F(prim))
+
+with two optional outputs: ``emit_dt`` adds the raw hyperbolic CFL bound
+``min_d dx_d / (|v_d| + lam_d)`` of ``cons_to_prim(u_new)`` (a tensor whose
+minimum is the bound over all cells; ghost-free layouts only, where every
+cell is an interior cell), ``emit_prim`` adds the stage-start ``prim``.
+Output order, as the JAX function's: ``u_new[, raw_dt][, prim]``.  Every
+shift wraps within a block, as in ``solver/sweep.py``.
+
+* ``stage_plain`` — the plain PyTorch version.
+* ``stage_cuda`` — the hand-written Hopper kernel (``csrc/fused_stage.cu``:
+  Euler with HLLE or HLLC, GLM-MHD with HLLD; DC, PLM or PPM; f32 and f64),
+  one launch per stage, built with ``nvcc`` into ``build/`` at first use.
+* ``fused_stage`` — takes the plain version for a CPU tensor and the kernel
+  for any other; it never falls back from one to the other.
+"""
+
+from __future__ import annotations
+
+import ctypes
+
+import torch
+
+from ..core.indices import EULER, IB1, IB2, IB3, IDN, IPR
+from ..eos.adiabatic import (cons_to_prim, fast_magnetosonic_speed,
+                             sound_speed)
+from . import sweep
+
+CSRC = sweep.CSRC_DIR / "fused_stage.cu"
+
+
+def _check_layout(mesh, emit_dt):
+    if not (mesh.nx2 > 1 and mesh.nx3 > 1):
+        raise ValueError("the whole-stage function is 3-D only")
+    if emit_dt and mesh.nghost != 0:
+        raise ValueError("emit_dt needs the ghost-free layout (nghost = 0): "
+                         "its minimum runs over every cell")
+
+
+def raw_cfl_dt(prim, mesh, cfg, eos, dirs=(1, 2, 3)):
+    """Per cell, ``min_d dx_d / (|v_d| + lam_d)`` over the directions
+    ``dirs`` (the stage's bound takes all three)."""
+    rho, p = prim[:, IDN], prim[:, IPR]
+    if cfg.fluid == EULER:
+        cs = sound_speed(eos, rho, p)
+        lam = (cs, cs, cs)
+    else:
+        b1, b2, b3 = prim[:, IB1], prim[:, IB2], prim[:, IB3]
+        lam = (fast_magnetosonic_speed(eos, rho, p, b1, b2, b3),
+               fast_magnetosonic_speed(eos, rho, p, b2, b3, b1),
+               fast_magnetosonic_speed(eos, rho, p, b3, b1, b2))
+    m = None
+    for d in dirs:
+        t = mesh.dx[d - 1] / (torch.abs(prim[:, d]) + lam[d - 1])
+        m = t if m is None else torch.minimum(m, t)
+    return m
+
+
+# ------------------------------------------------------------------ plain
+def stage_plain(u0, u1, gam0, gam1, beta_dt, c_h, mesh, cfg, eos, recon,
+                emit_dt=False, emit_prim=False):
+    """The stage as whole-tensor operations; ``raw_dt`` is the per-cell
+    bound."""
+    _check_layout(mesh, emit_dt)
+    u0f, prim = cons_to_prim(eos, u0, cfg.fluid, cfg.nscalars)
+    negdiv = sweep.negdiv_plain(prim, c_h, mesh, cfg, eos, recon)
+    u_new = gam0 * u0f + gam1 * u1 + beta_dt * negdiv
+    out = [u_new]
+    if emit_dt:
+        _, w_new = cons_to_prim(eos, u_new, cfg.fluid, cfg.nscalars)
+        out.append(raw_cfl_dt(w_new, mesh, cfg, eos))
+    if emit_prim:
+        out.append(prim)
+    return out[0] if len(out) == 1 else tuple(out)
+
+
+# ------------------------------------------------------------------- CUDA
+_lib = None
+
+
+def build_library():
+    """Compile ``csrc/fused_stage.cu`` (see ``sweep.build_library``)."""
+    return sweep.build_library(CSRC)
+
+
+def _library():
+    global _lib
+    if _lib is None:
+        path, _ = build_library()
+        lib = ctypes.CDLL(str(path))
+        lib.fused_stage.argtypes = [ctypes.c_void_p] * 5 \
+            + [ctypes.c_int] * 8 + [ctypes.c_double] * 7 \
+            + [ctypes.POINTER(ctypes.c_double), ctypes.c_void_p]
+        lib.fused_stage.restype = ctypes.c_int
+        lib.fused_stage_tiles.argtypes = [ctypes.c_int] * 3
+        lib.fused_stage_tiles.restype = ctypes.c_int
+        _lib = lib
+    return _lib
+
+
+def stage_cuda(u0, u1, gam0, gam1, beta_dt, c_h, mesh, cfg, eos, recon,
+               emit_dt=False, emit_prim=False):
+    """The stage by the Hopper kernel: one launch on the current stream.
+    ``raw_dt`` is one bound per tile of the kernel.  Raises on anything the
+    kernel does not take; ``stage_cuda.launches`` counts the launches."""
+    sweep.check_kernel_config(cfg, recon)
+    _check_layout(mesh, emit_dt)
+    sweep.check_kernel_tensor("stage_cuda", u0, mesh, cfg)
+    sweep.check_kernel_tensor("stage_cuda", u1, mesh, cfg)
+    if u1.dtype != u0.dtype or u1.device != u0.device \
+            or u1.shape != u0.shape:
+        raise ValueError("stage_cuda: u0 and u1 must agree in shape, dtype "
+                         "and device")
+    lib = _library()
+    nb, nvar, nz, ny, nx = u0.shape
+    u_new = torch.empty_like(u0)
+    raw_dt = torch.empty(nb * lib.fused_stage_tiles(nz, ny, nx),
+                         dtype=u0.dtype, device=u0.device) if emit_dt else None
+    prim = torch.empty_like(u0) if emit_prim else None
+    eos_args = (ctypes.c_double * 6)(
+        eos.gamma, eos.density_floor, eos.pressure_floor,
+        eos.internal_e_floor, eos.velocity_ceiling, eos.internal_e_ceiling)
+    with torch.cuda.device(u0.device):
+        rc = lib.fused_stage(
+            u0.data_ptr(), u1.data_ptr(), u_new.data_ptr(),
+            raw_dt.data_ptr() if emit_dt else None,
+            prim.data_ptr() if emit_prim else None,
+            sweep.KERNEL_DTYPES[u0.dtype],
+            sweep.KERNEL_SOLVERS[cfg.fluid, cfg.riemann],
+            sweep.KERNEL_RECONS[recon], nb, nvar, nz, ny, nx,
+            float(mesh.dx1), float(mesh.dx2), float(mesh.dx3), float(gam0),
+            float(gam1), float(beta_dt), float(c_h), eos_args,
+            torch.cuda.current_stream(u0.device).cuda_stream)
+    if rc != 0:
+        raise RuntimeError(f"fused_stage launch failed with cudaError {rc}")
+    stage_cuda.launches += 1
+    out = [u_new] + [x for x in (raw_dt, prim) if x is not None]
+    return out[0] if len(out) == 1 else tuple(out)
+
+
+stage_cuda.launches = 0
+
+
+def fused_stage(u0, u1, gam0, gam1, beta_dt, c_h, mesh, cfg, eos, recon,
+                emit_dt=False, emit_prim=False):
+    """The stage: the plain version for a CPU tensor, the CUDA kernel for
+    any other (which launches or raises)."""
+    fn = stage_plain if u0.device.type == "cpu" else stage_cuda
+    return fn(u0, u1, gam0, gam1, beta_dt, c_h, mesh, cfg, eos, recon,
+              emit_dt=emit_dt, emit_prim=emit_prim)

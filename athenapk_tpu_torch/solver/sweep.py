@@ -1,20 +1,25 @@
 """The fused -div(F) sweep: reconstruction + Riemann solve + flux divergence.
 
 Counterpart of ``athenapk_tpu/solver/pallas_sweep.py``
-(``make_lane_sweep_negdiv`` composed by ``make_fused_negdiv``): the
-function ``(prim, c_h) -> sum_d -(F_d[i+1] - F_d[i]) / dx_d`` over the
-active directions, for a ``[nb, nvar, NZ, NY, NX]`` primitive tensor.
-Every shift wraps within a block (``torch.roll``), which is the periodic
-boundary on the ghost-free layout and lands in the ghost rim otherwise.
+(``make_lane_sweep_negdiv`` composed by ``make_fused_negdiv`` on 3-D
+meshes, ``make_fused_negdiv_v2`` on 1-D and 2-D meshes): the function
+``(prim, c_h) -> sum_d -(F_d[i+1] - F_d[i]) / dx_d`` over the active
+directions, for a ``[nb, nvar, NZ, NY, NX]`` primitive tensor.  Every shift
+wraps within a block (``torch.roll``), which is the periodic boundary on
+the ghost-free layout and lands in the ghost rim otherwise.
 
 * ``negdiv_plain`` — the plain PyTorch version (whole-tensor sweeps),
   ``-flux_divergence(compute_fluxes(...))``.
 * ``negdiv_cuda`` — the hand-written Hopper kernel
-  (``csrc/negdiv_sweep.cu``, GLM-MHD + HLLD with DC, PLM or PPM), one
-  launch per direction accumulating into the output.  It is built with
-  ``nvcc`` into ``build/`` at first use and loaded with ``ctypes``.
+  (``csrc/negdiv_sweep.cu``: Euler with HLLE or HLLC, GLM-MHD with HLLD;
+  DC, PLM or PPM), one launch per active direction accumulating into the
+  output.  It is built with ``nvcc`` into ``build/`` at first use and
+  loaded with ``ctypes``.
 * ``fused_negdiv`` — takes the plain version for a CPU tensor and the
   kernel for a CUDA tensor; it never falls back from one to the other.
+
+``build_library`` and ``check_kernel_config`` also serve the whole-stage
+kernel (``solver/stage.py``).
 """
 
 from __future__ import annotations
@@ -28,18 +33,22 @@ from pathlib import Path
 
 import torch
 
-from ..core.indices import AXIS_X, AXIS_Y, AXIS_Z, GLMMHD, NGLMMHD
+from ..core.indices import AXIS_X, AXIS_Y, AXIS_Z, EULER, GLMMHD
 from ..recon import reconstruct
 from ..riemann import solve_riemann
 
 AXIS_OF_DIR = {1: AXIS_X, 2: AXIS_Y, 3: AXIS_Z}
 
-CSRC = Path(__file__).resolve().parents[1] / "csrc" / "negdiv_sweep.cu"
+CSRC_DIR = Path(__file__).resolve().parents[1] / "csrc"
+CSRC = CSRC_DIR / "negdiv_sweep.cu"
+# device functions that every kernel source includes
+HEADERS = (CSRC_DIR / "hydro_device.cuh",)
 BUILD_DIR = Path(__file__).resolve().parents[2] / "build"
 
-# reconstruction codes of the kernel's template switch
+# codes of the kernels' template switches (csrc/hydro_device.cuh)
 KERNEL_RECONS = {"dc": 0, "plm": 1, "ppm": 2}
-_KERNEL_DTYPES = {torch.float32: 0, torch.float64: 1}
+KERNEL_SOLVERS = {(EULER, "hlle"): 0, (EULER, "hllc"): 1, (GLMMHD, "hlld"): 2}
+KERNEL_DTYPES = {torch.float32: 0, torch.float64: 1}
 
 
 def active_dirs(mesh):
@@ -93,25 +102,29 @@ def _nvcc():
         cuda_home = os.environ.get("CUDA_HOME", "/usr/local/cuda")
         nvcc = os.path.join(cuda_home, "bin", "nvcc")
     if not os.path.exists(nvcc):
-        raise RuntimeError("nvcc not found: the negdiv sweep kernel is "
-                           "built from csrc/negdiv_sweep.cu on first use")
+        raise RuntimeError("nvcc not found: the CUDA kernels are built "
+                           "from csrc/*.cu on first use")
     return nvcc
 
 
-def build_library():
-    """Compile ``csrc/negdiv_sweep.cu`` for sm_90a into ``build/`` (keyed
-    by the source's hash, so an edited source rebuilds).  Returns
+def build_library(source=None):
+    """Compile one kernel source of ``csrc/`` (default: the sweep's) for
+    sm_90a into ``build/``, keyed by the hash of the source and of the
+    header it includes, so editing either rebuilds.  Returns
     ``(path, compiler_log)``; the log holds ptxas' register and shared
     memory report."""
-    tag = hashlib.sha256(CSRC.read_bytes()).hexdigest()[:12]
-    lib = BUILD_DIR / f"libnegdiv_sweep_{tag}.so"
+    source = Path(source) if source is not None else CSRC
+    digest = hashlib.sha256()
+    for path in (source,) + HEADERS:
+        digest.update(path.read_bytes())
+    lib = BUILD_DIR / f"lib{source.stem}_{digest.hexdigest()[:12]}.so"
     if lib.exists():
         return lib, ""
     BUILD_DIR.mkdir(parents=True, exist_ok=True)
     tmp = lib.with_name(f"{lib.name}.{os.getpid()}.tmp")
     cmd = [_nvcc(), "-gencode", "arch=compute_90a,code=sm_90a",
            "-std=c++17", "-O3", "--fmad=false", "-Xptxas", "-v",
-           "-shared", "-Xcompiler", "-fPIC", "-o", str(tmp), str(CSRC)]
+           "-shared", "-Xcompiler", "-fPIC", "-o", str(tmp), str(source)]
     res = subprocess.run(cmd, capture_output=True, text=True)
     if res.returncode != 0:
         raise RuntimeError(f"nvcc failed ({res.returncode}):\n"
@@ -129,28 +142,43 @@ def _library():
         path, _ = build_library()
         lib = ctypes.CDLL(str(path))
         fn = lib.negdiv_sweep
-        fn.argtypes = [ctypes.c_void_p, ctypes.c_void_p, ctypes.c_int,
-                       ctypes.c_int, ctypes.c_int, ctypes.c_int,
-                       ctypes.c_int, ctypes.c_int, ctypes.c_int,
-                       ctypes.c_int, ctypes.c_double, ctypes.c_double,
-                       ctypes.c_double, ctypes.c_double, ctypes.c_int,
-                       ctypes.c_void_p]
+        fn.argtypes = [ctypes.c_void_p, ctypes.c_void_p] \
+            + [ctypes.c_int] * 9 + [ctypes.c_double] * 3 \
+            + [ctypes.c_int, ctypes.c_void_p]
         fn.restype = ctypes.c_int
         _lib = lib
     return _lib
 
 
 def check_kernel_config(cfg, recon):
-    """Raise NotImplementedError for what the CUDA kernel does not take."""
-    if cfg.fluid != GLMMHD or cfg.riemann != "hlld" or cfg.nscalars != 0:
+    """Raise NotImplementedError for what the CUDA kernels do not take."""
+    if (cfg.fluid, cfg.riemann) not in KERNEL_SOLVERS or cfg.nscalars != 0:
         raise NotImplementedError(
-            "the CUDA negdiv sweep covers fluid=glmmhd, riemann=hlld, "
-            f"nscalars=0 only (got fluid={cfg.fluid}, riemann={cfg.riemann}"
-            f", nscalars={cfg.nscalars})")
+            "the CUDA kernels cover fluid=euler with riemann=hlle or hllc "
+            "and fluid=glmmhd with riemann=hlld, nscalars=0 (got "
+            f"fluid={cfg.fluid}, riemann={cfg.riemann}, "
+            f"nscalars={cfg.nscalars}); llf, GLM-MHD hlle and passive "
+            "scalars run on the CPU only")
     if recon not in KERNEL_RECONS:
         raise NotImplementedError(
-            f"the CUDA negdiv sweep has no '{recon}' reconstruction "
-            f"(it has {', '.join(KERNEL_RECONS)})")
+            f"the CUDA kernels have no '{recon}' reconstruction "
+            f"(they have {', '.join(KERNEL_RECONS)})")
+
+
+def check_kernel_tensor(name, q, mesh, cfg):
+    """Raise unless ``q`` is a contiguous f32/f64 CUDA state tensor
+    ``[nb, nvar, NZ, NY, NX]`` of ``mesh``'s block shape."""
+    if not q.is_cuda:
+        raise ValueError(f"{name} needs a CUDA tensor")
+    if q.dtype not in KERNEL_DTYPES:
+        raise TypeError(f"{name} takes float32 or float64, got {q.dtype}")
+    if q.dim() != 5 or q.shape[1] != cfg.nvar \
+            or tuple(q.shape[2:]) != tuple(mesh.block_shape):
+        raise ValueError(f"{name}: the state must be [nb, {cfg.nvar}, "
+                         f"{', '.join(map(str, mesh.block_shape))}], "
+                         f"got {list(q.shape)}")
+    if not q.is_contiguous():
+        raise ValueError(f"{name} needs a contiguous tensor")
 
 
 def negdiv_cuda(prim, c_h, mesh, cfg, eos, recon):
@@ -159,18 +187,7 @@ def negdiv_cuda(prim, c_h, mesh, cfg, eos, recon):
     the others adding to it.  Raises on anything the kernel does not take;
     ``negdiv_cuda.launches`` counts the launches."""
     check_kernel_config(cfg, recon)
-    if not prim.is_cuda:
-        raise ValueError("negdiv_cuda needs a CUDA tensor")
-    if prim.dtype not in _KERNEL_DTYPES:
-        raise TypeError(f"negdiv_cuda takes float32 or float64, "
-                        f"got {prim.dtype}")
-    if prim.dim() != 5 or prim.shape[1] != NGLMMHD \
-            or tuple(prim.shape[2:]) != tuple(mesh.block_shape):
-        raise ValueError(f"prim must be [nb, {NGLMMHD}, "
-                         f"{', '.join(map(str, mesh.block_shape))}], "
-                         f"got {list(prim.shape)}")
-    if not prim.is_contiguous():
-        raise ValueError("negdiv_cuda needs a contiguous tensor")
+    check_kernel_tensor("negdiv_cuda", prim, mesh, cfg)
     fn = _library().negdiv_sweep
     nb, nvar, nz, ny, nx = prim.shape
     out = torch.empty_like(prim)
@@ -178,10 +195,11 @@ def negdiv_cuda(prim, c_h, mesh, cfg, eos, recon):
         stream = torch.cuda.current_stream(prim.device).cuda_stream
         for k, d in enumerate(active_dirs(mesh)):
             rc = fn(prim.data_ptr(), out.data_ptr(),
-                    _KERNEL_DTYPES[prim.dtype], KERNEL_RECONS[recon], d,
-                    nb, nvar, nz, ny, nx, float(mesh.dx[d - 1]),
-                    float(eos.gamma), 1.0 / eos.gm1, float(c_h), int(k > 0),
-                    stream)
+                    KERNEL_DTYPES[prim.dtype],
+                    KERNEL_SOLVERS[cfg.fluid, cfg.riemann],
+                    KERNEL_RECONS[recon], d, nb, nvar, nz, ny, nx,
+                    float(mesh.dx[d - 1]), float(eos.gamma), float(c_h),
+                    int(k > 0), stream)
             if rc != 0:
                 raise RuntimeError(f"negdiv_sweep launch (direction {d}) "
                                    f"failed with cudaError {rc}")

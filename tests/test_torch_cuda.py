@@ -1,4 +1,6 @@
-"""The sweep kernel on the card: ``negdiv_cuda`` against ``negdiv_plain``.
+"""The kernels on the card: ``negdiv_cuda`` against ``negdiv_plain`` (3-D,
+2-D and 1-D; Euler and GLM-MHD) and ``stage_cuda`` against ``stage_plain``,
+and the decks of both paths through ``Simulation`` on the card.
 
 Every test here needs a CUDA card (the kernel has no CPU mode) and skips
 with that reason elsewhere.  The file imports neither jax nor the JAX
@@ -18,9 +20,10 @@ import torch
 from athenapk_tpu_torch.config.parameter_input import ParameterInput
 from athenapk_tpu_torch.core.mesh import Mesh
 from athenapk_tpu_torch.driver import Simulation
-from athenapk_tpu_torch.eos.adiabatic import EOS
-from athenapk_tpu_torch.solver import sweep
+from athenapk_tpu_torch.eos.adiabatic import EOS, prim_to_cons
+from athenapk_tpu_torch.solver import stage, sweep
 from athenapk_tpu_torch.solver.hydro_pkg import HydroConfig
+from torch_decks import CASES, deck
 
 pytestmark = pytest.mark.cuda
 
@@ -31,7 +34,7 @@ LAYOUTS = {"ghostfree": (32, 32, 0), "ghosted": (32, 16, 3)}
 @pytest.fixture
 def card():
     if not torch.cuda.is_available():
-        pytest.skip("needs a CUDA card: the sweep kernel has no CPU mode")
+        pytest.skip("needs a CUDA card: the kernels have no CPU mode")
     return torch.device("cuda")
 
 
@@ -153,3 +156,340 @@ gamma = 1.666666666666667
     (uk, tk), (up, tp) = states
     assert np.abs(uk - up).max() <= 1e-10 * np.abs(up).max()
     assert tk == pytest.approx(tp, rel=1e-10)
+
+
+# ------------------------------------------- Euler, and 1-D and 2-D meshes
+PAIRS = [("euler", "hlle"), ("euler", "hllc"), ("glmmhd", "hlld")]
+# (nx1, nx2, nx3, block nx1, nx2, nx3, nghost)
+FLAT_LAYOUTS = {
+    "3d_ghostfree": (32, 24, 16, 32, 24, 16, 0),
+    "2d_ghostfree": (96, 80, 1, 96, 80, 1, 0),
+    "2d_ghosted": (64, 64, 1, 32, 32, 1, 3),
+    "1d_ghostfree": (500, 1, 1, 500, 1, 1, 0),
+    "1d_ghosted": (256, 1, 1, 64, 1, 1, 3),
+}
+
+
+def _flat_mesh(layout):
+    n1, n2, n3, m1, m2, m3, g = FLAT_LAYOUTS[layout]
+    return Mesh(nx1=n1, nx2=n2, nx3=n3, mbnx1=m1, mbnx2=m2, mbnx3=m3,
+                x1min=0.0, x1max=1.0, x2min=0.0, x2max=1.5, x3min=0.0,
+                x3max=1.5, nghost=g)
+
+
+def _random_prim(mesh, fluid, seed):
+    """Positive density and pressure, every other component of either
+    sign (numpy, f64)."""
+    rng = np.random.default_rng(seed)
+    nvar = 9 if fluid == "glmmhd" else 5
+    cells = (mesh.nblocks,) + mesh.block_shape
+    w = np.ones((mesh.nblocks, nvar) + mesh.block_shape)
+    w[:, 0] = 1.0 + 0.3 * rng.random(cells)
+    w[:, 1:4] = 0.3 * rng.standard_normal((cells[0], 3) + cells[1:])
+    w[:, 4] = 1.0 + 0.2 * rng.random(cells)
+    if nvar == 9:
+        w[:, 5:8] = 0.2 * rng.standard_normal((cells[0], 3) + cells[1:])
+        w[:, 8] = 0.01 * rng.standard_normal(cells)
+    return w
+
+
+def _per_var_err(got, ref):
+    dims = [0, 2, 3, 4]
+    return ((got - ref).abs().amax(dim=dims)
+            / ref.abs().amax(dim=dims)).max().item()
+
+
+@pytest.mark.parametrize("dtype,tol", [(torch.float64, 1e-10),
+                                       (torch.float32, 1e-4)])
+@pytest.mark.parametrize("layout", sorted(FLAT_LAYOUTS))
+@pytest.mark.parametrize("recon", ["dc", "plm", "ppm"])
+@pytest.mark.parametrize("fluid,riemann", PAIRS)
+def test_sweep_kernel_euler_and_flat_meshes(card, fluid, riemann, recon,
+                                            layout, dtype, tol):
+    mesh = _flat_mesh(layout)
+    cfg = HydroConfig(fluid=fluid, riemann=riemann, reconstruction=recon)
+    eos = EOS(gamma=5.0 / 3.0)
+    prim = torch.tensor(_random_prim(mesh, fluid, 13), dtype=dtype,
+                        device=card)
+    c_h = C_H if fluid == "glmmhd" else 0.0
+    before = sweep.negdiv_cuda.launches
+    got = sweep.fused_negdiv(prim, c_h, mesh, cfg, eos, recon)
+    torch.cuda.synchronize()
+    assert sweep.negdiv_cuda.launches - before == len(sweep.active_dirs(mesh))
+    ref = sweep.negdiv_plain(prim, c_h, mesh, cfg, eos, recon)
+    sl = mesh.interior_slices
+    assert bool(torch.isfinite(got[sl]).all())
+    assert _per_var_err(got[sl], ref[sl]) <= tol
+
+
+# ------------------------------------------------------- the stage kernel
+FLOORS = dict(density_floor=0.9, pressure_floor=0.8, internal_e_floor=1.25)
+# ghost-free extents that the kernel's tile (4 x 8 x 16) does not divide
+STAGE_LAYOUTS = {"ghostfree": (40, 20, 10, 40, 20, 10, 0),
+                 "ghosted": (32, 32, 32, 16, 16, 16, 3)}
+
+
+def _stage_states(mesh, fluid, seed):
+    """Two distinct conserved states; in the first, a few percent of the
+    cells lie below the density floor and a few below the pressure and
+    internal-energy floors (mild dips: PPM's edge states stay positive)."""
+    rng = np.random.default_rng(seed)
+    w = _random_prim(mesh, fluid, seed + 100)
+    pick = rng.random((mesh.nblocks,) + mesh.block_shape)
+    w[:, 0][pick < 0.03] = 0.8
+    w[:, 4][(pick > 0.03) & (pick < 0.08)] = 0.6
+    u0 = prim_to_cons(EOS(gamma=5.0 / 3.0), torch.tensor(w), fluid)
+    return u0, 1.01 * u0 + 0.001
+
+
+@pytest.mark.parametrize("dtype,tol", [(torch.float64, 1e-10),
+                                       (torch.float32, 1e-4)])
+@pytest.mark.parametrize("layout", sorted(STAGE_LAYOUTS))
+@pytest.mark.parametrize("recon", ["dc", "plm", "ppm"])
+@pytest.mark.parametrize("fluid,riemann", PAIRS)
+def test_stage_kernel_matches_plain(card, fluid, riemann, recon, layout,
+                                    dtype, tol):
+    n1, n2, n3, m1, m2, m3, g = STAGE_LAYOUTS[layout]
+    mesh = Mesh(nx1=n1, nx2=n2, nx3=n3, mbnx1=m1, mbnx2=m2, mbnx3=m3,
+                x1min=0.0, x1max=1.0, x2min=0.0, x2max=1.5, x3min=0.0,
+                x3max=1.5, nghost=g)
+    cfg = HydroConfig(fluid=fluid, riemann=riemann, reconstruction=recon)
+    eos = EOS(gamma=5.0 / 3.0, **FLOORS)
+    u0, u1 = (a.to(device=card, dtype=dtype)
+              for a in _stage_states(mesh, fluid, 17))
+    u0f, _ = stage.cons_to_prim(eos, u0, fluid, 0)
+    assert int((u0f[:, 0] != u0[:, 0]).sum()) > 10     # floors are tripped
+    assert int((u0f[:, 4] != u0[:, 4]).sum()) > 10
+    c_h = C_H if fluid == "glmmhd" else 0.0
+    emit_dt = g == 0
+    args = (u0, u1, 0.25, 0.75, 1e-3, c_h, mesh, cfg, eos, recon)
+    before = stage.stage_cuda.launches
+    got = stage.fused_stage(*args, emit_dt=emit_dt, emit_prim=True)
+    torch.cuda.synchronize()
+    assert stage.stage_cuda.launches == before + 1
+    ref = stage.stage_plain(*args, emit_dt=emit_dt, emit_prim=True)
+    sl = mesh.interior_slices
+    assert bool(torch.isfinite(got[0][sl]).all())
+    assert _per_var_err(got[0][sl], ref[0][sl]) <= tol
+    assert _per_var_err(got[-1], ref[-1]) <= tol          # stage-start prim
+    if emit_dt:
+        assert got[1].min().item() == pytest.approx(ref[1].min().item(),
+                                                    rel=tol)
+    alone = stage.fused_stage(*args)
+    assert torch.equal(alone, got[0])
+
+
+def test_stage_wrapper_refuses_what_the_kernel_does_not_take(card):
+    mesh = _mesh("ghostfree")
+    eos = EOS(gamma=5.0 / 3.0)
+    cfg = HydroConfig(fluid="glmmhd", riemann="hlld", reconstruction="ppm")
+    u = _prim(mesh, torch.float64, card)
+    args = (0.25, 0.75, 1e-3, C_H, mesh, cfg, eos, "ppm")
+    with pytest.raises(TypeError):
+        stage.stage_cuda(u.half(), u.half(), *args)
+    with pytest.raises(ValueError, match="agree"):
+        stage.stage_cuda(u, u.float(), *args)
+    with pytest.raises(ValueError, match="contiguous"):
+        stage.stage_cuda(u.transpose(2, 4), u, *args)
+    with pytest.raises(ValueError, match="CUDA tensor"):
+        stage.stage_cuda(u.cpu(), u.cpu(), *args)
+    with pytest.raises(ValueError, match="ghost-free"):
+        stage.stage_cuda(u, u, 0.25, 0.75, 1e-3, C_H, _mesh("ghosted"), cfg,
+                         eos, "ppm", emit_dt=True)
+    llf = HydroConfig(fluid="glmmhd", riemann="llf", reconstruction="ppm")
+    with pytest.raises(NotImplementedError):
+        stage.fused_stage(u, u, 0.25, 0.75, 1e-3, C_H, mesh, llf, eos, "ppm")
+
+
+# ------------------------------------------------ decks through Simulation
+WAVE_DECK = """
+<job>
+problem_id = linear_wave_mhd
+<problem/linear_wave>
+wave_flag = 0
+amp = 1.0e-6
+test = true
+<parthenon/mesh>
+nghost = 0
+nx1 = 32
+x1min = 0.0
+x1max = 3.0
+nx2 = 16
+x2min = 0.0
+x2max = 1.5
+nx3 = 16
+x3min = 0.0
+x3max = 1.5
+<parthenon/time>
+integrator = vl2
+cfl = 0.3
+tlim = 100.0
+nlim = 5
+<hydro>
+fluid = glmmhd
+riemann = hlld
+reconstruction = ppm
+gamma = 1.666666666666667
+<parthenon/output1>
+file_type = hst
+"""
+
+OT_DECK = """
+<job>
+problem_id = orszag_tang
+<parthenon/mesh>
+nghost = 3
+nx1 = 64
+x1min = 0.0
+x1max = 1.0
+nx2 = 64
+x2min = 0.0
+x2max = 1.0
+nx3 = 1
+x3min = -0.5
+x3max = 0.5
+<parthenon/time>
+integrator = vl2
+cfl = 0.3
+tlim = 0.5
+nlim = 5
+<hydro>
+fluid = glmmhd
+riemann = hlld
+reconstruction = ppm
+gamma = 1.666666666666667
+<parthenon/output1>
+file_type = hst
+"""
+
+SOD_DECK = """
+<job>
+problem_id = sod
+<parthenon/mesh>
+nghost = 2
+nx1 = 128
+x1min = 0.0
+x1max = 1.0
+ix1_bc = outflow
+ox1_bc = outflow
+nx2 = 1
+x2min = -0.5
+x2max = 0.5
+nx3 = 1
+x3min = -0.5
+x3max = 0.5
+<parthenon/time>
+integrator = vl2
+cfl = 0.3
+tlim = 0.25
+nlim = 5
+<hydro>
+fluid = euler
+riemann = hllc
+reconstruction = plm
+gamma = 1.4
+<parthenon/output1>
+file_type = hst
+"""
+
+
+def _run_deck(deck, device, outdir, noise=0.0):
+    """Run the deck on ``device`` from its initial state times
+    ``1 + noise * N(0, 1)`` (seeded); returns the simulation and its
+    history rows."""
+    outdir.mkdir(parents=True, exist_ok=True)
+    sim = Simulation(ParameterInput.from_string(deck), quiet=True,
+                     device=device)
+    if noise:
+        u = sim.u.cpu().numpy()
+        u = u * (1.0 + noise * np.random.default_rng(21).standard_normal(
+            u.shape))
+        sim.load_state(u, 0.0, 0)
+        sim.u = sim.pkg.apply_boundaries(sim.u)
+    with contextlib.chdir(outdir), contextlib.redirect_stdout(io.StringIO()):
+        sim.run()
+    hst = np.loadtxt(next(outdir.glob("*.hst")))
+    return sim, hst
+
+
+@pytest.mark.parametrize("rung,stage_launches,sweep_launches", [
+    ("ATHENAPK_PALLAS_STAGE", 10, 0), ("ATHENAPK_PALLAS_HYBRID", 5, 15)])
+def test_wave_deck_on_the_rungs_on_card(card, rung, stage_launches,
+                                        sweep_launches, tmp_path,
+                                        monkeypatch):
+    """Five f64 cycles of the 3-D MHD wave on the stage and hybrid rungs on
+    the card against the default path on the CPU: state 1e-10, every dt."""
+    for name in ("ATHENAPK_PALLAS_STAGE", "ATHENAPK_PALLAS_HYBRID"):
+        monkeypatch.delenv(name, raising=False)
+    ref, href = _run_deck(WAVE_DECK, "cpu", tmp_path / "cpu")
+    monkeypatch.setenv(rung, "1")
+    n_stage, n_sweep = stage.stage_cuda.launches, sweep.negdiv_cuda.launches
+    sim, hst = _run_deck(WAVE_DECK, "cuda", tmp_path / "card")
+    assert sim.u.is_cuda and sim.ncycle == 5
+    assert stage.stage_cuda.launches - n_stage == stage_launches
+    assert sweep.negdiv_cuda.launches - n_sweep == sweep_launches
+    a, b = ref.u.numpy(), sim.u.cpu().numpy()
+    assert np.abs(a - b).max() <= 1e-10 * np.abs(a).max()
+    np.testing.assert_allclose(hst[:, :2], href[:, :2], rtol=1e-10)
+
+
+@pytest.mark.parametrize("deck,launches_per_stage", [(OT_DECK, 2),
+                                                     (SOD_DECK, 1)],
+                         ids=["orszag_tang", "sod"])
+def test_flat_decks_on_card_match_cpu(card, deck, launches_per_stage,
+                                      tmp_path):
+    """Orszag-Tang (2-D, ghost-free) and Sod (1-D, ghosted, Euler + HLLC)
+    for 5 f64 cycles on the card against the CPU, state and every dt to
+    1e-10.  Seeded noise of 1e-3 takes the vortex's exactly symmetric state
+    off the ties of the solver's selects, where rounding alone would
+    decide."""
+    ref, href = _run_deck(deck, "cpu", tmp_path / "cpu", noise=1e-3)
+    before = sweep.negdiv_cuda.launches
+    sim, hst = _run_deck(deck, "cuda", tmp_path / "card", noise=1e-3)
+    assert sim.u.is_cuda and sim.ncycle == 5
+    assert sweep.negdiv_cuda.launches - before == 2 * 5 * launches_per_stage
+    a, b = ref.u.numpy(), sim.u.cpu().numpy()
+    assert np.abs(a - b).max() <= 1e-10 * np.abs(a).max()
+    np.testing.assert_allclose(hst[:, :2], href[:, :2], rtol=1e-10)
+
+
+# what the kernels refuse: passive scalars, GLM-MHD with hlle
+REFUSED = {"advection_scalar": "nscalars", "field_loop_1": "hlle"}
+DECK_RUNS = [(case, rung) for case in sorted(CASES) for rung in (
+    ("sweep", "stage", "hybrid")
+    if CASES[case].get("nx", (1, 1, 1))[2] > 1 and case not in REFUSED
+    else ("sweep",))]
+
+
+@pytest.mark.parametrize("case,rung", DECK_RUNS,
+                         ids=[f"{c}-{r}" for c, r in DECK_RUNS])
+def test_pgen_decks_on_card_match_cpu(card, case, rung, tmp_path,
+                                      monkeypatch):
+    """Every ported problem's deck for 5 f64 cycles on the card (3-D decks
+    on each rung) against the default path on the CPU, from the initial
+    state times seeded noise: state 1e-10.  Decks the kernels do not take
+    raise instead of running elsewhere."""
+    text = deck(**{**CASES[case], "merge": "auto"}) \
+        + "\n<parthenon/output1>\nfile_type = hst\n"
+    for name in ("ATHENAPK_PALLAS_STAGE", "ATHENAPK_PALLAS_HYBRID"):
+        monkeypatch.delenv(name, raising=False)
+    if case in REFUSED:
+        with pytest.raises(NotImplementedError, match=REFUSED[case]):
+            _run_deck(text, "cuda", tmp_path / "card", noise=1e-3)
+        return
+    ref, href = _run_deck(text, "cpu", tmp_path / "cpu", noise=1e-3)
+    if rung != "sweep":
+        monkeypatch.setenv(f"ATHENAPK_PALLAS_{rung.upper()}", "1")
+    n_stage, n_sweep = stage.stage_cuda.launches, sweep.negdiv_cuda.launches
+    sim, hst = _run_deck(text, "cuda", tmp_path / "card", noise=1e-3)
+    ndir = len(sweep.active_dirs(sim.mesh))
+    nstages = {"vl2": 2, "rk3": 3}[sim.cfg.integrator]
+    want_stage = {"sweep": 0, "stage": nstages, "hybrid": 1}[rung]
+    assert sim.u.is_cuda and sim.ncycle == ref.ncycle == 5
+    assert stage.stage_cuda.launches - n_stage == 5 * want_stage
+    assert sweep.negdiv_cuda.launches - n_sweep \
+        == 5 * (nstages - want_stage) * ndir
+    a, b = ref.u.numpy(), sim.u.cpu().numpy()
+    assert np.isfinite(b).all()
+    assert np.abs(a - b).max() <= 1e-10 * np.abs(a).max()
+    np.testing.assert_allclose(hst[:, :2], href[:, :2], rtol=1e-10)

@@ -149,6 +149,55 @@ def test_mhd_linear_wave_convergence_port(wave_flag, vflow, tmp_path):
     assert np.log2(e16 / e32) > 1.3
 
 
+HYDRO_WAVE_DECK = """
+<job>
+problem_id = linear_wave
+
+<problem/linear_wave>
+compute_error = true
+wave_flag = 0
+amp = 1.0e-6
+vflow = 0.0
+test = true
+
+<parthenon/mesh>
+nghost = 0
+nx1 = 128
+x1min = 0.0
+x1max = 3.0
+nx2 = 64
+x2min = 0.0
+x2max = 1.5
+nx3 = 64
+x3min = 0.0
+x3max = 1.5
+
+<parthenon/time>
+integrator = vl2
+cfl = 0.3
+tlim = 1.0
+nlim = 100000
+ncycle_out = 0
+
+<hydro>
+fluid = euler
+eos = adiabatic
+riemann = hlle
+reconstruction = plm
+gamma = 1.666666666666667
+"""
+
+
+def test_reference_hard_gate_fast_port(tmp_path):
+    """Port twin of tests/test_convergence.py::test_reference_hard_gate_fast:
+    the RMS-L1 error of the 64-class 3-D hydro linear wave (VL2 + PLM +
+    HLLE, one period, f64) must not exceed 1.547584e-08, compared at the
+    7 significant digits of linearwave-errors.dat."""
+    sim = TSim(TPin.from_string(HYDRO_WAVE_DECK), quiet=True, device="cpu")
+    rms = float(_run_in(tmp_path, sim).linear_wave_errors["rms"])
+    assert float(f"{rms:.6e}") <= 1.547584e-08, f"RMS-L1 {rms:.6e}"
+
+
 def test_cuda_requested_without_a_card_raises():
     if torch.cuda.is_available():
         pytest.skip("a CUDA card is present")
@@ -169,7 +218,7 @@ def test_cuda_requested_without_a_card_raises():
     ("cooling/enable_cooling=tabular", "cooling"),
     ("hydro/first_order_flux_correct=true", "first_order_flux_correct"),
     ("hydro/reconstruction=wenoz", "wenoz"),
-    ("job/problem_id=sod", "sod"),
+    ("job/problem_id=rand_blast", "rand_blast"),
 ])
 def test_unported_features_raise(override, match):
     overrides = override if isinstance(override, list) else [override]

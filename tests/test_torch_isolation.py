@@ -1,5 +1,7 @@
 """The port stands alone: no module of ``athenapk_tpu_torch`` and not
-``chip_smoke.py`` imports ``jax``, ``jaxlib`` or ``athenapk_tpu``.
+``chip_smoke.py`` imports ``jax``, ``jaxlib`` or ``athenapk_tpu``; nor do the
+card tests and their deck helper, which run where only the port is
+installed.
 
 Checked on the sources with ``ast``, because an interpreter may have jax
 in ``sys.modules`` already at start-up, which would make a runtime check
@@ -14,7 +16,8 @@ import pytest
 ROOT = Path(__file__).resolve().parents[1]
 FORBIDDEN = ("jax", "jaxlib", "athenapk_tpu")
 SOURCES = sorted((ROOT / "athenapk_tpu_torch").rglob("*.py")) + [
-    ROOT / "chip_smoke.py"]
+    ROOT / "chip_smoke.py", ROOT / "tests" / "test_torch_cuda.py",
+    ROOT / "tests" / "torch_decks.py"]
 
 
 def _is_forbidden(module: str) -> bool:

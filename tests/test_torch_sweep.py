@@ -12,6 +12,8 @@ interiors (the roll wrap leaves garbage in the ghost rim by design).
 The CUDA kernel itself runs only on the card (``tests/test_torch_cuda.py``).
 """
 
+import hashlib
+
 import numpy as np
 import pytest
 import jax.numpy as jnp
@@ -134,14 +136,25 @@ def test_non_cpu_tensor_never_takes_the_plain_path():
     prim = torch.empty((1, 9) + mesh.block_shape, device="meta")
     with pytest.raises(ValueError, match="CUDA tensor"):
         sweep.fused_negdiv(prim, C_H, mesh, ppm, eos, "ppm")
-    hlle = HydroConfig(fluid="glmmhd", riemann="hlle", reconstruction="ppm")
-    with pytest.raises(NotImplementedError, match="hlld"):
-        sweep.fused_negdiv(prim, C_H, mesh, hlle, eos, "ppm")
-    euler = HydroConfig(fluid="euler", riemann="hllc", reconstruction="plm")
-    with pytest.raises(NotImplementedError, match="glmmhd"):
-        sweep.fused_negdiv(prim[:, :5], C_H, mesh, euler, eos, "plm")
-    with pytest.raises(NotImplementedError, match="wenoz"):
-        sweep.fused_negdiv(prim, C_H, mesh, ppm, eos, "wenoz")
+    # what the kernel still lacks: llf, GLM-MHD hlle, scalars, weno-type
+    # reconstructions
+    for fluid, riemann, nscalars in (("glmmhd", "hlle", 0),
+                                     ("glmmhd", "llf", 0),
+                                     ("euler", "llf", 0),
+                                     ("euler", "hllc", 2)):
+        cfg = HydroConfig(fluid=fluid, riemann=riemann, reconstruction="ppm",
+                          nscalars=nscalars)
+        with pytest.raises(NotImplementedError, match="hlld"):
+            sweep.fused_negdiv(prim, C_H, mesh, cfg, eos, "ppm")
+    for recon in ("weno3", "limo3", "wenoz"):
+        with pytest.raises(NotImplementedError, match=recon):
+            sweep.fused_negdiv(prim, C_H, mesh, ppm, eos, recon)
+    # Euler with hllc or hlle is taken: it gets as far as the tensor checks
+    for riemann in ("hllc", "hlle"):
+        euler = HydroConfig(fluid="euler", riemann=riemann,
+                            reconstruction="plm")
+        with pytest.raises(ValueError, match="CUDA tensor"):
+            sweep.fused_negdiv(prim[:, :5], C_H, mesh, euler, eos, "plm")
 
 
 def test_build_without_nvcc_raises(monkeypatch, tmp_path):
@@ -150,3 +163,43 @@ def test_build_without_nvcc_raises(monkeypatch, tmp_path):
     monkeypatch.setenv("CUDA_HOME", str(tmp_path / "no_cuda"))
     with pytest.raises(RuntimeError, match="nvcc not found"):
         sweep.build_library()
+
+
+@pytest.mark.parametrize("source", ["negdiv_sweep.cu", "fused_stage.cu"])
+def test_library_is_keyed_by_source_and_header(source, monkeypatch, tmp_path):
+    """``build_library`` names the library after the hash of the source it
+    compiles and of the header that source includes, so editing either
+    rebuilds; a library of that name is taken as built."""
+    csrc = tmp_path / "csrc"
+    csrc.mkdir()
+    for path in (sweep.CSRC_DIR / source,) + sweep.HEADERS:
+        (csrc / path.name).write_bytes(path.read_bytes())
+    header = csrc / sweep.HEADERS[0].name
+    monkeypatch.setattr(sweep, "BUILD_DIR", tmp_path / "build")
+    monkeypatch.setattr(sweep, "HEADERS", (header,))
+    monkeypatch.setattr(sweep.shutil, "which", lambda name: None)
+    monkeypatch.setenv("CUDA_HOME", str(tmp_path / "no_cuda"))
+
+    def library_name():
+        """Put a file of the expected name in place; ``build_library``
+        must then return it without asking for ``nvcc``."""
+        (tmp_path / "build").mkdir(exist_ok=True)
+        digest = hashlib.sha256((csrc / source).read_bytes()
+                                + header.read_bytes()).hexdigest()[:12]
+        lib = tmp_path / "build" / f"lib{source[:-3]}_{digest}.so"
+        lib.write_bytes(b"")
+        path, log = sweep.build_library(csrc / source)
+        assert path == lib and log == ""
+        return path.name
+
+    first = library_name()
+    header.write_text(header.read_text() + "\n// edited\n")
+    second = library_name()
+    (csrc / source).write_text((csrc / source).read_text() + "\n// edited\n")
+    third = library_name()
+    assert len({first, second, third}) == 3
+    # with no library of the new name, the build is attempted (and fails
+    # here, where there is no nvcc)
+    header.write_text(header.read_text() + "\n// again\n")
+    with pytest.raises(RuntimeError, match="nvcc not found"):
+        sweep.build_library(csrc / source)

@@ -1,0 +1,134 @@
+"""Decks of the ported problem generators, shared by the CPU parity tests
+(``test_torch_pgens.py``) and the card tests (``test_torch_cuda.py``).
+Imports nothing of jax, so it loads where only the port is installed."""
+
+BASE = """
+<job>
+problem_id = {pid}
+
+<parthenon/mesh>
+nghost = {nghost}
+merge_blocks = {merge}
+nx1 = {nx1}
+x1min = {x1min}
+x1max = {x1max}
+nx2 = {nx2}
+x2min = {x2min}
+x2max = {x2max}
+nx3 = {nx3}
+x3min = -0.5
+x3max = 0.5
+ix1_bc = {bc}
+ox1_bc = {bc}
+ix2_bc = {bc2}
+ox2_bc = {bc2}
+ix3_bc = {bc3}
+ox3_bc = {bc3}
+
+<parthenon/meshblock>
+nx1 = {mbx}
+nx2 = {mby}
+nx3 = {mbz}
+
+<parthenon/time>
+integrator = {integ}
+cfl = 0.3
+tlim = {tlim}
+nlim = {nlim}
+ncycle_out = 0
+
+<hydro>
+fluid = {fluid}
+eos = adiabatic
+riemann = {riemann}
+reconstruction = {recon}
+gamma = 1.666666666666667
+{extra_hydro}
+{extra}
+"""
+
+
+def deck(pid, fluid="euler", riemann="hlle", recon="plm", integ="vl2",
+          nx=(32, 32, 1), mb=None, dom=((-0.5, 0.5), (-0.5, 0.5)), tlim=0.1,
+          nlim=5, extra="", extra_hydro="", nghost=2, bc="periodic",
+          merge="false"):
+    mb = mb or tuple(max(n // 2, 1) for n in nx)
+    per = lambda n: bc if n > 1 else "periodic"   # noqa: E731
+    return BASE.format(
+        pid=pid, fluid=fluid, riemann=riemann, recon=recon, integ=integ,
+        nx1=nx[0], nx2=nx[1], nx3=nx[2], mbx=mb[0], mby=mb[1], mbz=mb[2],
+        x1min=dom[0][0], x1max=dom[0][1], x2min=dom[1][0], x2max=dom[1][1],
+        tlim=tlim, nlim=nlim, extra=extra, extra_hydro=extra_hydro,
+        nghost=nghost, bc=bc, bc2=per(nx[1]), bc3=per(nx[2]), merge=merge)
+
+
+KH = "<problem/kh>\niprob = {}\namp = 0.01\nvflow = 1.0\n"
+LOOP = "<problem/field_loop>\nrad = 0.3\namp = 1e-3\nvflow = 1.0\niprob = {}\n"
+BLAST = ("<problem/blast>\nradius_outer = 0.1\nradius_inner = 0.05\n"
+         "pressure_ratio = 100.0\n")
+CPAW = ("<problem/cpaw>\nb_par = 1.0\nb_perp = 0.1\npres = 0.1\nv_par = 0.0\n"
+        "dir = 1\ncompute_error = true\n")
+ADVECT = ("<problem/advection>\nvx = 1.0\nvy = 0.5\nrho_ratio = 2.0\n"
+          "rho_radius = 0.2\n")
+
+CASES = {
+    "sod_1d": dict(pid="sod", riemann="hllc", nx=(64, 1, 1), bc="outflow",
+                   dom=((0.0, 1.0), (-0.5, 0.5))),
+    "sod_1d_shifted": dict(
+        pid="sod", riemann="hllc", nx=(64, 1, 1), bc="outflow",
+        dom=((0.0, 1.0), (-0.5, 0.5)),
+        extra="<problem/sod>\nrho_l = 2.0\nu_l = 0.3\nu_r = -0.2\n"
+              "pres_r = 0.25\nx_discont = 0.4\n"),
+    "sod_glmmhd": dict(pid="sod", fluid="glmmhd", riemann="hlld",
+                       nx=(32, 1, 1), bc="outflow",
+                       dom=((0.0, 1.0), (-0.5, 0.5))),
+    "orszag_tang": dict(pid="orszag_tang", fluid="glmmhd", riemann="hlld",
+                        recon="ppm", nghost=3,
+                        dom=((0.0, 1.0), (0.0, 1.0))),
+    "blast_2d": dict(pid="blast", riemann="hllc", extra=BLAST),
+    "blast_3d_mhd": dict(pid="blast", fluid="glmmhd", riemann="hlld",
+                         nx=(16, 16, 16), extra=BLAST + "b0 = 0.5\n"),
+    "blast_3d_euler": dict(pid="blast", riemann="hllc", recon="ppm", nghost=3,
+                           nx=(16, 16, 16), extra=BLAST),
+    "lw_implode": dict(
+        pid="lw_implode", riemann="hllc", bc="reflecting",
+        dom=((0.0, 0.25), (0.0, 0.25)),
+        extra="<problem/lw_implode>\nd_in = 0.125\np_in = 0.14\n"
+              "d_out = 1.0\np_out = 1.0\n"),
+    "field_loop_1": dict(pid="field_loop", fluid="glmmhd", riemann="hlle",
+                         nx=(32, 16, 1), dom=((-1.0, 1.0), (-0.5, 0.5)),
+                         extra=LOOP.format(1)),
+    "field_loop_2": dict(pid="field_loop", fluid="glmmhd", riemann="hlld",
+                         nx=(16, 16, 16), extra=LOOP.format(2)),
+    "field_loop_3": dict(pid="field_loop", fluid="glmmhd", riemann="hlld",
+                         nx=(16, 16, 16), extra=LOOP.format(3)),
+    "field_loop_4": dict(pid="field_loop", fluid="glmmhd", riemann="hlld",
+                         nx=(16, 16, 16), extra=LOOP.format(4)),
+    "field_loop_5": dict(pid="field_loop", fluid="glmmhd", riemann="hlld",
+                         nx=(16, 16, 16), extra=LOOP.format(5)),
+    "cpaw_1d": dict(pid="cpaw", fluid="glmmhd", riemann="hlld",
+                    nx=(32, 1, 1), dom=((0.0, 1.0), (-0.5, 0.5)),
+                    extra=CPAW),
+    "cpaw_3d": dict(pid="cpaw", fluid="glmmhd", riemann="hlld", recon="ppm",
+                    nghost=3, nx=(16, 8, 8), dom=((0.0, 3.0), (0.0, 1.5)),
+                    tlim=1.0, extra=CPAW),
+    "wave_3d_hlle": dict(
+        pid="linear_wave", riemann="hlle", nx=(32, 16, 16),
+        dom=((0.0, 3.0), (0.0, 1.5)),
+        extra="<problem/linear_wave>\nwave_flag = 0\namp = 1.0e-6\n"
+              "vflow = 0.0\n"),
+    "kh_2": dict(pid="kh", riemann="hllc", extra=KH.format(2)),
+    "kh_3": dict(pid="kh", riemann="hllc", nx=(16, 32, 1),
+                 dom=((-0.5, 0.5), (-1.0, 1.0)), extra=KH.format(3)),
+    "kh_4": dict(pid="kh", riemann="hllc", nx=(16, 32, 1),
+                 dom=((-0.5, 0.5), (-1.0, 1.0)),
+                 extra=KH.format(4) + "vboost = 0.1\ndrho_rho0 = 0.5\n"),
+    "kh_5": dict(pid="kh", riemann="hllc",
+                 extra=KH.format(5) + "a = 0.05\nsigma = 0.2\ndrat = 2.0\n"),
+    "advection": dict(pid="advection", riemann="hllc", recon="ppm",
+                      integ="rk3", nghost=3, tlim=0.5, extra=ADVECT),
+    "advection_scalar": dict(pid="advection", riemann="hllc", extra=ADVECT,
+                             extra_hydro="nscalars = 1"),
+    "advection_mhd": dict(pid="advection", fluid="glmmhd", riemann="hlld",
+                          extra=ADVECT),
+}
