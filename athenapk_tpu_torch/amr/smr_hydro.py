@@ -1,0 +1,267 @@
+"""Hydro stepping on a static refined mesh (torch).
+
+Counterpart of ``athenapk_tpu/amr/smr_hydro.py``: per-level sweeps with the
+level's cell widths, the coarse-fine flux correction (the reference's
+``Load/Send/Receive/SetFluxCorrections``, ``src/hydro/hydro_driver.cpp:
+507-531``) from the fluxes at each block's interior boundary faces, one
+global dt on all levels, and the ghost fill of ``SmrState`` after every
+stage.
+
+Two rungs, chosen once, when the stepper is built (the JAX package's
+ladder at ``smr_hydro.py:617-650``):
+
+* 3-D meshes: one ``stage.fused_stage_faces`` call per level per stage
+  (cons_to_prim + the sweeps + the 2S update + the face fluxes), then the
+  correction on ``u_new`` scaled by ``beta_dt``;
+  ``ATHENAPK_PALLAS_STAGE=0`` takes the rung below instead.
+* 1-D, 2-D (and 3-D with ``ATHENAPK_PALLAS_STAGE=0``): per level
+  ``cons_to_prim`` and one ``sweep.fused_negdiv_faces`` call, the
+  correction on the -div(F)s, then the update.
+
+On a CUDA tensor each call launches a Hopper kernel, on a CPU tensor its
+plain twin runs: one code path.  (The JAX package's XLA branch, which
+replaces whole flux arrays in ``_flux_correct``, is the same correction
+written for full flux arrays; it is not ported.)  GLM-MHD takes the Dedner
+damping (``dedner_plain``).
+
+Not ported: first-order flux correction, ``riemann = none`` and
+``dedner_extended`` (the constructor raises ``NotImplementedError``), and
+diffusion and RKL2, cooling, problem sources and custom boundary hooks
+(the JAX constructor's other arguments; ``SmrSimulation`` refuses the
+decks that need them).
+"""
+
+from __future__ import annotations
+
+import math
+import os
+
+import numpy as np
+import torch
+
+from ..core.indices import GLMMHD, IDN, IPS
+from ..eos.adiabatic import cons_to_prim
+from ..recon import RECONSTRUCTIONS, nghost_for
+from ..solver import stage, sweep
+from ..solver.integrators import INTEGRATORS
+from ..solver.sweep import AXIS_OF_DIR, active_dirs
+from .smr import SmrMesh, SmrState
+
+
+class SmrHydro:
+    def __init__(self, smesh: SmrMesh, cfg, eos, device="cpu"):
+        missing = []
+        if cfg.first_order_flux_correct:
+            missing.append("first_order_flux_correct")
+        if cfg.riemann == "none":
+            missing.append("riemann 'none' (diffusion-only runs)")
+        if cfg.reconstruction not in RECONSTRUCTIONS:
+            missing.append(f"reconstruction '{cfg.reconstruction}'")
+        if cfg.fluid == GLMMHD and cfg.glmmhd_source != "dedner_plain":
+            missing.append(f"glmmhd_source '{cfg.glmmhd_source}'")
+        if missing:
+            raise NotImplementedError("not ported to athenapk_tpu_torch's "
+                                      f"refined meshes yet: "
+                                      f"{', '.join(missing)}")
+        b = smesh.base
+        if b.nghost < nghost_for(cfg.reconstruction):
+            raise ValueError(
+                f"reconstruction '{cfg.reconstruction}' needs nghost >= "
+                f"{nghost_for(cfg.reconstruction)}, got {b.nghost}")
+        self.smesh = smesh
+        self.cfg = cfg
+        self.eos = eos
+        self.device = torch.device(device)
+        self.state_mgr = SmrState(smesh, cfg.nvar, self.device)
+        self.level_mesh = {lev: smesh.level_mesh(lev)
+                           for lev in smesh.level_ids}
+        self._dirs = tuple(active_dirs(b))
+        self._act = {1: True, 2: b.nx2 > 1, 3: b.nx3 > 1}
+        self._g_of_dir = {1: b.ng1, 2: b.ng2, 3: b.ng3}
+        self._int_sl = b.interior_slices
+        self._stage_rung = (b.nx2 > 1 and b.nx3 > 1 and os.environ.get(
+            "ATHENAPK_PALLAS_STAGE") != "0")
+        # flux-correction batches: one restricted write per (level, face)
+        # group of coarse-fine sites (the face-touching fine kids in octant
+        # order, from the ghost-fill plans)
+        loc_of = {}
+        for lev, ids in smesh.level_ids.items():
+            for li, gid in enumerate(ids):
+                loc_of[gid] = (lev, li)
+        fc = {}
+        for lev in smesh.level_ids:
+            for (li, face, kind, payload) in self.state_mgr._plans[lev]:
+                if kind != "fine":
+                    continue
+                kids = sorted(payload)
+                d_list, k_list, ocs = fc.setdefault(
+                    (lev, face), ([], [], [oc for (oc, _) in kids]))
+                d_list.append(li)
+                k_list.append([loc_of[kid][1] for (_, kid) in kids])
+        ix = self.state_mgr.index
+        self._fc_batch = {key: (ix(d), ix(np.ravel(k)), len(d), ocs)
+                          for key, (d, k, ocs) in fc.items()}
+
+    # ------------------------------------------------ coarse-fine correction
+    def _restrict_transverse(self, ff, tdims):
+        """Average pairs along each active transverse direction of a face
+        slab whose last ``len(tdims)`` axes are ``tdims``; inactive dims
+        pass through (a 2-D correction averages pairs, not quads)."""
+        out = ff
+        nt = len(tdims)
+        for k, t in enumerate(tdims):
+            if not self._act[t]:
+                continue
+            ax = out.dim() - nt + k
+            ev = [slice(None)] * out.dim()
+            od = [slice(None)] * out.dim()
+            ev[ax] = slice(0, None, 2)
+            od[ax] = slice(1, None, 2)
+            out = 0.5 * (out[tuple(ev)] + out[tuple(od)])
+        return out
+
+    def _slab_flux_correct(self, targets, slabs, scale=1.0):
+        """Restrict the fine boundary-face fluxes (transverse pair or quad
+        averages) and add the flux difference to the interior cell layer
+        beside each corrected coarse face: the same as replacing the coarse
+        flux before the divergence.  ``targets`` are the per-level -div(F)s
+        (``scale = 1``) or, on the whole-stage rung, the ``u_new`` tensors
+        with ``scale = beta_dt``.  Updates ``targets``' tensors in place and
+        returns the dict."""
+        b = self.smesh.base
+        nsz = {1: b.mbnx1, 2: b.mbnx2, 3: b.mbnx3}
+        gd = self._g_of_dir
+        for (lev, face), (d_arr, kids, nops, ocs) in self._fc_batch.items():
+            axis = 3 - face // 2
+            d = {3: 1, 2: 2, 1: 3}[axis]
+            lo = face % 2 == 0
+            g, n = gd[d], nsz[d]
+            fidx = 1 if lo else 0   # the fine kids' face on my side
+            cidx = 0 if lo else 1
+            tdims = sorted([t for t in (1, 2, 3) if t != d], reverse=True)
+            t0, t1 = tdims
+            Ff = slabs[lev + 1][d].index_select(0, kids)  # [nops*K,nvar,A,B,2]
+            fine_face = Ff[:, :, gd[t0]:gd[t0] + nsz[t0],
+                           gd[t1]:gd[t1] + nsz[t1], fidx]
+            rest = self._restrict_transverse(fine_face, tdims)
+            rest = rest.reshape((nops, len(ocs)) + tuple(rest.shape[1:]))
+            Fc = torch.zeros((nops, rest.shape[2], nsz[t0], nsz[t1]),
+                             dtype=rest.dtype, device=rest.device)
+            for col, oc in enumerate(ocs):
+                offs = [((oc >> {1: 0, 2: 1, 3: 2}[t]) & 1) * (nsz[t] // 2)
+                        for t in tdims]
+                Fc[:, :, offs[0]:offs[0] + rest.shape[3],
+                   offs[1]:offs[1] + rest.shape[4]] = rest[:, col]
+            old = slabs[lev][d].index_select(0, d_arr)[
+                :, :, gd[t0]:gd[t0] + nsz[t0], gd[t1]:gd[t1] + nsz[t1], cidx]
+            delta = (Fc - old) / self.smesh.dx(lev)[d - 1]
+            # div_i = (F[i+1] - F[i]) / dx: a lo coarse face (index g) is the
+            # left face of interior cell g (-div += delta); a hi face (index
+            # g+n) the right face of cell g+n-1 (-div -= delta)
+            layer = g if lo else g + n - 1
+            widx = [d_arr, slice(None)] + list(self._int_sl[2:])
+            widx[AXIS_OF_DIR[d]] = layer
+            widx = tuple(widx)
+            sign = 1.0 if lo else -1.0
+            t = targets[lev]
+            t[widx] = t[widx] + sign * scale * delta
+        return targets
+
+    # ----------------------------------------------------------------- core
+    def _dedner_source_level(self, u, beta_dt, c_h, lev):
+        """Dedner psi damping with the level's smallest cell width
+        (``src/hydro/glmmhd/dedner_source.cpp:17-79``); in place on ``u``,
+        the fresh stage result."""
+        coeff = math.exp(-self.cfg.glmmhd_alpha * c_h * beta_dt
+                         / self.smesh.min_dx(lev))
+        u[:, IPS] *= coeff
+        return u
+
+    def _stage_impl(self, s, state, state1, dt, c_h):
+        """One 2S-integrator stage without the ghost fill: per-level sweeps,
+        the coarse-fine correction, the update and the Dedner damping.
+        Returns new level tensors."""
+        cfg = self.cfg
+        tab = INTEGRATORS[cfg.integrator]
+        recon = cfg.reconstruction
+        if cfg.integrator == "vl2" and s == 0:
+            recon = "dc"
+        gam0, gam1 = tab["gam0"][s], tab["gam1"][s]
+        beta_dt = tab["beta"][s] * dt
+        slabs = {}
+        if self._stage_rung:
+            u_news = {}
+            for lev, u in state.items():
+                u_news[lev], _, slabs[lev] = stage.fused_stage_faces(
+                    u, state1[lev], gam0, gam1, beta_dt, c_h,
+                    self.level_mesh[lev], cfg, self.eos, recon)
+            out = self._slab_flux_correct(u_news, slabs, scale=beta_dt)
+        else:
+            negdivs, u0f = {}, {}
+            for lev, u in state.items():
+                u0f[lev], prim = cons_to_prim(self.eos, u, cfg.fluid,
+                                              cfg.nscalars)
+                negdivs[lev], slabs[lev] = sweep.fused_negdiv_faces(
+                    prim, c_h, self.level_mesh[lev], cfg, self.eos, recon)
+            negdivs = self._slab_flux_correct(negdivs, slabs)
+            out = {lev: gam0 * u0f[lev] + gam1 * state1[lev]
+                   + beta_dt * negdivs[lev] for lev in state}
+        if cfg.fluid == GLMMHD:
+            for lev in out:
+                out[lev] = self._dedner_source_level(out[lev], beta_dt, c_h,
+                                                     lev)
+        return out
+
+    def step(self, state, dt, c_h):
+        """One cycle (all integrator stages, each followed by the ghost
+        fill): ``{level: u}`` ghost-filled in, new ghost-filled tensors out;
+        the input tensors are left as they were."""
+        u0 = state
+        for s in range(INTEGRATORS[self.cfg.integrator]["nstages"]):
+            u0 = self.state_mgr.fill_ghosts(
+                self._stage_impl(s, u0, state, dt, c_h))
+        return u0
+
+    def fill_ghosts(self, state):
+        return self.state_mgr.fill_ghosts(state)
+
+    # ------------------------------------------------------------------- dt
+    def estimate_dt(self, state):
+        """The hyperbolic CFL dt over every level's interior cells, as a
+        0-d tensor on the state's device."""
+        min_dt = None
+        for lev, u in state.items():
+            _, w = cons_to_prim(self.eos, u, self.cfg.fluid, self.cfg.nscalars)
+            m = torch.min(stage.raw_cfl_dt(w[self._int_sl],
+                                           self.level_mesh[lev], self.cfg,
+                                           self.eos, self._dirs))
+            min_dt = m if min_dt is None else torch.minimum(min_dt, m)
+        return self.cfg.cfl * min_dt
+
+    def dt_pack(self, state, tm_dt, t, tlim):
+        """``[dt_raw, dt_eff, c_h]`` on the device, in the state's dtype:
+        the CFL dt capped at twice the last step (``tm_dt``), then at the
+        time left to ``tlim``, and the GLM cleaning speed for it.  ``t``,
+        ``tm_dt`` and ``tlim - t`` are rounded to the state's dtype first,
+        as the JAX package's device scalars are."""
+        est = self.estimate_dt(state)
+        np_dtype = np.float32 if est.dtype == torch.float32 else np.float64
+        dt_raw = torch.clamp(est, max=float(2.0 * np_dtype(tm_dt)))
+        dt_eff = torch.clamp(dt_raw, max=float(np_dtype(tlim) - np_dtype(t)))
+        if self.cfg.fluid == GLMMHD:
+            mindx = self.smesh.min_dx(self.smesh.max_level)
+            c_h = torch.where(
+                dt_eff > 0,
+                torch.full_like(dt_eff, self.cfg.cfl * mindx) / dt_eff, 0.0)
+        else:
+            c_h = torch.zeros_like(dt_eff)
+        return torch.stack([dt_raw, dt_eff, c_h])
+
+    # ------------------------------------------------------------ reductions
+    def total_mass(self, state):
+        total = 0.0
+        for lev, u in state.items():
+            d1, d2, d3 = self.smesh.dx(lev)
+            total = total + float(torch.sum(u[self._int_sl][:, IDN])) \
+                * (d1 * d2 * d3)
+        return total

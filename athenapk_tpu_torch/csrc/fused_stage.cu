@@ -8,10 +8,16 @@
 //               of cons_to_prim(u_new)                 (optional)
 //   prim_out  = prim                                   (optional)
 //
-// Replaces the TPU kernel athenapk_tpu/solver/pallas_sweep.py:
-// make_fused_stage.  Its halo slabs, tile fitters and (8,128) dt tile work
-// around the TPU's compiler and are not carried over; only the contract
-// above is.  The plain PyTorch twin is stage_plain in solver/stage.py; the
+//   faces     = the Riemann fluxes at the block's two interior boundary
+//               faces of each direction, sweep index g and n - g     (optional)
+//
+// Replaces two TPU kernels of athenapk_tpu/solver/pallas_sweep.py:
+// make_fused_stage and, with the face output, make_fused_stage_faces (the
+// refined-mesh stage: the coarse-fine flux correction reads the faces).
+// Their halo slabs, tile fitters, lane packing, owner-tile epilogue and
+// (8,128) dt tile work around the TPU's compiler and are not carried over;
+// only the contract above is.  The plain PyTorch twins are stage_plain and
+// stage_faces_plain in solver/stage.py; the
 // device functions (hydro_device.cuh) follow the plain code operation by
 // operation (build with --fmad=false to keep it that way).
 //
@@ -36,6 +42,9 @@
 //     cells into a shared-memory accumulator.  Segments cost (SEG+2)/SEG of
 //     the reconstruction and (SEG+1)/SEG of the Riemann work; in exchange
 //     no edge states or fluxes are staged in shared memory.
+//     A face at sweep index g or n - g is solved by two threads (the
+//     segment starting at its cell and the one ending there); the first
+//     writes it to the face output, so each face is written once.
 //  3. Each cell converts u0 once more for the floored conserved state u0f
 //     (it, not u0, enters the update), reads u1, and writes u_new; with
 //     dt_out it also converts u_new and reduces the CFL bound over the
@@ -85,6 +94,14 @@ struct Scalars {
   T inf;   // +infinity: the CFL reduction's identity
 };
 
+// Face output: per direction [nb, NV, A, B, 2] (x: A, B = z, y; y: z, x;
+// z: y, x), entry 0 at sweep index g, 1 at n - g; null pointers: none.
+template <typename T>
+struct Faces {
+  T* d[3];
+  int g;
+};
+
 __device__ __forceinline__ int wrap(int i, int n) {
   i %= n;
   return i < 0 ? i + n : i;
@@ -132,11 +149,16 @@ __device__ __forceinline__ void plus_coords(int i, int& iz, int& iy, int& ix) {
   }
 }
 
-// One direction of step 2: every thread walks its segments of direction D.
-template <typename T, typename TL, int NV, int RECON, int SOLVER, int D>
+// One direction of step 2: every thread walks its segments of direction D;
+// with FACES it also writes the faces at sweep index g and n - g.
+template <typename T, typename TL, int NV, int RECON, int SOLVER, int D,
+          bool FACES>
 __device__ __forceinline__ void sweep_direction(const T* prim_s, T* nd_s,
                                                 const Params<T>& p, T dx,
-                                                int vz, int vy, int vx) {
+                                                int vz, int vy, int vx,
+                                                T* faces, int g,
+                                                const Shape& sh, int z0,
+                                                int y0, int x0) {
   constexpr int TZ = TL::TZ, TY = TL::TY, TX = TL::TX, SEG = TL::SEG;
   constexpr int R = TL::H - 1;   // stencil radius of one cell's edge states
   constexpr int NITEMS = TL::NC / SEG;
@@ -175,6 +197,25 @@ __device__ __forceinline__ void sweep_direction(const T* prim_s, T* nd_s,
       }
       if (c >= s0) {
         riemann_flux<T, SOLVER, D>(wl, wr, p, F);
+        // face capture: the face before cell c, by the segment holding c
+        // (a compile-time switch: without it the loop is the uniform
+        // path's; a run-time branch here slowed DC stages by 8 % on an
+        // H100)
+        if (FACES && c < s0 + SEG) {
+          const int n_d = D == 1 ? sh.nx : (D == 2 ? sh.ny : sh.nz);
+          const int G = (D == 1 ? x0 : (D == 2 ? y0 : z0)) + c;
+          const int k = G == g ? 0 : (G == n_d - g ? 1 : -1);
+          if (k >= 0) {
+            const long long A = D == 3 ? sh.ny : sh.nz;
+            const long long B = D == 1 ? sh.ny : sh.nx;
+            const long long a = D == 3 ? y0 + iy : z0 + iz;
+            const long long b = D == 1 ? y0 + iy : x0 + ix;
+#pragma unroll
+            for (int v = 0; v < NV; ++v)
+              faces[((((long long)blockIdx.y * NV + v) * A + a) * B + b) * 2
+                    + k] = F[v];
+          }
+        }
         if (c > s0) {
           const int cell = D == 1 ? (iz * TY + iy) * TX + c - 1
                          : D == 2 ? (iz * TY + c - 1) * TX + ix
@@ -194,12 +235,12 @@ __device__ __forceinline__ void sweep_direction(const T* prim_s, T* nd_s,
   }
 }
 
-template <typename T, int RECON, int SOLVER>
+template <typename T, int RECON, int SOLVER, bool FACES>
 __global__ void __launch_bounds__((Tile<T, NVar<SOLVER>::value, RECON>::NTHREADS))
 fused_stage_kernel(const T* __restrict__ u0, const T* __restrict__ u1,
                    T* __restrict__ out, T* __restrict__ dt_out,
-                   T* __restrict__ prim_out, const Shape sh,
-                   const Params<T> p, const Scalars<T> sc) {
+                   T* __restrict__ prim_out, const Faces<T> fc,
+                   const Shape sh, const Params<T> p, const Scalars<T> sc) {
   constexpr int NV = NVar<SOLVER>::value;
   using TL = Tile<T, NV, RECON>;
   constexpr int TZ = TL::TZ, TY = TL::TY, TX = TL::TX;
@@ -240,11 +281,14 @@ fused_stage_kernel(const T* __restrict__ u0, const T* __restrict__ u1,
   __syncthreads();
 
   // 2. -div(F), one direction after the other (x writes, y and z add)
-  sweep_direction<T, TL, NV, RECON, SOLVER, 1>(prim_s, nd_s, p, sc.dx1, vz, vy, vx);
+  sweep_direction<T, TL, NV, RECON, SOLVER, 1, FACES>(
+      prim_s, nd_s, p, sc.dx1, vz, vy, vx, fc.d[0], fc.g, sh, z0, y0, x0);
   __syncthreads();
-  sweep_direction<T, TL, NV, RECON, SOLVER, 2>(prim_s, nd_s, p, sc.dx2, vz, vy, vx);
+  sweep_direction<T, TL, NV, RECON, SOLVER, 2, FACES>(
+      prim_s, nd_s, p, sc.dx2, vz, vy, vx, fc.d[1], fc.g, sh, z0, y0, x0);
   __syncthreads();
-  sweep_direction<T, TL, NV, RECON, SOLVER, 3>(prim_s, nd_s, p, sc.dx3, vz, vy, vx);
+  sweep_direction<T, TL, NV, RECON, SOLVER, 3, FACES>(
+      prim_s, nd_s, p, sc.dx3, vz, vy, vx, fc.d[2], fc.g, sh, z0, y0, x0);
   __syncthreads();
 
   // 3. the stage update, and the CFL bound of the new state
@@ -287,6 +331,8 @@ struct Args {
   void* out;
   void* dt_out;     // null: no CFL bound
   void* prim_out;   // null: no prim
+  void* faces[3];   // null: no face capture
+  int g_face;
   int nb, nz, ny, nx;
   double dx1, dx2, dx3, gam0, gam1, beta_dt, c_h;
   EosArgs eos;
@@ -307,7 +353,9 @@ template <typename T, int RECON, int SOLVER>
 cudaError_t launch(const Args& a) {
   using TL = Tile<T, NVar<SOLVER>::value, RECON>;
   static_assert(TL::SMEM <= 232448, "tile exceeds a block's shared memory");
-  auto kernel = fused_stage_kernel<T, RECON, SOLVER>;
+  auto kernel = a.faces[0] != nullptr
+                    ? fused_stage_kernel<T, RECON, SOLVER, true>
+                    : fused_stage_kernel<T, RECON, SOLVER, false>;
   cudaError_t err = cudaFuncSetAttribute(
       kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)TL::SMEM);
   if (err != cudaSuccess) return err;
@@ -319,11 +367,14 @@ cudaError_t launch(const Args& a) {
   sc.gam0 = T(a.gam0); sc.gam1 = T(a.gam1); sc.beta_dt = T(a.beta_dt);
   sc.dx1 = T(a.dx1); sc.dx2 = T(a.dx2); sc.dx3 = T(a.dx3);
   sc.inf = std::numeric_limits<T>::infinity();
+  Faces<T> fc;
+  for (int d = 0; d < 3; ++d) fc.d[d] = static_cast<T*>(a.faces[d]);
+  fc.g = a.g_face;
   dim3 grid(sh.ntz * sh.nty * sh.ntx, a.nb);
   kernel<<<grid, TL::NTHREADS, TL::SMEM, a.stream>>>(
       static_cast<const T*>(a.u0), static_cast<const T*>(a.u1),
       static_cast<T*>(a.out), static_cast<T*>(a.dt_out),
-      static_cast<T*>(a.prim_out), sh, p, sc);
+      static_cast<T*>(a.prim_out), fc, sh, p, sc);
   return cudaGetLastError();
 }
 
@@ -362,18 +413,27 @@ extern "C" int fused_stage_tiles(int nz, int ny, int nx) {
 // (Euler) or 9 (GLM-MHD); dt_out: nb * fused_stage_tiles(nz, ny, nx) values.
 // dt_out and prim_out may be null.  eos: gamma, density floor, pressure
 // floor, internal-energy floor, velocity ceiling, internal-energy ceiling
-// (a floor <= 0 and an infinite ceiling are off).
+// (a floor <= 0 and an infinite ceiling are off).  fx, fy, fz (all null,
+// or none): contiguous [nb, nvar, NZ, NY, 2], [nb, nvar, NZ, NX, 2] and
+// [nb, nvar, NY, NX, 2], the fluxes at sweep index g_face and n - g_face of
+// x, y and z, with 0 < g_face < min(nz, ny, nx) / 2.
 extern "C" int fused_stage(const void* u0, const void* u1, void* out,
-                           void* dt_out, void* prim_out, int dtype, int solver,
+                           void* dt_out, void* prim_out, void* fx, void* fy,
+                           void* fz, int g_face, int dtype, int solver,
                            int recon, int nb, int nvar, int nz, int ny, int nx,
                            double dx1, double dx2, double dx3, double gam0,
                            double gam1, double beta_dt, double c_h,
                            const double* eos, void* stream) {
   const int want = solver == SOLVER_GLMMHD_HLLD ? 9 : 5;
-  if (nvar != want || nb <= 0 || nz <= 0 || ny <= 0 || nx <= 0)
+  const bool any_faces = fx != nullptr || fy != nullptr || fz != nullptr;
+  if (nvar != want || nb <= 0 || nz <= 0 || ny <= 0 || nx <= 0
+      || (any_faces && (fx == nullptr || fy == nullptr || fz == nullptr
+                        || g_face <= 0 || 2 * g_face >= nz
+                        || 2 * g_face >= ny || 2 * g_face >= nx)))
     return (int)cudaErrorInvalidValue;
   Args a;
   a.u0 = u0; a.u1 = u1; a.out = out; a.dt_out = dt_out; a.prim_out = prim_out;
+  a.faces[0] = fx; a.faces[1] = fy; a.faces[2] = fz; a.g_face = g_face;
   a.nb = nb; a.nz = nz; a.ny = ny; a.nx = nx;
   a.dx1 = dx1; a.dx2 = dx2; a.dx3 = dx3;
   a.gam0 = gam0; a.gam1 = gam1; a.beta_dt = beta_dt; a.c_h = c_h;

@@ -2,15 +2,25 @@
 // divergence for one direction per launch, for Euler (HLLE, HLLC) and
 // GLM-MHD (HLLD).
 //
-// Replaces two TPU kernels of athenapk_tpu/solver/pallas_sweep.py:
+// Replaces five TPU kernels of athenapk_tpu/solver/pallas_sweep.py:
 // make_lane_sweep_negdiv (one direction, sweep axis on the lanes), as
 // composed by make_fused_negdiv (sum over the active directions, y and z
 // reached by transposes), and make_fused_negdiv_v2 (the same sum in the
-// canonical layout, the default of 1-D and 2-D meshes).  Here no transpose
-// and no halo slab is needed: the kernel reads along y or z with a stride,
-// the direction only selects which momentum and field components are
-// normal (template parameter DIR), and the caller launches it once per
-// active direction, so a 2-D mesh takes two launches and a 1-D mesh one.
+// canonical layout, the default of 1-D and 2-D meshes); and, with the face
+// output, their refined-mesh forms make_lane_sweep_negdiv_faces (composed
+// by make_fused_negdiv_faces) and make_fused_negdiv_faces_v2 (3-D kernel
+// and 2-D kernel2), which also return the Riemann fluxes at a block's two
+// interior boundary faces of each direction, sweep index g and n - g (n
+// the block's extent with ghosts): what the coarse-fine flux correction
+// reads.  The launch of direction d writes that direction's slab
+// [nb, nvar, A, B, 2] (x: A, B = z, y; y: z, x; z: y, x), entry 0 at g and
+// 1 at n - g; the tile whose cells start at the face writes it from the
+// fluxes it stages in shared memory, so each face is written once.
+// Here no transpose and no halo slab is needed: the kernel reads along y
+// or z with a stride, the direction only selects which momentum and field
+// components are normal (template parameter DIR), and the caller launches
+// it once per active direction, so a 2-D mesh takes two launches and a
+// 1-D mesh one.
 // The plain PyTorch twin is negdiv_plain in solver/sweep.py; the device
 // functions (hydro_device.cuh) follow recon/schemes.py and
 // riemann/solvers.py operation by operation (build with --fmad=false to
@@ -75,8 +85,8 @@ constexpr int smem_elems() {
 template <typename T, int RECON, int DIR, int SOLVER>
 __global__ void __launch_bounds__(NTHREADS)
 negdiv_sweep_kernel(const T* __restrict__ prim, T* __restrict__ out,
-                    const Geom g, const Params<T> p, const T dx,
-                    const int accumulate) {
+                    T* __restrict__ faces, const Geom g, const Params<T> p,
+                    const T dx, const int accumulate, const int g_face) {
   constexpr int NV = NVar<SOLVER>::value;
   constexpr int H = Halo<RECON>::h;
   constexpr int NC = TS + 2 * H;   // cells loaded per lane
@@ -150,6 +160,23 @@ negdiv_sweep_kernel(const T* __restrict__ prim, T* __restrict__ out,
   }
   __syncthreads();
 
+  // 3b. face capture, kept out of the Riemann loop above so that the loop
+  // is the uniform path's: the faces at sweep index g and n - g, each by the
+  // tile whose cells start there (j < ns), so each is written once
+  if (faces != nullptr) {
+    const long long n_other = gridDim.y;
+    for (int k = 0; k < 2; ++k) {
+      const int j = (k == 0 ? g_face : n - g_face) - s0;
+      if (j < 0 || j >= ns) continue;
+      for (int i = threadIdx.x; i < NV * TL; i += NTHREADS) {
+        const int l = i % TL, v = i / TL;
+        if (l < nl)
+          faces[((((long long)blockIdx.z * NV + v) * n_other + blockIdx.y)
+                 * g.n_lane + l0 + l) * 2 + k] = flux[(v * NF + j) * TL + l];
+      }
+    }
+  }
+
   // 4. -(F[i+1] - F[i]) / dx, written or accumulated
   for (int i = threadIdx.x; i < NV * TS * TL; i += NTHREADS) {
     int v, s, l;
@@ -167,6 +194,8 @@ negdiv_sweep_kernel(const T* __restrict__ prim, T* __restrict__ out,
 struct Args {
   const void* prim;
   void* out;
+  void* faces;      // null: no face capture
+  int g_face;
   int nb, nz, ny, nx;
   double dx, c_h;
   EosArgs eos;
@@ -208,8 +237,8 @@ cudaError_t launch(const Args& a) {
   const Params<T> p = make_params<T>(a.eos, a.c_h);
   dim3 grid(ntile_s * ntile_l, n_other, a.nb);
   kernel<<<grid, NTHREADS, smem, a.stream>>>(
-      static_cast<const T*>(a.prim), static_cast<T*>(a.out), g, p, T(a.dx),
-      a.accumulate);
+      static_cast<const T*>(a.prim), static_cast<T*>(a.out),
+      static_cast<T*>(a.faces), g, p, T(a.dx), a.accumulate, a.g_face);
   return cudaGetLastError();
 }
 
@@ -249,16 +278,21 @@ cudaError_t launch_recon(int recon, int dir, int solver, const Args& a) {
 // 2 = GLM-MHD HLLD.  recon: 0 = dc, 1 = plm, 2 = ppm.  dir: 1, 2, 3.  prim
 // and out: contiguous [nb, nvar, nz, ny, nx] on the current device, nvar = 5
 // (Euler) or 9 (GLM-MHD).  accumulate != 0 adds into out instead of writing
-// it.
+// it.  faces (may be null): contiguous [nb, nvar, A, B, 2] of direction
+// dir (see the top of this file), g_face the ghost width along dir, with
+// 0 < g_face < extent / 2.
 extern "C" int negdiv_sweep(const void* prim, void* out, int dtype, int solver,
                             int recon, int dir, int nb, int nvar, int nz,
                             int ny, int nx, double dx, double gamma,
-                            double c_h, int accumulate, void* stream) {
+                            double c_h, int accumulate, void* faces,
+                            int g_face, void* stream) {
   const int want = solver == SOLVER_GLMMHD_HLLD ? 9 : 5;
-  if (nvar != want || nb <= 0 || nz <= 0 || ny <= 0 || nx <= 0)
+  const int n_dir = dir == 1 ? nx : (dir == 2 ? ny : nz);
+  if (nvar != want || nb <= 0 || nz <= 0 || ny <= 0 || nx <= 0
+      || (faces != nullptr && (g_face <= 0 || 2 * g_face >= n_dir)))
     return (int)cudaErrorInvalidValue;
   Args a;
-  a.prim = prim; a.out = out;
+  a.prim = prim; a.out = out; a.faces = faces; a.g_face = g_face;
   a.nb = nb; a.nz = nz; a.ny = ny; a.nx = nx;
   a.dx = dx; a.c_h = c_h;
   a.eos = EosArgs{gamma, -1.0, -1.0, -1.0, NO_CEILING, NO_CEILING};   // no floors here

@@ -15,8 +15,12 @@ The state lives on ``cuda`` unless the caller asks for the CPU
 where there is none raises.  ``hydro/precision = single|double`` sets the
 state's dtype.
 
+``run_from_file`` and the CLI send a deck with ``<parthenon/mesh>
+refinement = static`` to ``amr.driver.SmrSimulation`` (the JAX routing,
+``athenapk_tpu/driver.py:515-518``).
+
 Not ported yet (``NotImplementedError``): hdf5 and rst outputs, tracers,
-restart (``-r``), profiler traces (``-t``), refined meshes, diffusion,
+restart (``-r``), profiler traces (``-t``), adaptive meshes, diffusion,
 cooling, first-order flux correction, the ``weno3``/``limo3``/``wenoz``
 reconstructions, and the problems ``diffusion``, ``rand_blast``,
 ``turbulence``, ``cloud`` and ``cluster`` (with their source terms and
@@ -42,7 +46,7 @@ from .outputs.history import HistoryOutput
 from .pgen import get_pgen
 from .solver.hydro_pkg import HydroConfig, HydroPackage
 
-_DTYPES = {"double": torch.float64, "single": torch.float32}
+DTYPES = {"double": torch.float64, "single": torch.float32}
 
 
 def resolve_device(device) -> torch.device:
@@ -55,13 +59,9 @@ def resolve_device(device) -> torch.device:
     return dev
 
 
-def _check_ported(pin) -> None:
-    """Raise NotImplementedError for deck features this port lacks."""
-    mode = pin.get_or_add_string("parthenon/mesh", "refinement", "none")
-    if mode in ("static", "adaptive"):
-        raise NotImplementedError(
-            f"refinement = {mode} (refined meshes) is not ported to "
-            "athenapk_tpu_torch yet")
+def check_unported(pin) -> None:
+    """Raise NotImplementedError for deck features this port lacks, on
+    uniform and refined meshes alike."""
     if pin.has_block("diffusion") and any(
             pin.get_or_add_string("diffusion", k, "none") != "none"
             for k in ("conduction", "viscosity", "resistivity")):
@@ -92,11 +92,20 @@ class Simulation:
         self.problem_id = pin.get_string("job", "problem_id")
 
         prec = pin.get_or_add_string("hydro", "precision", "double")
-        if prec not in _DTYPES:
+        if prec not in DTYPES:
             raise ValueError(f"hydro/precision must be single|double, "
                              f"got '{prec}'")
-        self.dtype = _DTYPES[prec]
-        _check_ported(pin)
+        self.dtype = DTYPES[prec]
+        mode = pin.get_or_add_string("parthenon/mesh", "refinement", "none")
+        if mode == "static":
+            raise NotImplementedError(
+                "refinement = static: the uniform Simulation does not run "
+                "refined meshes; SmrSimulation does (run_from_file and the "
+                "CLI route the deck to it)")
+        if mode == "adaptive":
+            raise NotImplementedError("refinement = adaptive is not ported "
+                                      "to athenapk_tpu_torch yet")
+        check_unported(pin)
 
         self.mesh = Mesh.from_parameter_input(pin)
         self.cfg = HydroConfig.from_parameter_input(pin)
@@ -264,7 +273,10 @@ class Simulation:
 def run_from_file(path: str, overrides=None, quiet=False, device="cuda"):
     pin = ParameterInput.from_file(path, overrides)
     mode = pin.get_or_add_string("parthenon/mesh", "refinement", "none")
-    if mode not in ("none", "static", "adaptive"):
+    if mode in ("static", "adaptive"):
+        from .amr.driver import SmrSimulation
+        return SmrSimulation(pin, quiet=quiet, device=device).run()
+    if mode != "none":
         raise ValueError(
             f"<parthenon/mesh> refinement = '{mode}' — expected "
             "'none', 'static', or 'adaptive'")

@@ -7,7 +7,10 @@ history dump.  Columns: time, dt, mass, 1/2/3-mom, KE, total E, and for MHD
 the magnetic energy and the relative divB.  Reductions run over interior
 cells only.
 
-A column is ``(label, fn)`` with ``fn(u, w, mesh) -> scalar``.
+A column is ``(label, fn)`` with ``fn(u, w, mesh) -> scalar``, summed over
+the groups of a multi-level mesh (volume-weighted sums add up), or
+``(label, partial_fn, finalize)``, whose tuple partials are summed over the
+groups before ``finalize`` (relDivB, a ratio).
 """
 
 from __future__ import annotations
@@ -54,13 +57,15 @@ def hydro_history_columns(fluid: str):
     if fluid == GLMMHD:
         cols.append(("ME", lambda u, w, mesh: vol_sum(
             0.5 * (u[:, IB1] ** 2 + u[:, IB2] ** 2 + u[:, IB3] ** 2), mesh)))
-        cols.append(("relDivB", _rel_divb))
+        cols.append(("relDivB", _rel_divb_partial,
+                     lambda p: p[0] / (p[1] + 1e-30)))
     return cols
 
 
-def _rel_divb(u, w, mesh):
-    """Volume-averaged relative divB (cell-centred central differences;
-    ``HydroHst`` at hydro.cpp:145-208)."""
+def _rel_divb_partial(u, w, mesh):
+    """``(num, den)`` partials of the volume-averaged relative divB
+    (cell-centred central differences; ``HydroHst`` at hydro.cpp:145-208),
+    volume-weighted so that the groups of a multi-level mesh combine."""
     b = [u[:, IB1], u[:, IB2], u[:, IB3]]
     bmag = torch.sqrt(b[0] ** 2 + b[1] ** 2 + b[2] ** 2)
     divb = torch.zeros_like(b[0])
@@ -72,7 +77,7 @@ def _rel_divb(u, w, mesh):
     vol = mesh.cell_volume
     num = float(_block_sums(torch.abs(divb), mesh).sum()) * mesh.min_dx * vol
     den = float(_block_sums(bmag, mesh).sum()) * vol
-    return num / (den + 1e-30)
+    return (num, den)
 
 
 class HistoryOutput:
@@ -100,8 +105,22 @@ class HistoryOutput:
         self._wrote_header = True
 
     def write(self, t, dt, u, w, mesh):
+        self.write_groups(t, dt, [(u, w, mesh)])
+
+    def write_groups(self, t, dt, groups):
+        """One row from the groups ``[(u, w, mesh_like), ...]`` of a mesh
+        (one per refinement level); ``mesh_like`` needs cell_volume,
+        interior_slices, dx, min_dx, nx2 and nx3."""
         self._header()
-        vals = [float(fn(u, w, mesh)) for _, fn in self.columns]
+        vals = []
+        for col in self.columns:
+            parts = [col[1](u, w, m) for (u, w, m) in groups]
+            if len(col) == 3:
+                summed = tuple(sum(p[i] for p in parts)
+                               for i in range(len(parts[0])))
+                vals.append(float(col[2](summed)))
+            else:
+                vals.append(float(sum(parts)))
         with open(self.filename, "a") as fh:
             row = [f"{float(t):.14e}", f"{float(dt):.14e}"] + [
                 f"{v:.14e}" for v in vals]

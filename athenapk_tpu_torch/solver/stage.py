@@ -19,6 +19,13 @@ shift wraps within a block, as in ``solver/sweep.py``.
   one launch per stage, built with ``nvcc`` into ``build/`` at first use.
 * ``fused_stage`` — takes the plain version for a CPU tensor and the kernel
   for any other; it never falls back from one to the other.
+
+The refined-mesh form, counterpart of ``make_fused_stage_faces``: on
+ghosted 3-D blocks, the stage plus each direction's Riemann fluxes at the
+block's two interior boundary faces (``sweep.boundary_faces``), which the
+coarse-fine flux correction reads.  ``stage_faces_plain``,
+``stage_faces_cuda`` (the same kernel with its face output) and
+``fused_stage_faces`` return ``(u_new, prim or None, {d: faces})``.
 """
 
 from __future__ import annotations
@@ -80,6 +87,20 @@ def stage_plain(u0, u1, gam0, gam1, beta_dt, c_h, mesh, cfg, eos, recon,
     return out[0] if len(out) == 1 else tuple(out)
 
 
+def stage_faces_plain(u0, u1, gam0, gam1, beta_dt, c_h, mesh, cfg, eos, recon,
+                      emit_prim=False):
+    """The stage and its boundary-face slabs as whole-tensor operations:
+    ``stage_plain`` with its fluxes kept."""
+    _check_layout(mesh, False)
+    sweep.check_faces_layout(mesh)
+    u0f, prim = cons_to_prim(eos, u0, cfg.fluid, cfg.nscalars)
+    fluxes = sweep.compute_fluxes(prim, c_h, mesh, cfg, eos, recon)
+    negdiv = -sweep.flux_divergence(fluxes, mesh)
+    u_new = gam0 * u0f + gam1 * u1 + beta_dt * negdiv
+    return (u_new, prim if emit_prim else None,
+            sweep.boundary_faces(fluxes, mesh))
+
+
 # ------------------------------------------------------------------- CUDA
 _lib = None
 
@@ -94,8 +115,8 @@ def _library():
     if _lib is None:
         path, _ = build_library()
         lib = ctypes.CDLL(str(path))
-        lib.fused_stage.argtypes = [ctypes.c_void_p] * 5 \
-            + [ctypes.c_int] * 8 + [ctypes.c_double] * 7 \
+        lib.fused_stage.argtypes = [ctypes.c_void_p] * 8 \
+            + [ctypes.c_int] * 9 + [ctypes.c_double] * 7 \
             + [ctypes.POINTER(ctypes.c_double), ctypes.c_void_p]
         lib.fused_stage.restype = ctypes.c_int
         lib.fused_stage_tiles.argtypes = [ctypes.c_int] * 3
@@ -104,18 +125,18 @@ def _library():
     return _lib
 
 
-def stage_cuda(u0, u1, gam0, gam1, beta_dt, c_h, mesh, cfg, eos, recon,
-               emit_dt=False, emit_prim=False):
-    """The stage by the Hopper kernel: one launch on the current stream.
-    ``raw_dt`` is one bound per tile of the kernel.  Raises on anything the
-    kernel does not take; ``stage_cuda.launches`` counts the launches."""
+def _stage_launch(name, u0, u1, gam0, gam1, beta_dt, c_h, mesh, cfg, eos,
+                  recon, emit_dt, emit_prim, faces):
+    """One launch of the stage kernel on the current stream; returns
+    ``(u_new, raw_dt or None, prim or None, faces or None)``, ``faces``
+    allocated here when asked for."""
     sweep.check_kernel_config(cfg, recon)
     _check_layout(mesh, emit_dt)
-    sweep.check_kernel_tensor("stage_cuda", u0, mesh, cfg)
-    sweep.check_kernel_tensor("stage_cuda", u1, mesh, cfg)
+    sweep.check_kernel_tensor(name, u0, mesh, cfg)
+    sweep.check_kernel_tensor(name, u1, mesh, cfg)
     if u1.dtype != u0.dtype or u1.device != u0.device \
             or u1.shape != u0.shape:
-        raise ValueError("stage_cuda: u0 and u1 must agree in shape, dtype "
+        raise ValueError(f"{name}: u0 and u1 must agree in shape, dtype "
                          "and device")
     lib = _library()
     nb, nvar, nz, ny, nx = u0.shape
@@ -123,6 +144,9 @@ def stage_cuda(u0, u1, gam0, gam1, beta_dt, c_h, mesh, cfg, eos, recon,
     raw_dt = torch.empty(nb * lib.fused_stage_tiles(nz, ny, nx),
                          dtype=u0.dtype, device=u0.device) if emit_dt else None
     prim = torch.empty_like(u0) if emit_prim else None
+    slabs = {d: torch.empty(sweep.face_shape(u0, d), dtype=u0.dtype,
+                            device=u0.device) for d in (1, 2, 3)} \
+        if faces else None
     eos_args = (ctypes.c_double * 6)(
         eos.gamma, eos.density_floor, eos.pressure_floor,
         eos.internal_e_floor, eos.velocity_ceiling, eos.internal_e_ceiling)
@@ -131,6 +155,8 @@ def stage_cuda(u0, u1, gam0, gam1, beta_dt, c_h, mesh, cfg, eos, recon,
             u0.data_ptr(), u1.data_ptr(), u_new.data_ptr(),
             raw_dt.data_ptr() if emit_dt else None,
             prim.data_ptr() if emit_prim else None,
+            *(slabs[d].data_ptr() if faces else None for d in (1, 2, 3)),
+            mesh.nghost if faces else 0,
             sweep.KERNEL_DTYPES[u0.dtype],
             sweep.KERNEL_SOLVERS[cfg.fluid, cfg.riemann],
             sweep.KERNEL_RECONS[recon], nb, nvar, nz, ny, nx,
@@ -139,12 +165,39 @@ def stage_cuda(u0, u1, gam0, gam1, beta_dt, c_h, mesh, cfg, eos, recon,
             torch.cuda.current_stream(u0.device).cuda_stream)
     if rc != 0:
         raise RuntimeError(f"fused_stage launch failed with cudaError {rc}")
+    return u_new, raw_dt, prim, slabs
+
+
+def stage_cuda(u0, u1, gam0, gam1, beta_dt, c_h, mesh, cfg, eos, recon,
+               emit_dt=False, emit_prim=False):
+    """The stage by the Hopper kernel: one launch on the current stream.
+    ``raw_dt`` is one bound per tile of the kernel.  Raises on anything the
+    kernel does not take; ``stage_cuda.launches`` counts the launches."""
+    u_new, raw_dt, prim, _ = _stage_launch(
+        "stage_cuda", u0, u1, gam0, gam1, beta_dt, c_h, mesh, cfg, eos,
+        recon, emit_dt, emit_prim, faces=False)
     stage_cuda.launches += 1
     out = [u_new] + [x for x in (raw_dt, prim) if x is not None]
     return out[0] if len(out) == 1 else tuple(out)
 
 
 stage_cuda.launches = 0
+
+
+def stage_faces_cuda(u0, u1, gam0, gam1, beta_dt, c_h, mesh, cfg, eos, recon,
+                     emit_prim=False):
+    """The stage and its boundary-face slabs by the Hopper kernel: one
+    launch on the current stream.  Raises on anything the kernel does not
+    take; ``stage_faces_cuda.launches`` counts the launches."""
+    sweep.check_faces_layout(mesh)
+    u_new, _, prim, slabs = _stage_launch(
+        "stage_faces_cuda", u0, u1, gam0, gam1, beta_dt, c_h, mesh, cfg, eos,
+        recon, False, emit_prim, faces=True)
+    stage_faces_cuda.launches += 1
+    return u_new, prim, slabs
+
+
+stage_faces_cuda.launches = 0
 
 
 def fused_stage(u0, u1, gam0, gam1, beta_dt, c_h, mesh, cfg, eos, recon,
@@ -154,3 +207,12 @@ def fused_stage(u0, u1, gam0, gam1, beta_dt, c_h, mesh, cfg, eos, recon,
     fn = stage_plain if u0.device.type == "cpu" else stage_cuda
     return fn(u0, u1, gam0, gam1, beta_dt, c_h, mesh, cfg, eos, recon,
               emit_dt=emit_dt, emit_prim=emit_prim)
+
+
+def fused_stage_faces(u0, u1, gam0, gam1, beta_dt, c_h, mesh, cfg, eos, recon,
+                      emit_prim=False):
+    """``(u_new, prim or None, {d: faces})``: the plain version for a CPU
+    tensor, the CUDA kernel for any other (which launches or raises)."""
+    fn = stage_faces_plain if u0.device.type == "cpu" else stage_faces_cuda
+    return fn(u0, u1, gam0, gam1, beta_dt, c_h, mesh, cfg, eos, recon,
+              emit_prim=emit_prim)

@@ -18,6 +18,16 @@ the ghost-free layout and lands in the ghost rim otherwise.
 * ``fused_negdiv`` — takes the plain version for a CPU tensor and the
   kernel for a CUDA tensor; it never falls back from one to the other.
 
+The refined-mesh form (counterpart of ``make_fused_negdiv_faces_v2``, 3-D
+and 2-D, and of ``make_lane_sweep_negdiv_faces`` as composed by
+``make_fused_negdiv_faces``) also returns, per active direction d, the
+Riemann fluxes at a ghosted block's two interior boundary faces, sweep
+index ``g`` and ``g + n`` (``n`` interior cells), as
+``[nb, nvar, A, B, 2]`` (x: A, B = z, y; y: z, x; z: y, x): the values the
+coarse-fine flux correction reads (``amr/smr_hydro.py``).
+``negdiv_faces_plain``, ``negdiv_faces_cuda`` (the same kernel with its
+face output) and ``fused_negdiv_faces`` return ``(negdiv, {d: faces})``.
+
 ``build_library`` and ``check_kernel_config`` also serve the whole-stage
 kernel (``solver/stage.py``).
 """
@@ -95,6 +105,39 @@ def negdiv_plain(prim, c_h, mesh, cfg, eos, recon):
                             mesh)
 
 
+def boundary_faces(fluxes, mesh):
+    """``{d: [nb, nvar, A, B, 2]}``: each direction's fluxes at sweep index
+    ``g`` and ``g + n`` (co-indexed faces: index i is face i-1/2), as
+    ``SmrHydro._slabs_from_fluxes`` slices them."""
+    out = {}
+    for d, F in fluxes.items():
+        g = (mesh.ng1, mesh.ng2, mesh.ng3)[d - 1]
+        n = (mesh.mbnx1, mesh.mbnx2, mesh.mbnx3)[d - 1]
+        ax = AXIS_OF_DIR[d]
+        out[d] = torch.stack([F.select(ax, g), F.select(ax, g + n)], dim=-1)
+    return out
+
+
+def check_faces_layout(mesh):
+    if mesh.nghost == 0:
+        raise ValueError("face capture needs ghosted blocks (nghost > 0)")
+
+
+def negdiv_faces_plain(prim, c_h, mesh, cfg, eos, recon):
+    """``(-div(F), {d: faces})``: ``negdiv_plain`` plus the boundary-face
+    slabs of its fluxes."""
+    check_faces_layout(mesh)
+    fluxes = compute_fluxes(prim, c_h, mesh, cfg, eos, recon)
+    return -flux_divergence(fluxes, mesh), boundary_faces(fluxes, mesh)
+
+
+def face_shape(q, d):
+    """Shape of direction ``d``'s face slab of a state ``q``."""
+    nb, nvar, nz, ny, nx = q.shape
+    return {1: (nb, nvar, nz, ny, 2), 2: (nb, nvar, nz, nx, 2),
+            3: (nb, nvar, ny, nx, 2)}[d]
+
+
 # ------------------------------------------------------------------- CUDA
 def _nvcc():
     nvcc = shutil.which("nvcc")
@@ -144,7 +187,7 @@ def _library():
         fn = lib.negdiv_sweep
         fn.argtypes = [ctypes.c_void_p, ctypes.c_void_p] \
             + [ctypes.c_int] * 9 + [ctypes.c_double] * 3 \
-            + [ctypes.c_int, ctypes.c_void_p]
+            + [ctypes.c_int, ctypes.c_void_p, ctypes.c_int, ctypes.c_void_p]
         fn.restype = ctypes.c_int
         _lib = lib
     return _lib
@@ -181,33 +224,65 @@ def check_kernel_tensor(name, q, mesh, cfg):
         raise ValueError(f"{name} needs a contiguous tensor")
 
 
-def negdiv_cuda(prim, c_h, mesh, cfg, eos, recon):
-    """-div(F) over the active directions by the Hopper kernel: one launch
-    per direction on the current stream, the first writing the output and
-    the others adding to it.  Raises on anything the kernel does not take;
-    ``negdiv_cuda.launches`` counts the launches."""
+def _sweep_launches(name, prim, c_h, mesh, cfg, eos, recon, faces):
+    """One kernel launch per active direction on the current stream, the
+    first writing -div(F) and the others adding to it; with ``faces`` each
+    launch also writes its direction's slab.  Returns ``(-div(F), {d:
+    slab} or None, launches)``."""
     check_kernel_config(cfg, recon)
-    check_kernel_tensor("negdiv_cuda", prim, mesh, cfg)
+    check_kernel_tensor(name, prim, mesh, cfg)
     fn = _library().negdiv_sweep
     nb, nvar, nz, ny, nx = prim.shape
     out = torch.empty_like(prim)
+    dirs = active_dirs(mesh)
+    slabs = None
+    if faces:
+        check_faces_layout(mesh)
+        slabs = {d: torch.empty(face_shape(prim, d), dtype=prim.dtype,
+                                device=prim.device) for d in dirs}
     with torch.cuda.device(prim.device):
         stream = torch.cuda.current_stream(prim.device).cuda_stream
-        for k, d in enumerate(active_dirs(mesh)):
+        for k, d in enumerate(dirs):
             rc = fn(prim.data_ptr(), out.data_ptr(),
                     KERNEL_DTYPES[prim.dtype],
                     KERNEL_SOLVERS[cfg.fluid, cfg.riemann],
                     KERNEL_RECONS[recon], d, nb, nvar, nz, ny, nx,
                     float(mesh.dx[d - 1]), float(eos.gamma), float(c_h),
-                    int(k > 0), stream)
+                    int(k > 0),
+                    slabs[d].data_ptr() if faces else None,
+                    (mesh.ng1, mesh.ng2, mesh.ng3)[d - 1], stream)
             if rc != 0:
                 raise RuntimeError(f"negdiv_sweep launch (direction {d}) "
                                    f"failed with cudaError {rc}")
-            negdiv_cuda.launches += 1
+    return out, slabs, len(dirs)
+
+
+def negdiv_cuda(prim, c_h, mesh, cfg, eos, recon):
+    """-div(F) over the active directions by the Hopper kernel: one launch
+    per direction on the current stream, the first writing the output and
+    the others adding to it.  Raises on anything the kernel does not take;
+    ``negdiv_cuda.launches`` counts the launches."""
+    out, _, n = _sweep_launches("negdiv_cuda", prim, c_h, mesh, cfg, eos,
+                                recon, faces=False)
+    negdiv_cuda.launches += n
     return out
 
 
 negdiv_cuda.launches = 0
+
+
+def negdiv_faces_cuda(prim, c_h, mesh, cfg, eos, recon):
+    """``(-div(F), {d: faces})`` by the Hopper kernel with its face output:
+    one launch per active direction, as ``negdiv_cuda``.  Raises on
+    anything the kernel does not take; ``negdiv_faces_cuda.launches``
+    counts the launches."""
+    out, faces, n = _sweep_launches("negdiv_faces_cuda", prim, c_h, mesh,
+                                    cfg, eos, recon, faces=True)
+    negdiv_faces_cuda.launches += n
+    return out, faces
+
+
+negdiv_faces_cuda.launches = 0
 
 
 def fused_negdiv(prim, c_h, mesh, cfg, eos, recon):
@@ -216,3 +291,11 @@ def fused_negdiv(prim, c_h, mesh, cfg, eos, recon):
     if prim.device.type == "cpu":
         return negdiv_plain(prim, c_h, mesh, cfg, eos, recon)
     return negdiv_cuda(prim, c_h, mesh, cfg, eos, recon)
+
+
+def fused_negdiv_faces(prim, c_h, mesh, cfg, eos, recon):
+    """``(-div(F), {d: faces})``: the plain version for a CPU tensor, the
+    CUDA kernel for any other (which launches or raises)."""
+    fn = negdiv_faces_plain if prim.device.type == "cpu" \
+        else negdiv_faces_cuda
+    return fn(prim, c_h, mesh, cfg, eos, recon)

@@ -10,8 +10,9 @@ no result, when there is no CUDA card or when the port is not beside it.
 Phases (each one fails the run if it fails):
 
 1. card: name and power limit (``nvidia-smi``), torch's device name;
-2. build: the sweep and the whole-stage kernel, one ``nvcc`` each, started
-   together, timed, with ptxas' register and spill report;
+2. build: the sweep and the whole-stage kernel, one ``nvcc`` each, and the
+   forest binding (``g++``), started together, timed, with ptxas' register
+   and spill report;
 3. kernel against plain, states made from ``--seed``: ``negdiv_cuda``
    against ``negdiv_plain`` (GLM-MHD HLLD, Euler HLLE and HLLC; 128^3 in
    one block and 8 ghosted 32^3 blocks, 2-D 512^2 and 1-D 4096) and
@@ -29,17 +30,33 @@ Phases (each one fails the run if it fails):
    rung (``ATHENAPK_PALLAS_HYBRID=1``); the Orszag-Tang vortex (2-D
    GLM-MHD, 2048^2, f32); Sod (1-D Euler, HLLC + PLM, 1024 cells, f64) to
    its ``tlim`` against the exact Riemann solution, and the kernel against
-   plain on its final state;
+   plain on its final state; the refined-mesh paths through
+   ``SmrSimulation`` (``bench.py:run_bench_smr``'s protocol: 12 cycles, 2
+   warm-up, face-kernel counts set to 0 before and read after): path A,
+   the ``run_bench_smr`` deck (128^3 base, 32^3 blocks, level-1 centre,
+   120 leaves, Euler HLLE + PLM, f32) on the whole-stage rung, 4
+   stage-faces launches per cycle; path B, the same deck with
+   ``ATHENAPK_PALLAS_STAGE=0``, 12 negdiv-faces launches per cycle; path
+   C, the 2-D refined blast at 2048^2 (128^2 blocks, 448 leaves, HLLC),
+   8 per cycle; each with its mass across levels;
 5. whole steps in f64 for 5 cycles, once through the kernels and once
    with their plain versions forced, state and every dt compared: the
-   main deck at 32^3 on each rung, the vortex at 64^2, Sod at 256;
+   main deck at 32^3 on each rung, the vortex at 64^2, Sod at 256,
+   ``inputs/blast_3d_smr.in`` on both refined rungs and the 2-D refined
+   blast at 256^2 (with seeded noise off the blasts' symmetric ties), and
+   the refined runs' mass drift (f64, 1e-13);
+   then the face kernels against plain at paths A, B and C's own level
+   arrays, f32 as they run and the same arrays in f64 (state and every
+   face slab, per variable);
 6. timings at the main paths' inputs (256^3 f32, and 2048^2 f32 for the
-   2-D entry): kernel against plain there (held to the f32 tolerance),
-   kernel and plain per call, the bound from this run's bytes and the
-   operations its data need;
+   2-D entry; the refined paths' level arrays for the face kernels):
+   kernel against plain there (held to the f32 tolerance), kernel and
+   plain per call, the bound from this run's bytes and the operations its
+   data need;
 7. profile: a torch.profiler trace of 3 cycles of each rung of the main
-   deck and of the vortex, device time by kernel and the device's idle
-   share.
+   deck, of the vortex and of each refined path (the fill, the flux
+   correction and the dt package told apart by profiler ranges), device
+   time by kernel and the device's idle share.
 
 The last lines are the kernels' JSON line, the card line and
 ``{"ok": true, "device": {...}}``.
@@ -194,8 +211,127 @@ gamma = 1.4
 precision = double
 """
 
+# The refined-mesh throughput deck of ``bench.py:run_bench_smr``
+# (``bench.py:168-221``): 128^3 base, 32^3 meshblocks, a level-1 region at
+# the centre (56 + 64 = 120 leaves), Euler + HLLE + PLM + VL2, nghost 2.
+SMR_3D_DECK = """
+<job>
+problem_id = blast
+
+<parthenon/mesh>
+refinement = static
+numlevel = 2
+nghost = 2
+nx1 = {n}
+x1min = -0.5
+x1max = 0.5
+nx2 = {n}
+x2min = -0.5
+x2max = 0.5
+nx3 = {n}
+x3min = -0.5
+x3max = 0.5
+
+<parthenon/static_refinement0>
+x1min = -0.25
+x1max = 0.25
+x2min = -0.25
+x2max = 0.25
+x3min = -0.25
+x3max = 0.25
+level = 1
+
+<parthenon/meshblock>
+nx1 = {mb}
+nx2 = {mb}
+nx3 = {mb}
+
+<parthenon/time>
+integrator = vl2
+cfl = 0.3
+tlim = 100.0
+nlim = {ncycles}
+ncycle_out = 0
+
+<hydro>
+fluid = euler
+eos = adiabatic
+riemann = hlle
+reconstruction = plm
+gamma = 1.666666666666667
+precision = {precision}
+
+<problem/blast>
+pressure_ambient = 0.001
+pressure_ratio = 1.6e4
+radius_outer = 0.12
+density_ambient = 1.0
+density_ratio = 1.0
+"""
+
+# The 2-D refined blast of ``tests/test_smr_2d.py:29-70`` and ``:293-302``
+# (Euler + HLLC + PLM + VL2, nghost 2, gamma 1.4, level-1 centre) at the
+# uniform 2-D path's size: 2048^2 base, 128^2 meshblocks (192 + 256 = 448
+# leaves).
+SMR_2D_DECK = """
+<job>
+problem_id = blast
+
+<problem/blast>
+pressure_ratio = 100.0
+radius_outer = 0.15
+
+<parthenon/mesh>
+refinement = static
+numlevel = 2
+nghost = 2
+nx1 = {n}
+x1min = -0.5
+x1max = 0.5
+nx2 = {n}
+x2min = -0.5
+x2max = 0.5
+nx3 = 1
+x3min = -0.5
+x3max = 0.5
+
+<parthenon/static_refinement0>
+x1min = -0.25
+x1max = 0.25
+x2min = -0.25
+x2max = 0.25
+x3min = -0.5
+x3max = 0.5
+level = 1
+
+<parthenon/meshblock>
+nx1 = {mb}
+nx2 = {mb}
+nx3 = 1
+
+<parthenon/time>
+integrator = vl2
+cfl = 0.3
+tlim = 1.0
+nlim = {ncycles}
+ncycle_out = 0
+
+<hydro>
+fluid = euler
+eos = adiabatic
+riemann = hllc
+reconstruction = plm
+gamma = 1.4
+precision = {precision}
+"""
+
 RUNGS = {"sweep": None, "stage": "ATHENAPK_PALLAS_STAGE",
          "hybrid": "ATHENAPK_PALLAS_HYBRID"}
+# refined-mesh paths: (deck, rung, face-kernel launches per cycle:
+# stage-faces, negdiv-faces); A = 2 levels x 2 stages, B = 3 directions x
+# 2 levels x 2 stages, C = 2 directions x 2 levels x 2 stages
+SMR_PATHS = {"A": ("3d", "stage", (4, 0)), "B": ("3d", "negdiv", (0, 12)),
+             "C": ("2d", "negdiv", (0, 8))}
 # kernel launches per cycle of the main deck (VL2: a DC and a PPM stage),
 # (sweep kernel, stage kernel)
 RUNG_LAUNCHES = {"sweep": (6, 0), "stage": (0, 2), "hybrid": (3, 1)}
@@ -232,13 +368,33 @@ def make_sim(deck, rung="sweep"):
             del os.environ[RUNGS[rung]]
 
 
+def make_smr_sim(deck, rung):
+    """``SmrSimulation`` of ``deck`` on the card; ``rung`` "negdiv" sets
+    ``ATHENAPK_PALLAS_STAGE=0`` while the stepper is built."""
+    os.environ.pop("ATHENAPK_PALLAS_STAGE", None)
+    if rung == "negdiv":
+        os.environ["ATHENAPK_PALLAS_STAGE"] = "0"
+    try:
+        return PORT.SmrSimulation(PORT.ParameterInput.from_string(deck),
+                                  quiet=False)
+    finally:
+        os.environ.pop("ATHENAPK_PALLAS_STAGE", None)
+
+
 def reset_counts():
     PORT.sweep.negdiv_cuda.launches = 0
     PORT.stage.stage_cuda.launches = 0
+    PORT.stage.stage_faces_cuda.launches = 0
+    PORT.sweep.negdiv_faces_cuda.launches = 0
 
 
 def read_counts():
     return (PORT.sweep.negdiv_cuda.launches, PORT.stage.stage_cuda.launches)
+
+
+def read_face_counts():
+    return (PORT.stage.stage_faces_cuda.launches,
+            PORT.sweep.negdiv_faces_cuda.launches)
 
 
 def smooth_glm_prim(mesh, seed, dtype):
@@ -339,12 +495,13 @@ def ptxas_summary(compiler_log):
     lines, current = [], None
     for line in compiler_log.splitlines():
         m = re.search(r"Compiling entry function .*(negdiv_sweep|fused_stage)"
-                      r"_kernelI([fd])((?:Li\d+E)+)E", line)
+                      r"_kernelI([fd])((?:L[ib]\d+E)+)E", line)
         if m:
-            k = [int(x) for x in re.findall(r"Li(\d+)E", m.group(3))]
+            k = [int(x) for x in re.findall(r"L[ib](\d+)E", m.group(3))]
             current = (f"{m.group(1)} {names[m.group(2)]} {recons[k[0]]} "
-                       + (f"dir {k[1]} {solvers[k[2]]}" if len(k) == 3
-                          else solvers[k[1]]))
+                       + (f"dir {k[1]} {solvers[k[2]]}"
+                          if m.group(1) == "negdiv_sweep"
+                          else solvers[k[1]] + (" faces" if k[2] else "")))
             spill = ""
         elif current and "spill stores" in line:
             spill = line.strip()
@@ -502,7 +659,9 @@ def phase_build():
     t0 = time.time()
     threads = [threading.Thread(target=build, args=a) for a in (
         ("negdiv_sweep", PORT.sweep.build_library),
-        ("fused_stage", PORT.stage.build_library))]
+        ("fused_stage", PORT.stage.build_library),
+        ("amr_forest (g++)",
+         lambda: (PORT.amr_forest.build_library(), "")))]
     for t in threads:
         t.start()
     for t in threads:
@@ -520,7 +679,7 @@ def phase_build():
             f"{len(spilling)} with spills")
         for ln in spilling:
             log("  ptxas:", ln)
-    log(f"  both built in {time.time() - t0:.2f} s")
+    log(f"  all built in {time.time() - t0:.2f} s")
 
 
 def _mesh(n, mb, g):
@@ -844,6 +1003,226 @@ def phase_whole_steps(seed):
             raise AssertionError(f"{label}: kernel and plain steps disagree")
 
 
+def symmetry_noise(state, seed):
+    """``{level: tensor}`` times (1 + 1e-3 noise), plus 1e-3 noise on the
+    momenta, made with numpy from ``seed``: the blast decks are exactly
+    symmetric at rest, where the solvers' selects sit on ties that rounding
+    alone decides (as for the vortex above)."""
+    rng = np.random.default_rng(seed)
+    out = {}
+    for lev in sorted(state):
+        v = state[lev].double().cpu().numpy()
+        v = v * (1.0 + 1e-3 * rng.standard_normal(v.shape))
+        v[:, 1:4] += 1e-3 * rng.standard_normal(v[:, 1:4].shape)
+        out[lev] = v
+    return out
+
+
+def smr_deck(path, n, ncycles, precision):
+    mb = 32 if path != "C" else 128
+    template = SMR_3D_DECK if SMR_PATHS[path][0] == "3d" else SMR_2D_DECK
+    return template.format(n=n, mb=mb, ncycles=ncycles, precision=precision)
+
+
+def run_smr(sim, ncycles, warmup):
+    """The bench protocol of ``bench.py:run_bench_smr``: ``warmup`` cycles,
+    then the rest to ``ncycles``, whose printed rate is the one kept; the
+    face-kernel counts are set to 0 just before the first and read just
+    after the second.  Returns ``(counts, zone-cycles per second)``."""
+    out = io.StringIO()
+    torch.cuda.synchronize()
+    reset_counts()
+    with contextlib.redirect_stdout(out):
+        sim.nlim = warmup
+        sim.run()
+        sim.nlim = ncycles
+        sim.run()
+    counts = read_face_counts() + read_counts()
+    text = out.getvalue()
+    print(text, end="", flush=True)
+    rates = re.findall(r"zone-cycles/wallsecond = (\S+)", text)
+    return counts, float(rates[-1]) if len(rates) == 2 else None
+
+
+def phase_smr_path(path, n, ncycles, warmup):
+    dims, rung, want = SMR_PATHS[path]
+    log(f"== phase 4: refined-mesh path {path} ({dims} {n}^{dims[0]} base, "
+        f"{rung} rung, f32, {ncycles} cycles, {warmup} warm-up) ==")
+    t0 = time.time()
+    sim = make_smr_sim(smr_deck(path, n, warmup, "single"), rung)
+    sm = sim.smesh
+    leaves = {lev: int(ids.size) for lev, ids in sm.level_ids.items()}
+    zones = sum(leaves.values()) * sm.base.mbnx1 * sm.base.mbnx2 \
+        * sm.base.mbnx3
+    log(f"  set-up {time.time() - t0:.2f} s: leaves {leaves}, "
+        f"{zones} zones per cycle, blocks of {sm.base.block_shape}, "
+        f"dtype {sim.dtype}, device {sim.device}")
+    m0 = sim.total_mass()
+    (n_stage_f, n_negdiv_f, n_sweep, n_stage), zcps = run_smr(
+        sim, ncycles, warmup)
+    expect = tuple(k * ncycles for k in want)
+    log(f"  launches: stage-faces kernel {n_stage_f}, negdiv-faces kernel "
+        f"{n_negdiv_f} (expected {expect[0]} and {expect[1]}: {want} per "
+        f"cycle); uniform-path wrappers {n_sweep} and {n_stage}")
+    if sim.ncycle != ncycles or (n_stage_f, n_negdiv_f) != expect \
+            or (n_sweep, n_stage) != (0, 0) or zcps is None:
+        raise AssertionError(f"path {path} ran {sim.ncycle} cycles with "
+                             f"launches {(n_stage_f, n_negdiv_f)}")
+    finite = all(bool(torch.isfinite(v).all()) for v in sim.state.values())
+    drift = abs(sim.total_mass() - m0) / m0
+    log(f"  state finite: {finite}; mass drift across levels {drift:.3e} "
+        f"(f32 sums over {zones} cells; gate 1e-5) at t = {sim.t:.6e}")
+    if not finite or not drift <= 1e-5:
+        raise AssertionError(f"path {path}: state not finite or mass lost")
+    return sim, (n_stage_f, n_negdiv_f), zcps
+
+
+def face_err(got, ref):
+    """max |kernel - plain| over max |plain| of each variable of a face
+    slab [nb, nvar, A, B, 2]."""
+    dims = [0, 2, 3, 4]
+    top, scale = (got - ref).abs().amax(dim=dims), ref.abs().amax(dim=dims)
+    return torch.where(scale > 0, top / scale,
+                       torch.where(top > 0, torch.inf, 0.0)).max().item()
+
+
+def smr_stage_calls(sim):
+    """What one stage-rung cycle of ``sim`` hands the stage-faces function:
+    per level, the DC predictor ``(u, u)`` and the PLM corrector ``(u_half,
+    u)``, with ``u_half`` the filled predictor result of this very state."""
+    st = sim.stepper
+    dt_raw, dt, c_h = sim._dt_pack()
+    half = st.fill_ghosts(st._stage_impl(0, sim.state, sim.state, dt, c_h))
+    recon = sim.cfg.reconstruction
+    calls = []
+    for lev, u in sim.state.items():
+        lm = st.level_mesh[lev]
+        calls.append((f"level {lev} dc", (u, u, 0.0, 1.0, 0.5 * dt, c_h, lm,
+                                          sim.cfg, sim.eos, "dc")))
+        calls.append((f"level {lev} {recon}", (half[lev], u, 0.0, 1.0, dt,
+                                               c_h, lm, sim.cfg, sim.eos,
+                                               recon)))
+    return calls
+
+
+def smr_negdiv_calls(sim):
+    """What one negdiv-rung cycle of ``sim`` hands the negdiv-faces
+    function: per level, prim of the state with DC and with the deck's
+    reconstruction."""
+    st = sim.stepper
+    _, _, c_h = sim._dt_pack()
+    calls = []
+    for lev, u in sim.state.items():
+        _, prim = PORT.cons_to_prim(sim.eos, u, sim.cfg.fluid, 0)
+        for recon in ("dc", sim.cfg.reconstruction):
+            calls.append((f"level {lev} {recon}", (
+                prim, c_h, st.level_mesh[lev], sim.cfg, sim.eos, recon)))
+    return calls
+
+
+def phase_smr_kernels_vs_plain(sim, path, kind):
+    """Each face kernel against its plain twin at the path's own level
+    arrays: f32 as the path runs, and the same arrays in f64."""
+    log(f"== phase 3: the {kind} kernel against plain at path {path}'s level "
+        f"arrays ==")
+    stage, sweep = PORT.stage, PORT.sweep
+    failed = []
+    calls = smr_stage_calls(sim) if kind == "stage-faces" \
+        else smr_negdiv_calls(sim)
+    for dtype, tol in TOLS[::-1]:
+        for label, args in calls:
+            args = tuple(a.to(dtype) if torch.is_tensor(a) else a
+                         for a in args)
+            lm = args[6] if kind == "stage-faces" else args[2]
+            sl = lm.interior_slices
+            if kind == "stage-faces":
+                got = stage.stage_faces_cuda(*args)
+                torch.cuda.synchronize()
+                ref = stage.stage_faces_plain(*args)
+                g_out, r_out, g_f, r_f = got[0], ref[0], got[2], ref[2]
+            else:
+                g_out, g_f = sweep.negdiv_faces_cuda(*args)
+                torch.cuda.synchronize()
+                r_out, r_f = sweep.negdiv_faces_plain(*args)
+            err_out = max_rel_err(g_out[sl], r_out[sl])
+            err_f = max(face_err(g_f[d], r_f[d]) for d in r_f)
+            finite = bool(torch.isfinite(g_out[sl]).all()) and all(
+                bool(torch.isfinite(f).all()) for f in g_f.values())
+            ok = err_out <= tol and err_f <= tol and finite \
+                and sorted(g_f) == sorted(r_f)
+            log(f"  {kind} path {path} {label} {str(dtype)[6:]}: max rel err "
+                f"{err_out:.3e} (state), {err_f:.3e} (slabs; tol {tol:.0e} "
+                f"per variable) {'ok' if ok else 'FAIL'}")
+            if not ok:
+                failed.append(f"{label} {dtype}")
+            del g_out, r_out, g_f, r_f
+        torch.cuda.empty_cache()
+    if failed:
+        raise AssertionError(f"{kind} kernel disagrees with plain at path "
+                             f"{path}: {failed}")
+
+
+def phase_smr_whole_steps(seed):
+    log("== phase 5: refined meshes, kernels against plain over whole steps "
+        "(f64, 5 cycles) ==")
+    stage, sweep = PORT.stage, PORT.sweep
+    blast = (ROOT / "inputs" / "blast_3d_smr.in").read_text().replace(
+        "nlim = 10000", "nlim = 5").replace("dt = 0.01", "dt = -1.0")
+    cases = [("blast_3d_smr.in, stage rung", blast, "stage"),
+             ("blast_3d_smr.in, negdiv rung", blast, "negdiv"),
+             ("2-D blast 256^2", SMR_2D_DECK.format(
+                 n=256, mb=32, ncycles=5, precision="double")
+              + "\n<parthenon/output0>\nfile_type = hst\n", "negdiv")]
+    drift_worst = 0.0
+    for label, deck, rung in cases:
+        runs = {}
+        for name in ("kernel", "plain"):
+            outdir = ROOT / "build" / "chip_smoke" / f"smr_{name}"
+            outdir.mkdir(parents=True, exist_ok=True)
+            for old in outdir.glob("*.hst"):
+                old.unlink()
+            cwd = os.getcwd()
+            dispatch = (sweep.fused_negdiv_faces, stage.fused_stage_faces)
+            os.chdir(outdir)
+            try:
+                sim = make_smr_sim(deck, rung)
+                sim.quiet = True
+                sim.load_state(symmetry_noise(sim.state, seed), 0.0, 0)
+                m0 = sim.total_mass()
+                if name == "plain":
+                    # the stepper reaches its kernels through these names
+                    sweep.fused_negdiv_faces = sweep.negdiv_faces_plain
+                    stage.fused_stage_faces = stage.stage_faces_plain
+                reset_counts()
+                sim.run()
+                counts = read_face_counts()
+            finally:
+                sweep.fused_negdiv_faces, stage.fused_stage_faces = dispatch
+                os.chdir(cwd)
+            if (sum(counts) == 0) != (name == "plain"):
+                raise AssertionError(f"{label}: {name} run launched {counts}")
+            drift = abs(sim.total_mass() - m0) / m0
+            runs[name] = ({lev: v.cpu().numpy() for lev, v in
+                           sim.state.items()},
+                          np.loadtxt(next(outdir.glob("*.hst"))), drift)
+        (uk, hk, dk), (up, hp, dp) = runs["kernel"], runs["plain"]
+        err_u = max(float(np.abs(uk[lev] - up[lev]).max()
+                          / np.abs(up[lev]).max()) for lev in up)
+        err_dt = float(np.abs(hk[:, 1] - hp[:, 1]).max()
+                       / np.abs(hp[:, 1]).max())
+        same_dt = bool(np.array_equal(hk[:, 1], hp[:, 1]))
+        drift_worst = max(drift_worst, dk)
+        log(f"  {label:30s} state max rel err {err_u:.3e}, dt max rel err "
+            f"{err_dt:.3e} (identical: {same_dt}) over {hk.shape[0] - 1} "
+            f"cycles (tol {STEP_TOL:.0e}); mass drift across levels, "
+            f"kernels {dk:.3e}, plain {dp:.3e} (tol 1e-13)")
+        if not (err_u <= STEP_TOL and err_dt <= STEP_TOL
+                and hk.shape == hp.shape and dk <= 1e-13):
+            raise AssertionError(f"{label}: kernel and plain steps disagree "
+                                 f"or mass drifts")
+    return drift_worst
+
+
 def bound_of(nbytes, ops):
     t_bytes = nbytes / HBM_BYTES_PER_S * 1e3
     t_ops = ops / FP32_OPS_PER_S * 1e3
@@ -1052,7 +1431,8 @@ def phase_profile(sim, ncycles, what):
     groups = {}
     for e in kernels:
         m = re.search(r"negdiv_sweep_kernel<\w+, (\d), (\d), \d>", e["name"])
-        s = re.search(r"fused_stage_kernel<\w+, (\d), \d>", e["name"])
+        s = re.search(r"fused_stage_kernel<\w+, (\d), \d(?:, \w+)?>",
+                      e["name"])
         key = (f"negdiv_sweep {recons[int(m.group(1))]} dir {m.group(2)}"
                if m else f"fused_stage {recons[int(s.group(1))]}" if s
                else "a kernel of the port (unparsed)"
@@ -1074,6 +1454,193 @@ def phase_profile(sim, ncycles, what):
             "window_ms_per_cycle": window / ncycles, "idle_share": idle}
 
 
+def _flat(out):
+    """The tensors of a face function's result as one vector (count_ops
+    follows one result)."""
+    parts = [out[0]] + [out[-1][d] for d in sorted(out[-1])]
+    return torch.cat([x.reshape(-1) for x in parts])
+
+
+def phase_smr_timings(sim, kind, launches, reps, name, replaces, what):
+    """A face kernel at ``sim``'s level arrays, as one cycle calls it (per
+    level a DC and a PLM call): each call timed against plain, with its
+    bound from this run's bytes and the operations its data need; the
+    entry gives the averages per launch."""
+    log(f"== phase 6: timings of the {kind} kernel at the inputs of {what} ==")
+    stage, sweep = PORT.stage, PORT.sweep
+    per_call, max_abs = {}, 0.0
+    calls = smr_stage_calls(sim) if kind == "stage-faces" \
+        else smr_negdiv_calls(sim)
+    for label, args in calls:
+        if kind == "stage-faces":
+            def kern():
+                return stage.stage_faces_cuda(*args)
+
+            def plain():
+                return stage.stage_faces_plain(*args)
+            u = args[0]
+            # distinct state tensors read once (the predictor's u0 and u1
+            # are one tensor), u_new written once
+            n_in = len({args[0].data_ptr(), args[1].data_ptr()})
+            n_launch = 1
+        else:
+            def kern():
+                return sweep.negdiv_faces_cuda(*args)
+
+            def plain():
+                return sweep.negdiv_faces_plain(*args)
+            u = args[0]
+            n_in = 1       # prim read once, -div(F) written once
+            n_launch = len(sweep.active_dirs(args[2]))
+        got, ref = kern(), plain()
+        torch.cuda.synchronize()
+        # what the path uses: the interior cells and every face slab (the
+        # ghost rim is rewritten by the fill)
+        sl = (args[6] if kind == "stage-faces" else args[2]).interior_slices
+        max_abs = max([max_abs, (got[0][sl] - ref[0][sl]).abs().max().item()]
+                      + [(got[-1][d] - ref[-1][d]).abs().max().item()
+                         for d in ref[-1]])
+        del got, ref
+        ms = cuda_ms(kern, reps)
+        plain_ms = cuda_ms(plain, 2)
+        torch.cuda.empty_cache()
+        ops, slow, full = count_ops(lambda: _flat(plain()))
+        torch.cuda.empty_cache()
+        faces = sum(int(np.prod(PORT.sweep.face_shape(u, d)))
+                    for d in sweep.active_dirs(args[6] if kind ==
+                                               "stage-faces" else args[2]))
+        nbytes = ((n_in + 1) * u.numel() + faces) * u.element_size()
+        cells = u.numel() // u.shape[1]
+        b = bound_of(nbytes, ops)
+        per_call[label] = dict(ms=ms, plain_ms=plain_ms, launches=n_launch,
+                               bytes=nbytes, state_tensors_read=n_in,
+                               ops=ops, ops_per_cell=ops / cells,
+                               div_sqrt_per_cell=slow / cells,
+                               branch_free_ops_per_cell=full / cells, **b)
+        log(f"  {label}: kernel {ms:.4f} ms/call ({n_launch} launches), plain "
+            f"{plain_ms:.4f} ms/call; bound {b['bound_ms']:.4f} ms (bytes "
+            f"{b['bytes_ms']:.4f} ms for {nbytes:.4e} B, operations "
+            f"{b['ops_ms']:.4f} ms for {ops:.4e} ops = {ops / cells:.1f}/cell,"
+            f" {slow / cells:.1f} of them divisions and roots)")
+    n = sum(r["launches"] for r in per_call.values())
+    mix = lambda k: sum(r[k] for r in per_call.values()) / n  # noqa: E731
+    t_b = sum(r["bytes"] for r in per_call.values()) / HBM_BYTES_PER_S
+    t_o = sum(r["ops"] for r in per_call.values()) / FP32_OPS_PER_S
+    return {
+        "name": name,
+        "route": "cuda",
+        "source": ("athenapk_tpu_torch/csrc/fused_stage.cu"
+                   if kind == "stage-faces"
+                   else "athenapk_tpu_torch/csrc/negdiv_sweep.cu"),
+        "replaces": replaces,
+        "launches": launches,
+        "max_abs_err": max_abs,
+        "ms": mix("ms"),
+        "plain_ms": mix("plain_ms"),
+        "bound_ms": mix("bound_ms"),
+        "bound_by": "bytes" if t_b >= t_o else "operations",
+        "library_ms": None,
+        "library_note": "no single PyTorch call computes reconstruction + "
+                        "Riemann solve + flux divergence with the boundary "
+                        "face fluxes",
+        "unit": f"per launch, averaged over the calls of one cycle of {what} "
+                f"(per level a DC and a {sim.cfg.reconstruction.upper()} "
+                f"call), f32",
+        "per_call": per_call,
+    }
+
+
+def phase_smr_profile(sim, ncycles, what):
+    """Where a refined-mesh cycle's time goes: a torch.profiler trace of
+    ``ncycles`` cycles (dt package, step), the port's kernels by name, and
+    the plain-PyTorch kernels of the ghost fill, the flux correction and
+    the dt package by the profiler ranges this phase wraps around those
+    three calls; the device's idle share."""
+    log(f"== phase 7: device-time breakdown of {ncycles} cycles of {what} ==")
+    from torch.profiler import ProfilerActivity, profile, record_function
+
+    st = sim.stepper
+    wrapped = ((st.state_mgr, "fill_ghosts", "smr.fill"),
+               (st, "_slab_flux_correct", "smr.correction"),
+               (st, "dt_pack", "smr.dt"))
+
+    def wrap(fn, label):
+        def call(*a, **k):
+            with record_function(label):
+                return fn(*a, **k)
+        return call
+
+    for obj, attr, label in wrapped:
+        setattr(obj, attr, wrap(getattr(obj, attr), label))
+    try:
+        torch.cuda.synchronize()
+        with profile(activities=[ProfilerActivity.CPU,
+                                 ProfilerActivity.CUDA]) as prof:
+            for _ in range(ncycles):
+                _, dt, c_h = sim._dt_pack()
+                sim.state = st.step(sim.state, dt, c_h)
+            torch.cuda.synchronize()
+    finally:
+        for obj, attr, _ in wrapped:
+            delattr(obj, attr)
+    trace = ROOT / "build" / "chip_smoke" / "trace_smr.json"
+    trace.parent.mkdir(parents=True, exist_ok=True)
+    prof.export_chrome_trace(str(trace))
+    events = json.loads(trace.read_text())["traceEvents"]
+    kernels = [e for e in events if e.get("cat") == "kernel"]
+    if not kernels:
+        log("  the profiler recorded no device kernels: not measured")
+        return None
+    spans = [e for e in events if e.get("cat") == "gpu_user_annotation"
+             and e.get("name", "").startswith("smr.")]
+    host = {}
+    for e in events:
+        if e.get("cat") == "user_annotation" and \
+                e.get("name", "").startswith("smr."):
+            host[e["name"]] = host.get(e["name"], 0.0) + e["dur"] / 1e3
+    recons = "dc plm ppm".split()
+    groups, count = {}, {}
+    for e in kernels:
+        m = re.search(r"negdiv_sweep_kernel<\w+, (\d), (\d), \d>", e["name"])
+        s = re.search(r"fused_stage_kernel<\w+, (\d), \d(?:, \w+)?>",
+                      e["name"])
+        if m:
+            key = f"negdiv_sweep (faces) {recons[int(m.group(1))]} dir " \
+                  f"{m.group(2)}"
+        elif s:
+            key = f"fused_stage (faces) {recons[int(s.group(1))]}"
+        else:
+            key = "other glue (plain PyTorch)"
+            for a in spans:
+                if a["ts"] <= e["ts"] and e["ts"] + e["dur"] <= \
+                        a["ts"] + a["dur"] + 1.0:
+                    key = f"{a['name']} (plain PyTorch)"
+                    break
+        groups[key] = groups.get(key, 0.0) + e["dur"] / 1e3
+        count[key] = count.get(key, 0) + 1
+    busy = sum(e["dur"] for e in kernels) / 1e3
+    t0 = min(e["ts"] for e in kernels)
+    t1 = max(e["ts"] + e["dur"] for e in kernels)
+    window = (t1 - t0) / 1e3
+    if not spans:
+        log("  no device-side profiler ranges in the trace: the plain "
+            "kernels are not split by call (not measured)")
+    for key in sorted(groups, key=groups.get, reverse=True):
+        log(f"  {key:36s} {groups[key] / ncycles:9.4f} ms/cycle "
+            f"({100 * groups[key] / busy:5.1f} % of device time, "
+            f"{count[key] / ncycles:.0f} kernels/cycle)")
+    for name, ms in sorted(host.items()):
+        log(f"  host time in {name}: {ms / ncycles:.4f} ms/cycle")
+    idle = max(0.0, 1.0 - busy / window)
+    log(f"  device busy {busy / ncycles:.4f} ms/cycle over a "
+        f"{window / ncycles:.4f} ms/cycle window: idle share {idle:.3f}")
+    return {"ms_per_cycle": {k: v / ncycles for k, v in groups.items()},
+            "kernels_per_cycle": {k: v / ncycles for k, v in count.items()},
+            "host_ms_per_cycle": {k: v / ncycles for k, v in host.items()},
+            "busy_ms_per_cycle": busy / ncycles,
+            "window_ms_per_cycle": window / ncycles, "idle_share": idle}
+
+
 def main(argv=None):
     global PORT
     ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
@@ -1086,7 +1653,9 @@ def main(argv=None):
               file=sys.stderr)
         return 1
     try:
+        from athenapk_tpu_torch.amr.driver import SmrSimulation
         from athenapk_tpu_torch.config.parameter_input import ParameterInput
+        from athenapk_tpu_torch.core import amr_forest
         from athenapk_tpu_torch.core.mesh import Mesh
         from athenapk_tpu_torch.driver import Simulation
         from athenapk_tpu_torch.eos.adiabatic import (EOS, cons_to_prim,
@@ -1102,7 +1671,8 @@ def main(argv=None):
         ParameterInput=ParameterInput, Mesh=Mesh, Simulation=Simulation,
         EOS=EOS, cons_to_prim=cons_to_prim, prim_to_cons=prim_to_cons,
         stage=stage, sweep=sweep, HydroConfig=HydroConfig,
-        exact_riemann=exact_riemann)
+        exact_riemann=exact_riemann, SmrSimulation=SmrSimulation,
+        amr_forest=amr_forest)
     t_start = time.time()
 
     log("== phase 1: card ==")
@@ -1121,7 +1691,15 @@ def main(argv=None):
     ot, ot_launches, zcps["orszag_tang_2048"] = phase_orszag_tang(
         n=2048, ncycles=12, warmup=2)
     sod_launches, sod_cycles = phase_sod(n=1024)
+    smr, smr_counts = {}, {}
+    for path in SMR_PATHS:
+        smr[path], smr_counts[path], zcps[f"smr_{path}"] = phase_smr_path(
+            path, n=2048 if path == "C" else 128, ncycles=12, warmup=2)
     phase_whole_steps(args.seed)
+    smr_drift = phase_smr_whole_steps(args.seed)
+    phase_smr_kernels_vs_plain(smr["A"], "A", "stage-faces")
+    phase_smr_kernels_vs_plain(smr["B"], "B", "negdiv-faces")
+    phase_smr_kernels_vs_plain(smr["C"], "C", "negdiv-faces")
 
     sim = sims["stage"]
     by_path = {"main deck, sweep rung": counts["sweep"][0],
@@ -1146,7 +1724,33 @@ def main(argv=None):
     flat_entry["launches_by_path"] = {"Orszag-Tang 2048^2": ot_launches,
                                       "Sod 1024": sod_launches}
 
+    faces_entry = phase_smr_timings(
+        smr["A"], "stage-faces", smr_counts["A"][0], 20, "fused_stage_faces",
+        "athenapk_tpu/solver/pallas_sweep.py:641", "refined-mesh path A")
+    nd3_entry = phase_smr_timings(
+        smr["B"], "negdiv-faces", smr_counts["B"][1], 20,
+        "negdiv_sweep_faces", "athenapk_tpu/solver/pallas_sweep.py:418",
+        "refined-mesh path B")
+    nd3_entry["also_replaces"] = "athenapk_tpu/solver/pallas_sweep.py:81 " \
+        "(make_lane_sweep_negdiv_faces, composed by make_fused_negdiv_faces " \
+        ":955: the same contract, a TPU layout choice)"
+    nd2_entry = phase_smr_timings(
+        smr["C"], "negdiv-faces", smr_counts["C"][1], 20,
+        "negdiv_sweep_faces_2d", "athenapk_tpu/solver/pallas_sweep.py:457",
+        "refined-mesh path C")
+    smr_entries = {"A": faces_entry, "B": nd3_entry, "C": nd2_entry}
+    for path, entry in smr_entries.items():
+        entry["launches_by_path"] = {f"SMR path {path}":
+                                     sum(smr_counts[path])}
+        entry["launches_per_cycle"] = {
+            f"SMR path {path}": sum(smr_counts[path]) / smr[path].ncycle}
+        entry["zone_cycles_per_s"] = zcps[f"smr_{path}"]
+    faces_entry["mass_drift_f64_5_cycles"] = smr_drift
+
     profiles = {}
+    for path in SMR_PATHS:
+        smr_entries[path]["main_path_profile"] = phase_smr_profile(
+            smr[path], 3, f"refined-mesh path {path}")
     for rung in RUNGS:
         profiles[rung] = phase_profile(sims[rung], 3,
                                        f"the main deck, {rung} rung")
@@ -1167,7 +1771,8 @@ def main(argv=None):
         f"{k} {v:.6e}" for k, v in zcps.items()))
     log(f"== done in {time.time() - t_start:.1f} s ==")
 
-    print(json.dumps({"kernels": [sweep_entry, stage_entry, flat_entry]}),
+    print(json.dumps({"kernels": [sweep_entry, stage_entry, flat_entry,
+                                  faces_entry, nd3_entry, nd2_entry]}),
           flush=True)
     print(card, flush=True)
     print(json.dumps({"ok": True, "device": {

@@ -1,6 +1,9 @@
 """The kernels on the card: ``negdiv_cuda`` against ``negdiv_plain`` (3-D,
 2-D and 1-D; Euler and GLM-MHD) and ``stage_cuda`` against ``stage_plain``,
-and the decks of both paths through ``Simulation`` on the card.
+and the decks of both paths through ``Simulation`` on the card; the
+face-capturing forms of both kernels (``stage_faces_cuda``,
+``negdiv_faces_cuda``) against their plain twins, and refined-mesh decks
+through ``SmrSimulation`` on the card.
 
 Every test here needs a CUDA card (the kernel has no CPU mode) and skips
 with that reason elsewhere.  The file imports neither jax nor the JAX
@@ -17,13 +20,16 @@ import numpy as np
 import pytest
 import torch
 
+from athenapk_tpu_torch.amr.driver import SmrSimulation
+from athenapk_tpu_torch.amr.smr import LevelMesh
 from athenapk_tpu_torch.config.parameter_input import ParameterInput
 from athenapk_tpu_torch.core.mesh import Mesh
 from athenapk_tpu_torch.driver import Simulation
 from athenapk_tpu_torch.eos.adiabatic import EOS, prim_to_cons
 from athenapk_tpu_torch.solver import stage, sweep
 from athenapk_tpu_torch.solver.hydro_pkg import HydroConfig
-from torch_decks import CASES, deck
+from torch_decks import (CASES, HST_BLOCK, SMR_1D, SMR_2D, SMR_3D, deck,
+                         symmetry_noise)
 
 pytestmark = pytest.mark.cuda
 
@@ -493,3 +499,160 @@ def test_pgen_decks_on_card_match_cpu(card, case, rung, tmp_path,
     assert np.isfinite(b).all()
     assert np.abs(a - b).max() <= 1e-10 * np.abs(a).max()
     np.testing.assert_allclose(hst[:, :2], href[:, :2], rtol=1e-10)
+
+
+# ------------------------------------- the face-capturing kernels (SMR)
+# (fluid, riemann, reconstruction, meshblock, nghost): extents 14 and 22
+# leave remainder tiles in both kernels; nghost 2 with DC puts the faces at
+# a tile's second segment
+FACE_CASES = [("euler", "hllc", "ppm", 8, 3), ("euler", "hlle", "plm", 16, 3),
+              ("glmmhd", "hlld", "ppm", 8, 3), ("euler", "hlle", "dc", 8, 2),
+              ("euler", "hllc", "plm", 32, 2)]
+
+
+def _face_mesh(mb, g, ndim=3):
+    """A level-1 geometry: blocks of ``mb`` cells (``ndim`` active axes)
+    with halved widths."""
+    nx = [2 * mb, 2 * mb if ndim > 1 else 1, 2 * mb if ndim > 2 else 1]
+    mbs = [mb, mb if ndim > 1 else 1, mb if ndim > 2 else 1]
+    base = Mesh(nx1=nx[0], nx2=nx[1], nx3=nx[2], mbnx1=mbs[0], mbnx2=mbs[1],
+                mbnx3=mbs[2], x1min=0.0, x1max=1.0, x2min=0.0, x2max=1.5,
+                x3min=0.0, x3max=1.5, nghost=g)
+    return LevelMesh(base, (base.dx1 / 2, base.dx2 / (2 if ndim > 1 else 1),
+                            base.dx3 / (2 if ndim > 2 else 1)))
+
+
+def _face_err(got, ref):
+    """max |kernel - plain| over max |plain| of each variable of a face
+    slab [nb, nvar, A, B, 2]."""
+    dims = [0, 2, 3, 4]
+    return ((got - ref).abs().amax(dim=dims)
+            / ref.abs().amax(dim=dims).clamp(min=1e-300)).max().item()
+
+
+@pytest.mark.parametrize("dtype,tol", [(torch.float64, 1e-10),
+                                       (torch.float32, 1e-4)])
+@pytest.mark.parametrize("case", FACE_CASES,
+                         ids=lambda c: "-".join(map(str, c)))
+def test_stage_faces_kernel_matches_plain(card, case, dtype, tol):
+    fluid, riemann, recon, mb, g = case
+    lm = _face_mesh(mb, g)
+    cfg = HydroConfig(fluid=fluid, riemann=riemann, reconstruction=recon)
+    eos = EOS(gamma=5.0 / 3.0, **FLOORS)
+    mesh3 = Mesh(nx1=mb, nx2=mb, nx3=mb, mbnx1=mb, mbnx2=mb, mbnx3=mb,
+                 x1min=0.0, x1max=1.0, x2min=0.0, x2max=1.0, x3min=0.0,
+                 x3max=1.0, nghost=g)
+    u0, u1 = (a.to(device=card, dtype=dtype)
+              for a in _stage_states(mesh3, fluid, 23))
+    u0 = torch.cat([u0, 1.02 * u0, 0.98 * u0])     # three blocks
+    u1 = torch.cat([u1, u1, u1])
+    c_h = C_H if fluid == "glmmhd" else 0.0
+    args = (u0, u1, 0.25, 0.75, 1e-3, c_h, lm, cfg, eos, recon)
+    before = stage.stage_faces_cuda.launches
+    got = stage.fused_stage_faces(*args, emit_prim=True)
+    torch.cuda.synchronize()
+    assert stage.stage_faces_cuda.launches == before + 1
+    ref = stage.stage_faces_plain(*args, emit_prim=True)
+    sl = lm.interior_slices
+    assert bool(torch.isfinite(got[0][sl]).all())
+    assert _per_var_err(got[0][sl], ref[0][sl]) <= tol
+    assert _per_var_err(got[1], ref[1]) <= tol
+    for d in (1, 2, 3):
+        assert got[2][d].shape == ref[2][d].shape
+        assert bool(torch.isfinite(got[2][d]).all())
+        assert _face_err(got[2][d], ref[2][d]) <= tol, d
+    # the face output changes nothing else the kernel writes
+    alone = stage.stage_cuda(*args)
+    assert torch.equal(alone, got[0])
+
+
+@pytest.mark.parametrize("dtype,tol", [(torch.float64, 1e-10),
+                                       (torch.float32, 1e-4)])
+@pytest.mark.parametrize("ndim", [3, 2, 1])
+@pytest.mark.parametrize("case", FACE_CASES,
+                         ids=lambda c: "-".join(map(str, c)))
+def test_negdiv_faces_kernel_matches_plain(card, case, ndim, dtype, tol):
+    fluid, riemann, recon, mb, g = case
+    lm = _face_mesh(mb, g, ndim)
+    cfg = HydroConfig(fluid=fluid, riemann=riemann, reconstruction=recon)
+    eos = EOS(gamma=5.0 / 3.0)
+    rng = np.random.default_rng(29)
+    nvar = cfg.nvar
+    w = np.ones((3, nvar) + lm.block_shape)
+    w[:, 0] += 0.3 * rng.random(w[:, 0].shape)
+    w[:, 1:4] = 0.3 * rng.standard_normal(w[:, 1:4].shape)
+    w[:, 4] += 0.2 * rng.random(w[:, 4].shape)
+    if nvar == 9:
+        w[:, 5:8] = 0.2 * rng.standard_normal(w[:, 5:8].shape)
+    prim = torch.tensor(w, dtype=dtype, device=card)
+    c_h = C_H if fluid == "glmmhd" else 0.0
+    before = sweep.negdiv_faces_cuda.launches
+    nd, faces = sweep.fused_negdiv_faces(prim, c_h, lm, cfg, eos, recon)
+    torch.cuda.synchronize()
+    assert sweep.negdiv_faces_cuda.launches == before + ndim
+    ref_nd, ref_f = sweep.negdiv_faces_plain(prim, c_h, lm, cfg, eos, recon)
+    sl = lm.interior_slices
+    assert _per_var_err(nd[sl], ref_nd[sl]) <= tol
+    assert sorted(faces) == sorted(ref_f) == list(range(1, ndim + 1))
+    for d in faces:
+        assert faces[d].shape == ref_f[d].shape
+        assert _face_err(faces[d], ref_f[d]) <= tol, d
+    assert torch.equal(nd, sweep.negdiv_cuda(prim, c_h, lm, cfg, eos, recon))
+
+
+SMR_RUNS = {
+    # (deck, rung, kernel launches per cycle: stage-faces, negdiv-faces)
+    "3d_stage": (SMR_3D.format(n=32, mb=8, nlim=5, precision="double"),
+                 "stage", (4, 0)),
+    "3d_negdiv": (SMR_3D.format(n=32, mb=8, nlim=5, precision="double"),
+                  "negdiv", (0, 12)),
+    "2d": (SMR_2D.format(n=64, mb=16, tlim=1.0, nlim=5, precision="double"),
+           "negdiv", (0, 8)),
+    "1d": (SMR_1D.format(n=128, mb=16, nlim=5), "negdiv", (0, 4)),
+}
+
+
+def _run_smr(text, device, outdir, start):
+    outdir.mkdir(parents=True, exist_ok=True)
+    with contextlib.chdir(outdir):
+        sim = SmrSimulation(ParameterInput.from_string(text), quiet=True,
+                            device=device)
+        sim.load_state(start, 0.0, 0)
+        m0 = sim.total_mass()
+        sim.run()
+    return sim, np.loadtxt(next(outdir.glob("*.hst"))), m0
+
+
+@pytest.mark.parametrize("case", sorted(SMR_RUNS))
+def test_refined_decks_on_card_match_cpu(card, case, tmp_path, monkeypatch):
+    """Five f64 cycles through ``SmrSimulation`` on the card against the
+    CPU (the kernels' plain twins), from the problem's initial state with
+    seeded symmetry-breaking noise: state and every dt to 1e-10, the
+    launch counts per cycle, and mass across levels to 1e-13 (periodic
+    decks)."""
+    text, rung, (n_stage, n_negdiv) = SMR_RUNS[case]
+    text += HST_BLOCK
+    if rung == "negdiv":
+        monkeypatch.setenv("ATHENAPK_PALLAS_STAGE", "0")
+    else:
+        monkeypatch.delenv("ATHENAPK_PALLAS_STAGE", raising=False)
+    with contextlib.chdir(tmp_path):
+        sim0 = SmrSimulation(ParameterInput.from_string(text), quiet=True,
+                             device="cpu")
+    start = symmetry_noise({lev: v.numpy() for lev, v in sim0.state.items()},
+                           seed=5)
+    ref, href, _ = _run_smr(text, "cpu", tmp_path / "cpu", start)
+    before = (stage.stage_faces_cuda.launches,
+              sweep.negdiv_faces_cuda.launches)
+    sim, hst, m0 = _run_smr(text, "cuda", tmp_path / "card", start)
+    assert (stage.stage_faces_cuda.launches - before[0],
+            sweep.negdiv_faces_cuda.launches - before[1]) \
+        == (5 * n_stage, 5 * n_negdiv)
+    assert sim.ncycle == ref.ncycle == 5
+    for lev in ref.state:
+        a, b = ref.state[lev].numpy(), sim.state[lev].cpu().numpy()
+        assert np.isfinite(b).all()
+        assert np.abs(a - b).max() <= 1e-10 * np.abs(a).max()
+    np.testing.assert_allclose(hst[:, :2], href[:, :2], rtol=1e-10)
+    if case != "1d":      # Sod's outflow boundaries let mass through
+        assert abs(sim.total_mass() - m0) <= 1e-13 * m0

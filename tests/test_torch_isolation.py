@@ -52,6 +52,15 @@ def test_no_jax_imports(path):
     assert not bad, bad
 
 
+@pytest.mark.parametrize("module", [
+    "core/amr_forest.py", "refinement/prolong_restrict.py", "amr/smr.py",
+    "amr/smr_hydro.py", "amr/driver.py"])
+def test_refined_mesh_modules_are_checked(module):
+    """The refined-mesh slice's modules, the forest binding among them, are
+    among the sources checked above."""
+    assert ROOT / "athenapk_tpu_torch" / module in SOURCES
+
+
 def test_checker_catches_forbidden_imports(tmp_path):
     src = tmp_path / "m.py"
     src.write_text("import jax.numpy as jnp\nfrom athenapk_tpu.core import x\n"

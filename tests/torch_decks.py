@@ -2,6 +2,8 @@
 (``test_torch_pgens.py``) and the card tests (``test_torch_cuda.py``).
 Imports nothing of jax, so it loads where only the port is installed."""
 
+import numpy as np
+
 BASE = """
 <job>
 problem_id = {pid}
@@ -132,3 +134,195 @@ CASES = {
     "advection_mhd": dict(pid="advection", fluid="glmmhd", riemann="hlld",
                           extra=ADVECT),
 }
+
+
+# --------------------------------------------------------------- refined meshes
+# The refined-mesh throughput deck of ``bench.py:run_bench_smr``
+# (``bench.py:168-221``): a level-1 region at the centre of an n^3 base,
+# Euler + HLLE + PLM + VL2, nghost 2, f32 there.
+SMR_3D = """
+<job>
+problem_id = blast
+
+<parthenon/mesh>
+refinement = static
+numlevel = 2
+nghost = 2
+nx1 = {n}
+x1min = -0.5
+x1max = 0.5
+nx2 = {n}
+x2min = -0.5
+x2max = 0.5
+nx3 = {n}
+x3min = -0.5
+x3max = 0.5
+
+<parthenon/static_refinement0>
+x1min = -0.25
+x1max = 0.25
+x2min = -0.25
+x2max = 0.25
+x3min = -0.25
+x3max = 0.25
+level = 1
+
+<parthenon/meshblock>
+nx1 = {mb}
+nx2 = {mb}
+nx3 = {mb}
+
+<parthenon/time>
+integrator = vl2
+cfl = 0.3
+tlim = 100.0
+nlim = {nlim}
+ncycle_out = 0
+
+<hydro>
+fluid = euler
+eos = adiabatic
+riemann = hlle
+reconstruction = plm
+gamma = 1.666666666666667
+precision = {precision}
+
+<problem/blast>
+pressure_ambient = 0.001
+pressure_ratio = 1.6e4
+radius_outer = 0.12
+density_ambient = 1.0
+density_ratio = 1.0
+"""
+
+# The 2-D refined blast of ``tests/test_smr_2d.py:29-70`` with the problem
+# of ``:293-302``: Euler + HLLC + PLM + VL2, nghost 2, gamma 1.4, a level-1
+# region at the centre of an n^2 base.
+SMR_2D = """
+<job>
+problem_id = blast
+
+<problem/blast>
+pressure_ratio = 100.0
+radius_outer = 0.15
+
+<parthenon/mesh>
+refinement = static
+numlevel = 2
+nghost = 2
+nx1 = {n}
+x1min = -0.5
+x1max = 0.5
+nx2 = {n}
+x2min = -0.5
+x2max = 0.5
+nx3 = 1
+x3min = -0.5
+x3max = 0.5
+
+<parthenon/static_refinement0>
+x1min = -0.25
+x1max = 0.25
+x2min = -0.25
+x2max = 0.25
+x3min = -0.5
+x3max = 0.5
+level = 1
+
+<parthenon/meshblock>
+nx1 = {mb}
+nx2 = {mb}
+nx3 = 1
+
+<parthenon/time>
+integrator = vl2
+cfl = 0.3
+tlim = {tlim}
+nlim = {nlim}
+ncycle_out = 0
+
+<hydro>
+fluid = euler
+eos = adiabatic
+riemann = hllc
+reconstruction = plm
+gamma = 1.4
+precision = {precision}
+"""
+
+# 1-D Sod on a refined mesh (``tests/test_smr_2d.py:216-270``)
+SMR_1D = """
+<job>
+problem_id = sod
+
+<problem/sod>
+rho_l = 1.0
+pres_l = 1.0
+u_l = 0.0
+rho_r = 0.125
+pres_r = 0.1
+u_r = 0.0
+x_discont = 0.5
+
+<parthenon/mesh>
+refinement = static
+numlevel = 2
+nghost = 2
+nx1 = {n}
+x1min = 0.0
+x1max = 1.0
+ix1_bc = outflow
+ox1_bc = outflow
+nx2 = 1
+x2min = -0.5
+x2max = 0.5
+nx3 = 1
+x3min = -0.5
+x3max = 0.5
+
+<parthenon/static_refinement0>
+x1min = 0.3
+x1max = 0.8
+x2min = -0.5
+x2max = 0.5
+x3min = -0.5
+x3max = 0.5
+level = 1
+
+<parthenon/meshblock>
+nx1 = {mb}
+nx2 = 1
+nx3 = 1
+
+<parthenon/time>
+integrator = vl2
+cfl = 0.4
+tlim = 0.2
+nlim = {nlim}
+ncycle_out = 0
+
+<hydro>
+fluid = euler
+eos = adiabatic
+riemann = hllc
+reconstruction = plm
+gamma = 1.4
+"""
+
+HST_BLOCK = "\n<parthenon/output0>\nfile_type = hst\n"
+
+
+def symmetry_noise(state, seed):
+    """``{level: array}`` times (1 + 1e-3 noise), plus 1e-3 noise on the
+    momenta, made with numpy from ``seed``.  The blast decks are exactly
+    symmetric with zero velocity, which puts the solvers' selects on ties
+    where rounding alone decides (the JAX package's compiled and eager
+    steps already differ there); the noise takes the state off them."""
+    rng = np.random.default_rng(seed)
+    out = {}
+    for lev in sorted(state):
+        v = np.asarray(state[lev]) * (
+            1.0 + 1e-3 * rng.standard_normal(np.shape(state[lev])))
+        v[:, 1:4] += 1e-3 * rng.standard_normal(v[:, 1:4].shape)
+        out[lev] = v
+    return out
