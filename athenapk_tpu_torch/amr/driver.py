@@ -56,9 +56,13 @@ def leaf_mesh(smesh: SmrMesh, gid: int) -> Mesh:
 
 
 def init_state_from_pgen(smesh: SmrMesh, pgen, pin, cfg, eos,
-                         dtype=torch.float64, device="cpu"):
+                         dtype=torch.float64, device="cuda"):
     """``{level: [nb, nvar, NZ, NY, NX]}`` from the uniform problem
-    generator applied leaf by leaf (ghosts unfilled)."""
+    generator applied leaf by leaf (ghosts unfilled), on the card unless
+    the caller asks for the CPU."""
+    from ..driver import resolve_device
+
+    device = resolve_device(device)
     state = {}
     for lev, ids in smesh.level_ids.items():
         blocks = [np.asarray(pgen.problem_generator(

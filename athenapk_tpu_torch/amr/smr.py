@@ -209,12 +209,15 @@ class SmrMesh:
 
 class SmrState:
     """Ghost-fill plans of a refined mesh and the fill itself.  Index
-    tensors live on ``device``, where the state is."""
+    tensors live on ``device``, where the state is: the card unless the
+    caller asks for the CPU."""
 
-    def __init__(self, smesh: SmrMesh, nvar: int, device="cpu"):
+    def __init__(self, smesh: SmrMesh, nvar: int, device="cuda"):
+        from ..driver import resolve_device
+
         self.smesh = smesh
         self.nvar = nvar
-        self.device = torch.device(device)
+        self.device = resolve_device(device)
         b = smesh.base
         self.block_shape = b.block_shape
         # per array axis (1 = z, 2 = y, 3 = x of [nvar, NZ, NY, NX]);

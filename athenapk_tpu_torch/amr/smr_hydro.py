@@ -49,7 +49,9 @@ from .smr import SmrMesh, SmrState
 
 
 class SmrHydro:
-    def __init__(self, smesh: SmrMesh, cfg, eos, device="cpu"):
+    def __init__(self, smesh: SmrMesh, cfg, eos, device="cuda"):
+        from ..driver import resolve_device
+
         missing = []
         if cfg.first_order_flux_correct:
             missing.append("first_order_flux_correct")
@@ -71,7 +73,7 @@ class SmrHydro:
         self.smesh = smesh
         self.cfg = cfg
         self.eos = eos
-        self.device = torch.device(device)
+        self.device = resolve_device(device)
         self.state_mgr = SmrState(smesh, cfg.nvar, self.device)
         self.level_mesh = {lev: smesh.level_mesh(lev)
                            for lev in smesh.level_ids}

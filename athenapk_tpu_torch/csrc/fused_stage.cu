@@ -19,36 +19,56 @@
 // only the contract above is.  The plain PyTorch twins are stage_plain and
 // stage_faces_plain in solver/stage.py; the
 // device functions (hydro_device.cuh) follow the plain code operation by
-// operation (build with --fmad=false to keep it that way).
+// operation (built without contracted multiply-adds, so it keeps to the plain
+// version's rounding).
 //
 // What bounds it: the stage reads u0 and u1 and writes u_new once (3 NV
 // values per cell) and does the arithmetic of three sweeps (PPM + HLLD:
 // ~2,500 floating-point operations per cell), ~70 operations per byte in
 // f32, so the arithmetic pipes bound it, as they bound the sweep kernel.
 // What the fusion saves is the device-memory traffic of the separate
-// cons_to_prim, axpy and dt passes, not arithmetic.
+// cons_to_prim, axpy and dt passes, not arithmetic; what keeps the pipes
+// fed is latency hiding, and doing no work twice.
 //
-// Design (simple first): one block per tile of TZ x TY x TX cells.
-//  1. It loads u0 for the tile plus h cells on each side along each axis
-//     (a "plus" shape without corners: every sweep is 1-D), wrapping each
-//     index modulo the block's extent (torch.roll within a block: the
-//     periodic boundary on the ghost-free layout, garbage confined to the
-//     ghost rim on ghosted layouts), converts every loaded cell to prim
-//     and keeps prim in shared memory (halo cells are converted again by
-//     the neighbouring tile).
-//  2. For each direction a thread walks a segment of SEG cells of one
-//     pencil: it reconstructs the SEG+2 cells that touch the segment's
-//     faces, solves the SEG+1 faces, and adds -(F[i+1]-F[i])/dx of its SEG
-//     cells into a shared-memory accumulator.  Segments cost (SEG+2)/SEG of
-//     the reconstruction and (SEG+1)/SEG of the Riemann work; in exchange
-//     no edge states or fluxes are staged in shared memory.
-//     A face at sweep index g or n - g is solved by two threads (the
-//     segment starting at its cell and the one ending there); the first
-//     writes it to the face output, so each face is written once.
-//  3. Each cell converts u0 once more for the floored conserved state u0f
-//     (it, not u0, enters the update), reads u1, and writes u_new; with
-//     dt_out it also converts u_new and reduces the CFL bound over the
-//     tile.
+// Design: a block of 128 threads owns a column of TY x TX = 7 x 14 cells
+// and marches along z over one segment of the block's z extent, one plane
+// per step, thread t < 98 taking cell t of a plane.  The shape makes every
+// edge-state and face phase of a plane one round of at most 128 items
+// (8 x 16 cells left each phase a second round for one warp, 1.5x the
+// latency per plane).
+//  - A ring of NR planes of prim in shared memory (the 2h - 1 planes the
+//    z stencil of one face needs, plus one in flight) holds each plane's
+//    TY x TX cells; the next plane and the next plane's x and y halo (h
+//    cells on each side: a plus shape in 2-D, no corners) arrive by
+//    cp.async one step ahead, so loads overlap arithmetic.  Every loaded
+//    cell is converted to prim once, on arrival; only the halo, 2h (TY +
+//    TX) cells per plane, is loaded by the neighbouring columns too
+//    (PPM: 2.3x the owned cells, against 3.6x for the earlier tile).
+//  - Step zc: the x and then the y sweep of plane zc (edge states of the
+//    row's cells and of the one beyond each end, staged in shared memory;
+//    then each face once; then each cell's difference), and the z face
+//    between zc and zc + 1 (edge states of plane zc + 1 from the ring; the
+//    left state and the flux of the face below carried from the step
+//    before, per cell in shared memory); then the update of plane zc.  So
+//    each edge state is built once and each face solved once, except the
+//    x and y faces at the column's sides, which the neighbouring column
+//    solves too.
+//  - -div(F) accumulates per cell in registers in the plain version's
+//    order (x, then + y, then + z).  The update re-reads u0 for u0f (from
+//    L2: the plane was read h steps before) rather than keep u0f in shared
+//    memory or registers, which go to occupancy instead (loading u0 and u1
+//    before the z face to hide their latency took 29 more registers and
+//    cost the f32 DC stage a quarter of its resident warps).
+//  - z is cut into segments while a launch has fewer than ~2048 blocks,
+//    so that the small blocks of a refined level still fill the card.
+//  - Every index wraps within the block's extent (torch.roll within a
+//    block: the periodic boundary on the ghost-free layout, garbage
+//    confined to the ghost rim on ghosted layouts), by compares, not
+//    divisions.  Cells of a tile beyond the block's extent are computed
+//    from wrapped data and not written.
+//  - Faces: each face is written once, by the column (x, y) or segment
+//    (z) that owns its right cell; a compile-time switch, so the uniform
+//    instantiations carry no capture code.
 //
 // Plain C interface (loaded with ctypes): fused_stage(...) returns the
 // cudaError_t of the launch (0 on success); it never synchronises.
@@ -63,35 +83,65 @@ namespace {
 
 using namespace hydro;
 
-// The tile is chosen at compile time per dtype, variable count and
-// reconstruction; one shape serves all of them today (f64 + 9 variables +
-// PPM is the largest, 170,496 bytes), and launch() asserts the size.
+// The column's shape and shared-memory layout per dtype, variable count
+// and reconstruction.
 template <typename T, int NV, int RECON>
-struct Tile {
-  static constexpr int TZ = 4, TY = 8, TX = 16;
-  static constexpr int SEG = 4;                  // cells a thread walks
+struct Col {
+  static constexpr int TY = 7, TX = 14;
+  static constexpr int NC = TY * TX;             // cells of a plane
+  static constexpr int NT = 128;                 // threads: one per cell, 30 spare
   static constexpr int H = Halo<RECON>::h;
-  static constexpr int NC = TZ * TY * TX;        // centre cells
-  static constexpr int NHX = TZ * TY * 2 * H;    // x halo cells
-  static constexpr int NHY = TZ * 2 * H * TX;
-  static constexpr int NHZ = 2 * H * TY * TX;
-  static constexpr int NP = NC + NHX + NHY + NHZ;
-  static constexpr int NTHREADS = NC / SEG;      // one segment per thread
-  static constexpr size_t SMEM = sizeof(T) * NV * (NP + NC);
-  static_assert(TZ % SEG == 0 && TY % SEG == 0 && TX % SEG == 0,
-                "segments tile every axis");
-  static_assert(NTHREADS % 32 == 0 && NTHREADS <= 1024, "whole warps");
+  static constexpr int R = H - 1;                // edge-state stencil radius
+  // ring planes: zc .. zc + 1 (DC), zc + 1 - R .. zc + H, plus one in flight
+  static constexpr int NR = (R >= 1 ? 2 * H - 1 : 2) + 1;
+  static constexpr int PY = TY + 2 * H, PX = TX + 2 * H;   // plane + halo
+  static constexpr int NHALO = 2 * H * (TY + TX);
+  static constexpr int NEX = TY * (TX + 2), NEY = (TY + 2) * TX;
+  static constexpr int NE = NEX > NEY ? NEX : NEY;
+  static constexpr int NFX = TY * (TX + 1), NFY = (TY + 1) * TX;
+  static constexpr int NF = NFX > NFY ? NFX : NFY;
+  // offsets (elements of T) of the shared arrays, each [NV][...]
+  static constexpr int RING = 0;                         // [NR][NV][NC]
+  static constexpr int HALO = RING + NR * NV * NC;       // raw u0, [NV][NHALO]
+  static constexpr int CUR = HALO + NV * NHALO;          // prim, [NV][PY][PX]
+  static constexpr int QM = CUR + NV * PY * PX;          // [NV][NE]
+  static constexpr int QP = QM + (RECON == RECON_DC ? 0 : NV * NE);
+  static constexpr int FL = QP + (RECON == RECON_DC ? 0 : NV * NE);  // [NV][NF]
+  static constexpr int ZQP = FL + NV * NF;               // z carries, [NV][NC]
+  static constexpr int ZF = ZQP + NV * NC;
+  static constexpr int RED = ZF + NV * NC;               // [NT]
+  static constexpr size_t SMEM = sizeof(T) * (RED + NT);
+  static_assert(NT % 32 == 0 && NC <= NT, "whole warps, a cell each");
+  static_assert(NHALO <= NT, "one halo cell per thread at most");
+  // every edge-state and face phase of a plane is one round of the threads
+  static_assert(NEX <= NT && NEY <= NT && NFX <= NT && NFY <= NT,
+                "one round per phase");
+};
+
+// Resident blocks per SM that __launch_bounds__ asks for: what the
+// registers of the solver allow (65536 / (128 * blocks) each), capped by
+// what shared memory allows (228 KB per SM, 1 KB of it per block).
+template <typename T, int RECON, int SOLVER>
+struct MinBlocks {
+  static constexpr bool MHD = SOLVER == SOLVER_GLMMHD_HLLD;
+  static constexpr int by_regs = sizeof(T) == 4 ? (MHD ? 3 : 4) : 2;
+  static constexpr int by_smem =
+      233472 / (int)(Col<T, NVar<SOLVER>::value, RECON>::SMEM + 1024);
+  static constexpr int value =
+      by_smem < 1 ? 1 : (by_regs < by_smem ? by_regs : by_smem);
 };
 
 struct Shape {
   int nz, ny, nx;          // extent of a block (ghosts included)
-  int ntz, nty, ntx;       // tiles per block along each axis
+  int ntx, nty;            // columns along x and y
+  int nseg, seg_len;       // z segments of a column, planes per segment
 };
 
 template <typename T>
 struct Scalars {
   T gam0, gam1, beta_dt, dx1, dx2, dx3;
-  T inf;   // +infinity: the CFL reduction's identity
+  T idx1, idx2, idx3;   // 1 / dx_d in T, as PyTorch divides by dx_d
+  T inf;                // +infinity: the CFL reduction's identity
 };
 
 // Face output: per direction [nb, NV, A, B, 2] (x: A, B = z, y; y: z, x;
@@ -102,225 +152,325 @@ struct Faces {
   int g;
 };
 
-__device__ __forceinline__ int wrap(int i, int n) {
-  i %= n;
-  return i < 0 ? i + n : i;
-}
-
-// Index into the shared prim array [NP] of the cell at tile coordinates
-// (iz, iy, ix), of which only the coordinate along D may lie outside the
-// tile (by up to H cells).
-template <typename TL, int D>
-__device__ __forceinline__ int plus_index(int iz, int iy, int ix) {
-  constexpr int H = TL::H, TZ = TL::TZ, TY = TL::TY, TX = TL::TX;
-  if (D == 1) {
-    if (ix < 0) return TL::NC + (iz * TY + iy) * 2 * H + ix + H;
-    if (ix >= TX) return TL::NC + (iz * TY + iy) * 2 * H + H + ix - TX;
-  } else if (D == 2) {
-    if (iy < 0) return TL::NC + TL::NHX + (iz * 2 * H + iy + H) * TX + ix;
-    if (iy >= TY) return TL::NC + TL::NHX + (iz * 2 * H + H + iy - TY) * TX + ix;
+// Plane coordinates (y, x) of halo cell i: the x halo (TY rows of h cells
+// on each side), then the y halo (h rows of TX cells above and below).
+template <typename CL>
+__device__ __forceinline__ void halo_coords(int i, int& y, int& x) {
+  constexpr int H = CL::H, TY = CL::TY, TX = CL::TX;
+  if (i < TY * 2 * H) {
+    const int k = i % (2 * H);
+    y = i / (2 * H);
+    x = k < H ? k - H : TX + k - H;
   } else {
-    if (iz < 0) return TL::NC + TL::NHX + TL::NHY + ((iz + H) * TY + iy) * TX + ix;
-    if (iz >= TZ)
-      return TL::NC + TL::NHX + TL::NHY + ((H + iz - TZ) * TY + iy) * TX + ix;
-  }
-  return (iz * TY + iy) * TX + ix;
-}
-
-// Tile coordinates of the i-th cell of the plus shape, enumerated in the
-// order plus_index lays them out: centre, x halo, y halo, z halo.
-template <typename TL>
-__device__ __forceinline__ void plus_coords(int i, int& iz, int& iy, int& ix) {
-  constexpr int H = TL::H, TZ = TL::TZ, TY = TL::TY, TX = TL::TX;
-  if (i < TL::NC) {
-    ix = i % TX; iy = (i / TX) % TY; iz = i / (TX * TY);
-  } else if (i < TL::NC + TL::NHX) {
-    const int j = i - TL::NC, k = j % (2 * H);
-    iy = (j / (2 * H)) % TY; iz = j / (2 * H * TY);
-    ix = k < H ? k - H : TX + k - H;
-  } else if (i < TL::NC + TL::NHX + TL::NHY) {
-    const int j = i - TL::NC - TL::NHX, k = (j / TX) % (2 * H);
-    ix = j % TX; iz = j / (TX * 2 * H);
-    iy = k < H ? k - H : TY + k - H;
-  } else {
-    const int j = i - TL::NC - TL::NHX - TL::NHY, k = j / (TX * TY);
-    ix = j % TX; iy = (j / TX) % TY;
-    iz = k < H ? k - H : TZ + k - H;
+    const int j = i - TY * 2 * H, k = j / TX;
+    x = j % TX;
+    y = k < H ? k - H : TY + k - H;
   }
 }
 
-// One direction of step 2: every thread walks its segments of direction D;
-// with FACES it also writes the faces at sweep index g and n - g.
-template <typename T, typename TL, int NV, int RECON, int SOLVER, int D,
+// One in-plane sweep (D = 1: x, 2: y) of the current plane `cur`:
+// edge states of the TY x (TX + 2) (or (TY + 2) x TX) cells that touch the
+// tile's faces, then the faces, then -div(F) of this thread's cell written
+// (x) or added (y) to nd.  With FACES the faces at sweep index g and n - g
+// are written by the tile that owns their right cell.
+template <typename T, typename CL, int NV, int RECON, int SOLVER, int D,
           bool FACES>
-__device__ __forceinline__ void sweep_direction(const T* prim_s, T* nd_s,
-                                                const Params<T>& p, T dx,
-                                                int vz, int vy, int vx,
-                                                T* faces, int g,
-                                                const Shape& sh, int z0,
-                                                int y0, int x0) {
-  constexpr int TZ = TL::TZ, TY = TL::TY, TX = TL::TX, SEG = TL::SEG;
-  constexpr int R = TL::H - 1;   // stencil radius of one cell's edge states
-  constexpr int NITEMS = TL::NC / SEG;
-  for (int item = threadIdx.x; item < NITEMS; item += TL::NTHREADS) {
-    int iz, iy, ix;   // first cell of the segment
-    if (D == 1) {
-      ix = (item % (TX / SEG)) * SEG; iy = (item / (TX / SEG)) % TY;
-      iz = item / ((TX / SEG) * TY);
-    } else if (D == 2) {
-      ix = item % TX; iy = ((item / TX) % (TY / SEG)) * SEG;
-      iz = item / (TX * (TY / SEG));
-    } else {
-      ix = item % TX; iy = (item / TX) % TY; iz = (item / (TX * TY)) * SEG;
-    }
-    if (iz >= vz || iy >= vy || ix >= vx) continue;   // outside the block
-    const int s0 = D == 1 ? ix : (D == 2 ? iy : iz);
-    T wl[NV], wr[NV], qp_c[NV], F[NV], F_prev[NV];
-    // cells s0-1 .. s0+SEG; the face between c-1 and c is solved at c >= s0
-    for (int c = s0 - 1; c <= s0 + SEG; ++c) {
-      int idx[2 * R + 1];
-#pragma unroll
-      for (int k = -R; k <= R; ++k)
-        idx[k + R] = D == 1 ? plus_index<TL, 1>(iz, iy, c + k)
-                   : D == 2 ? plus_index<TL, 2>(iz, c + k, ix)
-                            : plus_index<TL, 3>(c + k, iy, ix);
+__device__ __forceinline__ void plane_sweep(T* sm, T (&nd)[NV],
+                                            const Params<T>& p, T idx,
+                                            T* faces, int g, const Shape& sh,
+                                            int b, int zc, int y0, int x0,
+                                            int vy, int vx) {
+  constexpr int TX = CL::TX, H = CL::H, PX = CL::PX, PY = CL::PY;
+  constexpr int NT = CL::NT;
+  constexpr int EW = D == 1 ? TX + 2 : TX;     // edge rows' width
+  constexpr int NE = D == 1 ? CL::NEX : CL::NEY;
+  constexpr int FW = D == 1 ? TX + 1 : TX;     // face rows' width
+  constexpr int NF = D == 1 ? CL::NFX : CL::NFY;
+  constexpr int ST = D == 1 ? 1 : PX;          // stencil stride in cur
+  const T* cur = sm + CL::CUR;
+  T* qm_s = sm + CL::QM;
+  T* qp_s = sm + CL::QP;
+  T* fl_s = sm + CL::FL;
+  const int t = threadIdx.x;
+
+  // position in cur of the cell at tile coordinates (y, x)
+  auto pos = [&](int y, int x) { return (y + H) * PX + x + H; };
+
+  if constexpr (RECON != RECON_DC) {
+    // edge item i: cell (y, x) with x (D = 1) or y (D = 2) from -1 to TX
+    // (TY) inclusive
+    for (int i = t; i < NE; i += NT) {
+      const int y = D == 1 ? i / EW : i / EW - 1;
+      const int x = D == 1 ? i % EW - 1 : i % EW;
+      const T* c = cur + pos(y, x);
 #pragma unroll
       for (int v = 0; v < NV; ++v) {
-        const T* q = prim_s + v * TL::NP;
+        const T* q = c + v * PY * PX;
+        T qm, qp;
         if constexpr (RECON == RECON_PPM)
-          ppm_edges(q[idx[0]], q[idx[1]], q[idx[2]], q[idx[3]], q[idx[4]],
-                    wr[v], qp_c[v]);
-        else if constexpr (RECON == RECON_PLM)
-          plm_edges(q[idx[0]], q[idx[1]], q[idx[2]], wr[v], qp_c[v]);
+          ppm_edges(q[-2 * ST], q[-ST], q[0], q[ST], q[2 * ST], qm, qp);
         else
-          wr[v] = qp_c[v] = q[idx[0]];
+          plm_edges(q[-ST], q[0], q[ST], qm, qp);
+        qm_s[v * CL::NE + i] = qm;
+        qp_s[v * CL::NE + i] = qp;
       }
-      if (c >= s0) {
-        riemann_flux<T, SOLVER, D>(wl, wr, p, F);
-        // face capture: the face before cell c, by the segment holding c
-        // (a compile-time switch: without it the loop is the uniform
-        // path's; a run-time branch here slowed DC stages by 8 % on an
-        // H100)
-        if (FACES && c < s0 + SEG) {
-          const int n_d = D == 1 ? sh.nx : (D == 2 ? sh.ny : sh.nz);
-          const int G = (D == 1 ? x0 : (D == 2 ? y0 : z0)) + c;
-          const int k = G == g ? 0 : (G == n_d - g ? 1 : -1);
-          if (k >= 0) {
-            const long long A = D == 3 ? sh.ny : sh.nz;
-            const long long B = D == 1 ? sh.ny : sh.nx;
-            const long long a = D == 3 ? y0 + iy : z0 + iz;
-            const long long b = D == 1 ? y0 + iy : x0 + ix;
-#pragma unroll
-            for (int v = 0; v < NV; ++v)
-              faces[((((long long)blockIdx.y * NV + v) * A + a) * B + b) * 2
-                    + k] = F[v];
-          }
-        }
-        if (c > s0) {
-          const int cell = D == 1 ? (iz * TY + iy) * TX + c - 1
-                         : D == 2 ? (iz * TY + c - 1) * TX + ix
-                                  : ((c - 1) * TY + iy) * TX + ix;
-#pragma unroll
-          for (int v = 0; v < NV; ++v) {
-            const T r = -(F[v] - F_prev[v]) / dx;
-            nd_s[v * TL::NC + cell] = D == 1 ? r : nd_s[v * TL::NC + cell] + r;
-          }
-        }
-#pragma unroll
-        for (int v = 0; v < NV; ++v) F_prev[v] = F[v];
-      }
-#pragma unroll
-      for (int v = 0; v < NV; ++v) wl[v] = qp_c[v];
     }
+    __syncthreads();
+  }
+
+  // face item i: the face before cell f of its row (D = 1: y = i / FW,
+  // f = x; D = 2: f = y, x = i % FW)
+  for (int i = t; i < NF; i += NT) {
+    const int y = i / FW, x = i % FW;   // D = 2: y is the face's cell row
+    T wl[NV], wr[NV], F[NV];
+    if constexpr (RECON == RECON_DC) {
+      const T* c = cur + pos(y, x);
+#pragma unroll
+      for (int v = 0; v < NV; ++v) {
+        wl[v] = c[v * PY * PX - ST];
+        wr[v] = c[v * PY * PX];
+      }
+    } else {
+      // edge items of the cell before the face and of the cell after it
+      const int e_l = y * EW + x;
+      const int e_r = D == 1 ? e_l + 1 : e_l + EW;
+#pragma unroll
+      for (int v = 0; v < NV; ++v) {
+        wl[v] = qp_s[v * CL::NE + e_l];
+        wr[v] = qm_s[v * CL::NE + e_r];
+      }
+    }
+    riemann_flux<T, SOLVER, D>(wl, wr, p, F);
+#pragma unroll
+    for (int v = 0; v < NV; ++v) fl_s[v * CL::NF + i] = F[v];
+    if constexpr (FACES) {
+      const int G = D == 1 ? x0 + x : y0 + y;   // the face's right cell
+      const int n_d = D == 1 ? sh.nx : sh.ny;
+      if (x < vx && y < vy && (G == g || G == n_d - g)) {
+        const long long A = sh.nz;
+        const long long B = D == 1 ? sh.ny : sh.nx;
+        const long long bb = D == 1 ? y0 + y : x0 + x;
+        const long long o = (((long long)b * NV * A + zc) * B + bb) * 2
+                            + (G == g ? 0 : 1);
+#pragma unroll
+        for (int v = 0; v < NV; ++v) faces[o + 2 * v * A * B] = F[v];
+      }
+    }
+  }
+  __syncthreads();
+
+  // -(F[i+1] - F[i]) / dx of this thread's cell
+  if (t < CL::NC) {
+    const int y = t / TX, x = t % TX;
+    const int f0 = y * FW + x;
+    const int f1 = D == 1 ? f0 + 1 : f0 + FW;
+#pragma unroll
+    for (int v = 0; v < NV; ++v) {
+      const T r = -((fl_s[v * CL::NF + f1] - fl_s[v * CL::NF + f0]) * idx);
+      nd[v] = D == 1 ? r : nd[v] + r;
+    }
+  }
+  if constexpr (RECON == RECON_DC && D == 1) {
+    // the y faces come next and overwrite fl_s (with PLM and PPM the y
+    // edge phase and its barrier come first)
+    __syncthreads();
   }
 }
 
 template <typename T, int RECON, int SOLVER, bool FACES>
-__global__ void __launch_bounds__((Tile<T, NVar<SOLVER>::value, RECON>::NTHREADS))
+__global__ void __launch_bounds__(
+    (Col<T, NVar<SOLVER>::value, RECON>::NT),
+    (MinBlocks<T, RECON, SOLVER>::value))
 fused_stage_kernel(const T* __restrict__ u0, const T* __restrict__ u1,
                    T* __restrict__ out, T* __restrict__ dt_out,
                    T* __restrict__ prim_out, const Faces<T> fc,
                    const Shape sh, const Params<T> p, const Scalars<T> sc) {
   constexpr int NV = NVar<SOLVER>::value;
-  using TL = Tile<T, NV, RECON>;
-  constexpr int TZ = TL::TZ, TY = TL::TY, TX = TL::TX;
+  using CL = Col<T, NV, RECON>;
+  constexpr int TY = CL::TY, TX = CL::TX, NC = CL::NC, NT = CL::NT;
+  constexpr int H = CL::H, R = CL::R, NR = CL::NR, PX = CL::PX, PY = CL::PY;
 
   extern __shared__ __align__(16) unsigned char smem_raw[];
-  T* prim_s = reinterpret_cast<T*>(smem_raw);   // [NV][NP]
-  T* nd_s = prim_s + NV * TL::NP;               // [NV][NC]
-  __shared__ T red_s[32];
+  T* sm = reinterpret_cast<T*>(smem_raw);
+  T* ring = sm + CL::RING;
+  T* halo = sm + CL::HALO;
+  T* cur = sm + CL::CUR;
+  T* zqp = sm + CL::ZQP;
+  T* zf = sm + CL::ZF;
 
   const int tile = blockIdx.x;
-  const int x0 = (tile % sh.ntx) * TX;
-  const int y0 = ((tile / sh.ntx) % sh.nty) * TY;
-  const int z0 = (tile / (sh.ntx * sh.nty)) * TZ;
+  const int col = tile / sh.nseg, seg = tile % sh.nseg;
+  const int x0 = (col % sh.ntx) * TX, y0 = (col / sh.ntx) * TY;
+  const int zs = seg * sh.seg_len, ze = min(zs + sh.seg_len, sh.nz);
   // cells of the tile that lie inside the block
-  const int vx = min(TX, sh.nx - x0), vy = min(TY, sh.ny - y0),
-            vz = min(TZ, sh.nz - z0);
+  const int vx = min(TX, sh.nx - x0), vy = min(TY, sh.ny - y0);
   const long long s_var = (long long)sh.nz * sh.ny * sh.nx;
-  const long long base = (long long)blockIdx.y * NV * s_var;
+  const int b = blockIdx.y;
+  const long long base = (long long)b * NV * s_var;
+  const int t = threadIdx.x;
+  const bool has_cell = t < NC;
+  const int ty = t / TX, tx = t % TX;
+  const bool own_xy = has_cell && ty < vy && tx < vx;
+  // this thread's cell and halo cell (t < NHALO) within a plane (wrapped)
+  const long long xy_off =
+      (long long)wrap_index(y0 + ty, sh.ny) * sh.nx + wrap_index(x0 + tx, sh.nx);
+  const bool has_halo = t < CL::NHALO;
+  int hy = 0, hx = 0;
+  if (has_halo) halo_coords<CL>(t, hy, hx);
+  const long long h_off = (long long)wrap_index(y0 + hy, sh.ny) * sh.nx
+                          + wrap_index(x0 + hx, sh.nx);
+  const int h_pos = (hy + H) * PX + hx + H;
+  // ring slot of plane P (P >= zs - H)
+  auto slot = [&](int P) { return (P - zs + H) % NR; };
 
-  // 1. prim of the plus shape
-  for (int i = threadIdx.x; i < TL::NP; i += TL::NTHREADS) {
-    int iz, iy, ix;
-    plus_coords<TL>(i, iz, iy, ix);
-    const long long o = base
-        + ((long long)wrap(z0 + iz, sh.nz) * sh.ny + wrap(y0 + iy, sh.ny)) * sh.nx
-        + wrap(x0 + ix, sh.nx);
-    T u[NV], w[NV];
+  auto load_plane = [&](int P) {
+    if (!has_cell) return;
+    const long long o = base + (long long)wrap_index(P, sh.nz) * sh.ny * sh.nx
+                        + xy_off;
+    T* dst = ring + slot(P) * NV * NC + t;
 #pragma unroll
-    for (int v = 0; v < NV; ++v) u[v] = u0[o + v * s_var];
-    cons_to_prim<T, NV>(u, p, u, w);
+    for (int v = 0; v < NV; ++v) cp_async(dst + v * NC, u0 + o + v * s_var);
+  };
+  auto load_halo = [&](int P) {
+    if (!has_halo) return;
+    const long long o = base + (long long)wrap_index(P, sh.nz) * sh.ny * sh.nx
+                        + h_off;
 #pragma unroll
-    for (int v = 0; v < NV; ++v) prim_s[v * TL::NP + i] = w[v];
-    if (prim_out != nullptr && i < TL::NC && iz < vz && iy < vy && ix < vx) {
-#pragma unroll
-      for (int v = 0; v < NV; ++v) prim_out[o + v * s_var] = w[v];
-    }
-  }
-  __syncthreads();
+    for (int v = 0; v < NV; ++v)
+      cp_async(halo + v * CL::NHALO + t, u0 + o + v * s_var);
+  };
 
-  // 2. -div(F), one direction after the other (x writes, y and z add)
-  sweep_direction<T, TL, NV, RECON, SOLVER, 1, FACES>(
-      prim_s, nd_s, p, sc.dx1, vz, vy, vx, fc.d[0], fc.g, sh, z0, y0, x0);
-  __syncthreads();
-  sweep_direction<T, TL, NV, RECON, SOLVER, 2, FACES>(
-      prim_s, nd_s, p, sc.dx2, vz, vy, vx, fc.d[1], fc.g, sh, z0, y0, x0);
-  __syncthreads();
-  sweep_direction<T, TL, NV, RECON, SOLVER, 3, FACES>(
-      prim_s, nd_s, p, sc.dx3, vz, vy, vx, fc.d[2], fc.g, sh, z0, y0, x0);
-  __syncthreads();
-
-  // 3. the stage update, and the CFL bound of the new state
+  // the first step (zc = zs - 2) needs planes zs - H .. zs + H - 2
+  for (int P = zs - H; P <= zs + H - 2; ++P) load_plane(P);
+  cp_async_commit();
+  int converted = zs - H;   // the first plane not yet converted to prim
   T dt_min = sc.inf;
-  for (int i = threadIdx.x; i < TL::NC; i += TL::NTHREADS) {
-    const int ix = i % TX, iy = (i / TX) % TY, iz = i / (TX * TY);
-    if (iz >= vz || iy >= vy || ix >= vx) continue;
-    const long long o = base + ((long long)(z0 + iz) * sh.ny + y0 + iy) * sh.nx
-                        + x0 + ix;
-    T u[NV], w[NV];
+
+  for (int zc = zs - 2; zc < ze; ++zc) {
+    cp_async_wait_all();
+    __syncthreads();   // planes up to zc + H and plane zc's halo have landed
+
+    // 1. convert what has landed to prim, in place; set up plane zc
+    for (; converted <= zc + H; ++converted) {
+      if (!has_cell) continue;
+      T* c = ring + slot(converted) * NV * NC + t;
+      T u[NV], w[NV];
 #pragma unroll
-    for (int v = 0; v < NV; ++v) u[v] = u0[o + v * s_var];
-    cons_to_prim<T, NV>(u, p, u, w);   // u is now u0f
-#pragma unroll
-    for (int v = 0; v < NV; ++v) {
-      u[v] = sc.gam0 * u[v] + sc.gam1 * u1[o + v * s_var]
-             + sc.beta_dt * nd_s[v * TL::NC + i];
-      out[o + v * s_var] = u[v];
-    }
-    if (dt_out != nullptr) {
+      for (int v = 0; v < NV; ++v) u[v] = c[v * NC];
       cons_to_prim<T, NV>(u, p, u, w);
-      dt_min = nan_min(dt_min, cell_cfl_dt<T, NV>(w, p, sc.dx1, sc.dx2, sc.dx3));
+#pragma unroll
+      for (int v = 0; v < NV; ++v) c[v * NC] = w[v];
+      if (prim_out != nullptr && own_xy && converted >= zs && converted < ze) {
+        const long long o = base + (long long)converted * sh.ny * sh.nx
+                            + (long long)(y0 + ty) * sh.nx + x0 + tx;
+#pragma unroll
+        for (int v = 0; v < NV; ++v) prim_out[o + v * s_var] = w[v];
+      }
+    }
+    if (zc >= zs) {
+      const T* c = ring + slot(zc) * NV * NC + t;
+      const int pc = (ty + H) * PX + tx + H;
+      if (has_cell) {
+#pragma unroll
+        for (int v = 0; v < NV; ++v) cur[v * PY * PX + pc] = c[v * NC];
+      }
+      if (has_halo) {
+        T u[NV], w[NV];
+#pragma unroll
+        for (int v = 0; v < NV; ++v) u[v] = halo[v * CL::NHALO + t];
+        cons_to_prim<T, NV>(u, p, u, w);
+#pragma unroll
+        for (int v = 0; v < NV; ++v) cur[v * PY * PX + h_pos] = w[v];
+      }
+    }
+    __syncthreads();
+
+    // 2. the next plane and the next plane's halo, in flight during 3-5
+    if (zc + 1 < ze) {
+      load_plane(zc + 1 + H);
+      if (zc + 1 >= zs) load_halo(zc + 1);
+    }
+    cp_async_commit();
+
+    // 3. the x and y sweeps of plane zc; -div(F) of this thread's cell
+    // accumulates in nd in the plain version's order (x, + y, + z)
+    T nd[NV];
+    if (zc >= zs) {
+      plane_sweep<T, CL, NV, RECON, SOLVER, 1, FACES>(
+          sm, nd, p, sc.idx1, fc.d[0], fc.g, sh, b, zc, y0, x0, vy, vx);
+      plane_sweep<T, CL, NV, RECON, SOLVER, 2, FACES>(
+          sm, nd, p, sc.idx2, fc.d[1], fc.g, sh, b, zc, y0, x0, vy, vx);
+    }
+
+    // 4. the z face between zc and zc + 1: edge states of plane zc + 1;
+    // the left state (the right edge state of plane zc) comes from the
+    // carry, which takes plane zc + 1's
+    if (!has_cell) continue;
+    T wl[NV], qm[NV];
+    {
+      int s[2 * R + 1];
+#pragma unroll
+      for (int o = -R; o <= R; ++o) s[o + R] = slot(zc + 1 + o) * NV * NC + t;
+#pragma unroll
+      for (int v = 0; v < NV; ++v) {
+        const T* r = ring + v * NC;
+        T qp;
+        if constexpr (RECON == RECON_PPM)
+          ppm_edges(r[s[0]], r[s[1]], r[s[2]], r[s[3]], r[s[4]], qm[v], qp);
+        else if constexpr (RECON == RECON_PLM)
+          plm_edges(r[s[0]], r[s[1]], r[s[2]], qm[v], qp);
+        else
+          qm[v] = qp = r[s[0]];
+        wl[v] = zqp[v * NC + t];
+        zqp[v * NC + t] = qp;
+      }
+    }
+    if (zc + 1 >= zs) {
+      T F[NV];
+      riemann_flux<T, SOLVER, 3>(wl, qm, p, F);
+      if constexpr (FACES) {
+        const int G = zc + 1;
+        if (own_xy && G < ze && (G == fc.g || G == sh.nz - fc.g)) {
+          const long long o = (((long long)b * NV * sh.ny + y0 + ty) * sh.nx
+                               + x0 + tx) * 2 + (G == fc.g ? 0 : 1);
+#pragma unroll
+          for (int v = 0; v < NV; ++v)
+            fc.d[2][o + 2LL * v * sh.ny * sh.nx] = F[v];
+        }
+      }
+      // 5. the update of plane zc, and the CFL bound of its new state
+      if (zc >= zs && own_xy) {
+        const long long o = base + (long long)zc * sh.ny * sh.nx
+                            + (long long)(y0 + ty) * sh.nx + x0 + tx;
+        T u[NV], w[NV];
+#pragma unroll
+        for (int v = 0; v < NV; ++v) u[v] = u0[o + v * s_var];
+        cons_to_prim<T, NV>(u, p, u, w);   // u is now u0f
+#pragma unroll
+        for (int v = 0; v < NV; ++v) {
+          const T r = -((F[v] - zf[v * NC + t]) * sc.idx3);
+          u[v] = sc.gam0 * u[v] + sc.gam1 * u1[o + v * s_var]
+                 + sc.beta_dt * (nd[v] + r);
+          out[o + v * s_var] = u[v];
+        }
+        if (dt_out != nullptr) {
+          cons_to_prim<T, NV>(u, p, u, w);
+          dt_min = nan_min(dt_min, cell_cfl_dt<T, NV>(w, p, sc.dx1, sc.dx2,
+                                                       sc.dx3));
+        }
+      }
+#pragma unroll
+      for (int v = 0; v < NV; ++v) zf[v * NC + t] = F[v];
     }
   }
+
   if (dt_out != nullptr) {
-    for (int off = 16; off > 0; off >>= 1)
-      dt_min = nan_min(dt_min, __shfl_down_sync(0xffffffffu, dt_min, off));
-    if (threadIdx.x % 32 == 0) red_s[threadIdx.x / 32] = dt_min;
+    T* red = sm + CL::RED;
+    red[t] = dt_min;
     __syncthreads();
-    if (threadIdx.x == 0) {
-      for (int k = 1; k < TL::NTHREADS / 32; ++k) dt_min = nan_min(dt_min, red_s[k]);
-      dt_out[(long long)blockIdx.y * gridDim.x + tile] = dt_min;
+    if (t == 0) {
+      for (int k = 1; k < NT; ++k) dt_min = nan_min(dt_min, red[k]);
+      dt_out[(long long)b * gridDim.x + tile] = dt_min;
     }
   }
 }
@@ -337,41 +487,62 @@ struct Args {
   double dx1, dx2, dx3, gam0, gam1, beta_dt, c_h;
   EosArgs eos;
   cudaStream_t stream;
+  bool with_faces;  // the instantiation with the face output
+  int* query;       // non-null: report, do not launch (fused_stage_occupancy)
 };
 
-template <typename TL>
-Shape shape_of(int nz, int ny, int nx) {
+// One column shape serves every instantiation.
+using ColShape = Col<float, 5, RECON_DC>;
+
+// Columns of nb blocks of [nz, ny, nx]; z is cut into segments of at least
+// 8 planes while there are fewer than ~2048 blocks (a few waves over the
+// card's 132 SMs), so small refined blocks march short columns.
+Shape shape_of(int nb, int nz, int ny, int nx) {
   Shape sh;
   sh.nz = nz; sh.ny = ny; sh.nx = nx;
-  sh.ntz = (nz + TL::TZ - 1) / TL::TZ;
-  sh.nty = (ny + TL::TY - 1) / TL::TY;
-  sh.ntx = (nx + TL::TX - 1) / TL::TX;
+  sh.ntx = (nx + ColShape::TX - 1) / ColShape::TX;
+  sh.nty = (ny + ColShape::TY - 1) / ColShape::TY;
+  const long long columns = (long long)nb * sh.ntx * sh.nty;
+  const long long want = 2048;
+  long long nseg = (want + columns - 1) / columns;
+  if (nseg > nz / 8) nseg = nz / 8;
+  if (nseg < 1) nseg = 1;
+  sh.seg_len = (int)((nz + nseg - 1) / nseg);
+  sh.nseg = (nz + sh.seg_len - 1) / sh.seg_len;
   return sh;
 }
 
 template <typename T, int RECON, int SOLVER>
 cudaError_t launch(const Args& a) {
-  using TL = Tile<T, NVar<SOLVER>::value, RECON>;
-  static_assert(TL::SMEM <= 232448, "tile exceeds a block's shared memory");
-  auto kernel = a.faces[0] != nullptr
-                    ? fused_stage_kernel<T, RECON, SOLVER, true>
-                    : fused_stage_kernel<T, RECON, SOLVER, false>;
+  using CL = Col<T, NVar<SOLVER>::value, RECON>;
+  static_assert(CL::TX == ColShape::TX && CL::TY == ColShape::TY,
+                "one column shape");
+  static_assert(CL::SMEM <= 232448, "column exceeds a block's shared memory");
+  auto kernel = a.with_faces ? fused_stage_kernel<T, RECON, SOLVER, true>
+                             : fused_stage_kernel<T, RECON, SOLVER, false>;
   cudaError_t err = cudaFuncSetAttribute(
-      kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)TL::SMEM);
+      kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)CL::SMEM);
   if (err != cudaSuccess) return err;
-  const Shape sh = shape_of<TL>(a.nz, a.ny, a.nx);
+  if (a.query != nullptr) {
+    a.query[0] = (int)CL::SMEM;
+    return cudaOccupancyMaxActiveBlocksPerMultiprocessor(&a.query[1], kernel,
+                                                         CL::NT, CL::SMEM);
+  }
+  const Shape sh = shape_of(a.nb, a.nz, a.ny, a.nx);
   // scalars arrive as doubles and are rounded to T once, as the plain
-  // path's Python floats are
+  // path's Python floats are; 1/dx is computed in T, as PyTorch on the
+  // card divides by a Python scalar
   const Params<T> p = make_params<T>(a.eos, a.c_h);
   Scalars<T> sc;
   sc.gam0 = T(a.gam0); sc.gam1 = T(a.gam1); sc.beta_dt = T(a.beta_dt);
   sc.dx1 = T(a.dx1); sc.dx2 = T(a.dx2); sc.dx3 = T(a.dx3);
+  sc.idx1 = T(1) / sc.dx1; sc.idx2 = T(1) / sc.dx2; sc.idx3 = T(1) / sc.dx3;
   sc.inf = std::numeric_limits<T>::infinity();
   Faces<T> fc;
   for (int d = 0; d < 3; ++d) fc.d[d] = static_cast<T*>(a.faces[d]);
   fc.g = a.g_face;
-  dim3 grid(sh.ntz * sh.nty * sh.ntx, a.nb);
-  kernel<<<grid, TL::NTHREADS, TL::SMEM, a.stream>>>(
+  dim3 grid(sh.ntx * sh.nty * sh.nseg, a.nb);
+  kernel<<<grid, CL::NT, CL::SMEM, a.stream>>>(
       static_cast<const T*>(a.u0), static_cast<const T*>(a.u1),
       static_cast<T*>(a.out), static_cast<T*>(a.dt_out),
       static_cast<T*>(a.prim_out), fc, sh, p, sc);
@@ -400,17 +571,19 @@ cudaError_t launch_recon(int recon, int solver, const Args& a) {
 
 }  // namespace
 
-// Tiles that one [nz, ny, nx] block is cut into: dt_out holds nb times this
-// many values.  One tile shape serves every instantiation.
-extern "C" int fused_stage_tiles(int nz, int ny, int nx) {
-  const Shape sh = shape_of<Tile<float, 5, RECON_DC>>(nz, ny, nx);
-  return sh.ntz * sh.nty * sh.ntx;
+// Tiles (column segments) that each of nb [nz, ny, nx] blocks is cut into:
+// dt_out holds nb times this many values.  One shape serves every
+// instantiation.
+extern "C" int fused_stage_tiles(int nb, int nz, int ny, int nx) {
+  const Shape sh = shape_of(nb, nz, ny, nx);
+  return sh.ntx * sh.nty * sh.nseg;
 }
 
 // dtype: 0 = float32, 1 = float64.  solver: 0 = Euler HLLE, 1 = Euler HLLC,
 // 2 = GLM-MHD HLLD.  recon: 0 = dc, 1 = plm, 2 = ppm.  u0, u1, out and
 // prim_out: contiguous [nb, nvar, nz, ny, nx] on the current device, nvar = 5
-// (Euler) or 9 (GLM-MHD); dt_out: nb * fused_stage_tiles(nz, ny, nx) values.
+// (Euler) or 9 (GLM-MHD); dt_out: nb * fused_stage_tiles(nb, nz, ny, nx)
+// values.
 // dt_out and prim_out may be null.  eos: gamma, density floor, pressure
 // floor, internal-energy floor, velocity ceiling, internal-energy ceiling
 // (a floor <= 0 and an infinite ceiling are off).  fx, fy, fz (all null,
@@ -439,6 +612,22 @@ extern "C" int fused_stage(const void* u0, const void* u1, void* out,
   a.gam0 = gam0; a.gam1 = gam1; a.beta_dt = beta_dt; a.c_h = c_h;
   a.eos = EosArgs{eos[0], eos[1], eos[2], eos[3], eos[4], eos[5]};
   a.stream = static_cast<cudaStream_t>(stream);
+  a.with_faces = any_faces;
+  a.query = nullptr;
+  if (dtype == 0) return (int)launch_recon<float>(recon, solver, a);
+  if (dtype == 1) return (int)launch_recon<double>(recon, solver, a);
+  return (int)cudaErrorInvalidValue;
+}
+
+// The instantiation fused_stage launches for (dtype, solver, recon, with
+// or without faces): out[0] = its dynamic shared memory in bytes, out[1] =
+// how many of its blocks (128 threads) the current device keeps resident
+// per SM.
+extern "C" int fused_stage_occupancy(int dtype, int solver, int recon,
+                                     int faces, int* out) {
+  Args a{};
+  a.with_faces = faces != 0;
+  a.query = out;
   if (dtype == 0) return (int)launch_recon<float>(recon, solver, a);
   if (dtype == 1) return (int)launch_recon<double>(recon, solver, a);
   return (int)cudaErrorInvalidValue;

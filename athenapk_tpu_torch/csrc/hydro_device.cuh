@@ -7,8 +7,15 @@
 // riemann/solvers.py (_euler_hlle, _euler_hllc, _glm_hlld) and
 // eos/adiabatic.py (cons_to_prim).  Scalar constants that the plain code
 // folds as Python floats are folded in double on the host (make_params) and
-// rounded to T once; build with --fmad=false so no multiply-add is
-// contracted and the two versions differ by rounding only.
+// rounded to T once.  A division of a tensor by a Python scalar is, on the
+// card, PyTorch's multiplication by the scalar's reciprocal computed in T
+// (x / 6.0 is x * (1/6)), and a Python scalar divided by a tensor is
+// reciprocal(tensor) * scalar on any device: the kernels do the same, with
+// the reciprocals folded on the host in T (make_params, the launchers) or
+// at compile time.  Built with --fmad=false, so that no multiply-add is
+// contracted, the kernels give the plain version's numbers bit for bit on
+// the card (contracted, f32 fails chip_smoke.py's 1e-4 gate and f64 its
+// 1e-10 one: PERF.md).
 
 #pragma once
 
@@ -34,7 +41,8 @@ template <typename T>
 struct Params {
   T gamma;         // adiabatic index
   T gm1;           // gamma - 1
-  T igm1;          // 1 / (gamma - 1)
+  T igm1;          // 1 / (gamma - 1), folded in double (a Python float)
+  T inv_gm1;       // T(1) / T(gamma - 1): what `x / gm1` multiplies by
   T hllc_coef;     // (gamma + 1) / (2 gamma)
   T half_over_ch;  // 0.5 / c_h
   T half_ch;       // 0.5 * c_h
@@ -60,6 +68,7 @@ inline Params<T> make_params(const EosArgs& e, double c_h) {
   p.gamma = T(e.gamma);
   p.gm1 = T(gm1);
   p.igm1 = T(1.0 / gm1);
+  p.inv_gm1 = T(1) / T(gm1);
   p.hllc_coef = T((e.gamma + 1.0) / (2.0 * e.gamma));
   p.half_over_ch = T(0.5 / c_h);
   p.half_ch = T(0.5 * c_h);
@@ -108,14 +117,15 @@ template <typename T>
 __device__ __forceinline__ void ppm_edges(T qm2, T qm1, T q, T qp1, T qp2,
                                           T& qm_out, T& qp_out) {
   const T C2 = T(1.25);
+  const T SIXTH = T(1) / T(6);   // x / 6.0 on the card
   T qa0 = q - qm1;
   T qb0 = qp1 - q;
   T dd_im1 = T(0.5) * qa0 + T(0.5) * (qm1 - qm2);
   T dd = T(0.5) * qb0 + T(0.5) * qa0;
   T dd_ip1 = T(0.5) * (qp2 - qp1) + T(0.5) * qb0;
 
-  T dph = T(0.5) * (qm1 + q) + (dd_im1 - dd) / T(6);
-  T dph_ip1 = T(0.5) * (q + qp1) + (dd - dd_ip1) / T(6);
+  T dph = T(0.5) * (qm1 + q) + (dd_im1 - dd) * SIXTH;
+  T dph_ip1 = T(0.5) * (q + qp1) + (dd - dd_ip1) * SIXTH;
 
   T d2qc_im1 = qm2 + q - T(2) * qm1;
   T d2qc = qm1 + qp1 - T(2) * q;
@@ -130,7 +140,7 @@ __device__ __forceinline__ void ppm_edges(T qm2, T qm1, T q, T qp1, T qp2,
     bool same = (sgn(qa) == sgn(qb)) && (sgn(qa) == sgn(qc));
     T qd = same ? sgn(qa) * fmin(C2 * fabs(qb), fmin(C2 * fabs(qc), fabs(qa)))
                 : T(0);
-    if (qa_t * qb_t < T(0)) dph = T(0.5) * (qm1 + q) - qd / T(6);
+    if (qa_t * qb_t < T(0)) dph = T(0.5) * (qm1 + q) - qd * SIXTH;
   }
   {  // limit the i+1/2 face value
     T qa_t = dph_ip1 - q;
@@ -141,7 +151,7 @@ __device__ __forceinline__ void ppm_edges(T qm2, T qm1, T q, T qp1, T qp2,
     bool same = (sgn(qa) == sgn(qb)) && (sgn(qa) == sgn(qc));
     T qd = same ? sgn(qa) * fmin(C2 * fabs(qb), fmin(C2 * fabs(qc), fabs(qa)))
                 : T(0);
-    if (qa_t * qb_t < T(0)) dph_ip1 = T(0.5) * (q + qp1) - qd / T(6);
+    if (qa_t * qb_t < T(0)) dph_ip1 = T(0.5) * (q + qp1) - qd * SIXTH;
   }
 
   T d2qf = T(6) * (dph + dph_ip1 - T(2) * q);
@@ -213,7 +223,7 @@ __device__ __forceinline__ EulerSide<T> euler_side(const T* w, const Params<T>& 
   constexpr int IVX = 1 + (DIR - 1), IVY = 1 + DIR % 3, IVZ = 1 + (DIR + 1) % 3;
   EulerSide<T> s;
   s.d = w[IDN]; s.vx = w[IVX]; s.vy = w[IVY]; s.vz = w[IVZ]; s.p = w[IPR];
-  s.e = s.p / p.gm1 + T(0.5) * s.d * (s.vx * s.vx + s.vy * s.vy + s.vz * s.vz);
+  s.e = s.p * p.inv_gm1 + T(0.5) * s.d * (s.vx * s.vx + s.vy * s.vy + s.vz * s.vz);
   return s;
 }
 
@@ -324,7 +334,13 @@ __device__ __forceinline__ void euler_hllc(const T* wl, const T* wr,
 }
 
 // GLM-HLLD (Miyoshi & Kusano 2005) for direction DIR; riemann/solvers.py:
-// _glm_hlld, the same branch-free lattice per face.
+// _glm_hlld.  The plain version computes every wave region's flux at every
+// face and selects one (a branch-free lattice); here the face branches on
+// its region, in the lattice's order of tests, and computes only what that
+// region needs (no star state for the supersonic regions, one side's for
+// L* and R*), each value by the lattice's own operations, so the two agree
+// bit for bit.  L** and R** share one branch: both need both star states
+// and the double-star state.
 template <typename T, int DIR>
 __device__ __forceinline__ void glm_hlld(const T* wl, const T* wr,
                                          const Params<T>& p, T* F) {
@@ -376,112 +392,113 @@ __device__ __forceinline__ void glm_hlld(const T* wl, const T* wr,
                    byr * vxr - bxi * vyr,
                    bzr * vxr - bxi * vzr};
 
-  const T sdl = spd0 - vxl;
-  const T sdr = spd4 - vxr;
-  const T spd2 = (sdr * ur_mx - sdl * ul_mx + (ptl - ptr)) / (sdr * dr - sdl * dl);
-  const T sdml = spd0 - spd2;
-  const T sdmr = spd4 - spd2;
-  const T sdml_inv = T(1) / sdml;
-  const T sdmr_inv = T(1) / sdmr;
-
-  const T ulst_d = dl * sdl * sdml_inv;
-  const T urst_d = dr * sdr * sdmr_inv;
-  const T ulst_d_inv = T(1) / ulst_d;
-  const T urst_d_inv = T(1) / urst_d;
-  const T sqrtdl = sqrt(ulst_d);
-  const T sqrtdr = sqrt(urst_d);
-  const T spd1 = spd2 - fabs(bxi) / sqrtdl;
-  const T spd3 = spd2 + fabs(bxi) / sqrtdr;
-
-  const T ptstl = ptl + dl * sdl * (spd2 - vxl);
-  const T ptstr = ptr + dr * sdr * (spd2 - vxr);
-  const T ptst = T(0.5) * (ptstr + ptstl);
-
-  // star states: {d, mx, my, mz, e, by, bz}
-  T ulst[7], urst[7], vbstl, vbstr;
-  {
-    const T denom = dl * sdl * sdml - bxsq;
-    const bool degen = fabs(denom) < SMALL * ptst;
-    const T safe = degen ? T(1) : denom;
-    const T tmp = bxi * (sdl - sdml) / safe;
-    const T my = degen ? ulst_d * vyl : ulst_d * (vyl - byl * tmp);
-    const T mz = degen ? ulst_d * vzl : ulst_d * (vzl - bzl * tmp);
-    const T tmp2 = (dl * sdl * sdl - bxsq) / safe;
-    const T by = degen ? byl : byl * tmp2;
-    const T bz = degen ? bzl : bzl * tmp2;
-    const T mx = ulst_d * spd2;
-    vbstl = (mx * bxi + my * by + mz * bz) / ulst_d;
-    const T e = (sdl * ul_e - ptl * vxl + ptst * spd2
-                 + bxi * (vxl * bxi + vyl * byl + vzl * bzl - vbstl)) * sdml_inv;
-    ulst[0] = ulst_d; ulst[1] = mx; ulst[2] = my; ulst[3] = mz;
-    ulst[4] = e; ulst[5] = by; ulst[6] = bz;
-  }
-  {
-    const T denom = dr * sdr * sdmr - bxsq;
-    const bool degen = fabs(denom) < SMALL * ptst;
-    const T safe = degen ? T(1) : denom;
-    const T tmp = bxi * (sdr - sdmr) / safe;
-    const T my = degen ? urst_d * vyr : urst_d * (vyr - byr * tmp);
-    const T mz = degen ? urst_d * vzr : urst_d * (vzr - bzr * tmp);
-    const T tmp2 = (dr * sdr * sdr - bxsq) / safe;
-    const T by = degen ? byr : byr * tmp2;
-    const T bz = degen ? bzr : bzr * tmp2;
-    const T mx = urst_d * spd2;
-    vbstr = (mx * bxi + my * by + mz * bz) / urst_d;
-    const T e = (sdr * ur_e - ptr * vxr + ptst * spd2
-                 + bxi * (vxr * bxi + vyr * byr + vzr * bzr - vbstr)) * sdmr_inv;
-    urst[0] = urst_d; urst[1] = mx; urst[2] = my; urst[3] = mz;
-    urst[4] = e; urst[5] = by; urst[6] = bz;
-  }
-
-  // double-star states (Alfven-rotated)
-  const bool weak_b = T(0.5) * bxsq < SMALL * ptst;
-  const T invsumd = T(1) / (sqrtdl + sqrtdr);
-  const T bxsig = bxi > T(0) ? T(1) : T(-1);
-  const T vy_dst = invsumd * (sqrtdl * (ulst[2] * ulst_d_inv) +
-                              sqrtdr * (urst[2] * urst_d_inv) +
-                              bxsig * (urst[5] - ulst[5]));
-  const T vz_dst = invsumd * (sqrtdl * (ulst[3] * ulst_d_inv) +
-                              sqrtdr * (urst[3] * urst_d_inv) +
-                              bxsig * (urst[6] - ulst[6]));
-  const T by_dst = invsumd * (sqrtdl * urst[5] + sqrtdr * ulst[5] +
-                              bxsig * sqrtdl * sqrtdr *
-                                  ((urst[2] * urst_d_inv) - (ulst[2] * ulst_d_inv)));
-  const T bz_dst = invsumd * (sqrtdl * urst[6] + sqrtdr * ulst[6] +
-                              bxsig * sqrtdl * sqrtdr *
-                                  ((urst[3] * urst_d_inv) - (ulst[3] * ulst_d_inv)));
-  const T vb_dst = spd2 * bxi + vy_dst * by_dst + vz_dst * bz_dst;
-
-  const T uldst[7] = {
-      ulst[0], ulst[1],
-      weak_b ? ulst[2] : ulst[0] * vy_dst,
-      weak_b ? ulst[3] : ulst[0] * vz_dst,
-      weak_b ? ulst[4] : ulst[4] - sqrtdl * bxsig * (vbstl - vb_dst),
-      weak_b ? ulst[5] : by_dst,
-      weak_b ? ulst[6] : bz_dst};
-  const T urdst[7] = {
-      urst[0], urst[1],
-      weak_b ? urst[2] : urst[0] * vy_dst,
-      weak_b ? urst[3] : urst[0] * vz_dst,
-      weak_b ? urst[4] : urst[4] + sqrtdr * bxsig * (vbstr - vb_dst),
-      weak_b ? urst[5] : by_dst,
-      weak_b ? urst[6] : bz_dst};
-  const T ul[7] = {dl, ul_mx, ul_my, ul_mz, ul_e, byl, bzl};
-  const T ur[7] = {dr, ur_mx, ur_my, ur_mz, ur_e, byr, bzr};
-
   T f7[7];
+  if (spd0 >= T(0)) {
 #pragma unroll
-  for (int k = 0; k < 7; ++k) {
-    const T d_uldst = spd1 * (uldst[k] - ulst[k]);
-    const T d_ulst = spd0 * (ulst[k] - ul[k]);
-    const T d_urdst = spd3 * (urdst[k] - urst[k]);
-    const T d_urst = spd4 * (urst[k] - ur[k]);
-    f7[k] = spd0 >= T(0) ? fl[k]
-          : spd4 <= T(0) ? fr[k]
-          : spd1 >= T(0) ? fl[k] + d_ulst
-          : spd2 >= T(0) ? fl[k] + d_ulst + d_uldst
-          : spd3 > T(0)  ? fr[k] + d_urst + d_urdst
-                         : fr[k] + d_urst;
+    for (int k = 0; k < 7; ++k) f7[k] = fl[k];
+  } else if (spd4 <= T(0)) {
+#pragma unroll
+    for (int k = 0; k < 7; ++k) f7[k] = fr[k];
+  } else {
+    const T sdl = spd0 - vxl;
+    const T sdr = spd4 - vxr;
+    const T spd2 = (sdr * ur_mx - sdl * ul_mx + (ptl - ptr)) / (sdr * dr - sdl * dl);
+    const T sdml = spd0 - spd2;
+    const T sdmr = spd4 - spd2;
+    const T sdml_inv = T(1) / sdml;
+    const T sdmr_inv = T(1) / sdmr;
+
+    const T ulst_d = dl * sdl * sdml_inv;
+    const T urst_d = dr * sdr * sdmr_inv;
+    const T sqrtdl = sqrt(ulst_d);
+    const T sqrtdr = sqrt(urst_d);
+    const T spd1 = spd2 - fabs(bxi) / sqrtdl;
+    const T spd3 = spd2 + fabs(bxi) / sqrtdr;
+
+    const T ptstl = ptl + dl * sdl * (spd2 - vxl);
+    const T ptstr = ptr + dr * sdr * (spd2 - vxr);
+    const T ptst = T(0.5) * (ptstr + ptstl);
+
+    // star state {d, mx, my, mz, e, by, bz} of one side, and its v.B
+    auto star = [&](T d, T sd, T sdm, T sdm_inv, T st_d, T vx, T vy, T vz,
+                    T by0, T bz0, T u_e, T pt, T* st, T& vbst) {
+      const T denom = d * sd * sdm - bxsq;
+      const bool degen = fabs(denom) < SMALL * ptst;
+      const T safe = degen ? T(1) : denom;
+      const T tmp = bxi * (sd - sdm) / safe;
+      const T my = degen ? st_d * vy : st_d * (vy - by0 * tmp);
+      const T mz = degen ? st_d * vz : st_d * (vz - bz0 * tmp);
+      const T tmp2 = (d * sd * sd - bxsq) / safe;
+      const T by = degen ? by0 : by0 * tmp2;
+      const T bz = degen ? bz0 : bz0 * tmp2;
+      const T mx = st_d * spd2;
+      vbst = (mx * bxi + my * by + mz * bz) / st_d;
+      const T e = (sd * u_e - pt * vx + ptst * spd2
+                   + bxi * (vx * bxi + vy * by0 + vz * bz0 - vbst)) * sdm_inv;
+      st[0] = st_d; st[1] = mx; st[2] = my; st[3] = mz;
+      st[4] = e; st[5] = by; st[6] = bz;
+    };
+    const T ul[7] = {dl, ul_mx, ul_my, ul_mz, ul_e, byl, bzl};
+    const T ur[7] = {dr, ur_mx, ur_my, ur_mz, ur_e, byr, bzr};
+    T ulst[7], urst[7], vbstl, vbstr;
+    if (spd1 >= T(0)) {
+      star(dl, sdl, sdml, sdml_inv, ulst_d, vxl, vyl, vzl, byl, bzl, ul_e,
+           ptl, ulst, vbstl);
+#pragma unroll
+      for (int k = 0; k < 7; ++k) f7[k] = fl[k] + spd0 * (ulst[k] - ul[k]);
+    } else if (spd2 >= T(0) || spd3 > T(0)) {
+      star(dl, sdl, sdml, sdml_inv, ulst_d, vxl, vyl, vzl, byl, bzl, ul_e,
+           ptl, ulst, vbstl);
+      star(dr, sdr, sdmr, sdmr_inv, urst_d, vxr, vyr, vzr, byr, bzr, ur_e,
+           ptr, urst, vbstr);
+      const T ulst_d_inv = T(1) / ulst_d;
+      const T urst_d_inv = T(1) / urst_d;
+      // double-star states (Alfven-rotated)
+      const bool weak_b = T(0.5) * bxsq < SMALL * ptst;
+      const T invsumd = T(1) / (sqrtdl + sqrtdr);
+      const T bxsig = bxi > T(0) ? T(1) : T(-1);
+      const T vy_dst = invsumd * (sqrtdl * (ulst[2] * ulst_d_inv) +
+                                  sqrtdr * (urst[2] * urst_d_inv) +
+                                  bxsig * (urst[5] - ulst[5]));
+      const T vz_dst = invsumd * (sqrtdl * (ulst[3] * ulst_d_inv) +
+                                  sqrtdr * (urst[3] * urst_d_inv) +
+                                  bxsig * (urst[6] - ulst[6]));
+      const T by_dst = invsumd * (sqrtdl * urst[5] + sqrtdr * ulst[5] +
+                                  bxsig * sqrtdl * sqrtdr *
+                                      ((urst[2] * urst_d_inv) - (ulst[2] * ulst_d_inv)));
+      const T bz_dst = invsumd * (sqrtdl * urst[6] + sqrtdr * ulst[6] +
+                                  bxsig * sqrtdl * sqrtdr *
+                                      ((urst[3] * urst_d_inv) - (ulst[3] * ulst_d_inv)));
+      const T vb_dst = spd2 * bxi + vy_dst * by_dst + vz_dst * bz_dst;
+      const T uldst[7] = {
+          ulst[0], ulst[1],
+          weak_b ? ulst[2] : ulst[0] * vy_dst,
+          weak_b ? ulst[3] : ulst[0] * vz_dst,
+          weak_b ? ulst[4] : ulst[4] - sqrtdl * bxsig * (vbstl - vb_dst),
+          weak_b ? ulst[5] : by_dst,
+          weak_b ? ulst[6] : bz_dst};
+      const T urdst[7] = {
+          urst[0], urst[1],
+          weak_b ? urst[2] : urst[0] * vy_dst,
+          weak_b ? urst[3] : urst[0] * vz_dst,
+          weak_b ? urst[4] : urst[4] + sqrtdr * bxsig * (vbstr - vb_dst),
+          weak_b ? urst[5] : by_dst,
+          weak_b ? urst[6] : bz_dst};
+      if (spd2 >= T(0)) {
+#pragma unroll
+        for (int k = 0; k < 7; ++k)
+          f7[k] = fl[k] + spd0 * (ulst[k] - ul[k]) + spd1 * (uldst[k] - ulst[k]);
+      } else {
+#pragma unroll
+        for (int k = 0; k < 7; ++k)
+          f7[k] = fr[k] + spd4 * (urst[k] - ur[k]) + spd3 * (urdst[k] - urst[k]);
+      }
+    } else {
+      star(dr, sdr, sdmr, sdmr_inv, urst_d, vxr, vyr, vzr, byr, bzr, ur_e,
+           ptr, urst, vbstr);
+#pragma unroll
+      for (int k = 0; k < 7; ++k) f7[k] = fr[k] + spd4 * (urst[k] - ur[k]);
+    }
   }
   F[IDN] = f7[0];
   F[IVX] = f7[1];
@@ -533,7 +550,7 @@ __device__ __forceinline__ void cons_to_prim(const T* u, const Params<T>& p,
     const T w_v2 = w_vx * w_vx + w_vy * w_vy + w_vz * w_vz;
     const T w_v = sqrt(w_v2);
     const bool over = w_v2 > p.vceil2;
-    const T scale = over ? p.vceil / w_v : T(1);
+    const T scale = over ? (T(1) / w_v) * p.vceil : T(1);
     w_vx = w_vx * scale;
     w_vy = w_vy * scale;
     w_vz = w_vz * scale;
@@ -574,7 +591,8 @@ __device__ __forceinline__ void cons_to_prim(const T* u, const Params<T>& p,
 }
 
 // min_d dx_d / (|v_d| + lam_d) of one primitive state: the raw hyperbolic
-// CFL bound of a cell (HydroPackage.estimate_timestep), d over x, y, z.
+// CFL bound of a cell (HydroPackage.estimate_timestep), d over x, y, z;
+// the plain code's `dx / tensor` is reciprocal(tensor) * dx.
 template <typename T, int NV>
 __device__ __forceinline__ T cell_cfl_dt(const T* w, const Params<T>& p,
                                          T dx1, T dx2, T dx3) {
@@ -586,10 +604,59 @@ __device__ __forceinline__ T cell_cfl_dt(const T* w, const Params<T>& p,
   } else {
     l1 = l2 = l3 = sqrt(p.gamma * w[4] / w[0]);
   }
-  const T t1 = dx1 / (fabs(w[1]) + l1);
-  const T t2 = dx2 / (fabs(w[2]) + l2);
-  const T t3 = dx3 / (fabs(w[3]) + l3);
+  const T t1 = (T(1) / (fabs(w[1]) + l1)) * dx1;
+  const T t2 = (T(1) / (fabs(w[2]) + l2)) * dx2;
+  const T t3 = (T(1) / (fabs(w[3]) + l3)) * dx3;
   return nan_min(nan_min(t1, t2), t3);
+}
+
+// ------------------------------------------------------ asynchronous copies
+// One element from device memory into shared memory without passing through
+// registers (cp.async).  The copies a thread has issued have landed after
+// its cp_async_wait_all; a __syncthreads after that shows them to the block.
+template <typename T>
+__device__ __forceinline__ void cp_async(T* dst, const T* src) {
+  static_assert(sizeof(T) == 4 || sizeof(T) == 8, "4- or 8-byte elements");
+#ifdef __CUDA_ARCH__
+  const unsigned s = static_cast<unsigned>(__cvta_generic_to_shared(dst));
+  asm volatile("cp.async.ca.shared.global [%0], [%1], %2;\n"
+               ::"r"(s), "l"(src), "n"(sizeof(T)) : "memory");
+#else
+  *dst = *src;
+#endif
+}
+
+// 16 bytes (16 / sizeof(T) elements) the same way; both addresses 16-byte
+// aligned.
+template <typename T>
+__device__ __forceinline__ void cp_async16(T* dst, const T* src) {
+#ifdef __CUDA_ARCH__
+  const unsigned s = static_cast<unsigned>(__cvta_generic_to_shared(dst));
+  asm volatile("cp.async.cg.shared.global [%0], [%1], 16;\n"
+               ::"r"(s), "l"(src) : "memory");
+#else
+  for (int e = 0; e < 16 / (int)sizeof(T); ++e) dst[e] = src[e];
+#endif
+}
+
+__device__ __forceinline__ void cp_async_commit() {
+#ifdef __CUDA_ARCH__
+  asm volatile("cp.async.commit_group;\n" ::: "memory");
+#endif
+}
+
+__device__ __forceinline__ void cp_async_wait_all() {
+#ifdef __CUDA_ARCH__
+  asm volatile("cp.async.wait_all;\n" ::: "memory");
+#endif
+}
+
+// i wrapped into [0, n): the periodic index within a block.  Callers pass
+// indices at most a few extents away, so no division is needed.
+__device__ __forceinline__ int wrap_index(int i, int n) {
+  while (i < 0) i += n;
+  while (i >= n) i -= n;
+  return i;
 }
 
 }  // namespace hydro

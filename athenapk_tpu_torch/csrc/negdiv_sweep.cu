@@ -14,8 +14,8 @@
 // the block's extent with ghosts): what the coarse-fine flux correction
 // reads.  The launch of direction d writes that direction's slab
 // [nb, nvar, A, B, 2] (x: A, B = z, y; y: z, x; z: y, x), entry 0 at g and
-// 1 at n - g; the tile whose cells start at the face writes it from the
-// fluxes it stages in shared memory, so each face is written once.
+// 1 at n - g; the segment that owns the face's right cell writes it, so
+// each face is written once.
 // Here no transpose and no halo slab is needed: the kernel reads along y
 // or z with a stride, the direction only selects which momentum and field
 // components are normal (template parameter DIR), and the caller launches
@@ -23,27 +23,49 @@
 // 1-D mesh one.
 // The plain PyTorch twin is negdiv_plain in solver/sweep.py; the device
 // functions (hydro_device.cuh) follow recon/schemes.py and
-// riemann/solvers.py operation by operation (build with --fmad=false to
-// keep it that way).
+// riemann/solvers.py operation by operation (built without contracted
+// multiply-adds, so it keeps to the plain version's rounding).
 //
 // What bounds it: per cell and direction, PPM costs ~100 floating-point
 // operations per variable and HLLD a few hundred per face, against NV
 // values read and NV written (2 NV more read-modify-written for the
 // accumulating y/z launches).  That is ~50-100 operations per byte, above
-// the card's FP32 and FP64 ridge points, so the arithmetic pipes, not HBM,
-// bound the kernel; reconstructing in shared memory keeps the stencil
-// re-reads off device memory (each tile reads its T+2h cells once).
+// the card's FP32 and FP64 ridge points, so the arithmetic pipes bound the
+// kernel, and what keeps them fed is latency hiding: enough resident warps,
+// no idle barrier waiting on device memory, no work done twice.
 //
-// Design (simple first): a block covers TS cells along the sweep axis times
-// TL lanes (x for the y/z sweeps, so loads coalesce; y for the x sweep,
-// where the sweep axis itself is contiguous).  It loads TS+2h cells of all
-// NV variables into shared memory (h = 1, 2, 3 for DC, PLM, PPM), computes
-// the edge states of the TS+2 cells that touch the tile's faces, then the
-// TS+1 face fluxes (one thread per face), and writes -(F[i+1]-F[i])/dx,
-// or adds it to the output for the second and third direction.  The sweep
-// axis wraps modulo the block's own extent, which is exactly jnp.roll /
-// torch.roll within each block: the periodic boundary on the ghost-free
-// layout, and garbage confined to the ghost rim on ghosted layouts.
+// Design: a block of 128 threads owns a bundle of TL pencils (lines along
+// the sweep axis; consecutive pencils are consecutive x for the y and z
+// sweeps, consecutive rows for the x sweep) and marches along the sweep
+// axis over one segment of it, CS cells per step, thread (j, l) taking
+// cell j of the step in pencil l.  The x sweep takes CS = 16 cells of 8
+// rows, the y and z sweeps CS = 4 cells of 32 pencils (a warp reads 32
+// consecutive x).
+//  - Loads: each step's CS cells arrive by cp.async into a ring of 4 steps
+//    of prim in shared memory, one step ahead of the compute, so loads
+//    overlap arithmetic; the ring keeps the last 2h cells, so no halo is
+//    read twice within a segment (only a segment's first h cells are read
+//    by its neighbour too).  The x sweep copies 16 bytes of a row per
+//    cp.async (4 f32 or 2 f64 cells; 3 or 5 copies per thread and step
+//    instead of 9 single cells), its ring being cells-innermost already.
+//  - Each step builds the edge states of CS cells once, solves CS faces
+//    once (the left state of a step's first face and the flux of the face
+//    before it come from the previous step through two small rings), and
+//    writes -(F[i+1] - F[i]) / dx of CS cells, or adds it to the output
+//    for the second and third direction.  Three barriers per step (two for
+//    DC); with 3-4 blocks resident per SM one block's barrier is another's
+//    issue slot.
+//  - The sweep axis wraps within the block's own extent (torch.roll within
+//    each block: the periodic boundary on the ghost-free layout, garbage
+//    confined to the ghost rim on ghosted layouts), by a compare at the
+//    extent's ends, not a division per element.
+//  - Shared-memory layouts keep a warp's 32 accesses on 32 banks: pencil
+//    innermost for the y/z sweeps; for the x sweep, cells innermost with
+//    each row's pitch offset by 16 words, so the two rows a warp covers
+//    fall on disjoint banks.
+//  - Segments: a block marches the whole extent when there are enough
+//    pencil bundles to fill the card, else the extent is cut into segments
+//    (at least 8 steps each) until there are ~2048 blocks.
 //
 // Plain C interface (loaded with ctypes): negdiv_sweep(...) returns the
 // cudaError_t of the launch (0 on success); it never synchronises.
@@ -56,137 +78,228 @@ namespace {
 
 using namespace hydro;
 
-constexpr int TS = 15;           // cells per tile along the sweep axis
-constexpr int TL = 16;           // lanes per tile
-constexpr int NTHREADS = 256;    // == (TS + 1) * TL: one thread per face
-static_assert((TS + 1) * TL == NTHREADS, "one thread per face");
+constexpr int NTHREADS = 128;
+
+// Block shape of direction DIR: CS cells per step times TL pencils, and
+// the shared-memory layouts of the prim ring (RS cells per pencil) and of
+// the edge-state and flux rings (QS per pencil).
+template <int DIR>
+struct Shape {
+  static constexpr bool X = DIR == 1;     // the sweep axis is contiguous
+  static constexpr int CS = X ? 16 : 4;
+  static constexpr int TL = NTHREADS / CS;
+  static constexpr int RS = 4 * CS;       // prim ring: 4 steps
+  static constexpr int QS = 2 * CS;       // edge-state and flux rings
+  static constexpr int RSP = X ? RS + 16 : RS;   // pitch of one pencil (x)
+  static constexpr int QSP = X ? QS + 16 : QS;
+  __device__ static int cell_of(int t) { return X ? t % CS : t / TL; }
+  __device__ static int lane_of(int t) { return X ? t / CS : t % TL; }
+  // offset of (slot s, pencil l) in a ring of S slots and pitch P; variable
+  // v adds v * var_stride(S, P)
+  __device__ static int at(int s, int l, int S, int P) {
+    return X ? l * P + s : s * TL + l;
+  }
+  __host__ __device__ static constexpr int var_stride(int S, int P) {
+    return X ? TL * P : S * TL;
+  }
+};
+
+// Resident blocks per SM that __launch_bounds__ asks for, so registers cap
+// at 65536 / (128 * blocks); the instantiations use fewer (HLLD: ~96 in
+// f32, ~175 in f64), and the occupancy query reports what the card keeps.
+template <typename T, int SOLVER>
+struct MinBlocks {
+  static constexpr bool MHD = SOLVER == SOLVER_GLMMHD_HLLD;
+  static constexpr int value = sizeof(T) == 4 ? (MHD ? 3 : 4) : (MHD ? 2 : 3);
+};
+
+template <int DIR, int NV, int RECON>
+constexpr size_t smem_elems() {
+  using S = Shape<DIR>;
+  constexpr size_t ring = (size_t)NV * S::TL * S::RSP;
+  constexpr size_t q = (size_t)NV * S::TL * S::QSP;
+  // DC takes its edge states from the prim ring
+  return RECON == RECON_DC ? ring + q : ring + 2 * q;
+}
 
 struct Geom {
-  int n_sweep;          // extent of the sweep axis within a block
-  int n_lane;           // extent of the lane axis
-  long long s_sweep;    // element strides
-  long long s_lane;
-  long long s_other;    // third axis (extent = gridDim.y)
+  int n;              // extent of the sweep axis within a block
+  int seg_len;        // cells per segment (the last may be shorter)
+  int npen;           // pencils per block
+  int nx;             // x extent: pencil -> address for the y sweep
+  long long npen_all; // nb * npen
+  long long s_sweep;  // element strides
+  long long s_plane;  // ny * nx
   long long s_var;
   long long s_block;
 };
 
-// ----------------------------------------------------------------- kernel
-template <int NV, int RECON>
-constexpr int smem_elems() {
-  constexpr int H = Halo<RECON>::h;
-  constexpr int cells = NV * (TS + 2 * H) * TL;
-  constexpr int edges = 2 * NV * (TS + 2) * TL;
-  constexpr int flux = NV * (TS + 1) * TL;
-  // DC keeps its fluxes after the cells; PLM/PPM reuse the cell buffer
-  return RECON == RECON_DC ? cells + flux : cells + edges;
-}
-
 template <typename T, int RECON, int DIR, int SOLVER>
-__global__ void __launch_bounds__(NTHREADS)
+__global__ void __launch_bounds__(NTHREADS, (MinBlocks<T, SOLVER>::value))
 negdiv_sweep_kernel(const T* __restrict__ prim, T* __restrict__ out,
                     T* __restrict__ faces, const Geom g, const Params<T> p,
-                    const T dx, const int accumulate, const int g_face) {
+                    const T inv_dx, const int accumulate, const int g_face) {
   constexpr int NV = NVar<SOLVER>::value;
   constexpr int H = Halo<RECON>::h;
-  constexpr int NC = TS + 2 * H;   // cells loaded per lane
-  constexpr int NE = TS + 2;       // cells whose edge states the faces need
-  constexpr int NF = TS + 1;       // faces per lane
-  constexpr bool SWEEP_CONTIG = DIR == 1;
+  constexpr int R = H - 1;   // stencil radius of one cell's edge states
+  using S = Shape<DIR>;
+  constexpr int CS = S::CS, RS = S::RS, QS = S::QS;
+  // x sweep: E cells per 16-byte copy, and the relative index starts H0 >= H
+  // cells before the segment, H0 a multiple of E, so that each copy's cells
+  // start on a 16-byte boundary of a row
+  constexpr int E = 16 / sizeof(T);
+  constexpr int H0 = S::X ? (H + E - 1) / E * E : H;
+  constexpr int VR = S::var_stride(RS, S::RSP), VQ = S::var_stride(QS, S::QSP);
 
   extern __shared__ __align__(16) unsigned char smem_raw[];
-  T* cell = reinterpret_cast<T*>(smem_raw);      // [NV][NC][TL]
-  T* qm_s = cell + NV * NC * TL;                 // [NV][NE][TL]
-  T* qp_s = qm_s + NV * NE * TL;                 // [NV][NE][TL]
-  T* flux = RECON == RECON_DC ? qm_s : cell;     // [NV][NF][TL]
+  T* ring = reinterpret_cast<T*>(smem_raw);        // prim, [NV] x ring
+  T* flux = ring + NV * S::TL * S::RSP;             // face fluxes
+  T* qp_r = flux + NV * S::TL * S::QSP;             // right edge states
 
-  const int n = g.n_sweep;
-  const int ntile_s = (n + TS - 1) / TS;
-  const int s0 = (blockIdx.x % ntile_s) * TS;
-  const int l0 = (blockIdx.x / ntile_s) * TL;
-  const int ns = min(TS, n - s0);
-  const int nl = min(TL, g.n_lane - l0);
-  const long long base = blockIdx.z * g.s_block + blockIdx.y * g.s_other
-                         + l0 * g.s_lane;
+  const int j = S::cell_of(threadIdx.x), l = S::lane_of(threadIdx.x);
+  const long long pen = (long long)blockIdx.x * S::TL + l;
+  const bool live = pen < g.npen_all;
+  const int b = live ? (int)(pen / g.npen) : 0;
+  const int q = live ? (int)(pen - (long long)b * g.npen) : 0;
+  const long long base = b * g.s_block
+      + (DIR == 1 ? (long long)q * g.nx
+         : DIR == 2 ? (long long)(q / g.nx) * g.s_plane + q % g.nx
+                    : (long long)q);
+  const int n = g.n;
+  const int a = blockIdx.y * g.seg_len;      // first cell of the segment
+  const int N = min(g.seg_len, n - a);
+  // Relative index p = cell - (a - H0).  Step k loads cells p in
+  // [k CS, (k+1) CS) and builds the edge states of p = k CS - R + j; the
+  // segment needs edge states for p in [H0 - 1, H0 + N], faces for p in
+  // [H0, H0 + N] and writes cells p in [H0, H0 + N).
+  const int K = (H0 + N + R) / CS + 1;
 
-  // 1. load TS + 2h cells of every variable, wrapping the sweep axis
-  for (int i = threadIdx.x; i < NV * NC * TL; i += NTHREADS) {
-    int v, s, l;
-    if (SWEEP_CONTIG) { s = i % NC; l = (i / NC) % TL; }
-    else              { l = i % TL; s = (i / TL) % NC; }
-    v = i / (NC * TL);
-    if (l < nl) {
-      int gs = (s0 + s - H) % n;
-      if (gs < 0) gs += n;
-      cell[(v * NC + s) * TL + l] =
-          prim[base + v * g.s_var + gs * g.s_sweep + l * g.s_lane];
-    }
+  // The x sweep's copies: thread t copies the E cells from cell
+  // (t % CPR) E of row (t / CPR) % TL of variables t / (TL CPR) + m VSTEP.
+  // Where rows are 16-byte aligned and E divides the extent (vec), a
+  // copy's E cells wrap together, so each is one 16-byte copy; else the
+  // thread copies them cell by cell.
+  constexpr int CPR = CS / E, VSTEP = NTHREADS / (S::TL * CPR);
+  const int lr = S::X ? threadIdx.x / CPR % S::TL : l;
+  const int v0 = S::X ? threadIdx.x / (S::TL * CPR) : 0;
+  const int e0 = S::X ? threadIdx.x % CPR * E : j;
+  long long row = base;
+  bool live_r = live;
+  if constexpr (S::X) {
+    const long long pr = (long long)blockIdx.x * S::TL + lr;
+    live_r = pr < g.npen_all;
+    const int br = live_r ? (int)(pr / g.npen) : 0;
+    row = br * g.s_block + (live_r ? pr - (long long)br * g.npen : 0) * g.nx;
   }
-  __syncthreads();
+  const bool vec = S::X && reinterpret_cast<unsigned long long>(prim) % 16 == 0
+                   && g.nx % E == 0 && g.s_var % E == 0;
 
-  // 2. edge states of cells s0-1 .. s0+TS (tile cells H-1 .. H+TS)
-  if (RECON != RECON_DC) {
-    for (int i = threadIdx.x; i < NV * NE * TL; i += NTHREADS) {
-      const int l = i % TL, c = (i / TL) % NE, v = i / (NE * TL);
-      if (l < nl) {
-        T qm, qp;
-        cell_edges<T, RECON>(cell + (v * NC + c + H - 1) * TL + l, TL, qm, qp);
-        qm_s[(v * NE + c) * TL + l] = qm;
-        qp_s[(v * NE + c) * TL + l] = qp;
-      }
-    }
-    __syncthreads();
-  }
-
-  // 3. face fluxes: face j sits between tile cells s0+j-1 and s0+j
-  for (int i = threadIdx.x; i < NF * TL; i += NTHREADS) {
-    const int l = i % TL, j = i / TL;
-    if (l < nl && j <= ns) {
-      T wl[NV], wr[NV], F[NV];
+  auto load_step = [&](int k) {
+    if (!live_r) return;
+    if constexpr (S::X) {
+      const int pk = k * CS + e0;
+      const int c = a - H0 + pk;
+      T* dst = ring + S::at(pk & (RS - 1), lr, RS, S::RSP);
+      if (vec) {
+        const T* src = prim + row + wrap_index(c, n);
 #pragma unroll
-      for (int v = 0; v < NV; ++v) {
-        if (RECON == RECON_DC) {
-          wl[v] = cell[(v * NC + j) * TL + l];
-          wr[v] = cell[(v * NC + j + 1) * TL + l];
-        } else {
-          wl[v] = qp_s[(v * NE + j) * TL + l];
-          wr[v] = qm_s[(v * NE + j + 1) * TL + l];
+        for (int v = v0; v < NV; v += VSTEP)
+          cp_async16(dst + v * VR, src + v * g.s_var);
+      } else {
+#pragma unroll
+        for (int e = 0; e < E; ++e) {
+          const T* src = prim + row + wrap_index(c + e, n);
+#pragma unroll
+          for (int v = v0; v < NV; v += VSTEP)
+            cp_async(dst + e + v * VR, src + v * g.s_var);
         }
       }
-      riemann_flux<T, SOLVER, DIR>(wl, wr, p, F);
+    } else {
+      const int pk = k * CS + j;
+      const T* src = prim + base + wrap_index(a - H0 + pk, n) * g.s_sweep;
+      T* dst = ring + S::at(pk & (RS - 1), l, RS, S::RSP);
 #pragma unroll
-      for (int v = 0; v < NV; ++v) flux[(v * NF + j) * TL + l] = F[v];
+      for (int v = 0; v < NV; ++v) cp_async(dst + v * VR, src + v * g.s_var);
     }
-  }
-  __syncthreads();
+  };
 
-  // 3b. face capture, kept out of the Riemann loop above so that the loop
-  // is the uniform path's: the faces at sweep index g and n - g, each by the
-  // tile whose cells start there (j < ns), so each is written once
-  if (faces != nullptr) {
-    const long long n_other = gridDim.y;
-    for (int k = 0; k < 2; ++k) {
-      const int j = (k == 0 ? g_face : n - g_face) - s0;
-      if (j < 0 || j >= ns) continue;
-      for (int i = threadIdx.x; i < NV * TL; i += NTHREADS) {
-        const int l = i % TL, v = i / TL;
-        if (l < nl)
-          faces[((((long long)blockIdx.z * NV + v) * n_other + blockIdx.y)
-                 * g.n_lane + l0 + l) * 2 + k] = flux[(v * NF + j) * TL + l];
+  load_step(0);
+  cp_async_commit();
+  for (int k = 0; k < K; ++k) {
+    cp_async_wait_all();
+    __syncthreads();   // step k's cells have landed; step k-1 is done
+    if (k + 1 < K) load_step(k + 1);
+    cp_async_commit();
+
+    const int pc = k * CS - R + j;   // this thread's cell and the face before it
+    const bool face = live && pc >= H0 && pc <= H0 + N;
+    T wr[NV];
+    if constexpr (RECON != RECON_DC) {
+      if (live && pc >= H0 - 1 && pc <= H0 + N) {
+        int off[2 * R + 1];
+#pragma unroll
+        for (int o = -R; o <= R; ++o)
+          off[o + R] = S::at((pc + o) & (RS - 1), l, RS, S::RSP);
+        T* qp_dst = qp_r + S::at(pc & (QS - 1), l, QS, S::QSP);
+#pragma unroll
+        for (int v = 0; v < NV; ++v) {
+          const T* r = ring + v * VR;
+          T qp;
+          if constexpr (RECON == RECON_PPM)
+            ppm_edges(r[off[0]], r[off[1]], r[off[2]], r[off[3]], r[off[4]],
+                      wr[v], qp);
+          else
+            plm_edges(r[off[0]], r[off[1]], r[off[2]], wr[v], qp);
+          qp_dst[v * VQ] = qp;
+        }
       }
+      __syncthreads();   // right edge states of this step are staged
     }
-  }
 
-  // 4. -(F[i+1] - F[i]) / dx, written or accumulated
-  for (int i = threadIdx.x; i < NV * TS * TL; i += NTHREADS) {
-    int v, s, l;
-    if (SWEEP_CONTIG) { s = i % TS; l = (i / TS) % TL; }
-    else              { l = i % TL; s = (i / TL) % TS; }
-    v = i / (TS * TL);
-    if (l < nl && s < ns) {
-      const T r = -(flux[(v * NF + s + 1) * TL + l] - flux[(v * NF + s) * TL + l]) / dx;
-      const long long o = base + v * g.s_var + (s0 + s) * g.s_sweep + l * g.s_lane;
-      out[o] = accumulate ? out[o] + r : r;
+    T F[NV];
+    if (face) {
+      T wl[NV];
+      if constexpr (RECON == RECON_DC) {
+        const int ol = S::at((pc - 1) & (RS - 1), l, RS, S::RSP);
+        const int orr = S::at(pc & (RS - 1), l, RS, S::RSP);
+#pragma unroll
+        for (int v = 0; v < NV; ++v) {
+          wl[v] = ring[ol + v * VR];
+          wr[v] = ring[orr + v * VR];
+        }
+      } else {
+        const int ol = S::at((pc - 1) & (QS - 1), l, QS, S::QSP);
+#pragma unroll
+        for (int v = 0; v < NV; ++v) wl[v] = qp_r[ol + v * VQ];
+      }
+      riemann_flux<T, SOLVER, DIR>(wl, wr, p, F);
+      const int of = S::at(pc & (QS - 1), l, QS, S::QSP);
+#pragma unroll
+      for (int v = 0; v < NV; ++v) flux[of + v * VQ] = F[v];
+    }
+    __syncthreads();   // this step's fluxes are staged
+
+    if (face) {
+      const int c = a - H0 + pc;   // the face's right cell, in [a, a + N]
+      // face capture, after the solve: the faces at sweep index g and n - g,
+      // by the segment holding the face's right cell
+      if (faces != nullptr && c < a + N && (c == g_face || c == n - g_face)) {
+        const long long o = ((long long)b * NV * g.npen + q) * 2
+                            + (c == g_face ? 0 : 1);
+#pragma unroll
+        for (int v = 0; v < NV; ++v) faces[o + 2LL * v * g.npen] = F[v];
+      }
+      // -(F[i+1] - F[i]) / dx of the cell before the face, written or added
+      if (pc > H0) {
+        const int ol = S::at((pc - 1) & (QS - 1), l, QS, S::QSP);
+        const long long o = base + (long long)(c - 1) * g.s_sweep;
+#pragma unroll
+        for (int v = 0; v < NV; ++v) {
+          const T r = -((F[v] - flux[ol + v * VQ]) * inv_dx);
+          T* dst = out + o + v * g.s_var;
+          *dst = accumulate ? *dst + r : r;
+        }
+      }
     }
   }
 }
@@ -201,44 +314,62 @@ struct Args {
   EosArgs eos;
   int accumulate;
   cudaStream_t stream;
+  int* query;       // non-null: report, do not launch (negdiv_sweep_occupancy)
 };
 
 template <typename T, int RECON, int DIR, int SOLVER>
 cudaError_t launch(const Args& a) {
   constexpr int NV = NVar<SOLVER>::value;
-  Geom g;
-  g.s_var = (long long)a.nz * a.ny * a.nx;
-  g.s_block = NV * g.s_var;
-  int n_other;
-  if (DIR == 1) {         // sweep x, lanes y, other z
-    g.n_sweep = a.nx; g.s_sweep = 1;
-    g.n_lane = a.ny;  g.s_lane = a.nx;
-    n_other = a.nz;   g.s_other = (long long)a.ny * a.nx;
-  } else if (DIR == 2) {  // sweep y, lanes x, other z
-    g.n_sweep = a.ny; g.s_sweep = a.nx;
-    g.n_lane = a.nx;  g.s_lane = 1;
-    n_other = a.nz;   g.s_other = (long long)a.ny * a.nx;
-  } else {                // sweep z, lanes x, other y
-    g.n_sweep = a.nz; g.s_sweep = (long long)a.ny * a.nx;
-    g.n_lane = a.nx;  g.s_lane = 1;
-    n_other = a.ny;   g.s_other = a.nx;
-  }
-  const int ntile_s = (g.n_sweep + TS - 1) / TS;
-  const int ntile_l = (g.n_lane + TL - 1) / TL;
-  const size_t smem = sizeof(T) * smem_elems<NV, RECON>();
-  static_assert(sizeof(T) * smem_elems<NV, RECON>() <= 232448,
-                "tile exceeds a block's shared memory");
+  using S = Shape<DIR>;
+  const size_t smem = sizeof(T) * smem_elems<DIR, NV, RECON>();
+  static_assert(sizeof(T) * smem_elems<DIR, NV, RECON>() <= 232448,
+                "block exceeds a block's shared memory");
   auto kernel = negdiv_sweep_kernel<T, RECON, DIR, SOLVER>;
   cudaError_t err = cudaFuncSetAttribute(
       kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
   if (err != cudaSuccess) return err;
+  if (a.query != nullptr) {
+    a.query[0] = (int)smem;
+    return cudaOccupancyMaxActiveBlocksPerMultiprocessor(&a.query[1], kernel,
+                                                         NTHREADS, smem);
+  }
+  Geom g;
+  g.nx = a.nx;
+  g.s_plane = (long long)a.ny * a.nx;
+  g.s_var = (long long)a.nz * a.ny * a.nx;
+  g.s_block = NV * g.s_var;
+  if (DIR == 1) {
+    g.n = a.nx; g.s_sweep = 1; g.npen = a.nz * a.ny;
+  } else if (DIR == 2) {
+    g.n = a.ny; g.s_sweep = a.nx; g.npen = a.nz * a.nx;
+  } else {
+    g.n = a.nz; g.s_sweep = g.s_plane; g.npen = a.ny * a.nx;
+  }
+  g.npen_all = (long long)a.nb * g.npen;
+  const long long bundles = (g.npen_all + S::TL - 1) / S::TL;
+  // cut the sweep axis into segments of at least 8 steps while there are
+  // fewer than ~2048 blocks (a few waves over the card's 132 SMs)
+  const long long want = 2048;
+  int nseg = 1;
+  if (bundles < want) {
+    const long long by_blocks = (want + bundles - 1) / bundles;
+    const int by_len = g.n / (8 * S::CS);
+    nseg = (int)(by_blocks < by_len ? by_blocks : by_len);
+    if (nseg < 1) nseg = 1;
+  }
+  g.seg_len = (g.n + nseg - 1) / nseg;
+  g.seg_len = (g.seg_len + S::CS - 1) / S::CS * S::CS;
+  nseg = (g.n + g.seg_len - 1) / g.seg_len;
+
   // scalar constants are folded in double, then rounded to T, exactly as
-  // the plain path's Python-float scalars are
+  // the plain path's Python-float scalars are; 1/dx is computed in T, as
+  // PyTorch on the card divides by a Python scalar
   const Params<T> p = make_params<T>(a.eos, a.c_h);
-  dim3 grid(ntile_s * ntile_l, n_other, a.nb);
+  const T inv_dx = T(1) / T(a.dx);
+  dim3 grid((unsigned)bundles, nseg, 1);
   kernel<<<grid, NTHREADS, smem, a.stream>>>(
       static_cast<const T*>(a.prim), static_cast<T*>(a.out),
-      static_cast<T*>(a.faces), g, p, T(a.dx), a.accumulate, a.g_face);
+      static_cast<T*>(a.faces), g, p, inv_dx, a.accumulate, a.g_face);
   return cudaGetLastError();
 }
 
@@ -298,6 +429,19 @@ extern "C" int negdiv_sweep(const void* prim, void* out, int dtype, int solver,
   a.eos = EosArgs{gamma, -1.0, -1.0, -1.0, NO_CEILING, NO_CEILING};   // no floors here
   a.accumulate = accumulate;
   a.stream = static_cast<cudaStream_t>(stream);
+  a.query = nullptr;
+  if (dtype == 0) return (int)launch_recon<float>(recon, dir, solver, a);
+  if (dtype == 1) return (int)launch_recon<double>(recon, dir, solver, a);
+  return (int)cudaErrorInvalidValue;
+}
+
+// The instantiation negdiv_sweep launches for (dtype, solver, recon, dir):
+// out[0] = its dynamic shared memory in bytes, out[1] = how many of its
+// blocks (128 threads) the current device keeps resident per SM.
+extern "C" int negdiv_sweep_occupancy(int dtype, int solver, int recon,
+                                      int dir, int* out) {
+  Args a{};
+  a.query = out;
   if (dtype == 0) return (int)launch_recon<float>(recon, dir, solver, a);
   if (dtype == 1) return (int)launch_recon<double>(recon, dir, solver, a);
   return (int)cudaErrorInvalidValue;

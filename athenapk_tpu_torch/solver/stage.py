@@ -119,10 +119,26 @@ def _library():
             + [ctypes.c_int] * 9 + [ctypes.c_double] * 7 \
             + [ctypes.POINTER(ctypes.c_double), ctypes.c_void_p]
         lib.fused_stage.restype = ctypes.c_int
-        lib.fused_stage_tiles.argtypes = [ctypes.c_int] * 3
+        lib.fused_stage_tiles.argtypes = [ctypes.c_int] * 4
         lib.fused_stage_tiles.restype = ctypes.c_int
+        lib.fused_stage_occupancy.argtypes = [ctypes.c_int] * 4 \
+            + [ctypes.POINTER(ctypes.c_int)]
+        lib.fused_stage_occupancy.restype = ctypes.c_int
         _lib = lib
     return _lib
+
+
+def kernel_occupancy(dtype, solver, recon, faces):
+    """``(dynamic shared memory in bytes, resident blocks per SM)`` of the
+    instantiation the stage kernel launches for the kernel codes ``dtype``,
+    ``solver``, ``recon`` (``sweep.KERNEL_DTYPES`` ... values), with or
+    without ``faces``, on the current card; a block is 128 threads."""
+    out = (ctypes.c_int * 2)()
+    rc = _library().fused_stage_occupancy(dtype, solver, recon, int(faces),
+                                          out)
+    if rc != 0:
+        raise RuntimeError(f"fused_stage_occupancy failed with cudaError {rc}")
+    return out[0], out[1]
 
 
 def _stage_launch(name, u0, u1, gam0, gam1, beta_dt, c_h, mesh, cfg, eos,
@@ -141,7 +157,7 @@ def _stage_launch(name, u0, u1, gam0, gam1, beta_dt, c_h, mesh, cfg, eos,
     lib = _library()
     nb, nvar, nz, ny, nx = u0.shape
     u_new = torch.empty_like(u0)
-    raw_dt = torch.empty(nb * lib.fused_stage_tiles(nz, ny, nx),
+    raw_dt = torch.empty(nb * lib.fused_stage_tiles(nb, nz, ny, nx),
                          dtype=u0.dtype, device=u0.device) if emit_dt else None
     prim = torch.empty_like(u0) if emit_prim else None
     slabs = {d: torch.empty(sweep.face_shape(u0, d), dtype=u0.dtype,

@@ -28,8 +28,8 @@ coarse-fine flux correction reads (``amr/smr_hydro.py``).
 ``negdiv_faces_plain``, ``negdiv_faces_cuda`` (the same kernel with its
 face output) and ``fused_negdiv_faces`` return ``(negdiv, {d: faces})``.
 
-``build_library`` and ``check_kernel_config`` also serve the whole-stage
-kernel (``solver/stage.py``).
+``build_library``, ``ptxas_summary`` and ``check_kernel_config`` also
+serve the whole-stage kernel (``solver/stage.py``).
 """
 
 from __future__ import annotations
@@ -37,6 +37,7 @@ from __future__ import annotations
 import ctypes
 import hashlib
 import os
+import re
 import shutil
 import subprocess
 from pathlib import Path
@@ -189,8 +190,64 @@ def _library():
             + [ctypes.c_int] * 9 + [ctypes.c_double] * 3 \
             + [ctypes.c_int, ctypes.c_void_p, ctypes.c_int, ctypes.c_void_p]
         fn.restype = ctypes.c_int
+        lib.negdiv_sweep_occupancy.argtypes = [ctypes.c_int] * 4 \
+            + [ctypes.POINTER(ctypes.c_int)]
+        lib.negdiv_sweep_occupancy.restype = ctypes.c_int
         _lib = lib
     return _lib
+
+
+def kernel_occupancy(dtype, solver, recon, d):
+    """``(dynamic shared memory in bytes, resident blocks per SM)`` of the
+    instantiation ``negdiv_cuda`` launches for the kernel codes ``dtype``,
+    ``solver``, ``recon`` (``KERNEL_DTYPES`` ... values) and direction
+    ``d``, on the current card; a block is 128 threads."""
+    out = (ctypes.c_int * 2)()
+    rc = _library().negdiv_sweep_occupancy(dtype, solver, recon, d, out)
+    if rc != 0:
+        raise RuntimeError(f"negdiv_sweep_occupancy failed with cudaError {rc}")
+    return out[0], out[1]
+
+
+def ptxas_summary(compiler_log, occupancy=False):
+    """One line per kernel instantiation in a ``build_library`` log (of
+    this or any checkout's kernels): kernel, dtype and template switches,
+    registers and spills, from ``nvcc -Xptxas -v``.  With ``occupancy``,
+    also the dynamic shared memory and resident blocks per SM that this
+    checkout's kernels ask the current card for (``kernel_occupancy``); a
+    block is 128 threads, 4 warps."""
+    from . import stage
+    query = {"negdiv_sweep": lambda dt, k: kernel_occupancy(dt, k[2], k[0],
+                                                            k[1]),
+             "fused_stage": lambda dt, k: stage.kernel_occupancy(
+                 dt, k[1], k[0], k[2])}
+    names = {"f": "f32", "d": "f64"}
+    recons = "dc plm ppm".split()
+    solvers = "euler-hlle euler-hllc glmmhd-hlld".split()
+    lines, current = [], None
+    for line in compiler_log.splitlines():
+        m = re.search(r"Compiling entry function .*(negdiv_sweep|fused_stage)"
+                      r"_kernelI([fd])((?:L[ib]\d+E)+)E", line)
+        if m:
+            k = [int(x) for x in re.findall(r"L[ib](\d+)E", m.group(3))]
+            kernel, dtype = m.group(1), "fd".index(m.group(2))
+            current = (f"{kernel} {names[m.group(2)]} {recons[k[0]]} "
+                       + (f"dir {k[1]} {solvers[k[2]]}"
+                          if kernel == "negdiv_sweep"
+                          else solvers[k[1]] + (" faces" if k[2] else "")))
+            spill = ""
+        elif current and "spill stores" in line:
+            spill = line.strip()
+        elif current and "registers" in line:
+            regs = re.search(r"Used (\d+) registers", line).group(1)
+            text = f"{current}: {regs} registers, {spill}"
+            if occupancy:
+                smem, blocks = query[kernel](dtype, k)
+                text += (f"; {smem} bytes of dynamic shared memory, "
+                         f"{blocks} blocks = {4 * blocks} warps per SM")
+            lines.append(text)
+            current = None
+    return lines
 
 
 def check_kernel_config(cfg, recon):

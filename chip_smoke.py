@@ -11,8 +11,10 @@ Phases (each one fails the run if it fails):
 
 1. card: name and power limit (``nvidia-smi``), torch's device name;
 2. build: the sweep and the whole-stage kernel, one ``nvcc`` each, and the
-   forest binding (``g++``), started together, timed, with ptxas' register
-   and spill report;
+   forest binding (``g++``), started together, timed, with each
+   instantiation's registers and spills (ptxas), dynamic shared memory and
+   resident warps per SM (the runtime's occupancy query); an instantiation
+   that spills fails the phase;
 3. kernel against plain, states made from ``--seed``: ``negdiv_cuda``
    against ``negdiv_plain`` (GLM-MHD HLLD, Euler HLLE and HLLC; 128^3 in
    one block and 8 ghosted 32^3 blocks, 2-D 512^2 and 1-D 4096) and
@@ -52,7 +54,9 @@ Phases (each one fails the run if it fails):
    2-D entry; the refined paths' level arrays for the face kernels):
    kernel against plain there (held to the f32 tolerance), kernel and
    plain per call, the bound from this run's bytes and the operations its
-   data need;
+   data need (FP32 at 67 TFLOP/s), and the kernel's share of that bound;
+   the main deck's sweep and stage calls again on the same inputs in f64
+   (held to the f64 tolerance, the bound at FP64's 34 TFLOP/s);
 7. profile: a torch.profiler trace of 3 cycles of each rung of the main
    deck, of the vortex and of each refined path (the fill, the flux
    correction and the dt package told apart by profiler ranges), device
@@ -80,16 +84,20 @@ import torch
 
 ROOT = Path(__file__).resolve().parent
 # Errors are max |kernel - plain| over max |plain|, per variable.  Both
-# versions do the same operations without FMA contraction, so they differ
-# by rounding only (the kernel folds scalar constants in double), and
-# -div(F)'s difference of neighbouring fluxes amplifies it.
-F32_TOL = 1e-4   # measured at most 1.4e-5 (PPM, 8 ghosted 32^3 blocks)
+# versions do the same operations without FMA contraction and fold the
+# same reciprocals, so on the card they agree bit for bit; the tolerances
+# leave room for rounding, which -div(F)'s difference of neighbouring
+# fluxes amplifies, and in f32 for a select that rounding flips (1.4e-5
+# seen while the two rounded differently).
+F32_TOL = 1e-4
 F64_TOL = 1e-10
 STEP_TOL = 1e-10
 
-# published peaks of one H100 SXM at 700 W (NVIDIA data sheet)
+# published peaks of one H100 SXM at 700 W (NVIDIA data sheet; FP32 and
+# FP64 outside the tensor cores)
 HBM_BYTES_PER_S = 3.35e12
 FP32_OPS_PER_S = 67e12
+FP64_OPS_PER_S = 34e12
 
 BENCH_DECK = """
 <job>
@@ -441,12 +449,13 @@ def floor_tripping_states(mesh, fluid, seed, dtype):
     and the pressure and internal-energy floors each trip in whole regions,
     inside tiles and in their halo cells.
 
-    Smooth fields plus small noise, not white noise: on the card PyTorch
-    divides by a Python scalar by multiplying with its reciprocal (``x / 6``
-    is ``x * (1 / 6)``), the kernels divide, and where a floored plateau
-    meets white noise that last-bit difference flips a PPM limiter select
-    in about one cell in a million, which then differs by 1e-3.  That
-    state is ``hard_floor_states``, held to a gate of its own."""
+    Smooth fields plus small noise, not white noise: where a floored
+    plateau meets white noise, a last-bit difference between kernel and
+    plain flips a PPM limiter select in about one cell in a million, which
+    then differs by 1e-3 (seen while the kernels divided by Python scalars
+    that PyTorch on the card multiplies by their reciprocals: ``x / 6`` is
+    ``x * (1 / 6)``).  That state is ``hard_floor_states``, held to a gate
+    of its own."""
     w = smooth_glm_prim(mesh, seed, torch.float64)
     if fluid != "glmmhd":
         w = w[:, :5].contiguous()
@@ -459,7 +468,8 @@ HARD_FLOORS = dict(density_floor=0.9, pressure_floor=0.8,
                    internal_e_floor=1.25)
 # share of cells in which the f32 stage kernel may leave the tolerance on the
 # hard state, each of them accounted for by the sweep kernel (measured: 14 of
-# 1.9e7 cells at 128^3, 7.4e-7)
+# 1.9e7 cells at 128^3, 7.4e-7, while the kernels divided by Python scalars;
+# none since they fold the reciprocals as PyTorch does)
 HARD_F32_CELLS_OVER = 1e-5
 
 
@@ -484,32 +494,6 @@ def share_of_cells_over(got, ref, tol):
     scale = ref.abs().amax(dim=(0, 2, 3, 4), keepdim=True)
     over = ((got - ref).abs() > tol * scale).any(dim=1)
     return over.double().mean().item()
-
-
-def ptxas_summary(compiler_log):
-    """One line per kernel instantiation: kernel, dtype and template
-    switches, registers and spills, from ``nvcc -Xptxas -v``."""
-    names = {"f": "f32", "d": "f64"}
-    recons = "dc plm ppm".split()
-    solvers = "euler-hlle euler-hllc glmmhd-hlld".split()
-    lines, current = [], None
-    for line in compiler_log.splitlines():
-        m = re.search(r"Compiling entry function .*(negdiv_sweep|fused_stage)"
-                      r"_kernelI([fd])((?:L[ib]\d+E)+)E", line)
-        if m:
-            k = [int(x) for x in re.findall(r"L[ib](\d+)E", m.group(3))]
-            current = (f"{m.group(1)} {names[m.group(2)]} {recons[k[0]]} "
-                       + (f"dir {k[1]} {solvers[k[2]]}"
-                          if m.group(1) == "negdiv_sweep"
-                          else solvers[k[1]] + (" faces" if k[2] else "")))
-            spill = ""
-        elif current and "spill stores" in line:
-            spill = line.strip()
-        elif current and "registers" in line:
-            regs = re.search(r"Used (\d+) registers", line).group(1)
-            lines.append(f"{current}: {regs} registers, {spill}")
-            current = None
-    return lines
 
 
 def cuda_ms(fn, reps):
@@ -668,18 +652,21 @@ def phase_build():
         t.join()
     if len(results) != len(threads):
         raise RuntimeError("a kernel did not build")   # its thread raised
+    spilling = []
     for name, (path, compiler_log, secs) in results.items():
-        summary = ptxas_summary(compiler_log)
-        spilling = [ln for ln in summary if "0 bytes spill stores" not in ln]
+        summary = PORT.sweep.ptxas_summary(compiler_log, occupancy=True)
+        spilling += [ln for ln in summary if "0 bytes spill stores" not in ln]
         regs = [int(re.search(r"(\d+) registers", ln).group(1))
                 for ln in summary]
         log(f"  built {path.relative_to(ROOT)} in {secs:.2f} s: "
             f"{len(summary)} instantiations, registers "
             f"{min(regs, default=0)}-{max(regs, default=0)}, "
-            f"{len(spilling)} with spills")
-        for ln in spilling:
+            f"{sum(ln not in spilling for ln in summary)} without spills")
+        for ln in summary:
             log("  ptxas:", ln)
     log(f"  all built in {time.time() - t0:.2f} s")
+    if spilling:
+        raise AssertionError(f"instantiations that spill: {spilling}")
 
 
 def _mesh(n, mb, g):
@@ -1223,16 +1210,57 @@ def phase_smr_whole_steps(seed):
     return drift_worst
 
 
-def bound_of(nbytes, ops):
+def bound_of(nbytes, ops, ms=None, f64=False):
+    """The least time the card could take (ms): bytes over the memory rate,
+    operations over the FP32 (or FP64) rate, the larger of the two; with
+    the kernel's time ``ms`` also its share of that bound."""
     t_bytes = nbytes / HBM_BYTES_PER_S * 1e3
-    t_ops = ops / FP32_OPS_PER_S * 1e3
-    return dict(bound_ms=max(t_bytes, t_ops), bytes_ms=t_bytes, ops_ms=t_ops,
-                bound_by="bytes" if t_bytes >= t_ops else "operations")
+    t_ops = ops / (FP64_OPS_PER_S if f64 else FP32_OPS_PER_S) * 1e3
+    b = dict(bound_ms=max(t_bytes, t_ops), bytes_ms=t_bytes, ops_ms=t_ops,
+             bound_by="bytes" if t_bytes >= t_ops else "operations")
+    if ms is not None:
+        b["share_of_bound"] = b["bound_ms"] / ms
+    return b
 
 
-def phase_sweep_timings(sim, launches, reps, name, replaces, what):
+def f64_row(recon, kern, plain, inputs, ops, reps, launches):
+    """An f64 row of a main-deck timing: ``kern(*x)`` and ``plain(*x)`` on
+    ``inputs`` cast to f64 (each distinct tensor once), held against each
+    other at the f64 tolerance, timed, with the bound at the FP64 rate from
+    the bytes of this call and the ``ops`` its f32 data need."""
+    cast = {}
+    xs = [cast.setdefault(x.data_ptr(), x.double()) for x in inputs]
+    got, ref = kern(*xs), plain(*xs)
+    torch.cuda.synchronize()
+    rel = max_rel_err(got, ref)
+    finite = bool(torch.isfinite(got).all())
+    nbytes = (len(cast) + 1) * got.numel() * 8
+    del got, ref
+    torch.cuda.empty_cache()
+    if not (rel <= F64_TOL and finite):
+        raise AssertionError(f"f64 kernel disagrees with plain ({recon}): "
+                             f"{rel:.3e}")
+    ms = cuda_ms(lambda: kern(*xs), reps)
+    plain_ms = cuda_ms(lambda: plain(*xs), 2)
+    del xs, cast
+    torch.cuda.empty_cache()
+    b = bound_of(nbytes, ops, ms, f64=True)
+    log(f"  {recon} f64: kernel against plain max rel err {rel:.3e} (tol "
+        f"{F64_TOL:.0e}); kernel {ms:.4f} ms ({launches}), plain "
+        f"{plain_ms:.4f} ms; bound {b['bound_ms']:.4f} ms (bytes "
+        f"{b['bytes_ms']:.4f} ms, operations {b['ops_ms']:.4f} ms at 34 "
+        f"TFLOP/s); {100 * b['share_of_bound']:.2f} % of the bound")
+    return dict(ms=ms, plain_ms=plain_ms, max_rel_err=rel, bytes=nbytes,
+                ops=ops, **b)
+
+
+def phase_sweep_timings(sim, launches, reps, name, replaces, what,
+                        f64_rows=False):
     """The sweep kernel at ``sim``'s inputs: one DC and one full-order call
-    (what one VL2 cycle runs), each against plain, timed, with its bound."""
+    (what one VL2 cycle runs), each against plain, timed, with its bound
+    and its share of it; with ``f64_rows`` the same calls again on the
+    inputs in f64, against the FP64 rate (the operations are those the f32
+    data need: the same selects up to rounding)."""
     log(f"== phase 6: timings of the sweep kernel at the inputs of {what} ==")
     sweep = PORT.sweep
     mesh, cfg, eos = sim.mesh, sim.cfg, sim.eos
@@ -1269,7 +1297,7 @@ def phase_sweep_timings(sim, launches, reps, name, replaces, what):
             prim, c_h, mesh, cfg, eos, recon))
         torch.cuda.empty_cache()
         nbytes = 2 * prim.numel() * itemsize   # prim read once, out written once
-        b = bound_of(nbytes, ops)
+        b = bound_of(nbytes, ops, ms)
         per_recon[recon] = dict(ms=ms, plain_ms=plain_ms, bytes=nbytes,
                                 ops=ops, ops_per_cell=ops / cells,
                                 div_sqrt_per_cell=slow / cells,
@@ -1279,7 +1307,15 @@ def phase_sweep_timings(sim, launches, reps, name, replaces, what):
             f"(bytes {b['bytes_ms']:.4f} ms for {nbytes:.4e} B, operations "
             f"{b['ops_ms']:.4f} ms for {ops:.4e} ops = {ops / cells:.1f}/cell, "
             f"of them {slow / cells:.1f} divisions and roots; the "
-            f"branch-free lattice does {full / cells:.1f}/cell)")
+            f"branch-free lattice does {full / cells:.1f}/cell); "
+            f"{100 * b['share_of_bound']:.2f} % of the bound")
+        if f64_rows:
+            per_recon[recon]["f64"] = f64_row(
+                recon, lambda p64: sweep.negdiv_cuda(p64, c_h, mesh, cfg, eos,
+                                                     recon),
+                lambda p64: sweep.negdiv_plain(p64, c_h, mesh, cfg, eos,
+                                               recon),
+                (prim,), ops, reps, f"{ndir} launches")
     # one cycle runs one DC and one full-order call
     mix = lambda k: sum(r[k] for r in per_recon.values()) / (2 * ndir)  # noqa
     t_b = sum(r["bytes"] for r in per_recon.values()) / HBM_BYTES_PER_S
@@ -1295,6 +1331,7 @@ def phase_sweep_timings(sim, launches, reps, name, replaces, what):
         "ms": mix("ms"),
         "plain_ms": mix("plain_ms"),
         "bound_ms": mix("bound_ms"),
+        "share_of_bound": mix("bound_ms") / mix("ms"),
         "bound_by": "bytes" if t_b >= t_o else "operations",
         "library_ms": None,
         "library_note": "no single PyTorch call computes reconstruction + "
@@ -1310,7 +1347,9 @@ def phase_sweep_timings(sim, launches, reps, name, replaces, what):
 def phase_stage_timings(sim, launches, reps):
     """The stage kernel at the main deck's inputs, as the stage rung calls
     it: the DC predictor (no extra output) and the PPM corrector (with the
-    CFL output), each against plain, timed, with its bound."""
+    CFL output), each against plain, timed, with its bound and its share
+    of it; then the same calls on the inputs in f64, against the FP64
+    rate."""
     log("== phase 6: timings of the stage kernel at the main deck's "
         "inputs ==")
     stage = PORT.stage
@@ -1363,7 +1402,7 @@ def phase_stage_timings(sim, launches, reps):
         # tensor), u_new written once (the CFL minima are a few kilobytes)
         n_inputs = len({u0.data_ptr(), ub.data_ptr()})
         nbytes = (n_inputs + 1) * u1.numel() * u1.element_size()
-        b = bound_of(nbytes, ops)
+        b = bound_of(nbytes, ops, ms)
         per_call[recon] = dict(ms=ms, plain_ms=plain_ms, bytes=nbytes,
                                state_tensors_read=n_inputs, ops=ops,
                                ops_per_cell=ops / cells,
@@ -1375,7 +1414,17 @@ def phase_stage_timings(sim, launches, reps):
             f"{b['bytes_ms']:.4f} ms for {nbytes:.4e} B, operations "
             f"{b['ops_ms']:.4f} ms for {ops:.4e} ops = {ops / cells:.1f}/cell,"
             f" of them {slow / cells:.1f} divisions and roots; the "
-            f"branch-free lattice does {full / cells:.1f}/cell)")
+            f"branch-free lattice does {full / cells:.1f}/cell); "
+            f"{100 * b['share_of_bound']:.2f} % of the bound")
+
+        def first(out):
+            return out[0] if emit_dt else out
+        per_call[recon]["f64"] = f64_row(
+            recon, lambda a, b_: first(stage.stage_cuda(
+                a, b_, *args[2:], emit_dt=emit_dt)),
+            lambda a, b_: first(stage.stage_plain(
+                a, b_, *args[2:], emit_dt=emit_dt)),
+            (u0, ub), ops, reps, "1 launch")
     mix = lambda k: sum(r[k] for r in per_call.values()) / 2  # noqa
     t_b = sum(r["bytes"] for r in per_call.values()) / HBM_BYTES_PER_S
     t_o = sum(r["ops"] for r in per_call.values()) / FP32_OPS_PER_S
@@ -1389,6 +1438,7 @@ def phase_stage_timings(sim, launches, reps):
         "ms": mix("ms"),
         "plain_ms": mix("plain_ms"),
         "bound_ms": mix("bound_ms"),
+        "share_of_bound": mix("bound_ms") / mix("ms"),
         "bound_by": "bytes" if t_b >= t_o else "operations",
         "library_ms": None,
         "library_note": "no single PyTorch call computes cons_to_prim + "
@@ -1511,7 +1561,7 @@ def phase_smr_timings(sim, kind, launches, reps, name, replaces, what):
                                                "stage-faces" else args[2]))
         nbytes = ((n_in + 1) * u.numel() + faces) * u.element_size()
         cells = u.numel() // u.shape[1]
-        b = bound_of(nbytes, ops)
+        b = bound_of(nbytes, ops, ms)
         per_call[label] = dict(ms=ms, plain_ms=plain_ms, launches=n_launch,
                                bytes=nbytes, state_tensors_read=n_in,
                                ops=ops, ops_per_cell=ops / cells,
@@ -1521,7 +1571,8 @@ def phase_smr_timings(sim, kind, launches, reps, name, replaces, what):
             f"{plain_ms:.4f} ms/call; bound {b['bound_ms']:.4f} ms (bytes "
             f"{b['bytes_ms']:.4f} ms for {nbytes:.4e} B, operations "
             f"{b['ops_ms']:.4f} ms for {ops:.4e} ops = {ops / cells:.1f}/cell,"
-            f" {slow / cells:.1f} of them divisions and roots)")
+            f" {slow / cells:.1f} of them divisions and roots); "
+            f"{100 * b['share_of_bound']:.2f} % of the bound")
     n = sum(r["launches"] for r in per_call.values())
     mix = lambda k: sum(r[k] for r in per_call.values()) / n  # noqa: E731
     t_b = sum(r["bytes"] for r in per_call.values()) / HBM_BYTES_PER_S
@@ -1538,6 +1589,7 @@ def phase_smr_timings(sim, kind, launches, reps, name, replaces, what):
         "ms": mix("ms"),
         "plain_ms": mix("plain_ms"),
         "bound_ms": mix("bound_ms"),
+        "share_of_bound": mix("bound_ms") / mix("ms"),
         "bound_by": "bytes" if t_b >= t_o else "operations",
         "library_ms": None,
         "library_note": "no single PyTorch call computes reconstruction + "
@@ -1711,7 +1763,8 @@ def main(argv=None):
     cycles["Sod 1024"] = sod_cycles
     sweep_entry = phase_sweep_timings(
         sim, counts["sweep"][0], 20, "negdiv_sweep",
-        "athenapk_tpu/solver/pallas_sweep.py:37", "the main deck")
+        "athenapk_tpu/solver/pallas_sweep.py:37", "the main deck",
+        f64_rows=True)
     sweep_entry["launches_by_path"] = by_path
     stage_entry = phase_stage_timings(sim, counts["stage"][1], 20)
     stage_entry["launches_by_path"] = {

@@ -71,10 +71,10 @@ def _prim(mesh, dtype, device, seed=9):
 
 
 @pytest.mark.parametrize("dtype,tol", [
-    # the same operations without FMA contraction: rounding only (the
-    # kernel folds scalar constants in double), amplified by -div(F)'s
-    # difference of neighbouring fluxes; chip_smoke.py's f32 cases reach
-    # at most 1.4e-5 per variable
+    # both dtypes are built without FMA contraction and fold the same
+    # reciprocals as the plain version, so they agree bit for bit on the
+    # card; the tolerances leave room for rounding, which -div(F)'s
+    # difference of neighbouring fluxes amplifies
     (torch.float64, 1e-10),
     (torch.float32, 1e-4),
 ])
@@ -230,7 +230,7 @@ def test_sweep_kernel_euler_and_flat_meshes(card, fluid, riemann, recon,
 
 # ------------------------------------------------------- the stage kernel
 FLOORS = dict(density_floor=0.9, pressure_floor=0.8, internal_e_floor=1.25)
-# ghost-free extents that the kernel's tile (4 x 8 x 16) does not divide
+# ghost-free extents that the kernel's 7 x 14 columns do not divide
 STAGE_LAYOUTS = {"ghostfree": (40, 20, 10, 40, 20, 10, 0),
                  "ghosted": (32, 32, 32, 16, 16, 16, 3)}
 
@@ -503,8 +503,8 @@ def test_pgen_decks_on_card_match_cpu(card, case, rung, tmp_path,
 
 # ------------------------------------- the face-capturing kernels (SMR)
 # (fluid, riemann, reconstruction, meshblock, nghost): extents 14 and 22
-# leave remainder tiles in both kernels; nghost 2 with DC puts the faces at
-# a tile's second segment
+# leave remainder columns and march steps in both kernels; nghost 2 with DC
+# puts the faces one cell from a column's first
 FACE_CASES = [("euler", "hllc", "ppm", 8, 3), ("euler", "hlle", "plm", 16, 3),
               ("glmmhd", "hlld", "ppm", 8, 3), ("euler", "hlle", "dc", 8, 2),
               ("euler", "hllc", "plm", 32, 2)]
@@ -598,6 +598,76 @@ def test_negdiv_faces_kernel_matches_plain(card, case, ndim, dtype, tol):
         assert faces[d].shape == ref_f[d].shape
         assert _face_err(faces[d], ref_f[d]) <= tol, d
     assert torch.equal(nd, sweep.negdiv_cuda(prim, c_h, lm, cfg, eos, recon))
+
+
+# --------------------------------- extents around the kernels' own tiles
+# The sweep kernel marches 16 cells of 8 rows per step along x and 4 cells
+# of 32 pencils per step along y and z; the stage kernel takes columns of
+# 7 x 14 cells and cuts z into segments.  Extents one cell past those;
+# extents shorter than a step and than the PPM stencil (the kernels wrap
+# several times round the block); refined path A's blocks of 36 cells with
+# their ghosts, and 37, two blocks at a time (ghosted: with and without
+# the face output).
+TILE_LAYOUTS = {
+    # (nx1, nx2, nx3, mbnx1, mbnx2, mbnx3, nghost)
+    "remainder-of-one": (17, 9, 65, 17, 9, 65, 0),
+    "stage-remainder-of-one": (15, 8, 9, 15, 8, 9, 0),
+    "shorter-than-stencil": (5, 3, 2, 5, 3, 2, 0),
+    "flat-remainder-of-one": (17, 33, 1, 17, 33, 1, 0),
+    "line-shorter-than-stencil": (3, 1, 1, 3, 1, 1, 0),
+    "path-a-36": (64, 32, 32, 32, 32, 32, 2),
+    "path-a-37": (66, 33, 33, 33, 33, 33, 2),
+}
+
+
+@pytest.mark.parametrize("dtype,tol", [(torch.float64, 1e-10),
+                                       (torch.float32, 1e-4)])
+@pytest.mark.parametrize("recon", ["dc", "plm", "ppm"])
+@pytest.mark.parametrize("fluid,riemann", [("glmmhd", "hlld"),
+                                           ("euler", "hllc")])
+@pytest.mark.parametrize("layout", sorted(TILE_LAYOUTS))
+def test_kernels_at_extents_around_their_tiles(card, layout, fluid, riemann,
+                                               recon, dtype, tol):
+    n1, n2, n3, m1, m2, m3, g = TILE_LAYOUTS[layout]
+    mesh = Mesh(nx1=n1, nx2=n2, nx3=n3, mbnx1=m1, mbnx2=m2, mbnx3=m3,
+                x1min=0.0, x1max=1.0, x2min=0.0, x2max=1.5, x3min=0.0,
+                x3max=1.5, nghost=g)
+    cfg = HydroConfig(fluid=fluid, riemann=riemann, reconstruction=recon)
+    c_h = C_H if fluid == "glmmhd" else 0.0
+    sl = mesh.interior_slices
+    eos = EOS(gamma=5.0 / 3.0)
+    prim = torch.tensor(_random_prim(mesh, fluid, 31), dtype=dtype,
+                        device=card)
+    got = sweep.negdiv_cuda(prim, c_h, mesh, cfg, eos, recon)
+    ref = sweep.negdiv_plain(prim, c_h, mesh, cfg, eos, recon)
+    assert bool(torch.isfinite(got[sl]).all())
+    assert _per_var_err(got[sl], ref[sl]) <= tol
+    if g:
+        nd, faces = sweep.negdiv_faces_cuda(prim, c_h, mesh, cfg, eos, recon)
+        _, ref_f = sweep.negdiv_faces_plain(prim, c_h, mesh, cfg, eos, recon)
+        assert torch.equal(nd, got)
+        for d in ref_f:
+            assert _face_err(faces[d], ref_f[d]) <= tol, d
+    if n2 == 1 or n3 == 1:
+        return   # the stage kernel is 3-D only
+    eos = EOS(gamma=5.0 / 3.0, **FLOORS)
+    u0, u1 = (a.to(device=card, dtype=dtype)
+              for a in _stage_states(mesh, fluid, 37))
+    args = (u0, u1, 0.25, 0.75, 1e-3, c_h, mesh, cfg, eos, recon)
+    got = stage.stage_cuda(*args, emit_dt=g == 0, emit_prim=True)
+    ref = stage.stage_plain(*args, emit_dt=g == 0, emit_prim=True)
+    assert bool(torch.isfinite(got[0][sl]).all())
+    assert _per_var_err(got[0][sl], ref[0][sl]) <= tol
+    assert _per_var_err(got[-1], ref[-1]) <= tol          # stage-start prim
+    if g == 0:
+        assert got[1].min().item() == pytest.approx(ref[1].min().item(),
+                                                    rel=tol)
+    else:
+        u_new, prim_k, faces = stage.stage_faces_cuda(*args, emit_prim=True)
+        _, _, ref_f = stage.stage_faces_plain(*args, emit_prim=True)
+        assert torch.equal(u_new, got[0]) and torch.equal(prim_k, got[-1])
+        for d in (1, 2, 3):
+            assert _face_err(faces[d], ref_f[d]) <= tol, d
 
 
 SMR_RUNS = {

@@ -141,7 +141,7 @@ def test_fill_matches_jax_bitwise(case, bc):
              for lev, ids in js.level_ids.items()}
     want = JSmrState(js, nvar).fill_ghosts(
         {lev: jnp.asarray(v) for lev, v in state.items()})
-    got = SmrState(ts, nvar).fill_ghosts(
+    got = SmrState(ts, nvar, device="cpu").fill_ghosts(
         {lev: torch.tensor(v) for lev, v in state.items()})
     for lev in state:
         np.testing.assert_array_equal(got[lev].numpy(), np.asarray(want[lev]))
@@ -152,7 +152,7 @@ def test_fill_matches_jax_bitwise(case, bc):
 
 def test_fill_is_in_place_and_keeps_a_uniform_state():
     _, ts = _meshes("3d_nest")
-    st = SmrState(ts, 1)
+    st = SmrState(ts, 1, device="cpu")
     state = {lev: torch.full((ids.size, 1) + ts.base.block_shape, 3.5,
                              dtype=torch.float64)
              for lev, ids in ts.level_ids.items()}
@@ -183,3 +183,28 @@ def test_forest_binding_builds_under_build_and_not_native(tmp_path):
     levels, *_ = forest.leaves()
     assert sorted(levels.tolist()) == [0] * 7 + [1] * 8
     assert os.path.dirname(str(lib)) != str(native)
+
+
+@pytest.mark.parametrize("what", ["SmrState", "SmrHydro",
+                                  "init_state_from_pgen"])
+def test_refined_building_blocks_default_to_the_card(what, monkeypatch):
+    """Called without a device, each asks for the card: with none there,
+    it raises ``driver.resolve_device``'s error instead of running on the
+    CPU."""
+    from athenapk_tpu_torch.amr.driver import init_state_from_pgen
+    from athenapk_tpu_torch.amr.smr_hydro import SmrHydro
+    from athenapk_tpu_torch.eos.adiabatic import EOS
+    from athenapk_tpu_torch.solver.hydro_pkg import HydroConfig
+
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    _, ts = _meshes("3d_nest")
+    cfg = HydroConfig(fluid="euler", riemann="hlle", reconstruction="plm")
+    calls = {
+        "SmrState": lambda: SmrState(ts, 5),
+        "SmrHydro": lambda: SmrHydro(ts, cfg, EOS(gamma=5.0 / 3.0)),
+        # the device is resolved before the generator is called
+        "init_state_from_pgen": lambda: init_state_from_pgen(
+            ts, None, None, cfg, EOS(gamma=5.0 / 3.0)),
+    }
+    with pytest.raises(RuntimeError, match="no CUDA device is available"):
+        calls[what]()

@@ -125,7 +125,7 @@ def test_glmmhd_steps_match_jax(rung, monkeypatch):
     sm, eos = _glm(Mesh, SmrMesh, EOS)
     jsm, jeos = _glm(JMesh, JSmrMesh, JEOS)
     from athenapk_tpu_torch.solver.hydro_pkg import HydroConfig
-    th = SmrHydro(sm, HydroConfig(**cfg), eos)
+    th = SmrHydro(sm, HydroConfig(**cfg), eos, device="cpu")
     assert th._stage_rung == (rung == "stage")
     jh = JSmrHydro(jsm, JCfg(**cfg), jeos)
     dt = 0.002

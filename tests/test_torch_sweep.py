@@ -203,3 +203,26 @@ def test_library_is_keyed_by_source_and_header(source, monkeypatch, tmp_path):
     header.write_text(header.read_text() + "\n// again\n")
     with pytest.raises(RuntimeError, match="nvcc not found"):
         sweep.build_library(csrc / source)
+
+
+def test_ptxas_summary_reads_each_instantiation():
+    """``ptxas_summary`` names each kernel instantiation of an ``nvcc
+    -Xptxas -v`` log by its template switches and keeps its registers and
+    spills; without ``occupancy`` it asks no card."""
+    log = "\n".join([
+        "ptxas info    : Compiling entry function '_ZN12_GLOBAL__N_119"
+        "negdiv_sweep_kernelIfLi2ELi1ELi2EEEvPKT_PS1_S4_NS_4GeomE' for "
+        "'sm_90a'",
+        "    0 bytes stack frame, 0 bytes spill stores, 0 bytes spill loads",
+        "ptxas info    : Used 96 registers, used 1 barriers",
+        "ptxas info    : Compiling entry function '_ZN12_GLOBAL__N_118"
+        "fused_stage_kernelIdLi1ELi0ELb1EEEvv' for 'sm_90a'",
+        "    0 bytes stack frame, 8 bytes spill stores, 8 bytes spill loads",
+        "ptxas info    : Used 255 registers, used 1 barriers",
+    ])
+    assert sweep.ptxas_summary(log) == [
+        "negdiv_sweep f32 ppm dir 1 glmmhd-hlld: 96 registers, 0 bytes "
+        "stack frame, 0 bytes spill stores, 0 bytes spill loads",
+        "fused_stage f64 plm euler-hlle faces: 255 registers, 0 bytes stack "
+        "frame, 8 bytes spill stores, 8 bytes spill loads",
+    ]
