@@ -1,25 +1,39 @@
-"""Deck-driven simulations on static refined meshes (torch).
+"""Deck-driven simulations on refined meshes, static and adaptive (torch).
 
 Counterpart of ``athenapk_tpu/amr/driver.py`` for ``<parthenon/mesh>
-refinement = static`` (the reference's mesh mode, e.g.
-``inputs/cluster/cluster.in:26``).  Problem set-up reuses the uniform
-problem generators through a per-leaf adapter: each leaf gets a one-block
-``Mesh`` spanning its own bounds, so ``pgen.problem_generator`` evaluates
-its fields at the leaf's cell centres, as the reference calls
-``ProblemGenerator`` per MeshBlock at any level.
+refinement = static | adaptive`` (the reference's mesh modes, e.g.
+``inputs/cluster/cluster.in:26`` and ``inputs/blast_3d_adaptive.in``).
+Problem set-up reuses the uniform problem generators through a per-leaf
+adapter: each leaf gets a one-block ``Mesh`` spanning its own bounds, so
+``pgen.problem_generator`` evaluates its fields at the leaf's cell centres,
+as the reference calls ``ProblemGenerator`` per MeshBlock at any level.
 
 The loop is the JAX package's pipelined one: the dt package ``[dt_raw,
 dt_eff, c_h]`` (CFL dt, 2x growth cap, tlim clamp, GLM speed) is computed on
 the device, and the one read of it per cycle comes after the cycle's step
 is enqueued.  (The kernels take their scalars from the host, so the step is
 enqueued with the dt read in the cycle before; the dt sequence is the JAX
-package's.)  Outputs: the ``.hst`` file summed over levels, the ``cycle=``
-lines and ``zone-cycles/wallsecond``.
+package's.)
+
+Adaptive meshes (``amr.remesh.AmrHydro``): the initial grid is Parthenon's
+``Mesh::Initialize`` loop (tag, remesh, regenerate the problem on the new
+topology, up to ``numlevel`` times).  Every ``check_interval`` cycles the
+run remeshes at the start of the cycle; its tags are enqueued right after
+the previous step and read in the same host read as the dt package.  A
+remesh that changes the leaf table changes the state, so that cycle reads
+its dt once more.  The stepper and the mesh of the moment come from
+``_stepper_now()`` / ``_smesh_now()``.
+
+Outputs: the ``.hst`` file summed over levels, the ``cycle=`` lines with
+the leaves per level, ``mesh structure`` lines (``ncycle_out_mesh``; a
+negative value also prints on every remesh) and ``zone-cycles/wallsecond``
+(zones summed over each cycle's leaves).
 
 The state lives on ``cuda`` unless the caller asks for the CPU; asking for
 CUDA where there is none raises.  Not ported (``NotImplementedError``):
-``refinement = adaptive``, restart, hdf5 and rst outputs, tracers, and the
-problems whose refined-mesh hooks or split sources the JAX driver calls.
+restart, hdf5 and rst outputs, tracers, diffusion and cooling, and the
+problems whose refined-mesh hooks or split sources the JAX driver calls
+(among them the pgen refinement check of ``cloud``).
 """
 
 from __future__ import annotations
@@ -36,7 +50,9 @@ from ..core.mesh import Mesh
 from ..eos.adiabatic import EOS, cons_to_prim
 from ..outputs.history import HistoryOutput
 from ..pgen import get_pgen
+from ..refinement.criteria import RefinementConfig
 from ..solver.hydro_pkg import HydroConfig
+from .remesh import AmrHydro
 from .smr import SmrMesh, smr_regions_from_deck
 from .smr_hydro import SmrHydro
 
@@ -73,7 +89,7 @@ def init_state_from_pgen(smesh: SmrMesh, pgen, pin, cfg, eos,
 
 
 class SmrSimulation:
-    """Time loop on a static refined mesh."""
+    """Time loop on a static or adaptive refined mesh."""
 
     def __init__(self, pin: ParameterInput, quiet: bool = False,
                  device="cuda"):
@@ -89,11 +105,9 @@ class SmrSimulation:
                              f"got '{prec}'")
         self.dtype = DTYPES[prec]
         mode = pin.get_string("parthenon/mesh", "refinement")
-        if mode == "adaptive":
-            raise NotImplementedError("refinement = adaptive is not ported "
-                                      "to athenapk_tpu_torch yet (static is)")
-        if mode != "static":
+        if mode not in ("static", "adaptive"):
             raise ValueError(f"SmrSimulation: refinement={mode}")
+        self.adaptive = mode == "adaptive"
         check_unported(pin)
 
         base = Mesh.from_parameter_input(pin)
@@ -111,11 +125,32 @@ class SmrSimulation:
         init_hook = getattr(self.pgen, "init_user_mesh_data", None)
         if init_hook is not None:
             init_hook(pin)
-        self.stepper = SmrHydro(self.smesh, self.cfg, self.eos,
-                                device=self.device)
-        self.state = self.stepper.fill_ghosts(init_state_from_pgen(
-            self.smesh, self.pgen, pin, self.cfg, self.eos, self.dtype,
-            self.device))
+        if self.adaptive:
+            self.driver = AmrHydro(
+                self.smesh, self.cfg, self.eos,
+                RefinementConfig.from_parameter_input(pin),
+                check_interval=pin.get_or_add_integer(
+                    "parthenon/mesh", "check_interval", 1),
+                derefine_count=pin.get_or_add_integer(
+                    "parthenon/mesh", "derefine_count", 10),
+                device=self.device)
+        else:
+            self.driver = None
+            self.stepper = SmrHydro(self.smesh, self.cfg, self.eos,
+                                    device=self.device)
+        self.state = self._generate_state()
+        if self.adaptive:
+            # Parthenon's Mesh::Initialize loop: tag, remesh, then
+            # REGENERATE the problem on the new topology until the grid
+            # settles -- initial data is evaluated at each leaf's own
+            # resolution, never prolongated
+            for _ in range(max_level + 1):
+                _, changed = self.driver.maybe_remesh(self.state)
+                if not changed:
+                    break
+                self.smesh = self.driver.smesh
+                self.state = self._generate_state()
+            self.driver._deref_counts = {}
 
         t = "parthenon/time"
         self.tlim = pin.get_real(t, "tlim")
@@ -147,8 +182,9 @@ class SmrSimulation:
         device and dtype.  ``dt``, the last cycle's step, caps the first
         step at 2*dt."""
         new = {}
-        for lev, ids in self.smesh.level_ids.items():
-            want = (ids.size, self.cfg.nvar) + self.smesh.base.block_shape
+        sm = self._smesh_now()
+        for lev, ids in sm.level_ids.items():
+            want = (ids.size, self.cfg.nvar) + sm.base.block_shape
             arr = np.asarray(state[lev])
             if arr.shape != want:
                 raise ValueError(f"level {lev}: state shape {arr.shape} does "
@@ -162,6 +198,19 @@ class SmrSimulation:
         return self
 
     # ------------------------------------------------------------- helpers
+    def _stepper_now(self):
+        return self.driver._stepper if self.adaptive else self.stepper
+
+    def _smesh_now(self):
+        return self.driver.smesh if self.adaptive else self.smesh
+
+    def _generate_state(self):
+        """The problem generator's state on the current topology, its
+        ghosts filled."""
+        return self._stepper_now().fill_ghosts(init_state_from_pgen(
+            self._smesh_now(), self.pgen, self.pin, self.cfg, self.eos,
+            self.dtype, self.device))
+
     def _write_hst(self, dt):
         if self._hst is None or not self._hst.due(self.t):
             return
@@ -170,16 +219,30 @@ class SmrSimulation:
             u = self.state[lev]
             _, w = cons_to_prim(self.eos, u, self.cfg.fluid,
                                 self.cfg.nscalars)
-            groups.append((u, w, self.stepper.level_mesh[lev]))
+            groups.append((u, w, self._stepper_now().level_mesh[lev]))
         self._hst.write_groups(self.t, dt, groups)
 
     def _dt_pack(self):
-        """``(dt_raw, dt_eff, c_h)`` for the next cycle: computed on the
-        device, read here (the loop's one host read per cycle)."""
-        pack = self.stepper.dt_pack(
+        """The next cycle's ``[dt_raw, dt_eff, c_h]`` on the device, not
+        read."""
+        return self._stepper_now().dt_pack(
             self.state, self.tm_dt if self.tm_dt is not None
             else float("inf"), self.t, self.tlim)
-        return pack.tolist()
+
+    def _read_next(self, with_tags=True):
+        """``((dt_raw, dt_eff, c_h), tags or None)`` for the next cycle: the
+        dt package and, when the next cycle checks the refinement (and
+        ``with_tags``), the level tags, enqueued on the device and read to
+        the host in ONE read (the loop's one host read per cycle)."""
+        pack = self._dt_pack()
+        if not (with_tags and self.adaptive
+                and self.ncycle % self.driver.check_interval == 0):
+            return pack.tolist(), None
+        parts = self.driver.dispatch_tags(self.state)
+        flat = torch.cat([pack] + [t.to(pack.dtype) for _, t in parts])
+        vals = flat.cpu().numpy()
+        tags = self.driver.assemble_tags(parts, vals[3:].astype(np.int32))
+        return vals[:3].tolist(), tags
 
     def _running(self):
         return self.t < self.tlim and (self.nlim < 0
@@ -188,28 +251,41 @@ class SmrSimulation:
     def _print_mesh(self, zones_per_block):
         parts = [f"level {lev}: {ids.size} blocks "
                  f"({ids.size * zones_per_block} zones)"
-                 for lev, ids in sorted(self.smesh.level_ids.items())]
+                 for lev, ids in sorted(self._smesh_now().level_ids.items())]
         print(f"mesh structure (cycle {self.ncycle}): " + "; ".join(parts),
               flush=True)
 
     # ------------------------------------------------------------------ run
     def run(self):
-        b = self.smesh.base
+        b = self._smesh_now().base
         zones_per_block = b.mbnx1 * b.mbnx2 * b.mbnx3
         t0 = time.time()
         zone_cycles = 0
+        n_remesh = 0
         self._write_hst(0.0)
-        pack = self._dt_pack() if self._running() else None
+        pack, tags = self._read_next() if self._running() else (None, None)
         while self._running():
+            if tags is not None:
+                # the tags describe the state the previous step left
+                self.state, changed = self.driver.maybe_remesh(self.state,
+                                                               tags)
+                if changed:
+                    n_remesh += 1
+                    if not self.quiet and self.ncycle_out_mesh < 0:
+                        self._print_mesh(zones_per_block)
+                    # the state changed under the dt read with the tags
+                    pack, _ = self._read_next(with_tags=False)
             dt_raw, dt, c_h = pack
-            self.state = self.stepper.step(self.state, dt, c_h)
+            self.state = self._stepper_now().step(self.state, dt, c_h)
             self.tm_dt = dt_raw
             self.t += dt
             self.ncycle += 1
             zone_cycles += zones_per_block * sum(
                 v.shape[0] for v in self.state.values())
-            # the next cycle's dt, read after this cycle's step is enqueued
-            pack = self._dt_pack() if self._running() else None
+            # the next cycle's dt (and tags), read after this cycle's step
+            # is enqueued
+            pack, tags = (self._read_next() if self._running()
+                          else (None, None))
             if not self.quiet and self.ncycle_out > 0 \
                     and self.ncycle % self.ncycle_out == 0:
                 nlv = {lev: v.shape[0] for lev, v in self.state.items()}
@@ -224,6 +300,7 @@ class SmrSimulation:
         wall = time.time() - t0
         self.perf_zone_cycles = zone_cycles
         self.perf_wall = wall
+        self.perf_remeshes = n_remesh
         if not self.quiet and zone_cycles:
             print(f"zone-cycles/wallsecond = {zone_cycles / wall:.6e}",
                   flush=True)
@@ -231,4 +308,4 @@ class SmrSimulation:
 
     # ------------------------------------------------------------ accessors
     def total_mass(self):
-        return self.stepper.total_mass(self.state)
+        return self._stepper_now().total_mass(self.state)

@@ -1,5 +1,5 @@
-"""Static mesh refinement: level-grouped blocks with coarse-fine coupling
-(torch).
+"""Refined meshes, static and adaptive: level-grouped blocks with
+coarse-fine coupling (torch).
 
 Counterpart of ``athenapk_tpu/amr/smr.py``: leaf blocks (from the native
 forest manager) are grouped by level into batched tensors
@@ -15,8 +15,11 @@ The fill is the JAX package's default, sequential slab assembly
 the coarsest (restriction reads them), pass B fills each level coarsest
 first, axis by axis with growing transverse extents, pass C re-applies the
 physical boundaries at full extent.  It updates the level tensors in place.
-Not ported: the ``scatter`` and ``buffered`` A/B fills (they give the same
-bits), custom boundary hooks, and the restart and adaptive constructors.
+
+``SmrMesh.from_forest`` wraps a forest that an adaptive remesh has just
+updated (``amr/remesh.py``), ``SmrMesh.from_leaf_table`` rebuilds the mesh
+of a saved leaf table.  Not ported: the ``scatter`` and ``buffered`` A/B
+fills (they give the same bits) and custom boundary hooks.
 """
 
 from __future__ import annotations
@@ -90,9 +93,9 @@ class LevelMesh:
 
 
 class SmrMesh:
-    """Leaf-block geometry of a static refined mesh: a base ``Mesh`` (whose
-    meshblock is every level's block) plus refinement regions
-    ``[(x1min, x1max, ..., level)]``."""
+    """Leaf-block geometry of a refined mesh: a base ``Mesh`` (whose
+    meshblock is every level's block) plus static refinement regions
+    ``[(x1min, x1max, ..., level)]``, or a forest (``from_forest``)."""
 
     def __init__(self, base: Mesh, regions, max_level=None):
         if base.ndim < 1:
@@ -134,15 +137,63 @@ class SmrMesh:
             if not tags.any():
                 break
             forest.update(tags)
+        self._adopt_forest(forest)
+
+    def _adopt_forest(self, forest):
+        """Take the forest's leaf table.  ``max_level`` is the deepest level
+        that holds leaves, as in the JAX package (``dx``/``min_dx`` of the
+        finest level set the GLM speed); the refinement ceiling (the deck's
+        ``numlevel - 1``) is the forest's own, so a mesh derefined to its
+        roots refines again."""
         self.forest = forest
         self.levels, self.lx1, self.lx2, self.lx3 = forest.leaves()
         self.max_level = int(self.levels.max())
-        # only levels that hold leaves
+        # only levels that hold leaves: after a remesh level 0 may be empty
+        # (every root refined), and a level with no leaves has no tensor
         self.level_ids = {lev: ids for lev in range(self.max_level + 1)
                           if (ids := np.where(self.levels == lev)[0]).size}
         self._by_loc = {(int(l), int(a), int(b), int(c)): i
                         for i, (l, a, b, c) in enumerate(
                             zip(self.levels, self.lx1, self.lx2, self.lx3))}
+
+    @classmethod
+    def from_forest(cls, base: Mesh, forest):
+        """Wrap a forest that ``forest.update`` has just changed (the
+        adaptive path)."""
+        sm = cls.__new__(cls)
+        sm.base = base
+        sm._adopt_forest(forest)
+        return sm
+
+    @classmethod
+    def from_leaf_table(cls, base: Mesh, levels, lx1, lx2, lx3,
+                        max_level=None):
+        """The mesh of a saved leaf table: refine-only tags replayed on a
+        fresh forest until the leaf set matches (any 2:1-balanced table is
+        reachable so).  ``max_level`` is the forest's ceiling (default: the
+        table's deepest level)."""
+        levels = np.asarray(levels)
+        if max_level is None:
+            max_level = int(levels.max())
+        forest = AmrForest(base.nb1, base.nb2, base.nb3, ndim=base.ndim,
+                           max_level=max_level, periodic=_periodicity(base))
+        target = {(int(l), int(a), int(b), int(c))
+                  for l, a, b, c in zip(levels, lx1, lx2, lx3)}
+        for _ in range(max_level + 1):
+            cur, ca, cb, cc = forest.leaves()
+            tags = np.array([(int(l), int(a), int(b), int(c)) not in target
+                             for l, a, b, c in zip(cur, ca, cb, cc)],
+                            np.int32)
+            if not tags.any():
+                break
+            forest.update(tags)
+        sm = cls.from_forest(base, forest)
+        got = {(int(l), int(a), int(b), int(c)) for l, a, b, c in
+               zip(sm.levels, sm.lx1, sm.lx2, sm.lx3)}
+        if got != target:
+            raise ValueError("leaf table replay failed (table not "
+                             "2:1-balanced or level out of range)")
+        return sm
 
     def _scales(self, level):
         """Refinement scale per dimension: 2^level on active dims, 1 on

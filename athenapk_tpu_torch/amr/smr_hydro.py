@@ -8,7 +8,8 @@ global dt on all levels, and the ghost fill of ``SmrState`` after every
 stage.
 
 Two rungs, chosen once, when the stepper is built (the JAX package's
-ladder at ``smr_hydro.py:617-650``):
+ladder at ``smr_hydro.py:617-650``), or given by the caller
+(``stage_rung``; an adaptive run keeps its first stepper's rung):
 
 * 3-D meshes: one ``stage.fused_stage_faces`` call per level per stage
   (cons_to_prim + the sweeps + the 2S update + the face fluxes), then the
@@ -49,7 +50,8 @@ from .smr import SmrMesh, SmrState
 
 
 class SmrHydro:
-    def __init__(self, smesh: SmrMesh, cfg, eos, device="cuda"):
+    def __init__(self, smesh: SmrMesh, cfg, eos, device="cuda",
+                 stage_rung=None):
         from ..driver import resolve_device
 
         missing = []
@@ -81,8 +83,9 @@ class SmrHydro:
         self._act = {1: True, 2: b.nx2 > 1, 3: b.nx3 > 1}
         self._g_of_dir = {1: b.ng1, 2: b.ng2, 3: b.ng3}
         self._int_sl = b.interior_slices
-        self._stage_rung = (b.nx2 > 1 and b.nx3 > 1 and os.environ.get(
-            "ATHENAPK_PALLAS_STAGE") != "0")
+        if stage_rung is None:
+            stage_rung = os.environ.get("ATHENAPK_PALLAS_STAGE") != "0"
+        self._stage_rung = b.nx2 > 1 and b.nx3 > 1 and bool(stage_rung)
         # flux-correction batches: one restricted write per (level, face)
         # group of coarse-fine sites (the face-touching fine kids in octant
         # order, from the ghost-fill plans)

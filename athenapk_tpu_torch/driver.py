@@ -16,11 +16,11 @@ where there is none raises.  ``hydro/precision = single|double`` sets the
 state's dtype.
 
 ``run_from_file`` and the CLI send a deck with ``<parthenon/mesh>
-refinement = static`` to ``amr.driver.SmrSimulation`` (the JAX routing,
-``athenapk_tpu/driver.py:515-518``).
+refinement = static`` or ``adaptive`` to ``amr.driver.SmrSimulation`` (the
+JAX routing, ``athenapk_tpu/driver.py:515-518``).
 
 Not ported yet (``NotImplementedError``): hdf5 and rst outputs, tracers,
-restart (``-r``), profiler traces (``-t``), adaptive meshes, diffusion,
+restart (``-r``), profiler traces (``-t``), multi-device runs, diffusion,
 cooling, first-order flux correction, the ``weno3``/``limo3``/``wenoz``
 reconstructions, and the problems ``diffusion``, ``rand_blast``,
 ``turbulence``, ``cloud`` and ``cluster`` (with their source terms and
@@ -97,14 +97,11 @@ class Simulation:
                              f"got '{prec}'")
         self.dtype = DTYPES[prec]
         mode = pin.get_or_add_string("parthenon/mesh", "refinement", "none")
-        if mode == "static":
+        if mode in ("static", "adaptive"):
             raise NotImplementedError(
-                "refinement = static: the uniform Simulation does not run "
+                f"refinement = {mode}: the uniform Simulation does not run "
                 "refined meshes; SmrSimulation does (run_from_file and the "
                 "CLI route the deck to it)")
-        if mode == "adaptive":
-            raise NotImplementedError("refinement = adaptive is not ported "
-                                      "to athenapk_tpu_torch yet")
         check_unported(pin)
 
         self.mesh = Mesh.from_parameter_input(pin)

@@ -18,6 +18,7 @@ import math
 
 import torch
 
+from ..core.ieee import sqrt
 from ..core.indices import (IDN, IM1, IM2, IM3, IEN, IB1, IB2, IB3, IPS,
                             IV1, IV2, IV3, IPR, NHYDRO, NGLMMHD, GLMMHD)
 
@@ -53,7 +54,7 @@ class EOS:
 
 
 def sound_speed(eos: EOS, rho, p):
-    return torch.sqrt(eos.gamma * p / rho)
+    return sqrt(eos.gamma * p / rho)
 
 
 def fast_magnetosonic_speed(eos: EOS, rho, p, bx, by, bz):
@@ -63,7 +64,7 @@ def fast_magnetosonic_speed(eos: EOS, rho, p, bx, by, bz):
     ct2 = by * by + bz * bz
     qsq = bx * bx + ct2 + asq
     tmp = bx * bx + ct2 - asq
-    return torch.sqrt(0.5 * (qsq + torch.sqrt(tmp * tmp + 4.0 * asq * ct2))
+    return sqrt(0.5 * (qsq + sqrt(tmp * tmp + 4.0 * asq * ct2))
                       / rho)
 
 
@@ -98,7 +99,7 @@ def cons_to_prim(eos: EOS, cons, fluid: str, nscalars: int = 0):
     # velocity ceiling rescales both v and momentum, removes KE from E
     if math.isfinite(eos.velocity_ceiling):
         w_v2 = w_vx * w_vx + w_vy * w_vy + w_vz * w_vz
-        w_v = torch.sqrt(w_v2)
+        w_v = sqrt(w_v2)
         over = w_v2 > eos.velocity_ceiling ** 2
         scale = torch.where(over, eos.velocity_ceiling / w_v, 1.0)
         w_vx = w_vx * scale

@@ -21,6 +21,7 @@ from typing import List, Sequence, Tuple
 import numpy as np
 import torch
 
+from ..core.ieee import sqrt
 from ..core.indices import IDN, IM1, IM2, IM3, IEN, IB1, IB2, IB3, GLMMHD
 from ..solver.sweep import AXIS_OF_DIR
 
@@ -67,7 +68,7 @@ def _rel_divb_partial(u, w, mesh):
     (cell-centred central differences; ``HydroHst`` at hydro.cpp:145-208),
     volume-weighted so that the groups of a multi-level mesh combine."""
     b = [u[:, IB1], u[:, IB2], u[:, IB3]]
-    bmag = torch.sqrt(b[0] ** 2 + b[1] ** 2 + b[2] ** 2)
+    bmag = sqrt(b[0] ** 2 + b[1] ** 2 + b[2] ** 2)
     divb = torch.zeros_like(b[0])
     dims = [1] + ([2] if mesh.nx2 > 1 else []) + ([3] if mesh.nx3 > 1 else [])
     for d in dims:

@@ -26,6 +26,7 @@ from __future__ import annotations
 
 import torch
 
+from ..core.ieee import sqrt
 from ..core.indices import (IDN, IV1, IV2, IV3, IPR, IB1, IB2, IB3, IPS,
                             IEN, NHYDRO, NGLMMHD, EULER, GLMMHD)
 from ..eos.adiabatic import EOS, fast_magnetosonic_speed
@@ -87,8 +88,8 @@ def _euler_llf(eos, wl, wr, dirn):
     fsum_my = qa * vyl + qb * vyr
     fsum_mz = qa * vzl + qb * vzr
     fsum_e = (el + pl) * vxl + (er + pr) * vxr
-    cl = torch.sqrt(eos.gamma * pl / dl)
-    cr = torch.sqrt(eos.gamma * pr / dr)
+    cl = sqrt(eos.gamma * pl / dl)
+    cr = sqrt(eos.gamma * pr / dr)
     a = torch.maximum(torch.abs(vxl) + cl, torch.abs(vxr) + cr)
     fd = 0.5 * (fsum_d - a * (dr - dl))
     fmx = 0.5 * (fsum_mx - a * (dr * vxr - dl * vxl))
@@ -109,18 +110,18 @@ def _euler_hlle(eos, wl, wr, dirn):
     (dl, vxl, vyl, vzl, pl, el), (dr, vxr, vyr, vzr, pr, er) = \
         _euler_faces(eos, wl, wr, dirn)
     # Roe averages
-    sqrtdl = torch.sqrt(dl)
-    sqrtdr = torch.sqrt(dr)
+    sqrtdl = sqrt(dl)
+    sqrtdr = sqrt(dr)
     isdlpdr = 1.0 / (sqrtdl + sqrtdr)
     v1roe = (sqrtdl * vxl + sqrtdr * vxr) * isdlpdr
     v2roe = (sqrtdl * vyl + sqrtdr * vyr) * isdlpdr
     v3roe = (sqrtdl * vzl + sqrtdr * vzr) * isdlpdr
     hroe = ((el + pl) / sqrtdl + (er + pr) / sqrtdr) * isdlpdr
-    cl = torch.sqrt(eos.gamma * pl / dl)
-    cr = torch.sqrt(eos.gamma * pr / dr)
+    cl = sqrt(eos.gamma * pl / dl)
+    cr = sqrt(eos.gamma * pr / dr)
     q = hroe - 0.5 * (v1roe * v1roe + v2roe * v2roe + v3roe * v3roe)
     a = torch.where(q < 0.0, 0.0,
-                    torch.sqrt(eos.gm1 * torch.clamp(q, min=0.0)))
+                    sqrt(eos.gm1 * torch.clamp(q, min=0.0)))
     al = torch.minimum(v1roe - a, vxl - cl)
     ar = torch.maximum(v1roe + a, vxr + cr)
     bp = torch.where(ar > 0.0, ar, TINY)
@@ -151,18 +152,18 @@ def _euler_hlle(eos, wl, wr, dirn):
 def _euler_hllc(eos, wl, wr, dirn):
     (dl, vxl, vyl, vzl, pl, el), (dr, vxr, vyr, vzr, pr, er) = \
         _euler_faces(eos, wl, wr, dirn)
-    cl = torch.sqrt(eos.gamma * pl / dl)
-    cr = torch.sqrt(eos.gamma * pr / dr)
+    cl = sqrt(eos.gamma * pl / dl)
+    cr = sqrt(eos.gamma * pr / dr)
     # PVRS middle pressure (Toro 10.5.2)
     rhoa = 0.5 * (dl + dr)
     ca = 0.5 * (cl + cr)
     pmid = 0.5 * (pl + pr + (vxl - vxr) * rhoa * ca)
     g = eos.gamma
     ql = torch.where(pmid <= pl, 1.0,
-                     torch.sqrt(1.0 + (g + 1.0) / (2.0 * g)
+                     sqrt(1.0 + (g + 1.0) / (2.0 * g)
                                 * (pmid / pl - 1.0)))
     qr = torch.where(pmid <= pr, 1.0,
-                     torch.sqrt(1.0 + (g + 1.0) / (2.0 * g)
+                     sqrt(1.0 + (g + 1.0) / (2.0 * g)
                                 * (pmid / pr - 1.0)))
     al = vxl - cl * ql
     ar = vxr + cr * qr
@@ -269,8 +270,8 @@ def _glm_hlle(eos, wl, wr, dirn, c_h):
     (``glmmhd_hlle.hpp``; x/y correction terms per Cargo & Gallice)."""
     L, R, bxi, f_bx, f_psi = _glm_faces(eos, wl, wr, dirn, c_h)
     gm1 = eos.gm1
-    sqrtdl = torch.sqrt(L["d"])
-    sqrtdr = torch.sqrt(R["d"])
+    sqrtdl = sqrt(L["d"])
+    sqrtdr = sqrt(R["d"])
     isdlpdr = 1.0 / (sqrtdl + sqrtdr)
     droe = sqrtdl * sqrtdr
     v1roe = (sqrtdl * L["vx"] + sqrtdr * R["vx"]) * isdlpdr
@@ -304,8 +305,8 @@ def _glm_hlle(eos, wl, wr, dirn, c_h):
     ct2 = bt_starsq / droe
     tsum = vaxsq + ct2 + twid_asq
     tdif = vaxsq + ct2 - twid_asq
-    cf2_cs2 = torch.sqrt(tdif * tdif + 4.0 * twid_asq * ct2)
-    a = torch.sqrt(0.5 * (tsum + cf2_cs2))
+    cf2_cs2 = sqrt(tdif * tdif + 4.0 * twid_asq * ct2)
+    a = sqrt(0.5 * (tsum + cf2_cs2))
 
     al = torch.minimum(v1roe - a, L["vx"] - cfl)
     ar = torch.maximum(v1roe + a, R["vx"] + cfr)
@@ -397,8 +398,8 @@ def _glm_hlld(eos, wl, wr, dirn, c_h):
     urst_d = ur["d"] * sdr * sdmr_inv
     ulst_d_inv = 1.0 / ulst_d
     urst_d_inv = 1.0 / urst_d
-    sqrtdl = torch.sqrt(ulst_d)
-    sqrtdr = torch.sqrt(urst_d)
+    sqrtdl = sqrt(ulst_d)
+    sqrtdr = sqrt(urst_d)
     spd1 = spd2 - torch.abs(bxi) / sqrtdl
     spd3 = spd2 + torch.abs(bxi) / sqrtdr
 

@@ -279,6 +279,11 @@ def check_kernel_tensor(name, q, mesh, cfg):
                          f"got {list(q.shape)}")
     if not q.is_contiguous():
         raise ValueError(f"{name} needs a contiguous tensor")
+    if q.shape[0] == 0:
+        # a refined level with no leaves (a zero-sized grid is a launch
+        # error, not a no-op)
+        raise ValueError(f"{name}: a level with no blocks never reaches a "
+                         "launch")
 
 
 def _sweep_launches(name, prim, c_h, mesh, cfg, eos, recon, faces):

@@ -40,27 +40,46 @@ Phases (each one fails the run if it fails):
    stage-faces launches per cycle; path B, the same deck with
    ``ATHENAPK_PALLAS_STAGE=0``, 12 negdiv-faces launches per cycle; path
    C, the 2-D refined blast at 2048^2 (128^2 blocks, 448 leaves, HLLC),
-   8 per cycle; each with its mass across levels;
+   8 per cycle; each with its mass across levels; the adaptive paths
+   through ``SmrSimulation`` with ``bench.py:run_bench_adaptive``'s
+   protocol (10 warm-up cycles, then a 30-cycle window holding the remesh
+   checks, the remeshes and any new topology's host work): path D, its
+   deck (blast, Euler HLLE + PLM, f32, pressure gradient at 0.1, numlevel
+   2) at 128^3 with 16^3 blocks on the whole-stage rung, 2 stage-faces
+   launches per level and cycle; path D', the bench's own 64^3 with
+   ``ATHENAPK_PALLAS_STAGE=0``, 6 negdiv-faces launches per level and
+   cycle; each with the rate over the window, the remeshes in the window
+   and over the run (a run without one after the initial refinement
+   fails), the leaves per level at the start and the end, the host ms per
+   remesh (forest update, transfer, new topology's plans, fill) and the
+   mass across levels;
 5. whole steps in f64 for 5 cycles, once through the kernels and once
    with their plain versions forced, state and every dt compared: the
    main deck at 32^3 on each rung, the vortex at 64^2, Sod at 256,
    ``inputs/blast_3d_smr.in`` on both refined rungs and the 2-D refined
    blast at 256^2 (with seeded noise off the blasts' symmetric ties), and
    the refined runs' mass drift (f64, 1e-13);
-   then the face kernels against plain at paths A, B and C's own level
-   arrays, f32 as they run and the same arrays in f64 (state and every
-   face slab, per variable);
+   adaptive runs side by side cycle by cycle (``inputs/
+   blast_3d_adaptive.in`` on both rungs and the 2-D adaptive blast at
+   256^2, ``derefine_count = 1``): leaf tables equal, state and every step
+   to the tolerance, a refinement and a derefinement in each, mass drift
+   1e-13; then the face kernels against plain at paths A, B, C, D and D''s
+   own level arrays (D and D' after their last remesh), f32 as they run
+   and the same arrays in f64 (state and every face slab, per variable);
 6. timings at the main paths' inputs (256^3 f32, and 2048^2 f32 for the
    2-D entry; the refined paths' level arrays for the face kernels):
    kernel against plain there (held to the f32 tolerance), kernel and
    plain per call, the bound from this run's bytes and the operations its
-   data need (FP32 at 67 TFLOP/s), and the kernel's share of that bound;
+   data need (FP32 at 67 TFLOP/s), and the kernel's share of that bound
+   (the stage-faces kernel at path D's level arrays, and at path A's);
    the main deck's sweep and stage calls again on the same inputs in f64
    (held to the f64 tolerance, the bound at FP64's 34 TFLOP/s);
 7. profile: a torch.profiler trace of 3 cycles of each rung of the main
    deck, of the vortex and of each refined path (the fill, the flux
-   correction and the dt package told apart by profiler ranges), device
-   time by kernel and the device's idle share.
+   correction and the dt package told apart by profiler ranges), and of 3
+   cycles of adaptive path D (the step, the fill, the tag dispatch and the
+   remesh, with its host ms), device time by kernel and the device's idle
+   share.
 
 The last lines are the kernels' JSON line, the card line and
 ``{"ok": true, "device": {...}}``.
@@ -333,6 +352,79 @@ gamma = 1.4
 precision = {precision}
 """
 
+# The adaptive throughput deck of ``bench.py:run_bench_adaptive``
+# (``bench.py:251-345``): a blast on a base of 16^3 meshblocks that refines
+# on the pressure gradient at 0.1 (numlevel 2), Euler + HLLE + PLM + VL2,
+# nghost 2; here with a cycle line per cycle (the bench's ncycle_out is 0),
+# whose leaf counts give the launches each cycle should make.
+ADAPTIVE_3D_DECK = """
+<job>
+problem_id = blast
+
+<parthenon/mesh>
+refinement = adaptive
+numlevel = 2
+nghost = 2
+nx1 = {n}
+x1min = -0.5
+x1max = 0.5
+nx2 = {n}
+x2min = -0.5
+x2max = 0.5
+nx3 = {n}
+x3min = -0.5
+x3max = 0.5
+
+<parthenon/meshblock>
+nx1 = {mb}
+nx2 = {mb}
+nx3 = {mb}
+
+<refinement>
+type = pressure_gradient
+threshold_pressure_gradient = 0.1
+
+<parthenon/time>
+integrator = vl2
+cfl = 0.3
+tlim = 100.0
+nlim = {ncycles}
+ncycle_out = 1
+
+<hydro>
+fluid = euler
+eos = adiabatic
+riemann = hlle
+reconstruction = plm
+gamma = 1.666666666666667
+precision = {precision}
+
+<problem/blast>
+pressure_ambient = 0.001
+pressure_ratio = 1.6e4
+radius_outer = 0.12
+density_ambient = 1.0
+density_ratio = 1.0
+"""
+
+# The 2-D refined blast above with ``refinement = adaptive`` on the pressure
+# gradient at 0.3 instead of its static region (``tests/torch_decks.py:
+# ADAPTIVE_2D``).
+ADAPTIVE_2D_DECK = SMR_2D_DECK.replace(
+    "refinement = static", "refinement = adaptive").replace(
+    """<parthenon/static_refinement0>
+x1min = -0.25
+x1max = 0.25
+x2min = -0.25
+x2max = 0.25
+x3min = -0.5
+x3max = 0.5
+level = 1
+""", """<refinement>
+type = pressure_gradient
+threshold_pressure_gradient = 0.3
+""")
+
 RUNGS = {"sweep": None, "stage": "ATHENAPK_PALLAS_STAGE",
          "hybrid": "ATHENAPK_PALLAS_HYBRID"}
 # refined-mesh paths: (deck, rung, face-kernel launches per cycle:
@@ -340,6 +432,11 @@ RUNGS = {"sweep": None, "stage": "ATHENAPK_PALLAS_STAGE",
 # 2 levels x 2 stages, C = 2 directions x 2 levels x 2 stages
 SMR_PATHS = {"A": ("3d", "stage", (4, 0)), "B": ("3d", "negdiv", (0, 12)),
              "C": ("2d", "negdiv", (0, 8))}
+# adaptive paths: (rung, base n, face-kernel launches per level and cycle);
+# D = the run_bench_adaptive protocol at n = 128 on the default rung (2
+# stages), D' = the bench's own size on the negdiv rung (3 directions x 2
+# stages)
+AMR_PATHS = {"D": ("stage", 128, 2), "D'": ("negdiv", 64, 6)}
 # kernel launches per cycle of the main deck (VL2: a DC and a PPM stage),
 # (sweep kernel, stage kernel)
 RUNG_LAUNCHES = {"sweep": (6, 0), "stage": (0, 2), "hybrid": (3, 1)}
@@ -1037,7 +1134,7 @@ def phase_smr_path(path, n, ncycles, warmup):
         f"{rung} rung, f32, {ncycles} cycles, {warmup} warm-up) ==")
     t0 = time.time()
     sim = make_smr_sim(smr_deck(path, n, warmup, "single"), rung)
-    sm = sim.smesh
+    sm = sim._smesh_now()
     leaves = {lev: int(ids.size) for lev, ids in sm.level_ids.items()}
     zones = sum(leaves.values()) * sm.base.mbnx1 * sm.base.mbnx2 \
         * sm.base.mbnx3
@@ -1077,8 +1174,8 @@ def smr_stage_calls(sim):
     """What one stage-rung cycle of ``sim`` hands the stage-faces function:
     per level, the DC predictor ``(u, u)`` and the PLM corrector ``(u_half,
     u)``, with ``u_half`` the filled predictor result of this very state."""
-    st = sim.stepper
-    dt_raw, dt, c_h = sim._dt_pack()
+    st = sim._stepper_now()
+    dt_raw, dt, c_h = sim._dt_pack().tolist()
     half = st.fill_ghosts(st._stage_impl(0, sim.state, sim.state, dt, c_h))
     recon = sim.cfg.reconstruction
     calls = []
@@ -1096,8 +1193,8 @@ def smr_negdiv_calls(sim):
     """What one negdiv-rung cycle of ``sim`` hands the negdiv-faces
     function: per level, prim of the state with DC and with the deck's
     reconstruction."""
-    st = sim.stepper
-    _, _, c_h = sim._dt_pack()
+    st = sim._stepper_now()
+    _, _, c_h = sim._dt_pack().tolist()
     calls = []
     for lev, u in sim.state.items():
         _, prim = PORT.cons_to_prim(sim.eos, u, sim.cfg.fluid, 0)
@@ -1208,6 +1305,226 @@ def phase_smr_whole_steps(seed):
             raise AssertionError(f"{label}: kernel and plain steps disagree "
                                  f"or mass drifts")
     return drift_worst
+
+
+def leaves_of(sim):
+    return {lev: int(ids.size)
+            for lev, ids in sorted(sim._smesh_now().level_ids.items())}
+
+
+def table_of(sim):
+    sm = sim._smesh_now()
+    return tuple(np.asarray(x).copy() for x in (sm.levels, sm.lx1, sm.lx2,
+                                                sm.lx3))
+
+
+def remesh_kinds(old, new):
+    """'refine' / 'derefine' for the leaves of table ``new`` that ``old``
+    lacks: made from their parent, or from their children."""
+    have = set(zip(*(x.tolist() for x in old)))
+    out = set()
+    for lev, a, b, c in zip(*(x.tolist() for x in new)):
+        if (lev, a, b, c) not in have:
+            out.add("refine" if (lev - 1, a // 2, b // 2, c // 2) in have
+                    else "derefine")
+    return out
+
+
+def remesh_host_ms(entries):
+    """Mean host milliseconds of the remesh log's entries, split into the
+    forest update, the transfer's enqueueing, the new topology's plans and
+    the ghost fill's enqueueing, for the remeshes that changed the leaf
+    table and for those that did not (a check whose tags are not all 0
+    remeshes, as in the JAX package, even if the forest keeps its leaves)."""
+    out = {}
+    for label, sel in (("changed", [e for e in entries if e["changed"]]),
+                       ("unchanged", [e for e in entries
+                                      if not e["changed"]])):
+        if not sel:
+            continue
+        row = {k: sum(e[k] for e in sel) / len(sel)
+               for k in ("forest_ms", "transfer_ms", "plans_ms", "fill_ms")}
+        row["count"] = len(sel)
+        row["new_topologies"] = sum(e["new_topology"] for e in sel)
+        new = [e["plans_ms"] for e in sel if e["new_topology"]]
+        row["plans_ms_per_new_topology"] = (sum(new) / len(new) if new
+                                            else None)
+        out[label] = row
+    return out
+
+
+def phase_amr_path(path, ncycles, warmup):
+    rung, n, per_level = AMR_PATHS[path]
+    log(f"== phase 4: adaptive path {path} (the run_bench_adaptive deck, "
+        f"{n}^3 base, 16^3 blocks, {rung} rung, f32, {warmup} warm-up + "
+        f"{ncycles - warmup} timed cycles) ==")
+    t0 = time.time()
+    sim = make_smr_sim(ADAPTIVE_3D_DECK.format(
+        n=n, mb=16, ncycles=warmup, precision="single"), rung)
+    drv = sim.driver
+    n_init = len(drv.remesh_log)
+    leaves0 = leaves_of(sim)
+    m0 = sim.total_mass()
+    log(f"  set-up {time.time() - t0:.2f} s (initial refinement: {n_init} "
+        f"remeshes): leaves {leaves0}, blocks of "
+        f"{sim._smesh_now().base.block_shape}, dtype {sim.dtype}, device "
+        f"{sim.device}")
+    out = io.StringIO()
+    torch.cuda.synchronize()
+    reset_counts()
+    with contextlib.redirect_stdout(out):
+        sim.run()
+        n_warm, warm_remeshes = len(drv.remesh_log), sim.perf_remeshes
+        sim.nlim = ncycles
+        sim.run()
+    counts = read_face_counts() + read_counts()
+    text = out.getvalue()
+    print(text, end="", flush=True)
+    rates = re.findall(r"zone-cycles/wallsecond = (\S+)", text)
+    # the leaves each cycle stepped on, from its cycle line
+    nlev = [len(m.group(1).split(",")) for m in
+            re.finditer(r"cycle=\d+ .*blocks=\{([^}]*)\}", text)]
+    want = per_level * sum(nlev)
+    face, other = (counts[0], counts[1]) if rung == "stage" \
+        else (counts[1], counts[0])
+    changed_run = sum(e["changed"] for e in drv.remesh_log[n_init:])
+    window = drv.remesh_log[n_warm:]
+    host = remesh_host_ms(drv.remesh_log[n_init:])
+    host_init = remesh_host_ms(drv.remesh_log[:n_init])
+    zcps = float(rates[-1]) if len(rates) == 2 else None
+    log(f"  launches: {'stage' if rung == 'stage' else 'negdiv'}-faces "
+        f"kernel {face} (expected {want}: {per_level} per level and cycle "
+        f"over {len(nlev)} cycles), {face / ncycles:.2f} per cycle; the "
+        f"other face kernel {other}, uniform-path wrappers {counts[2:]}")
+    log(f"  remeshes that changed the leaf table: {sim.perf_remeshes} in the "
+        f"{ncycles - warmup}-cycle window, {changed_run} over the whole run "
+        f"after the initial refinement ({warm_remeshes} in the warm-up); "
+        f"{len(window)} remeshes in the window in all; leaves at the start "
+        f"{leaves0}, at the end {leaves_of(sim)}; steppers cached "
+        f"{len(drv._steppers)}")
+    for label, row in [(f"initial refinement, {k}", v)
+                       for k, v in host_init.items()] + list(host.items()):
+        log(f"  host ms per remesh ({label}, {row['count']}): forest "
+            f"{row['forest_ms']:.3f}, transfer {row['transfer_ms']:.3f}, "
+            f"plans {row['plans_ms']:.3f} (per new topology: "
+            f"{row['plans_ms_per_new_topology']}, {row['new_topologies']} "
+            f"new), fill {row['fill_ms']:.3f}")
+    log(f"  zone-cycles/wallsecond over the window: {zcps}")
+    if sim.ncycle != ncycles or len(nlev) != ncycles or face != want \
+            or other != 0 or counts[2:] != (0, 0) or zcps is None:
+        raise AssertionError(f"path {path} ran {sim.ncycle} cycles with "
+                             f"launches {counts}, expected {want}")
+    if changed_run == 0:
+        raise AssertionError(f"path {path}: no remesh after the initial "
+                             f"refinement in {ncycles} cycles")
+    finite = all(bool(torch.isfinite(v).all()) for v in sim.state.values())
+    m1 = sim.total_mass()
+    drift = abs(m1 - m0) / m0
+    log(f"  state finite: {finite}; mass across levels {m0:.9e} at the "
+        f"start, {m1:.9e} at the end (f32; drift {drift:.3e}, gate 1e-5) at "
+        f"t = {sim.t:.6e}")
+    if not finite or not drift <= 1e-5:
+        raise AssertionError(f"path {path}: state not finite or mass lost")
+    return sim, face, dict(
+        zone_cycles_per_s=zcps, cycles_timed=ncycles - warmup,
+        remeshes_window=sim.perf_remeshes, remeshes_run=changed_run,
+        remesh_checks_window=len(window), leaves_start=leaves0,
+        leaves_end=leaves_of(sim), launches=face,
+        launches_per_cycle=face / ncycles, host_ms_per_remesh=host,
+        host_ms_per_initial_remesh=host_init,
+        steppers_cached=len(drv._steppers), mass_start=m0, mass_end=m1)
+
+
+def phase_amr_whole_steps(seed):
+    """Adaptive runs in f64 through the kernels and with the plain versions
+    forced, side by side cycle by cycle: leaf tables equal, state and every
+    step to STEP_TOL; each run refines and derefines; mass kept to 1e-13.
+    Returns the 2-D run's sweep-faces launches."""
+    log("== phase 5: adaptive meshes, kernels against plain over whole "
+        "steps (f64, 5 cycles, derefine_count = 1, check_interval = 1) ==")
+    stage, sweep = PORT.stage, PORT.sweep
+    every = ("refinement = adaptive\nderefine_count = 1\n"
+             "check_interval = 1")
+    blast = (ROOT / "inputs" / "blast_3d_adaptive.in").read_text().replace(
+        "nlim = 10000", "nlim = 5").replace("dt = 0.01", "dt = -1.0") \
+        .replace("refinement = adaptive", every)
+    flat = ADAPTIVE_2D_DECK.format(n=256, mb=32, ncycles=5,
+                                   precision="double").replace(
+        "refinement = adaptive", every)
+    cases = [("blast_3d_adaptive.in, stage rung", blast, "stage"),
+             ("blast_3d_adaptive.in, negdiv rung", blast, "negdiv"),
+             ("2-D adaptive blast 256^2", flat, "negdiv")]
+    outdir = ROOT / "build" / "chip_smoke" / "amr"
+    outdir.mkdir(parents=True, exist_ok=True)
+    cwd = os.getcwd()
+    launches_2d = 0
+    for label, deck, rung in cases:
+        os.chdir(outdir)
+        try:
+            sims = {name: make_smr_sim(deck, rung)
+                    for name in ("kernel", "plain")}
+        finally:
+            os.chdir(cwd)
+        start = symmetry_noise(sims["kernel"].state, seed)
+        for sim in sims.values():
+            sim.quiet = True
+            sim.load_state(start, 0.0, 0)
+        m0 = {name: sim.total_mass() for name, sim in sims.items()}
+        table = table_of(sims["kernel"])
+        kinds, err_u, err_dt, launches = set(), 0.0, 0.0, 0
+        for k in range(1, 6):
+            for name, sim in sims.items():
+                dispatch = (sweep.fused_negdiv_faces, stage.fused_stage_faces)
+                os.chdir(outdir)
+                try:
+                    if name == "plain":
+                        sweep.fused_negdiv_faces = sweep.negdiv_faces_plain
+                        stage.fused_stage_faces = stage.stage_faces_plain
+                    sim.nlim = k
+                    reset_counts()
+                    sim.run()
+                    counts = read_face_counts()
+                finally:
+                    sweep.fused_negdiv_faces, stage.fused_stage_faces = \
+                        dispatch
+                    os.chdir(cwd)
+                if (sum(counts) == 0) != (name == "plain"):
+                    raise AssertionError(f"{label}: {name} run launched "
+                                         f"{counts}")
+                launches += sum(counts)
+            kern, plain = sims["kernel"], sims["plain"]
+            new = table_of(kern)
+            if any(not np.array_equal(a, b)
+                   for a, b in zip(new, table_of(plain))):
+                raise AssertionError(f"{label}: leaf tables differ after "
+                                     f"cycle {k}")
+            kinds |= remesh_kinds(table, new)
+            table = new
+            for lev, u in plain.state.items():
+                ref = u.abs().max().item()
+                err_u = max(err_u, (kern.state[lev] - u).abs().max().item()
+                            / ref)
+            err_dt = max(err_dt, abs(kern.tm_dt - plain.tm_dt)
+                         / plain.tm_dt, abs(kern.t - plain.t) / plain.t)
+        drift = {name: abs(sim.total_mass() - m0[name]) / m0[name]
+                 for name, sim in sims.items()}
+        log(f"  {label:34s} state max rel err {err_u:.3e}, dt and t max rel "
+            f"err {err_dt:.3e} over 5 cycles (tol {STEP_TOL:.0e}); leaf "
+            f"tables equal every cycle; remeshes {sorted(kinds)}, leaves at "
+            f"the end {leaves_of(sims['kernel'])}; mass drift across "
+            f"levels, kernels {drift['kernel']:.3e}, plain "
+            f"{drift['plain']:.3e} (tol 1e-13); {launches} face launches")
+        if not (err_u <= STEP_TOL and err_dt <= STEP_TOL
+                and kinds == {"refine", "derefine"}
+                and max(drift.values()) <= 1e-13):
+            raise AssertionError(f"{label}: kernel and plain adaptive runs "
+                                 f"disagree, do not remesh both ways, or "
+                                 f"lose mass")
+        if label.startswith("2-D"):
+            launches_2d = launches
+        del sims
+        torch.cuda.empty_cache()
+    return launches_2d
 
 
 def bound_of(nbytes, ops, ms=None, f64=False):
@@ -1611,7 +1928,7 @@ def phase_smr_profile(sim, ncycles, what):
     log(f"== phase 7: device-time breakdown of {ncycles} cycles of {what} ==")
     from torch.profiler import ProfilerActivity, profile, record_function
 
-    st = sim.stepper
+    st = sim._stepper_now()
     wrapped = ((st.state_mgr, "fill_ghosts", "smr.fill"),
                (st, "_slab_flux_correct", "smr.correction"),
                (st, "dt_pack", "smr.dt"))
@@ -1629,7 +1946,7 @@ def phase_smr_profile(sim, ncycles, what):
         with profile(activities=[ProfilerActivity.CPU,
                                  ProfilerActivity.CUDA]) as prof:
             for _ in range(ncycles):
-                _, dt, c_h = sim._dt_pack()
+                _, dt, c_h = sim._dt_pack().tolist()
                 sim.state = st.step(sim.state, dt, c_h)
             torch.cuda.synchronize()
     finally:
@@ -1693,6 +2010,115 @@ def phase_smr_profile(sim, ncycles, what):
             "window_ms_per_cycle": window / ncycles, "idle_share": idle}
 
 
+def phase_amr_profile(sim, ncycles, what):
+    """Where an adaptive cycle's time goes: a torch.profiler trace of
+    ``ncycles`` cycles of the run loop (remesh check, step, tags and dt
+    read), with profiler ranges around the step, the ghost fill, the tag
+    dispatch and the remesh; device time per range (a kernel counts in
+    the innermost range that holds it; the fill inside a remesh counts to
+    the remesh), host time per range, and the device's idle share."""
+    log(f"== phase 7: device-time breakdown of {ncycles} cycles of {what} ==")
+    from torch.profiler import ProfilerActivity, profile, record_function
+
+    wrapped = ((PORT.SmrHydro, "step", "amr.step"),
+               (PORT.SmrState, "fill_ghosts", "amr.fill"),
+               (PORT.AmrHydro, "dispatch_tags", "amr.tags"),
+               (PORT.AmrHydro, "maybe_remesh", "amr.remesh"))
+
+    def wrap(fn, label):
+        def call(*a, **k):
+            with record_function(label):
+                return fn(*a, **k)
+        return call
+
+    saved = [(cls, attr, cls.__dict__[attr]) for cls, attr, _ in wrapped]
+    for cls, attr, label in wrapped:
+        setattr(cls, attr, wrap(cls.__dict__[attr], label))
+    drv = sim.driver
+    n_log = len(drv.remesh_log)
+    sim.quiet = True
+    try:
+        torch.cuda.synchronize()
+        with profile(activities=[ProfilerActivity.CPU,
+                                 ProfilerActivity.CUDA]) as prof:
+            sim.nlim = sim.ncycle + ncycles
+            sim.run()
+            torch.cuda.synchronize()
+    finally:
+        for cls, attr, fn in saved:
+            setattr(cls, attr, fn)
+    window = drv.remesh_log[n_log:]
+    trace = ROOT / "build" / "chip_smoke" / "trace_amr.json"
+    trace.parent.mkdir(parents=True, exist_ok=True)
+    prof.export_chrome_trace(str(trace))
+    events = json.loads(trace.read_text())["traceEvents"]
+    kernels = [e for e in events if e.get("cat") == "kernel"]
+    if not kernels:
+        log("  the profiler recorded no device kernels: not measured")
+        return None
+    # each kernel goes to the ranges open on the host when it was launched
+    # (the launch's correlation id ties the two)
+    ranges = [e for e in events if e.get("cat") == "user_annotation"
+              and e.get("name", "").startswith("amr.")]
+    launched = {e["args"]["correlation"]: e["ts"] for e in events
+                if e.get("cat") in ("cuda_runtime", "cuda_driver")
+                and "correlation" in e.get("args", {})}
+    host = {}
+    for e in ranges:
+        host[e["name"]] = host.get(e["name"], 0.0) + e["dur"] / 1e3
+    groups, count = {}, {}
+    unmatched = 0
+    for e in kernels:
+        name = e["name"]
+        ts = launched.get(e.get("args", {}).get("correlation"))
+        unmatched += ts is None
+        labels = set() if ts is None else {
+            a["name"] for a in ranges if a["ts"] <= ts <= a["ts"] + a["dur"]}
+        if "fused_stage_kernel" in name or "negdiv_sweep_kernel" in name:
+            key = "face kernels (#7 or #6/#2)"
+        elif "amr.remesh" in labels:
+            key = "amr.remesh (transfer and its fill)"
+        elif "amr.tags" in labels:
+            key = "amr.tags"
+        elif "amr.fill" in labels:
+            key = "amr.fill (the step's two fills)"
+        elif "amr.step" in labels:
+            key = "amr.step (correction, update glue)"
+        else:
+            key = "other (dt package, the read)"
+        groups[key] = groups.get(key, 0.0) + e["dur"] / 1e3
+        count[key] = count.get(key, 0) + 1
+    if unmatched:
+        log(f"  {unmatched} of {len(kernels)} kernels without their launch "
+            "in the trace: counted as other")
+    busy = sum(e["dur"] for e in kernels) / 1e3
+    t0 = min(e["ts"] for e in kernels)
+    t1 = max(e["ts"] + e["dur"] for e in kernels)
+    span_ms = (t1 - t0) / 1e3
+    for key in sorted(groups, key=groups.get, reverse=True):
+        log(f"  {key:36s} {groups[key] / ncycles:9.4f} ms/cycle "
+            f"({100 * groups[key] / busy:5.1f} % of device time, "
+            f"{count[key] / ncycles:.0f} kernels/cycle)")
+    for name, ms in sorted(host.items()):
+        log(f"  host time in {name}: {ms / ncycles:.4f} ms/cycle (nested "
+            f"ranges included)")
+    host_log = remesh_host_ms(window)
+    log(f"  remeshes in the window: {len(window)}, "
+        f"{sum(e['changed'] for e in window)} of them changing the leaf "
+        f"table; host ms {host_log}")
+    idle = max(0.0, 1.0 - busy / span_ms)
+    log(f"  device busy {busy / ncycles:.4f} ms/cycle over a "
+        f"{span_ms / ncycles:.4f} ms/cycle window: idle share {idle:.3f}")
+    return {"ms_per_cycle": {k: v / ncycles for k, v in groups.items()},
+            "kernels_per_cycle": {k: v / ncycles for k, v in count.items()},
+            "host_ms_per_cycle": {k: v / ncycles for k, v in host.items()},
+            "remeshes": len(window),
+            "remeshes_changed": sum(e["changed"] for e in window),
+            "remesh_host_ms": host_log,
+            "busy_ms_per_cycle": busy / ncycles,
+            "window_ms_per_cycle": span_ms / ncycles, "idle_share": idle}
+
+
 def main(argv=None):
     global PORT
     ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
@@ -1706,6 +2132,9 @@ def main(argv=None):
         return 1
     try:
         from athenapk_tpu_torch.amr.driver import SmrSimulation
+        from athenapk_tpu_torch.amr.remesh import AmrHydro
+        from athenapk_tpu_torch.amr.smr import SmrState
+        from athenapk_tpu_torch.amr.smr_hydro import SmrHydro
         from athenapk_tpu_torch.config.parameter_input import ParameterInput
         from athenapk_tpu_torch.core import amr_forest
         from athenapk_tpu_torch.core.mesh import Mesh
@@ -1724,7 +2153,8 @@ def main(argv=None):
         EOS=EOS, cons_to_prim=cons_to_prim, prim_to_cons=prim_to_cons,
         stage=stage, sweep=sweep, HydroConfig=HydroConfig,
         exact_riemann=exact_riemann, SmrSimulation=SmrSimulation,
-        amr_forest=amr_forest)
+        amr_forest=amr_forest, AmrHydro=AmrHydro, SmrHydro=SmrHydro,
+        SmrState=SmrState)
     t_start = time.time()
 
     log("== phase 1: card ==")
@@ -1747,11 +2177,21 @@ def main(argv=None):
     for path in SMR_PATHS:
         smr[path], smr_counts[path], zcps[f"smr_{path}"] = phase_smr_path(
             path, n=2048 if path == "C" else 128, ncycles=12, warmup=2)
+    amr, amr_face = {}, {}
+    for path in AMR_PATHS:
+        amr[path], amr_face[path], amr_face[f"{path} numbers"] = \
+            phase_amr_path(path, ncycles=40, warmup=10)
+        zcps[f"amr_{path}"] = amr_face[f"{path} numbers"][
+            "zone_cycles_per_s"]
     phase_whole_steps(args.seed)
     smr_drift = phase_smr_whole_steps(args.seed)
+    amr_2d_launches = phase_amr_whole_steps(args.seed)
     phase_smr_kernels_vs_plain(smr["A"], "A", "stage-faces")
     phase_smr_kernels_vs_plain(smr["B"], "B", "negdiv-faces")
     phase_smr_kernels_vs_plain(smr["C"], "C", "negdiv-faces")
+    # at the adaptive paths' level arrays after their last remesh
+    phase_smr_kernels_vs_plain(amr["D"], "D", "stage-faces")
+    phase_smr_kernels_vs_plain(amr["D'"], "D'", "negdiv-faces")
 
     sim = sims["stage"]
     by_path = {"main deck, sweep rung": counts["sweep"][0],
@@ -1777,9 +2217,17 @@ def main(argv=None):
     flat_entry["launches_by_path"] = {"Orszag-Tang 2048^2": ot_launches,
                                       "Sod 1024": sod_launches}
 
-    faces_entry = phase_smr_timings(
+    faces_a = phase_smr_timings(
         smr["A"], "stage-faces", smr_counts["A"][0], 20, "fused_stage_faces",
         "athenapk_tpu/solver/pallas_sweep.py:641", "refined-mesh path A")
+    # this slice's main path: the entry's numbers are path D's, path A's
+    # stay beside them
+    faces_entry = phase_smr_timings(
+        amr["D"], "stage-faces", amr_face["D"], 20, "fused_stage_faces",
+        "athenapk_tpu/solver/pallas_sweep.py:641", "adaptive path D")
+    faces_entry["at_path_A"] = {k: faces_a[k] for k in (
+        "ms", "plain_ms", "bound_ms", "share_of_bound", "bound_by",
+        "max_abs_err", "unit")}
     nd3_entry = phase_smr_timings(
         smr["B"], "negdiv-faces", smr_counts["B"][1], 20,
         "negdiv_sweep_faces", "athenapk_tpu/solver/pallas_sweep.py:418",
@@ -1797,10 +2245,29 @@ def main(argv=None):
                                      sum(smr_counts[path])}
         entry["launches_per_cycle"] = {
             f"SMR path {path}": sum(smr_counts[path]) / smr[path].ncycle}
-        entry["zone_cycles_per_s"] = zcps[f"smr_{path}"]
+        entry["zone_cycles_per_s"] = {f"SMR path {path}":
+                                      zcps[f"smr_{path}"]}
     faces_entry["mass_drift_f64_5_cycles"] = smr_drift
+    # the adaptive paths: each kernel's launches from the run of the path
+    # that drives it (its counts set to 0 just before, read just after)
+    for path, entry in (("D", faces_entry), ("D'", nd3_entry)):
+        numbers = amr_face[f"{path} numbers"]
+        entry["launches"] = amr_face[path]
+        entry["launches_by_path"][f"adaptive path {path}"] = amr_face[path]
+        entry["launches_per_cycle"][f"adaptive path {path}"] = \
+            numbers["launches_per_cycle"]
+        entry["zone_cycles_per_s"][f"adaptive path {path}"] = \
+            numbers["zone_cycles_per_s"]
+        entry[f"adaptive_path_{path}"] = numbers
+    nd2_entry["launches"] = amr_2d_launches
+    nd2_entry["launches_by_path"]["2-D adaptive blast 256^2, f64, 5 "
+                                  "cycles"] = amr_2d_launches
+    nd2_entry["launches_per_cycle"]["2-D adaptive blast 256^2, f64, 5 "
+                                    "cycles"] = amr_2d_launches / 5
 
     profiles = {}
+    faces_entry["adaptive_path_D"]["profile"] = phase_amr_profile(
+        amr["D"], 3, "adaptive path D")
     for path in SMR_PATHS:
         smr_entries[path]["main_path_profile"] = phase_smr_profile(
             smr[path], 3, f"refined-mesh path {path}")

@@ -2,8 +2,10 @@
 2-D and 1-D; Euler and GLM-MHD) and ``stage_cuda`` against ``stage_plain``,
 and the decks of both paths through ``Simulation`` on the card; the
 face-capturing forms of both kernels (``stage_faces_cuda``,
-``negdiv_faces_cuda``) against their plain twins, and refined-mesh decks
-through ``SmrSimulation`` on the card.
+``negdiv_faces_cuda``) against their plain twins, also at the level sizes
+an adaptive mesh hands them, and refined-mesh decks, static and adaptive,
+through ``SmrSimulation`` on the card; the adaptive remesh on the card
+against the CPU.
 
 Every test here needs a CUDA card (the kernel has no CPU mode) and skips
 with that reason elsewhere.  The file imports neither jax nor the JAX
@@ -21,15 +23,16 @@ import pytest
 import torch
 
 from athenapk_tpu_torch.amr.driver import SmrSimulation
-from athenapk_tpu_torch.amr.smr import LevelMesh
+from athenapk_tpu_torch.amr.remesh import remesh
+from athenapk_tpu_torch.amr.smr import LevelMesh, SmrMesh, SmrState
 from athenapk_tpu_torch.config.parameter_input import ParameterInput
 from athenapk_tpu_torch.core.mesh import Mesh
 from athenapk_tpu_torch.driver import Simulation
 from athenapk_tpu_torch.eos.adiabatic import EOS, prim_to_cons
 from athenapk_tpu_torch.solver import stage, sweep
 from athenapk_tpu_torch.solver.hydro_pkg import HydroConfig
-from torch_decks import (CASES, HST_BLOCK, SMR_1D, SMR_2D, SMR_3D, deck,
-                         symmetry_noise)
+from torch_decks import (ADAPTIVE_2D, CASES, HST_BLOCK, SMR_1D, SMR_2D,
+                         SMR_3D, deck, symmetry_noise)
 
 pytestmark = pytest.mark.cuda
 
@@ -726,3 +729,196 @@ def test_refined_decks_on_card_match_cpu(card, case, tmp_path, monkeypatch):
     np.testing.assert_allclose(hst[:, :2], href[:, :2], rtol=1e-10)
     if case != "1d":      # Sod's outflow boundaries let mass through
         assert abs(sim.total_mass() - m0) <= 1e-13 * m0
+
+
+# ------------------------------------------- adaptive meshes on the card
+# Level sizes an adaptive mesh hands the face kernels: one block, a few,
+# one octree level (8), path A's coarse level (56) and a level of the
+# adaptive bench at 128^3 (504), on path D's blocks (16^3 + 2 ghosts, Euler
+# HLLE + PLM) and the 2-D adaptive blast's (32^2 + 2 ghosts, HLLC + PLM).
+LEVEL_SIZES = [1, 3, 8, 56, 504]
+FACE_KERNELS = {"stage_faces_3d": ("hlle", 3, 16),
+                "negdiv_faces_3d": ("hlle", 3, 16),
+                "negdiv_faces_2d": ("hllc", 2, 32)}
+
+
+def _level_prim(lm, nb, dtype, device, seed):
+    rng = np.random.default_rng(seed)
+    w = np.ones((nb, 5) + lm.block_shape)
+    w[:, 0] += 0.3 * rng.random(w[:, 0].shape)
+    w[:, 1:4] = 0.3 * rng.standard_normal(w[:, 1:4].shape)
+    w[:, 4] += 0.2 * rng.random(w[:, 4].shape)
+    return torch.tensor(w, dtype=dtype, device=device)
+
+
+@pytest.mark.parametrize("dtype,tol", [(torch.float64, 1e-10),
+                                       (torch.float32, 1e-4)])
+@pytest.mark.parametrize("nb", LEVEL_SIZES)
+@pytest.mark.parametrize("kernel", sorted(FACE_KERNELS))
+def test_face_kernels_at_adaptive_level_sizes(card, kernel, nb, dtype, tol):
+    """#7 (stage-faces), #6/#2 (3-D negdiv-faces) and #5 (2-D negdiv-faces)
+    against their plain twins at ``nb`` blocks: the kernels pick their
+    segments from the block count, which a remesh changes under them."""
+    riemann, ndim, mb = FACE_KERNELS[kernel]
+    lm = _face_mesh(mb, 2, ndim)
+    cfg = HydroConfig(fluid="euler", riemann=riemann, reconstruction="plm")
+    eos = EOS(gamma=5.0 / 3.0)
+    prim = _level_prim(lm, nb, dtype, card, seed=nb)
+    sl = lm.interior_slices
+    if kernel.startswith("stage"):
+        from athenapk_tpu_torch.eos.adiabatic import prim_to_cons as p2c
+        u0 = p2c(eos, prim, "euler")
+        args = (u0, 1.01 * u0, 0.25, 0.75, 1e-3, 0.0, lm, cfg, eos, "plm")
+        before = stage.stage_faces_cuda.launches
+        out, _, faces = stage.fused_stage_faces(*args)
+        torch.cuda.synchronize()
+        assert stage.stage_faces_cuda.launches == before + 1
+        ref, _, ref_f = stage.stage_faces_plain(*args)
+    else:
+        args = (prim, 0.0, lm, cfg, eos, "plm")
+        before = sweep.negdiv_faces_cuda.launches
+        out, faces = sweep.fused_negdiv_faces(*args)
+        torch.cuda.synchronize()
+        assert sweep.negdiv_faces_cuda.launches == before + ndim
+        ref, ref_f = sweep.negdiv_faces_plain(*args)
+    assert out.shape[0] == nb and bool(torch.isfinite(out[sl]).all())
+    assert _per_var_err(out[sl], ref[sl]) <= tol
+    assert sorted(faces) == sorted(ref_f)
+    for d in faces:
+        assert faces[d].shape == ref_f[d].shape
+        assert _face_err(faces[d], ref_f[d]) <= tol, d
+
+
+def test_a_level_without_blocks_never_reaches_a_launch(card):
+    lm = _face_mesh(16, 2, 3)
+    cfg = HydroConfig(fluid="euler", riemann="hlle", reconstruction="plm")
+    eos = EOS(gamma=5.0 / 3.0)
+    empty = torch.empty((0, 5) + lm.block_shape, device=card)
+    before = (stage.stage_faces_cuda.launches,
+              sweep.negdiv_faces_cuda.launches)
+    with pytest.raises(ValueError, match="no blocks"):
+        stage.stage_faces_cuda(empty, empty, 0.25, 0.75, 1e-3, 0.0, lm, cfg,
+                               eos, "plm")
+    with pytest.raises(ValueError, match="no blocks"):
+        sweep.negdiv_faces_cuda(empty, 0.0, lm, cfg, eos, "plm")
+    assert (stage.stage_faces_cuda.launches,
+            sweep.negdiv_faces_cuda.launches) == before
+
+
+def _blob(sm, dtype, device):
+    """A Gaussian density blob at (0.3, 0.5, 0.5) with seeded noise on the
+    momenta, ghosts unfilled."""
+    rng = np.random.default_rng(3)
+    eos = EOS(gamma=5.0 / 3.0)
+    state = {}
+    for lev, ids in sm.level_ids.items():
+        w = np.zeros((len(ids), 5) + sm.base.block_shape)
+        for li, gid in enumerate(ids):
+            x, y, z = sm.cell_centers_leaf(gid)
+            r2 = (x - 0.3) ** 2 + (y - 0.5) ** 2
+            if sm.base.nx3 > 1:
+                r2 = r2 + (z - 0.5) ** 2
+            w[li, 0] = 1.0 + np.broadcast_to(np.exp(-r2 / 0.005),
+                                             sm.base.block_shape)
+        w[:, 1:3] = 1e-3 * rng.standard_normal(w[:, 1:3].shape)
+        w[:, 4] = 1.0
+        state[lev] = prim_to_cons(eos, torch.tensor(w), "euler").to(
+            device=device, dtype=dtype)
+    return state
+
+
+@pytest.mark.parametrize("dtype", [torch.float64, torch.float32])
+@pytest.mark.parametrize("ndim", [3, 2])
+def test_remesh_on_card_matches_cpu_bitwise(card, ndim, dtype):
+    """The same tags on the card and on the CPU: refine the corner
+    [0, 0.5)^d, then derefine it while refining [0.5, 1)^d, then derefine
+    all; leaf tables equal and the filled states equal bit for bit."""
+    kw = dict(nx1=32, nx2=32, nx3=32 if ndim == 3 else 1, mbnx1=8, mbnx2=8,
+              mbnx3=8 if ndim == 3 else 1, x1min=0.0, x1max=1.0, x2min=0.0,
+              x2max=1.0, x3min=0.0 if ndim == 3 else -0.5,
+              x3max=1.0 if ndim == 3 else 0.5, nghost=2)
+    meshes = {dev: SmrMesh(Mesh(**kw), [], max_level=1)
+              for dev in ("cpu", "cuda")}
+    start = SmrState(meshes["cpu"], 5, "cpu").fill_ghosts(
+        _blob(meshes["cpu"], dtype, "cpu"))
+    states = {"cpu": start,
+              "cuda": {lev: v.to(card) for lev, v in start.items()}}
+    for r in range(3):
+        sm = meshes["cpu"]
+        nb = sm.levels.size
+        corner = [all(o < 0.5 for o in sm.block_origin(g)[:ndim])
+                  for g in range(nb)]
+        far = [all(o >= 0.5 for o in sm.block_origin(g)[:ndim])
+               for g in range(nb)]
+        tags = np.array([corner, np.where(sm.levels == 1, -1, far),
+                         -np.ones(nb)][r], np.int32)
+        for dev in meshes:
+            meshes[dev], states[dev] = remesh(meshes[dev], states[dev], tags)
+        for a, b in zip(*((m.levels, m.lx1, m.lx2, m.lx3)
+                          for m in meshes.values())):
+            np.testing.assert_array_equal(a, b)
+        assert sorted(states["cuda"]) == sorted(states["cpu"])
+        for lev, v in states["cpu"].items():
+            assert states["cuda"][lev].device.type == "cuda"
+            assert torch.equal(states["cuda"][lev].cpu(), v), (r, lev)
+
+
+ADAPTIVE_RUNS = {
+    # (deck, rung)
+    "3d_stage": ("blast_3d_adaptive", "stage"),
+    "3d_negdiv": ("blast_3d_adaptive", "negdiv"),
+    "2d": (ADAPTIVE_2D.format(n=64, mb=16, nlim=5, precision="double"),
+           "negdiv"),
+}
+
+
+@pytest.mark.parametrize("case", sorted(ADAPTIVE_RUNS))
+def test_adaptive_decks_on_card_match_cpu(card, case, tmp_path,
+                                          monkeypatch):
+    """Five f64 cycles of an adaptive deck (``derefine_count = 1``) through
+    ``SmrSimulation`` on the card against the CPU (the plain twins), from
+    the initial state with seeded noise: leaf table, state and time to
+    1e-10 at the end, a refinement and a derefinement on the way (the
+    leaf counts flap), face launches on the card, mass to 1e-13."""
+    from pathlib import Path
+    text, rung = ADAPTIVE_RUNS[case]
+    if text == "blast_3d_adaptive":
+        text = (Path(__file__).resolve().parents[1] / "inputs"
+                / "blast_3d_adaptive.in").read_text().replace(
+            "nlim = 10000", "nlim = 5").replace("dt = 0.01", "dt = -1.0")
+    text = text.replace("refinement = adaptive",
+                        "refinement = adaptive\nderefine_count = 1")
+    if rung == "negdiv":
+        monkeypatch.setenv("ATHENAPK_PALLAS_STAGE", "0")
+    else:
+        monkeypatch.delenv("ATHENAPK_PALLAS_STAGE", raising=False)
+    sims = {}
+    with contextlib.chdir(tmp_path):
+        for dev in ("cpu", "cuda"):
+            sims[dev] = SmrSimulation(ParameterInput.from_string(text),
+                                      quiet=True, device=dev)
+        start = symmetry_noise({lev: v.numpy() for lev, v in
+                                sims["cpu"].state.items()}, seed=5)
+        m0, counts = {}, {}
+        for dev, sim in sims.items():
+            sim.load_state(start, 0.0, 0)
+            m0[dev] = sim.total_mass()
+            before = (stage.stage_faces_cuda.launches
+                      + sweep.negdiv_faces_cuda.launches)
+            sim.run()
+            counts[dev] = (stage.stage_faces_cuda.launches
+                           + sweep.negdiv_faces_cuda.launches - before)
+    ref, got = sims["cpu"], sims["cuda"]
+    assert counts["cpu"] == 0 and counts["cuda"] > 0
+    assert got.ncycle == ref.ncycle == 5
+    assert ref.perf_remeshes >= 2 and got.perf_remeshes == ref.perf_remeshes
+    for a, b in zip(*((s._smesh_now().levels, s._smesh_now().lx1,
+                       s._smesh_now().lx2, s._smesh_now().lx3)
+                      for s in (ref, got))):
+        np.testing.assert_array_equal(a, b)
+    for lev in ref.state:
+        a, b = ref.state[lev].numpy(), got.state[lev].cpu().numpy()
+        assert np.isfinite(b).all()
+        assert np.abs(a - b).max() <= 1e-10 * np.abs(a).max()
+    assert abs(got.t - ref.t) <= 1e-10 * ref.t
+    assert abs(got.total_mass() - m0["cuda"]) <= 1e-13 * m0["cuda"]

@@ -111,3 +111,25 @@ def test_prim_to_cons_and_speeds_match_jax(fluid, nscalars):
                         je, *[jnp.asarray(a) for a in args]),
                     teos.fast_magnetosonic_speed(
                         te, *[torch.tensor(a) for a in args]).numpy()) <= RTOL
+
+
+@pytest.mark.parametrize("dtype", [np.float64, np.float32])
+def test_sqrt_is_correctly_rounded_on_the_cpu(dtype):
+    """``core.ieee.sqrt`` on CPU tensors equals IEEE's square root (numpy's
+    and XLA's) bit for bit, also on strided views and 0-d tensors, where
+    ``torch.sqrt`` takes MKL's vector math (about 1 % of values an ulp
+    off, and chunked across threads)."""
+    from athenapk_tpu_torch.core.ieee import sqrt
+
+    rng = np.random.default_rng(11)
+    x = (rng.random(1 << 16) * 10.0 + 1e-6).astype(dtype)
+    want = np.sqrt(x)
+    np.testing.assert_array_equal(sqrt(torch.from_numpy(x)).numpy(), want)
+    np.testing.assert_array_equal(np.asarray(jnp.sqrt(jnp.asarray(x))), want)
+    view = torch.from_numpy(x).reshape(256, 256)[:, ::3]
+    got = sqrt(view)
+    assert got.shape == view.shape and got.dtype == view.dtype
+    np.testing.assert_array_equal(got.numpy(), np.sqrt(view.numpy()))
+    assert sqrt(torch.tensor(2.0, dtype=torch.float64)).item() == \
+        np.sqrt(2.0)
+    assert torch.isnan(sqrt(torch.tensor([-1.0]))).all()

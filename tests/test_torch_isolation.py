@@ -54,10 +54,11 @@ def test_no_jax_imports(path):
 
 @pytest.mark.parametrize("module", [
     "core/amr_forest.py", "refinement/prolong_restrict.py", "amr/smr.py",
-    "amr/smr_hydro.py", "amr/driver.py"])
+    "amr/smr_hydro.py", "amr/driver.py", "refinement/criteria.py",
+    "amr/remesh.py"])
 def test_refined_mesh_modules_are_checked(module):
-    """The refined-mesh slice's modules, the forest binding among them, are
-    among the sources checked above."""
+    """The refined-mesh slices' modules (static and adaptive), the forest
+    binding among them, are among the sources checked above."""
     assert ROOT / "athenapk_tpu_torch" / module in SOURCES
 
 

@@ -165,7 +165,6 @@ def test_cli_runs_a_refined_deck_on_the_cpu(tmp_path, monkeypatch, capsys):
 
 
 @pytest.mark.parametrize("override,match", [
-    ("parthenon/mesh/refinement=adaptive", "adaptive"),
     ("parthenon/output1/file_type=hdf5", "hdf5"),
     ("parthenon/output1/file_type=rst", "rst"),
     ("tracers/enabled=true", "tracers"),

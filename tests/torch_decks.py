@@ -326,3 +326,59 @@ def symmetry_noise(state, seed):
         v[:, 1:4] += 1e-3 * rng.standard_normal(v[:, 1:4].shape)
         out[lev] = v
     return out
+
+
+# -------------------------------------------------------------- adaptive meshes
+# The SMR_2D blast with ``refinement = adaptive`` on the pressure gradient
+# at 0.3 instead of its static region.  At n = 64, mb = 16 with
+# ``derefine_count = 1`` it refines and derefines within a few cycles.
+ADAPTIVE_2D = """
+<job>
+problem_id = blast
+
+<problem/blast>
+pressure_ratio = 100.0
+radius_outer = 0.15
+
+<parthenon/mesh>
+refinement = adaptive
+numlevel = 2
+nghost = 2
+nx1 = {n}
+x1min = -0.5
+x1max = 0.5
+nx2 = {n}
+x2min = -0.5
+x2max = 0.5
+nx3 = 1
+x3min = -0.5
+x3max = 0.5
+
+<parthenon/meshblock>
+nx1 = {mb}
+nx2 = {mb}
+nx3 = 1
+
+<refinement>
+type = pressure_gradient
+threshold_pressure_gradient = 0.3
+
+<parthenon/time>
+integrator = vl2
+cfl = 0.3
+tlim = 1.0
+nlim = {nlim}
+ncycle_out = 0
+
+<hydro>
+fluid = euler
+eos = adiabatic
+riemann = hllc
+reconstruction = plm
+gamma = 1.4
+precision = {precision}
+"""
+
+# GLM-MHD on the same 2-D deck: HLLD with a uniform Bx
+ADAPTIVE_2D_MHD = ["hydro/fluid=glmmhd", "hydro/riemann=hlld",
+                   "problem/blast/b0=0.5"]
