@@ -15,9 +15,19 @@ ladder at ``smr_hydro.py:617-650``), or given by the caller
   (cons_to_prim + the sweeps + the 2S update + the face fluxes), then the
   correction on ``u_new`` scaled by ``beta_dt``;
   ``ATHENAPK_PALLAS_STAGE=0`` takes the rung below instead.
-* 1-D, 2-D (and 3-D with ``ATHENAPK_PALLAS_STAGE=0``): per level
-  ``cons_to_prim`` and one ``sweep.fused_negdiv_faces`` call, the
-  correction on the -div(F)s, then the update.
+* 1-D, 2-D (and 3-D with ``ATHENAPK_PALLAS_STAGE=0``, and every deck with
+  ``first_order_flux_correct = true``, as the JAX package's
+  ``_use_stage_fused``): per level ``cons_to_prim`` and one
+  ``sweep.fused_negdiv_faces`` call, the correction on the -div(F)s, then
+  the update.
+
+With first-order flux correction each level's candidate state is checked
+after its sweep (one flag read from the card per level and stage); a level
+with an interior cell at rho <= 0 or p <= 0 (or NaN) is recomputed with the
+plain fluxes and the 4-pass DC + LLF rescue, and its face slabs are taken
+from the rescued fluxes, before the coarse-fine restriction (the
+reference's task order, ``hydro_driver.cpp:517-531``); ``fofc_rescues``
+counts those level stages.
 
 On a CUDA tensor each call launches a Hopper kernel, on a CPU tensor its
 plain twin runs: one code path.  (The JAX package's XLA branch, which
@@ -25,8 +35,8 @@ replaces whole flux arrays in ``_flux_correct``, is the same correction
 written for full flux arrays; it is not ported.)  GLM-MHD takes the Dedner
 damping (``dedner_plain``).
 
-Not ported: first-order flux correction, ``riemann = none`` and
-``dedner_extended`` (the constructor raises ``NotImplementedError``), and
+Not ported: ``riemann = none`` and ``dedner_extended`` (the constructor
+raises ``NotImplementedError``), and
 diffusion and RKL2, cooling, problem sources and custom boundary hooks
 (the JAX constructor's other arguments; ``SmrSimulation`` refuses the
 decks that need them).
@@ -42,8 +52,10 @@ import torch
 
 from ..core.indices import GLMMHD, IDN, IPS
 from ..eos.adiabatic import cons_to_prim
-from ..recon import RECONSTRUCTIONS, nghost_for
+from ..recon import nghost_for
 from ..solver import stage, sweep
+from ..solver.hydro_pkg import (first_order_flux_correct, fofc_bad_cells,
+                                interior_mask)
 from ..solver.integrators import INTEGRATORS
 from ..solver.sweep import AXIS_OF_DIR, active_dirs
 from .smr import SmrMesh, SmrState
@@ -55,12 +67,8 @@ class SmrHydro:
         from ..driver import resolve_device
 
         missing = []
-        if cfg.first_order_flux_correct:
-            missing.append("first_order_flux_correct")
         if cfg.riemann == "none":
             missing.append("riemann 'none' (diffusion-only runs)")
-        if cfg.reconstruction not in RECONSTRUCTIONS:
-            missing.append(f"reconstruction '{cfg.reconstruction}'")
         if cfg.fluid == GLMMHD and cfg.glmmhd_source != "dedner_plain":
             missing.append(f"glmmhd_source '{cfg.glmmhd_source}'")
         if missing:
@@ -85,7 +93,11 @@ class SmrHydro:
         self._int_sl = b.interior_slices
         if stage_rung is None:
             stage_rung = os.environ.get("ATHENAPK_PALLAS_STAGE") != "0"
-        self._stage_rung = b.nx2 > 1 and b.nx3 > 1 and bool(stage_rung)
+        self._stage_rung = (b.nx2 > 1 and b.nx3 > 1 and bool(stage_rung)
+                            and not cfg.first_order_flux_correct)
+        self._interior = interior_mask(b.block_shape, b.interior_slices,
+                                       self.device)
+        self.fofc_rescues = 0     # level stages that took the rescue
         # flux-correction batches: one restricted write per (level, face)
         # group of coarse-fine sites (the face-touching fine kids in octant
         # order, from the ghost-fill plans)
@@ -182,6 +194,26 @@ class SmrHydro:
         u[:, IPS] *= coeff
         return u
 
+    def _fofc_level(self, lev, u0f, u1, prim, c_h, recon, gam0, gam1,
+                    beta_dt, negdiv, slabs):
+        """The first-order rescue of one level (the JAX package's
+        ``_fused_level_stage``): ``(negdiv, slabs)`` as they came from the
+        sweep, or, where the candidate state has a bad interior cell,
+        recomputed from the plain fluxes after the 4-pass rescue."""
+        u_cand = gam0 * u0f + gam1 * u1 + beta_dt * negdiv
+        if not bool(fofc_bad_cells(self.cfg, u_cand, self._interior).any()):
+            return negdiv, slabs
+        self.fofc_rescues += 1
+        lm = self.level_mesh[lev]
+        fluxes = sweep.compute_fluxes(prim, c_h, lm, self.cfg, self.eos,
+                                      recon)
+        fluxes = first_order_flux_correct(
+            self.cfg, self.eos, self._dirs,
+            {d: lm.dx[d - 1] for d in self._dirs}, self._interior, u0f, u1,
+            prim, fluxes, gam0, gam1, beta_dt, c_h)
+        return (-sweep.flux_divergence(fluxes, lm),
+                sweep.boundary_faces(fluxes, lm))
+
     def _stage_impl(self, s, state, state1, dt, c_h):
         """One 2S-integrator stage without the ghost fill: per-level sweeps,
         the coarse-fine correction, the update and the Dedner damping.
@@ -208,6 +240,10 @@ class SmrHydro:
                                               cfg.nscalars)
                 negdivs[lev], slabs[lev] = sweep.fused_negdiv_faces(
                     prim, c_h, self.level_mesh[lev], cfg, self.eos, recon)
+                if cfg.first_order_flux_correct:
+                    negdivs[lev], slabs[lev] = self._fofc_level(
+                        lev, u0f[lev], state1[lev], prim, c_h, recon, gam0,
+                        gam1, beta_dt, negdivs[lev], slabs[lev])
             negdivs = self._slab_flux_correct(negdivs, slabs)
             out = {lev: gam0 * u0f[lev] + gam1 * state1[lev]
                    + beta_dt * negdivs[lev] for lev in state}

@@ -1,6 +1,7 @@
 // Whole-stage kernel on Hopper: cons_to_prim + the three -div(F) sweeps +
-// the 2S stage update in one launch, for Euler (HLLE, HLLC) and GLM-MHD
-// (HLLD) on 3-D blocks:
+// the 2S stage update in one launch, for Euler (LLF, HLLE, HLLC) and
+// GLM-MHD (LLF, HLLE, HLLD), with DC, PLM, PPM, WENO3, LimO3 or WENO-Z, on
+// 3-D blocks:
 //
 //   u0f, prim = cons_to_prim(u0)                       (floors applied)
 //   u_new     = gam0*u0f + gam1*u1 + beta_dt * (-div F(prim))
@@ -72,6 +73,12 @@
 //
 // Plain C interface (loaded with ctypes): fused_stage(...) returns the
 // cudaError_t of the launch (0 on success); it never synchronises.
+//
+// Translation units, as negdiv_sweep.cu's: the 6 reconstructions x 6
+// (fluid, solver) pairs x 2 face options x 2 dtypes make 144
+// instantiations; the source is compiled once per (reconstruction, dtype)
+// with -DHYDRO_UNIT_RECON=r -DHYDRO_UNIT_DTYPE=t, each unit defining
+// launch_recon<T, r>, and once without them for the C entry points.
 
 #include <cuda_runtime.h>
 
@@ -79,9 +86,24 @@
 
 #include "hydro_device.cuh"
 
-namespace {
+namespace stage {
 
-using namespace hydro;
+struct Args {
+  const void* u0;
+  const void* u1;
+  void* out;
+  void* dt_out;     // null: no CFL bound
+  void* prim_out;   // null: no prim
+  void* faces[3];   // null: no face capture
+  int g_face;
+  int nb, nz, ny, nx;
+  double dx1, dx2, dx3, gam0, gam1, beta_dt, c_h;
+  double recon_dx2[3], recon_rdx2[3];   // per direction: dx^2, (0.1 dx)^2
+  hydro::EosArgs eos;
+  cudaStream_t stream;
+  bool with_faces;  // the instantiation with the face output
+  int* query;       // non-null: report, do not launch (fused_stage_occupancy)
+};
 
 // The column's shape and shared-memory layout per dtype, variable count
 // and reconstruction.
@@ -90,7 +112,7 @@ struct Col {
   static constexpr int TY = 7, TX = 14;
   static constexpr int NC = TY * TX;             // cells of a plane
   static constexpr int NT = 128;                 // threads: one per cell, 30 spare
-  static constexpr int H = Halo<RECON>::h;
+  static constexpr int H = hydro::Halo<RECON>::h;
   static constexpr int R = H - 1;                // edge-state stencil radius
   // ring planes: zc .. zc + 1 (DC), zc + 1 - R .. zc + H, plus one in flight
   static constexpr int NR = (R >= 1 ? 2 * H - 1 : 2) + 1;
@@ -105,8 +127,8 @@ struct Col {
   static constexpr int HALO = RING + NR * NV * NC;       // raw u0, [NV][NHALO]
   static constexpr int CUR = HALO + NV * NHALO;          // prim, [NV][PY][PX]
   static constexpr int QM = CUR + NV * PY * PX;          // [NV][NE]
-  static constexpr int QP = QM + (RECON == RECON_DC ? 0 : NV * NE);
-  static constexpr int FL = QP + (RECON == RECON_DC ? 0 : NV * NE);  // [NV][NF]
+  static constexpr int QP = QM + (RECON == hydro::RECON_DC ? 0 : NV * NE);
+  static constexpr int FL = QP + (RECON == hydro::RECON_DC ? 0 : NV * NE);  // [NV][NF]
   static constexpr int ZQP = FL + NV * NF;               // z carries, [NV][NC]
   static constexpr int ZF = ZQP + NV * NC;
   static constexpr int RED = ZF + NV * NC;               // [NT]
@@ -118,12 +140,52 @@ struct Col {
                 "one round per phase");
 };
 
+struct Shape {
+  int nz, ny, nx;          // extent of a block (ghosts included)
+  int ntx, nty;            // columns along x and y
+  int nseg, seg_len;       // z segments of a column, planes per segment
+};
+
+// One column shape serves every instantiation.
+using ColShape = Col<float, 5, hydro::RECON_DC>;
+
+// Columns of nb blocks of [nz, ny, nx]; z is cut into segments of at least
+// 8 planes while there are fewer than ~2048 blocks (a few waves over the
+// card's 132 SMs), so small refined blocks march short columns.
+inline Shape shape_of(int nb, int nz, int ny, int nx) {
+  Shape sh;
+  sh.nz = nz; sh.ny = ny; sh.nx = nx;
+  sh.ntx = (nx + ColShape::TX - 1) / ColShape::TX;
+  sh.nty = (ny + ColShape::TY - 1) / ColShape::TY;
+  const long long columns = (long long)nb * sh.ntx * sh.nty;
+  const long long want = 2048;
+  long long nseg = (want + columns - 1) / columns;
+  if (nseg > nz / 8) nseg = nz / 8;
+  if (nseg < 1) nseg = 1;
+  sh.seg_len = (int)((nz + nseg - 1) / nseg);
+  sh.nseg = (nz + sh.seg_len - 1) / sh.seg_len;
+  return sh;
+}
+
+// Defined by the unit of (T, RECON): dispatch over the solver.
+template <typename T, int RECON>
+cudaError_t launch_recon(int solver, const Args& a);
+
+}  // namespace stage
+
+#ifdef HYDRO_UNIT_RECON
+
+namespace {
+
+using namespace hydro;
+using namespace stage;
+
 // Resident blocks per SM that __launch_bounds__ asks for: what the
 // registers of the solver allow (65536 / (128 * blocks) each), capped by
 // what shared memory allows (228 KB per SM, 1 KB of it per block).
 template <typename T, int RECON, int SOLVER>
 struct MinBlocks {
-  static constexpr bool MHD = SOLVER == SOLVER_GLMMHD_HLLD;
+  static constexpr bool MHD = is_glmmhd(SOLVER);
   static constexpr int by_regs = sizeof(T) == 4 ? (MHD ? 3 : 4) : 2;
   static constexpr int by_smem =
       233472 / (int)(Col<T, NVar<SOLVER>::value, RECON>::SMEM + 1024);
@@ -131,17 +193,12 @@ struct MinBlocks {
       by_smem < 1 ? 1 : (by_regs < by_smem ? by_regs : by_smem);
 };
 
-struct Shape {
-  int nz, ny, nx;          // extent of a block (ghosts included)
-  int ntx, nty;            // columns along x and y
-  int nseg, seg_len;       // z segments of a column, planes per segment
-};
-
 template <typename T>
 struct Scalars {
   T gam0, gam1, beta_dt, dx1, dx2, dx3;
   T idx1, idx2, idx3;   // 1 / dx_d in T, as PyTorch divides by dx_d
   T inf;                // +infinity: the CFL reduction's identity
+  ReconK<T> rk[3];      // the reconstruction's constants per direction
 };
 
 // Face output: per direction [nb, NV, A, B, 2] (x: A, B = z, y; y: z, x;
@@ -176,7 +233,8 @@ __device__ __forceinline__ void halo_coords(int i, int& y, int& x) {
 template <typename T, typename CL, int NV, int RECON, int SOLVER, int D,
           bool FACES>
 __device__ __forceinline__ void plane_sweep(T* sm, T (&nd)[NV],
-                                            const Params<T>& p, T idx,
+                                            const Params<T>& p,
+                                            const ReconK<T>& rk, T idx,
                                             T* faces, int g, const Shape& sh,
                                             int b, int zc, int y0, int x0,
                                             int vy, int vx) {
@@ -206,11 +264,10 @@ __device__ __forceinline__ void plane_sweep(T* sm, T (&nd)[NV],
 #pragma unroll
       for (int v = 0; v < NV; ++v) {
         const T* q = c + v * PY * PX;
-        T qm, qp;
-        if constexpr (RECON == RECON_PPM)
-          ppm_edges(q[-2 * ST], q[-ST], q[0], q[ST], q[2 * ST], qm, qp);
-        else
-          plm_edges(q[-ST], q[0], q[ST], qm, qp);
+        T st[2 * CL::R + 1], qm, qp;
+#pragma unroll
+        for (int o = 0; o <= 2 * CL::R; ++o) st[o] = q[(o - CL::R) * ST];
+        cell_edges<T, RECON>(st, positive_var(v), rk, qm, qp);
         qm_s[v * CL::NE + i] = qm;
         qp_s[v * CL::NE + i] = qp;
       }
@@ -397,9 +454,11 @@ fused_stage_kernel(const T* __restrict__ u0, const T* __restrict__ u1,
     T nd[NV];
     if (zc >= zs) {
       plane_sweep<T, CL, NV, RECON, SOLVER, 1, FACES>(
-          sm, nd, p, sc.idx1, fc.d[0], fc.g, sh, b, zc, y0, x0, vy, vx);
+          sm, nd, p, sc.rk[0], sc.idx1, fc.d[0], fc.g, sh, b, zc, y0, x0, vy,
+          vx);
       plane_sweep<T, CL, NV, RECON, SOLVER, 2, FACES>(
-          sm, nd, p, sc.idx2, fc.d[1], fc.g, sh, b, zc, y0, x0, vy, vx);
+          sm, nd, p, sc.rk[1], sc.idx2, fc.d[1], fc.g, sh, b, zc, y0, x0, vy,
+          vx);
     }
 
     // 4. the z face between zc and zc + 1: edge states of plane zc + 1;
@@ -414,13 +473,10 @@ fused_stage_kernel(const T* __restrict__ u0, const T* __restrict__ u1,
 #pragma unroll
       for (int v = 0; v < NV; ++v) {
         const T* r = ring + v * NC;
-        T qp;
-        if constexpr (RECON == RECON_PPM)
-          ppm_edges(r[s[0]], r[s[1]], r[s[2]], r[s[3]], r[s[4]], qm[v], qp);
-        else if constexpr (RECON == RECON_PLM)
-          plm_edges(r[s[0]], r[s[1]], r[s[2]], qm[v], qp);
-        else
-          qm[v] = qp = r[s[0]];
+        T st[2 * R + 1], qp;
+#pragma unroll
+        for (int o = 0; o <= 2 * R; ++o) st[o] = r[s[o]];
+        cell_edges<T, RECON>(st, positive_var(v), sc.rk[2], qm[v], qp);
         wl[v] = zqp[v * NC + t];
         zqp[v * NC + t] = qp;
       }
@@ -475,43 +531,6 @@ fused_stage_kernel(const T* __restrict__ u0, const T* __restrict__ u1,
   }
 }
 
-struct Args {
-  const void* u0;
-  const void* u1;
-  void* out;
-  void* dt_out;     // null: no CFL bound
-  void* prim_out;   // null: no prim
-  void* faces[3];   // null: no face capture
-  int g_face;
-  int nb, nz, ny, nx;
-  double dx1, dx2, dx3, gam0, gam1, beta_dt, c_h;
-  EosArgs eos;
-  cudaStream_t stream;
-  bool with_faces;  // the instantiation with the face output
-  int* query;       // non-null: report, do not launch (fused_stage_occupancy)
-};
-
-// One column shape serves every instantiation.
-using ColShape = Col<float, 5, RECON_DC>;
-
-// Columns of nb blocks of [nz, ny, nx]; z is cut into segments of at least
-// 8 planes while there are fewer than ~2048 blocks (a few waves over the
-// card's 132 SMs), so small refined blocks march short columns.
-Shape shape_of(int nb, int nz, int ny, int nx) {
-  Shape sh;
-  sh.nz = nz; sh.ny = ny; sh.nx = nx;
-  sh.ntx = (nx + ColShape::TX - 1) / ColShape::TX;
-  sh.nty = (ny + ColShape::TY - 1) / ColShape::TY;
-  const long long columns = (long long)nb * sh.ntx * sh.nty;
-  const long long want = 2048;
-  long long nseg = (want + columns - 1) / columns;
-  if (nseg > nz / 8) nseg = nz / 8;
-  if (nseg < 1) nseg = 1;
-  sh.seg_len = (int)((nz + nseg - 1) / nseg);
-  sh.nseg = (nz + sh.seg_len - 1) / sh.seg_len;
-  return sh;
-}
-
 template <typename T, int RECON, int SOLVER>
 cudaError_t launch(const Args& a) {
   using CL = Col<T, NVar<SOLVER>::value, RECON>;
@@ -538,6 +557,8 @@ cudaError_t launch(const Args& a) {
   sc.dx1 = T(a.dx1); sc.dx2 = T(a.dx2); sc.dx3 = T(a.dx3);
   sc.idx1 = T(1) / sc.dx1; sc.idx2 = T(1) / sc.dx2; sc.idx3 = T(1) / sc.dx3;
   sc.inf = std::numeric_limits<T>::infinity();
+  for (int d = 0; d < 3; ++d)
+    sc.rk[d] = make_recon_k<T>(a.recon_dx2[d], a.recon_rdx2[d]);
   Faces<T> fc;
   for (int d = 0; d < 3; ++d) fc.d[d] = static_cast<T*>(a.faces[d]);
   fc.g = a.g_face;
@@ -555,67 +576,110 @@ cudaError_t launch_solver(int solver, const Args& a) {
     case SOLVER_EULER_HLLE:  return launch<T, RECON, SOLVER_EULER_HLLE>(a);
     case SOLVER_EULER_HLLC:  return launch<T, RECON, SOLVER_EULER_HLLC>(a);
     case SOLVER_GLMMHD_HLLD: return launch<T, RECON, SOLVER_GLMMHD_HLLD>(a);
-  }
-  return cudaErrorInvalidValue;
-}
-
-template <typename T>
-cudaError_t launch_recon(int recon, int solver, const Args& a) {
-  switch (recon) {
-    case RECON_DC:  return launch_solver<T, RECON_DC>(solver, a);
-    case RECON_PLM: return launch_solver<T, RECON_PLM>(solver, a);
-    case RECON_PPM: return launch_solver<T, RECON_PPM>(solver, a);
+    case SOLVER_EULER_LLF:   return launch<T, RECON, SOLVER_EULER_LLF>(a);
+    case SOLVER_GLMMHD_LLF:  return launch<T, RECON, SOLVER_GLMMHD_LLF>(a);
+    case SOLVER_GLMMHD_HLLE: return launch<T, RECON, SOLVER_GLMMHD_HLLE>(a);
   }
   return cudaErrorInvalidValue;
 }
 
 }  // namespace
 
+#if HYDRO_UNIT_DTYPE == 0
+#define HYDRO_UNIT_T float
+#else
+#define HYDRO_UNIT_T double
+#endif
+
+namespace stage {
+template <>
+cudaError_t launch_recon<HYDRO_UNIT_T, HYDRO_UNIT_RECON>(int solver,
+                                                         const Args& a) {
+  return launch_solver<HYDRO_UNIT_T, HYDRO_UNIT_RECON>(solver, a);
+}
+}  // namespace stage
+
+#else  // the entry points
+
+namespace stage {
+
+#define HYDRO_UNIT(T, R) \
+  template <> cudaError_t launch_recon<T, R>(int, const Args&);
+#define HYDRO_UNITS(T) \
+  HYDRO_UNIT(T, 0) HYDRO_UNIT(T, 1) HYDRO_UNIT(T, 2) \
+  HYDRO_UNIT(T, 3) HYDRO_UNIT(T, 4) HYDRO_UNIT(T, 5)
+HYDRO_UNITS(float)
+HYDRO_UNITS(double)
+
+template <typename T>
+cudaError_t launch_any(int recon, int solver, const Args& a) {
+  switch (recon) {
+    case hydro::RECON_DC:    return launch_recon<T, hydro::RECON_DC>(solver, a);
+    case hydro::RECON_PLM:   return launch_recon<T, hydro::RECON_PLM>(solver, a);
+    case hydro::RECON_PPM:   return launch_recon<T, hydro::RECON_PPM>(solver, a);
+    case hydro::RECON_WENO3: return launch_recon<T, hydro::RECON_WENO3>(solver, a);
+    case hydro::RECON_LIMO3: return launch_recon<T, hydro::RECON_LIMO3>(solver, a);
+    case hydro::RECON_WENOZ: return launch_recon<T, hydro::RECON_WENOZ>(solver, a);
+  }
+  return cudaErrorInvalidValue;
+}
+
+}  // namespace stage
+
 // Tiles (column segments) that each of nb [nz, ny, nx] blocks is cut into:
 // dt_out holds nb times this many values.  One shape serves every
 // instantiation.
 extern "C" int fused_stage_tiles(int nb, int nz, int ny, int nx) {
-  const Shape sh = shape_of(nb, nz, ny, nx);
+  const stage::Shape sh = stage::shape_of(nb, nz, ny, nx);
   return sh.ntx * sh.nty * sh.nseg;
 }
 
 // dtype: 0 = float32, 1 = float64.  solver: 0 = Euler HLLE, 1 = Euler HLLC,
-// 2 = GLM-MHD HLLD.  recon: 0 = dc, 1 = plm, 2 = ppm.  u0, u1, out and
-// prim_out: contiguous [nb, nvar, nz, ny, nx] on the current device, nvar = 5
-// (Euler) or 9 (GLM-MHD); dt_out: nb * fused_stage_tiles(nb, nz, ny, nx)
-// values.
+// 2 = GLM-MHD HLLD, 3 = Euler LLF, 4 = GLM-MHD LLF, 5 = GLM-MHD HLLE.
+// recon: 0 = dc, 1 = plm, 2 = ppm, 3 = weno3, 4 = limo3, 5 = wenoz.  u0,
+// u1, out and prim_out: contiguous [nb, nvar, nz, ny, nx] on the current
+// device, nvar = 5 (Euler) or 9 (GLM-MHD); dt_out: nb *
+// fused_stage_tiles(nb, nz, ny, nx) values.
 // dt_out and prim_out may be null.  eos: gamma, density floor, pressure
 // floor, internal-energy floor, velocity ceiling, internal-energy ceiling
-// (a floor <= 0 and an infinite ceiling are off).  fx, fy, fz (all null,
-// or none): contiguous [nb, nvar, NZ, NY, 2], [nb, nvar, NZ, NX, 2] and
-// [nb, nvar, NY, NX, 2], the fluxes at sweep index g_face and n - g_face of
-// x, y and z, with 0 < g_face < min(nz, ny, nx) / 2.
+// (a floor <= 0 and an infinite ceiling are off).  recon_k: per direction
+// x, y, z the pair dx^2, (0.1 dx)^2 as the plain reconstruction computes
+// them (recon/schemes.py).  fx, fy, fz (all null, or none): contiguous
+// [nb, nvar, NZ, NY, 2], [nb, nvar, NZ, NX, 2] and [nb, nvar, NY, NX, 2],
+// the fluxes at sweep index g_face and n - g_face of x, y and z, with
+// 0 < g_face < min(nz, ny, nx) / 2.
 extern "C" int fused_stage(const void* u0, const void* u1, void* out,
                            void* dt_out, void* prim_out, void* fx, void* fy,
                            void* fz, int g_face, int dtype, int solver,
                            int recon, int nb, int nvar, int nz, int ny, int nx,
                            double dx1, double dx2, double dx3, double gam0,
                            double gam1, double beta_dt, double c_h,
-                           const double* eos, void* stream) {
-  const int want = solver == SOLVER_GLMMHD_HLLD ? 9 : 5;
+                           const double* eos, const double* recon_k,
+                           void* stream) {
+  if (solver < 0 || solver > 5) return (int)cudaErrorInvalidValue;
+  const int want = hydro::is_glmmhd(solver) ? 9 : 5;
   const bool any_faces = fx != nullptr || fy != nullptr || fz != nullptr;
   if (nvar != want || nb <= 0 || nz <= 0 || ny <= 0 || nx <= 0
       || (any_faces && (fx == nullptr || fy == nullptr || fz == nullptr
                         || g_face <= 0 || 2 * g_face >= nz
                         || 2 * g_face >= ny || 2 * g_face >= nx)))
     return (int)cudaErrorInvalidValue;
-  Args a;
+  stage::Args a;
   a.u0 = u0; a.u1 = u1; a.out = out; a.dt_out = dt_out; a.prim_out = prim_out;
   a.faces[0] = fx; a.faces[1] = fy; a.faces[2] = fz; a.g_face = g_face;
   a.nb = nb; a.nz = nz; a.ny = ny; a.nx = nx;
   a.dx1 = dx1; a.dx2 = dx2; a.dx3 = dx3;
   a.gam0 = gam0; a.gam1 = gam1; a.beta_dt = beta_dt; a.c_h = c_h;
-  a.eos = EosArgs{eos[0], eos[1], eos[2], eos[3], eos[4], eos[5]};
+  for (int d = 0; d < 3; ++d) {
+    a.recon_dx2[d] = recon_k[2 * d];
+    a.recon_rdx2[d] = recon_k[2 * d + 1];
+  }
+  a.eos = hydro::EosArgs{eos[0], eos[1], eos[2], eos[3], eos[4], eos[5]};
   a.stream = static_cast<cudaStream_t>(stream);
   a.with_faces = any_faces;
   a.query = nullptr;
-  if (dtype == 0) return (int)launch_recon<float>(recon, solver, a);
-  if (dtype == 1) return (int)launch_recon<double>(recon, solver, a);
+  if (dtype == 0) return (int)stage::launch_any<float>(recon, solver, a);
+  if (dtype == 1) return (int)stage::launch_any<double>(recon, solver, a);
   return (int)cudaErrorInvalidValue;
 }
 
@@ -625,10 +689,12 @@ extern "C" int fused_stage(const void* u0, const void* u1, void* out,
 // per SM.
 extern "C" int fused_stage_occupancy(int dtype, int solver, int recon,
                                      int faces, int* out) {
-  Args a{};
+  stage::Args a{};
   a.with_faces = faces != 0;
   a.query = out;
-  if (dtype == 0) return (int)launch_recon<float>(recon, solver, a);
-  if (dtype == 1) return (int)launch_recon<double>(recon, solver, a);
+  if (dtype == 0) return (int)stage::launch_any<float>(recon, solver, a);
+  if (dtype == 1) return (int)stage::launch_any<double>(recon, solver, a);
   return (int)cudaErrorInvalidValue;
 }
+
+#endif  // HYDRO_UNIT_RECON

@@ -3,9 +3,10 @@
 // and cons_to_prim.
 //
 // Every function is the scalar transcription, operation by operation, of
-// its plain PyTorch version: recon/schemes.py (plm, ppm),
-// riemann/solvers.py (_euler_hlle, _euler_hllc, _glm_hlld) and
-// eos/adiabatic.py (cons_to_prim).  Scalar constants that the plain code
+// its plain PyTorch version: recon/schemes.py (plm, ppm, weno3, limo3,
+// wenoz), riemann/solvers.py (_euler_llf, _euler_hlle, _euler_hllc,
+// _glm_llf, _glm_hlle, _glm_hlld) and eos/adiabatic.py (cons_to_prim).
+// `x ** 2` is x * x on the card, as PyTorch computes it.  Scalar constants that the plain code
 // folds as Python floats are folded in double on the host (make_params) and
 // rounded to T once.  A division of a tensor by a Python scalar is, on the
 // card, PyTorch's multiplication by the scalar's reciprocal computed in T
@@ -21,26 +22,58 @@
 
 #include <cuda_runtime.h>
 
+#include <cfloat>
+
 namespace hydro {
 
 constexpr int IDN = 0, IPR = 4, IEN = 4, IPS = 8;
 
-enum { RECON_DC = 0, RECON_PLM = 1, RECON_PPM = 2 };
+enum { RECON_DC = 0, RECON_PLM = 1, RECON_PPM = 2, RECON_WENO3 = 3,
+       RECON_LIMO3 = 4, RECON_WENOZ = 5 };
 // (fluid, Riemann solver) pairs the kernels take
-enum { SOLVER_EULER_HLLE = 0, SOLVER_EULER_HLLC = 1, SOLVER_GLMMHD_HLLD = 2 };
+enum { SOLVER_EULER_HLLE = 0, SOLVER_EULER_HLLC = 1, SOLVER_GLMMHD_HLLD = 2,
+       SOLVER_EULER_LLF = 3, SOLVER_GLMMHD_LLF = 4, SOLVER_GLMMHD_HLLE = 5 };
+
+__host__ __device__ constexpr bool is_glmmhd(int solver) {
+  return solver == SOLVER_GLMMHD_HLLD || solver == SOLVER_GLMMHD_LLF
+         || solver == SOLVER_GLMMHD_HLLE;
+}
 
 // variables per cell: rho, v1, v2, v3, p (Euler) + B1, B2, B3, psi (GLM-MHD)
 template <int SOLVER>
-struct NVar { static constexpr int value = SOLVER == SOLVER_GLMMHD_HLLD ? 9 : 5; };
+struct NVar { static constexpr int value = is_glmmhd(SOLVER) ? 9 : 5; };
 
-// cells of stencil on each side of a face (DC 1, PLM 2, PPM 3)
+// cells of stencil on each side of a face (DC 1; PLM, WENO3, LimO3 2; PPM,
+// WENO-Z 3: recon/schemes.py _NGHOST)
 template <int RECON>
-struct Halo { static constexpr int h = RECON == RECON_DC ? 1 : (RECON == RECON_PLM ? 2 : 3); };
+struct Halo {
+  static constexpr int h = RECON == RECON_DC ? 1
+      : (RECON == RECON_PPM || RECON == RECON_WENOZ) ? 3 : 2;
+};
+
+// Per-direction constants of the reconstructions, from the wrapper's
+// doubles as the plain code's Python floats are: WENO3's dx^2 (added to a
+// tensor: rounded to T) and LimO3's (0.1 dx)^2 (a tensor divided by it: a
+// multiplication by its reciprocal in T).
+template <typename T>
+struct ReconK {
+  T dx2;
+  T inv_rdx2;
+};
+
+template <typename T>
+inline ReconK<T> make_recon_k(double dx2, double rdx2) {
+  ReconK<T> k;
+  k.dx2 = T(dx2);
+  k.inv_rdx2 = T(1) / T(rdx2);
+  return k;
+}
 
 template <typename T>
 struct Params {
   T gamma;         // adiabatic index
   T gm1;           // gamma - 1
+  T gm1_minus_1;   // (gamma - 1) - 1, folded in double (a Python float)
   T igm1;          // 1 / (gamma - 1), folded in double (a Python float)
   T inv_gm1;       // T(1) / T(gamma - 1): what `x / gm1` multiplies by
   T hllc_coef;     // (gamma + 1) / (2 gamma)
@@ -67,6 +100,7 @@ inline Params<T> make_params(const EosArgs& e, double c_h) {
   const double gm1 = e.gamma - 1.0;
   p.gamma = T(e.gamma);
   p.gm1 = T(gm1);
+  p.gm1_minus_1 = T(gm1 - 1.0);
   p.igm1 = T(1.0 / gm1);
   p.inv_gm1 = T(1) / T(gm1);
   p.hllc_coef = T((e.gamma + 1.0) / (2.0 * e.gamma));
@@ -189,16 +223,138 @@ __device__ __forceinline__ void ppm_edges(T qm2, T qm1, T q, T qp1, T qp2,
   qp_out = qp;
 }
 
-// Edge states (qm, qp) of the cell at q[0], whose neighbours along the
-// reconstruction axis sit at q[k * stride].
+// WENO3 with the Yamaleev-Carpenter indicators; recon/schemes.py:weno3.
+template <typename T>
+__device__ __forceinline__ void weno3_edges(T qm1, T q, T qp1, T dx2,
+                                            T& qm, T& qp) {
+  const T THIRD = T(1) / T(3);          // x / 3.0 on the card
+  const T TWO_THIRDS = T(2.0 / 3.0);    // a Python float
+  const T d0 = qp1 - q;
+  const T d1 = q - qm1;
+  const T beta0 = d0 * d0;
+  const T beta1 = d1 * d1;
+  const T t = qp1 - T(2) * q + qm1;
+  const T tau = t * t;
+  const T ind0 = tau / (beta0 + dx2);
+  const T ind1 = tau / (beta1 + dx2);
+  {
+    const T f0 = q + qp1;
+    const T f1 = -qm1 + T(3) * q;
+    const T a0 = (T(1) + ind0) * TWO_THIRDS;
+    const T a1 = (T(1) + ind1) * THIRD;
+    qp = (a0 * f0 + a1 * f1) / (T(2) * (a0 + a1));
+  }
+  {
+    const T f0 = q + qm1;
+    const T f1 = -qp1 + T(3) * q;
+    const T a0 = (T(1) + ind1) * TWO_THIRDS;
+    const T a1 = (T(1) + ind0) * THIRD;
+    qm = (a0 * f0 + a1 * f1) / (T(2) * (a0 + a1));
+  }
+}
+
+// LimO3's limiter with its asymptotic-region switch; recon/schemes.py:
+// _limo3_phi.  The switch half-width is 10 eps of T (limo3_eps); a tensor
+// divided by it is a multiplication by its reciprocal on the card.
+template <typename T>
+__device__ __forceinline__ T limo3_phi(T dvp, T dvm, T inv_rdx2) {
+  const T EPS = T(10) * (sizeof(T) == 8 ? T(DBL_EPSILON) : T(FLT_EPSILON));
+  const T INV_EPS = T(1) / EPS;
+  const T THIRD = T(1) / T(3);
+  const T theta = dvm / (dvp + T(1.0e-20));
+  const T qq = (T(2) + theta) * THIRD;
+  const T qq_cap = qq > T(1.6) ? T(1.6) : qq;   // clamp(max=1.6): keeps NaN
+  const T inner = nan_min(qq, nan_max(T(-0.5) * theta,
+                                      nan_min(T(2) * theta, qq_cap)));
+  const T phi = inner < T(0) ? T(0) : inner;    // clamp(min=0): keeps NaN
+  const T eta = (dvm * dvm + dvp * dvp) * inv_rdx2;
+  const T x = (eta - T(1)) * INV_EPS;
+  const T blend = T(0.5) * ((T(1) - x) * qq + (T(1) + x) * phi);
+  return eta <= T(1) - EPS ? qq : (eta >= T(1) + EPS ? phi : blend);
+}
+
+// LimO3; recon/schemes.py:limo3.  `positive`: a field of the positivity
+// mask (density, pressure), whose edges fall back to minmod where either
+// goes non-positive.
+template <typename T>
+__device__ __forceinline__ void limo3_edges(T qm1, T q, T qp1, T inv_rdx2,
+                                            bool positive, T& qm, T& qp) {
+  const T dqp = qp1 - q;
+  const T dqm = q - qm1;
+  qp = q + T(0.5) * dqp * limo3_phi(dqp, dqm, inv_rdx2);
+  qm = q - T(0.5) * dqm * limo3_phi(dqm, dqp, inv_rdx2);
+  if (positive && (qp <= T(0) || qm <= T(0))) {
+    const T dqmm = dqp * dqm > T(0) ? (fabs(dqp) < fabs(dqm) ? dqp : dqm)
+                                    : T(0);
+    qp = q + T(0.5) * dqmm;
+    qm = q - T(0.5) * dqmm;
+  }
+}
+
+// WENO-Z+; recon/schemes.py:wenoz, with its epsL (wenoz_eps).
+template <typename T>
+__device__ __forceinline__ void wenoz_edges(T qm2, T qm1, T q, T qp1, T qp2,
+                                            T& qm, T& qp) {
+  const T B_HI = T(13.0 / 12.0);
+  const T B_LO = T(0.25);
+  const T EPSL = sizeof(T) == 8 ? T(1.0e-30) : T(1.0e-18);
+  T a, b;
+  a = qm2 + q - T(2) * qm1;
+  b = qm2 + T(3) * q - T(4) * qm1;
+  const T beta0 = B_HI * (a * a) + B_LO * (b * b);
+  a = qm1 + qp1 - T(2) * q;
+  b = qm1 - qp1;
+  const T beta1 = B_HI * (a * a) + B_LO * (b * b);
+  a = qp2 + q - T(2) * qp1;
+  b = qp2 + T(3) * q - T(4) * qp1;
+  const T beta2 = B_HI * (a * a) + B_LO * (b * b);
+  const T tau5 = fabs(beta0 - beta2);
+  const T ind0 = tau5 / (beta0 + EPSL);
+  const T ind1 = tau5 / (beta1 + EPSL);
+  const T ind2 = tau5 / (beta2 + EPSL);
+  {
+    const T f0 = T(2) * qm2 - T(7) * qm1 + T(11) * q;
+    const T f1 = -qm1 + T(5) * q + T(2) * qp1;
+    const T f2 = T(2) * q + T(5) * qp1 - qp2;
+    const T a0 = T(0.1) * (T(1) + ind0 * ind0);
+    const T a1 = T(0.6) * (T(1) + ind1 * ind1);
+    const T a2 = T(0.3) * (T(1) + ind2 * ind2);
+    qp = (f0 * a0 + f1 * a1 + f2 * a2) / (T(6) * (a0 + a1 + a2));
+  }
+  {
+    const T f0 = T(2) * qp2 - T(7) * qp1 + T(11) * q;
+    const T f1 = -qp1 + T(5) * q + T(2) * qm1;
+    const T f2 = T(2) * q + T(5) * qm1 - qm2;
+    const T a0 = T(0.1) * (T(1) + ind2 * ind2);
+    const T a1 = T(0.6) * (T(1) + ind1 * ind1);
+    const T a2 = T(0.3) * (T(1) + ind0 * ind0);
+    qm = (f0 * a0 + f1 * a1 + f2 * a2) / (T(6) * (a0 + a1 + a2));
+  }
+}
+
+// Edge states (qm, qp) of the cell s[R] from its stencil s[0 .. 2R]
+// (R = Halo<RECON>::h - 1 cells on each side along the reconstruction
+// axis).  `positive`: the variable is in LimO3's positivity mask.
 template <typename T, int RECON>
-__device__ __forceinline__ void cell_edges(const T* q, int stride, T& qm, T& qp) {
+__device__ __forceinline__ void cell_edges(const T* s, bool positive,
+                                           const ReconK<T>& k, T& qm, T& qp) {
   if constexpr (RECON == RECON_PPM)
-    ppm_edges(q[-2 * stride], q[-stride], q[0], q[stride], q[2 * stride], qm, qp);
+    ppm_edges(s[0], s[1], s[2], s[3], s[4], qm, qp);
+  else if constexpr (RECON == RECON_WENOZ)
+    wenoz_edges(s[0], s[1], s[2], s[3], s[4], qm, qp);
   else if constexpr (RECON == RECON_PLM)
-    plm_edges(q[-stride], q[0], q[stride], qm, qp);
+    plm_edges(s[0], s[1], s[2], qm, qp);
+  else if constexpr (RECON == RECON_WENO3)
+    weno3_edges(s[0], s[1], s[2], k.dx2, qm, qp);
+  else if constexpr (RECON == RECON_LIMO3)
+    limo3_edges(s[0], s[1], s[2], k.inv_rdx2, positive, qm, qp);
   else
-    qm = qp = q[0];
+    qm = qp = s[0];
+}
+
+// Whether variable v is in LimO3's positivity mask (density, pressure).
+__host__ __device__ constexpr bool positive_var(int v) {
+  return v == IDN || v == IPR;
 }
 
 // ---------------------------------------------------------------- Riemann
@@ -511,6 +667,169 @@ __device__ __forceinline__ void glm_hlld(const T* wl, const T* wr,
   F[IPS] = p.ch2 * bxi;
 }
 
+// Rusanov flux; riemann/solvers.py:_euler_llf.
+template <typename T, int DIR>
+__device__ __forceinline__ void euler_llf(const T* wl, const T* wr,
+                                          const Params<T>& p, T* F) {
+  const EulerSide<T> L = euler_side<T, DIR>(wl, p), R = euler_side<T, DIR>(wr, p);
+  const T qa = L.d * L.vx;
+  const T qb = R.d * R.vx;
+  const T fsum_d = qa + qb;
+  const T fsum_mx = qa * L.vx + qb * R.vx + (L.p + R.p);
+  const T fsum_my = qa * L.vy + qb * R.vy;
+  const T fsum_mz = qa * L.vz + qb * R.vz;
+  const T fsum_e = (L.e + L.p) * L.vx + (R.e + R.p) * R.vx;
+  const T cl = sqrt(p.gamma * L.p / L.d);
+  const T cr = sqrt(p.gamma * R.p / R.d);
+  const T a = nan_max(fabs(L.vx) + cl, fabs(R.vx) + cr);
+  euler_store<T, DIR>(T(0.5) * (fsum_d - a * (R.d - L.d)),
+                      T(0.5) * (fsum_mx - a * (R.d * R.vx - L.d * L.vx)),
+                      T(0.5) * (fsum_my - a * (R.d * R.vy - L.d * L.vy)),
+                      T(0.5) * (fsum_mz - a * (R.d * R.vz - L.d * L.vz)),
+                      T(0.5) * (fsum_e - a * (R.e - L.e)), F);
+}
+
+// Primitive face state of one side for the GLM-MHD LLF and HLLE solvers
+// (riemann/solvers.py:_glm_faces), with its magnetic pressure pb =
+// 0.5 (bxi^2 + by^2 + bz^2) and total energy e.
+template <typename T>
+struct GlmSide {
+  T d, vx, vy, vz, p, bx, by, bz, pb, e;
+};
+
+template <typename T, int DIR>
+__device__ __forceinline__ GlmSide<T> glm_side(const T* w, T bxi,
+                                               const Params<T>& p) {
+  constexpr int IVX = 1 + (DIR - 1), IVY = 1 + DIR % 3, IVZ = 1 + (DIR + 1) % 3;
+  constexpr int IBX = IVX + 4, IBY = IVY + 4, IBZ = IVZ + 4;
+  GlmSide<T> s;
+  s.d = w[IDN]; s.vx = w[IVX]; s.vy = w[IVY]; s.vz = w[IVZ]; s.p = w[IPR];
+  s.bx = w[IBX]; s.by = w[IBY]; s.bz = w[IBZ];
+  s.pb = T(0.5) * (bxi * bxi + s.by * s.by + s.bz * s.bz);
+  s.e = s.p * p.inv_gm1 + T(0.5) * s.d * (s.vx * s.vx + s.vy * s.vy + s.vz * s.vz)
+        + s.pb;
+  return s;
+}
+
+// Stores the 7 wave fluxes {d, mx, my, mz, e, by, bz} of direction DIR and
+// the GLM pair (the normal field's flux psii, psi's c_h^2 bxi).
+template <typename T, int DIR>
+__device__ __forceinline__ void glm_store(const T (&f7)[7], T psii, T bxi,
+                                          const Params<T>& p, T* F) {
+  constexpr int IVX = 1 + (DIR - 1), IVY = 1 + DIR % 3, IVZ = 1 + (DIR + 1) % 3;
+  constexpr int IBX = IVX + 4, IBY = IVY + 4, IBZ = IVZ + 4;
+  F[IDN] = f7[0];
+  F[IVX] = f7[1];
+  F[IVY] = f7[2];
+  F[IVZ] = f7[3];
+  F[IEN] = f7[4];
+  F[IBY] = f7[5];
+  F[IBZ] = f7[6];
+  F[IBX] = psii;
+  F[IPS] = p.ch2 * bxi;
+}
+
+// GLM-MHD Rusanov flux; riemann/solvers.py:_glm_llf.
+template <typename T, int DIR>
+__device__ __forceinline__ void glm_llf(const T* wl, const T* wr,
+                                        const Params<T>& p, T* F) {
+  constexpr int IVX = 1 + (DIR - 1), IBX = IVX + 4;
+  const T bxi = T(0.5) * (wl[IBX] + wr[IBX]) - p.half_over_ch * (wr[IPS] - wl[IPS]);
+  const T psii = T(0.5) * (wl[IPS] + wr[IPS]) - p.half_ch * (wr[IBX] - wl[IBX]);
+  const GlmSide<T> L = glm_side<T, DIR>(wl, bxi, p);
+  const GlmSide<T> R = glm_side<T, DIR>(wr, bxi, p);
+  auto flux_one = [&](const GlmSide<T>& S, T* f) {
+    const T fd = S.d * S.vx;
+    f[0] = fd;
+    f[1] = fd * S.vx + S.p + S.pb - bxi * bxi;
+    f[2] = fd * S.vy - bxi * S.by;
+    f[3] = fd * S.vz - bxi * S.bz;
+    f[4] = S.vx * (S.e + S.p + S.pb - bxi * bxi) - bxi * (S.vy * S.by + S.vz * S.bz);
+    f[5] = S.by * S.vx - bxi * S.vy;
+    f[6] = S.bz * S.vx - bxi * S.vz;
+  };
+  T fl[7], fr[7];
+  flux_one(L, fl);
+  flux_one(R, fr);
+  const T cfl = fast_speed(p.gamma, L.d, L.p, L.bx, L.by, L.bz);
+  const T cfr = fast_speed(p.gamma, R.d, R.p, R.bx, R.by, R.bz);
+  const T a = nan_max(fabs(L.vx) + cfl, fabs(R.vx) + cfr);
+  const T ul[7] = {L.d, L.d * L.vx, L.d * L.vy, L.d * L.vz, L.e, L.by, L.bz};
+  const T ur[7] = {R.d, R.d * R.vx, R.d * R.vy, R.d * R.vz, R.e, R.by, R.bz};
+  T f7[7];
+#pragma unroll
+  for (int k = 0; k < 7; ++k)
+    f7[k] = T(0.5) * (fl[k] + fr[k]) - T(0.5) * a * (ur[k] - ul[k]);
+  glm_store<T, DIR>(f7, psii, bxi, p, F);
+}
+
+// GLM-MHD HLLE with Roe-averaged fast-speed bounds; riemann/solvers.py:
+// _glm_hlle.
+template <typename T, int DIR>
+__device__ __forceinline__ void glm_hlle(const T* wl, const T* wr,
+                                         const Params<T>& p, T* F) {
+  constexpr int IVX = 1 + (DIR - 1), IBX = IVX + 4;
+  const T bxi = T(0.5) * (wl[IBX] + wr[IBX]) - p.half_over_ch * (wr[IPS] - wl[IPS]);
+  const T psii = T(0.5) * (wl[IPS] + wr[IPS]) - p.half_ch * (wr[IBX] - wl[IBX]);
+  const GlmSide<T> L = glm_side<T, DIR>(wl, bxi, p);
+  const GlmSide<T> R = glm_side<T, DIR>(wr, bxi, p);
+  const T gm1 = p.gm1;
+  const T gm1m1 = p.gm1_minus_1;
+  const T sqrtdl = sqrt(L.d);
+  const T sqrtdr = sqrt(R.d);
+  const T isdlpdr = T(1) / (sqrtdl + sqrtdr);
+  const T droe = sqrtdl * sqrtdr;
+  const T v1roe = (sqrtdl * L.vx + sqrtdr * R.vx) * isdlpdr;
+  const T v2roe = (sqrtdl * L.vy + sqrtdr * R.vy) * isdlpdr;
+  const T v3roe = (sqrtdl * L.vz + sqrtdr * R.vz) * isdlpdr;
+  const T b2roe = (sqrtdr * L.by + sqrtdl * R.by) * isdlpdr;
+  const T b3roe = (sqrtdr * L.bz + sqrtdl * R.bz) * isdlpdr;
+  const T dby = L.by - R.by;
+  const T dbz = L.bz - R.bz;
+  const T x = T(0.5) * (dby * dby + dbz * dbz) * (isdlpdr * isdlpdr);
+  const T y = T(0.5) * (L.d + R.d) / droe;
+  const T hroe = ((L.e + L.p + L.pb) / sqrtdl + (R.e + R.p + R.pb) / sqrtdr) * isdlpdr;
+  const T cfl = fast_speed(p.gamma, L.d, L.p, L.bx, L.by, L.bz);
+  const T cfr = fast_speed(p.gamma, R.d, R.p, R.bx, R.by, R.bz);
+
+  const T btsq = b2roe * b2roe + b3roe * b3roe;
+  const T vaxsq = bxi * bxi / droe;
+  const T bt_starsq = (gm1 - gm1m1 * y) * btsq;
+  const T hp = hroe - (vaxsq + btsq / droe);
+  const T vsq = v1roe * v1roe + v2roe * v2roe + v3roe * v3roe;
+  const T tw = gm1 * (hp - T(0.5) * vsq) - gm1m1 * x;
+  const T twid_asq = tw < T(0) ? T(0) : tw;      // clamp(min=0): keeps NaN
+  const T ct2 = bt_starsq / droe;
+  const T tsum = vaxsq + ct2 + twid_asq;
+  const T tdif = vaxsq + ct2 - twid_asq;
+  const T cf2_cs2 = sqrt(tdif * tdif + T(4) * twid_asq * ct2);
+  const T a = sqrt(T(0.5) * (tsum + cf2_cs2));
+
+  const T al = nan_min(v1roe - a, L.vx - cfl);
+  const T ar = nan_max(v1roe + a, R.vx + cfr);
+  const T bp = ar > T(0) ? ar : T(0);
+  const T bm = al < T(0) ? al : T(0);
+  const T uxl = L.vx - bm;
+  const T uxr = R.vx - bp;
+  auto flux_one = [&](const GlmSide<T>& S, T ux, T* f) {
+    f[0] = S.d * ux;
+    f[1] = S.d * S.vx * ux + S.pb - bxi * bxi + S.p;
+    f[2] = S.d * S.vy * ux - bxi * S.by;
+    f[3] = S.d * S.vz * ux - bxi * S.bz;
+    f[4] = S.e * ux + S.vx * (S.p + S.pb - bxi * bxi) - bxi * (S.by * S.vy + S.bz * S.vz);
+    f[5] = S.by * ux - bxi * S.vy;
+    f[6] = S.bz * ux - bxi * S.vz;
+  };
+  T fl[7], fr[7];
+  flux_one(L, uxl, fl);
+  flux_one(R, uxr, fr);
+  const T tmp = bp != bm ? T(0.5) * (bp + bm) / (bp - bm) : T(0);
+  T f7[7];
+#pragma unroll
+  for (int k = 0; k < 7; ++k) f7[k] = T(0.5) * (fl[k] + fr[k]) + (fl[k] - fr[k]) * tmp;
+  glm_store<T, DIR>(f7, psii, bxi, p, F);
+}
+
 // Flux of all NVar<SOLVER> variables at one face of direction DIR from its
 // primitive L/R states.
 template <typename T, int SOLVER, int DIR>
@@ -518,6 +837,9 @@ __device__ __forceinline__ void riemann_flux(const T* wl, const T* wr,
                                              const Params<T>& p, T* F) {
   if constexpr (SOLVER == SOLVER_EULER_HLLE) euler_hlle<T, DIR>(wl, wr, p, F);
   else if constexpr (SOLVER == SOLVER_EULER_HLLC) euler_hllc<T, DIR>(wl, wr, p, F);
+  else if constexpr (SOLVER == SOLVER_EULER_LLF) euler_llf<T, DIR>(wl, wr, p, F);
+  else if constexpr (SOLVER == SOLVER_GLMMHD_LLF) glm_llf<T, DIR>(wl, wr, p, F);
+  else if constexpr (SOLVER == SOLVER_GLMMHD_HLLE) glm_hlle<T, DIR>(wl, wr, p, F);
   else glm_hlld<T, DIR>(wl, wr, p, F);
 }
 

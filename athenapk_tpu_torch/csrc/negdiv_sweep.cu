@@ -1,6 +1,6 @@
 // Fused -div(F) sweep on Hopper: reconstruction + Riemann solve + flux
-// divergence for one direction per launch, for Euler (HLLE, HLLC) and
-// GLM-MHD (HLLD).
+// divergence for one direction per launch, for Euler (LLF, HLLE, HLLC) and
+// GLM-MHD (LLF, HLLE, HLLD), with DC, PLM, PPM, WENO3, LimO3 or WENO-Z.
 //
 // Replaces five TPU kernels of athenapk_tpu/solver/pallas_sweep.py:
 // make_lane_sweep_negdiv (one direction, sweep axis on the lanes), as
@@ -69,14 +69,47 @@
 //
 // Plain C interface (loaded with ctypes): negdiv_sweep(...) returns the
 // cudaError_t of the launch (0 on success); it never synchronises.
+//
+// Translation units: the 6 reconstructions x 6 (fluid, solver) pairs x 3
+// directions x 2 dtypes make 216 instantiations, so the source is compiled
+// once per (reconstruction, dtype), with -DHYDRO_UNIT_RECON=r
+// -DHYDRO_UNIT_DTYPE=t (0 float, 1 double), each unit defining
+// launch_recon<T, r>, and once without them for the C entry points, which
+// dispatch to the units; the units compile in parallel and link into one
+// library (solver/sweep.py:build_library).
 
 #include <cuda_runtime.h>
 
 #include "hydro_device.cuh"
 
+namespace negdiv {
+
+struct Args {
+  const void* prim;
+  void* out;
+  void* faces;      // null: no face capture
+  int g_face;
+  int nb, nz, ny, nx;
+  double dx, c_h;
+  double recon_dx2, recon_rdx2;   // recon/schemes.py: dx^2, (0.1 dx)^2
+  hydro::EosArgs eos;
+  int accumulate;
+  cudaStream_t stream;
+  int* query;       // non-null: report, do not launch (negdiv_sweep_occupancy)
+};
+
+// Defined by the unit of (T, RECON): dispatch over direction and solver.
+template <typename T, int RECON>
+cudaError_t launch_recon(int dir, int solver, const Args& a);
+
+}  // namespace negdiv
+
+#ifdef HYDRO_UNIT_RECON
+
 namespace {
 
 using namespace hydro;
+using negdiv::Args;
 
 constexpr int NTHREADS = 128;
 
@@ -109,7 +142,7 @@ struct Shape {
 // f32, ~175 in f64), and the occupancy query reports what the card keeps.
 template <typename T, int SOLVER>
 struct MinBlocks {
-  static constexpr bool MHD = SOLVER == SOLVER_GLMMHD_HLLD;
+  static constexpr bool MHD = is_glmmhd(SOLVER);
   static constexpr int value = sizeof(T) == 4 ? (MHD ? 3 : 4) : (MHD ? 2 : 3);
 };
 
@@ -138,7 +171,8 @@ template <typename T, int RECON, int DIR, int SOLVER>
 __global__ void __launch_bounds__(NTHREADS, (MinBlocks<T, SOLVER>::value))
 negdiv_sweep_kernel(const T* __restrict__ prim, T* __restrict__ out,
                     T* __restrict__ faces, const Geom g, const Params<T> p,
-                    const T inv_dx, const int accumulate, const int g_face) {
+                    const ReconK<T> rk, const T inv_dx, const int accumulate,
+                    const int g_face) {
   constexpr int NV = NVar<SOLVER>::value;
   constexpr int H = Halo<RECON>::h;
   constexpr int R = H - 1;   // stencil radius of one cell's edge states
@@ -244,12 +278,10 @@ negdiv_sweep_kernel(const T* __restrict__ prim, T* __restrict__ out,
 #pragma unroll
         for (int v = 0; v < NV; ++v) {
           const T* r = ring + v * VR;
-          T qp;
-          if constexpr (RECON == RECON_PPM)
-            ppm_edges(r[off[0]], r[off[1]], r[off[2]], r[off[3]], r[off[4]],
-                      wr[v], qp);
-          else
-            plm_edges(r[off[0]], r[off[1]], r[off[2]], wr[v], qp);
+          T st[2 * R + 1], qp;
+#pragma unroll
+          for (int o = 0; o <= 2 * R; ++o) st[o] = r[off[o]];
+          cell_edges<T, RECON>(st, positive_var(v), rk, wr[v], qp);
           qp_dst[v * VQ] = qp;
         }
       }
@@ -304,19 +336,6 @@ negdiv_sweep_kernel(const T* __restrict__ prim, T* __restrict__ out,
   }
 }
 
-struct Args {
-  const void* prim;
-  void* out;
-  void* faces;      // null: no face capture
-  int g_face;
-  int nb, nz, ny, nx;
-  double dx, c_h;
-  EosArgs eos;
-  int accumulate;
-  cudaStream_t stream;
-  int* query;       // non-null: report, do not launch (negdiv_sweep_occupancy)
-};
-
 template <typename T, int RECON, int DIR, int SOLVER>
 cudaError_t launch(const Args& a) {
   constexpr int NV = NVar<SOLVER>::value;
@@ -365,11 +384,12 @@ cudaError_t launch(const Args& a) {
   // the plain path's Python-float scalars are; 1/dx is computed in T, as
   // PyTorch on the card divides by a Python scalar
   const Params<T> p = make_params<T>(a.eos, a.c_h);
+  const ReconK<T> rk = make_recon_k<T>(a.recon_dx2, a.recon_rdx2);
   const T inv_dx = T(1) / T(a.dx);
   dim3 grid((unsigned)bundles, nseg, 1);
   kernel<<<grid, NTHREADS, smem, a.stream>>>(
       static_cast<const T*>(a.prim), static_cast<T*>(a.out),
-      static_cast<T*>(a.faces), g, p, inv_dx, a.accumulate, a.g_face);
+      static_cast<T*>(a.faces), g, p, rk, inv_dx, a.accumulate, a.g_face);
   return cudaGetLastError();
 }
 
@@ -379,6 +399,9 @@ cudaError_t launch_solver(int solver, const Args& a) {
     case SOLVER_EULER_HLLE:  return launch<T, RECON, DIR, SOLVER_EULER_HLLE>(a);
     case SOLVER_EULER_HLLC:  return launch<T, RECON, DIR, SOLVER_EULER_HLLC>(a);
     case SOLVER_GLMMHD_HLLD: return launch<T, RECON, DIR, SOLVER_GLMMHD_HLLD>(a);
+    case SOLVER_EULER_LLF:   return launch<T, RECON, DIR, SOLVER_EULER_LLF>(a);
+    case SOLVER_GLMMHD_LLF:  return launch<T, RECON, DIR, SOLVER_GLMMHD_LLF>(a);
+    case SOLVER_GLMMHD_HLLE: return launch<T, RECON, DIR, SOLVER_GLMMHD_HLLE>(a);
   }
   return cudaErrorInvalidValue;
 }
@@ -393,45 +416,84 @@ cudaError_t launch_dir(int dir, int solver, const Args& a) {
   return cudaErrorInvalidValue;
 }
 
+}  // namespace
+
+#if HYDRO_UNIT_DTYPE == 0
+#define HYDRO_UNIT_T float
+#else
+#define HYDRO_UNIT_T double
+#endif
+
+namespace negdiv {
+template <>
+cudaError_t launch_recon<HYDRO_UNIT_T, HYDRO_UNIT_RECON>(int dir, int solver,
+                                                         const Args& a) {
+  return launch_dir<HYDRO_UNIT_T, HYDRO_UNIT_RECON>(dir, solver, a);
+}
+}  // namespace negdiv
+
+#else  // the entry points
+
+namespace negdiv {
+
+#define HYDRO_UNIT(T, R) \
+  template <> cudaError_t launch_recon<T, R>(int, int, const Args&);
+#define HYDRO_UNITS(T) \
+  HYDRO_UNIT(T, 0) HYDRO_UNIT(T, 1) HYDRO_UNIT(T, 2) \
+  HYDRO_UNIT(T, 3) HYDRO_UNIT(T, 4) HYDRO_UNIT(T, 5)
+HYDRO_UNITS(float)
+HYDRO_UNITS(double)
+
 template <typename T>
-cudaError_t launch_recon(int recon, int dir, int solver, const Args& a) {
+cudaError_t launch_any(int recon, int dir, int solver, const Args& a) {
   switch (recon) {
-    case RECON_DC:  return launch_dir<T, RECON_DC>(dir, solver, a);
-    case RECON_PLM: return launch_dir<T, RECON_PLM>(dir, solver, a);
-    case RECON_PPM: return launch_dir<T, RECON_PPM>(dir, solver, a);
+    case hydro::RECON_DC:    return launch_recon<T, hydro::RECON_DC>(dir, solver, a);
+    case hydro::RECON_PLM:   return launch_recon<T, hydro::RECON_PLM>(dir, solver, a);
+    case hydro::RECON_PPM:   return launch_recon<T, hydro::RECON_PPM>(dir, solver, a);
+    case hydro::RECON_WENO3: return launch_recon<T, hydro::RECON_WENO3>(dir, solver, a);
+    case hydro::RECON_LIMO3: return launch_recon<T, hydro::RECON_LIMO3>(dir, solver, a);
+    case hydro::RECON_WENOZ: return launch_recon<T, hydro::RECON_WENOZ>(dir, solver, a);
   }
   return cudaErrorInvalidValue;
 }
 
-}  // namespace
+}  // namespace negdiv
 
 // dtype: 0 = float32, 1 = float64.  solver: 0 = Euler HLLE, 1 = Euler HLLC,
-// 2 = GLM-MHD HLLD.  recon: 0 = dc, 1 = plm, 2 = ppm.  dir: 1, 2, 3.  prim
-// and out: contiguous [nb, nvar, nz, ny, nx] on the current device, nvar = 5
-// (Euler) or 9 (GLM-MHD).  accumulate != 0 adds into out instead of writing
+// 2 = GLM-MHD HLLD, 3 = Euler LLF, 4 = GLM-MHD LLF, 5 = GLM-MHD HLLE.
+// recon: 0 = dc, 1 = plm, 2 = ppm, 3 = weno3, 4 = limo3, 5 = wenoz.  dir:
+// 1, 2, 3.  prim and out: contiguous [nb, nvar, nz, ny, nx] on the current
+// device, nvar = 5 (Euler) or 9 (GLM-MHD).  recon_dx2, recon_rdx2: dx^2 and
+// (0.1 dx)^2 of the direction as the plain reconstruction computes them
+// (recon/schemes.py).  accumulate != 0 adds into out instead of writing
 // it.  faces (may be null): contiguous [nb, nvar, A, B, 2] of direction
 // dir (see the top of this file), g_face the ghost width along dir, with
 // 0 < g_face < extent / 2.
 extern "C" int negdiv_sweep(const void* prim, void* out, int dtype, int solver,
                             int recon, int dir, int nb, int nvar, int nz,
                             int ny, int nx, double dx, double gamma,
-                            double c_h, int accumulate, void* faces,
-                            int g_face, void* stream) {
-  const int want = solver == SOLVER_GLMMHD_HLLD ? 9 : 5;
+                            double c_h, double recon_dx2, double recon_rdx2,
+                            int accumulate, void* faces, int g_face,
+                            void* stream) {
+  if (solver < 0 || solver > 5) return (int)cudaErrorInvalidValue;
+  const int want = hydro::is_glmmhd(solver) ? 9 : 5;
   const int n_dir = dir == 1 ? nx : (dir == 2 ? ny : nz);
   if (nvar != want || nb <= 0 || nz <= 0 || ny <= 0 || nx <= 0
       || (faces != nullptr && (g_face <= 0 || 2 * g_face >= n_dir)))
     return (int)cudaErrorInvalidValue;
-  Args a;
+  negdiv::Args a;
   a.prim = prim; a.out = out; a.faces = faces; a.g_face = g_face;
   a.nb = nb; a.nz = nz; a.ny = ny; a.nx = nx;
   a.dx = dx; a.c_h = c_h;
-  a.eos = EosArgs{gamma, -1.0, -1.0, -1.0, NO_CEILING, NO_CEILING};   // no floors here
+  a.recon_dx2 = recon_dx2; a.recon_rdx2 = recon_rdx2;
+  // no floors here
+  a.eos = hydro::EosArgs{gamma, -1.0, -1.0, -1.0, hydro::NO_CEILING,
+                         hydro::NO_CEILING};
   a.accumulate = accumulate;
   a.stream = static_cast<cudaStream_t>(stream);
   a.query = nullptr;
-  if (dtype == 0) return (int)launch_recon<float>(recon, dir, solver, a);
-  if (dtype == 1) return (int)launch_recon<double>(recon, dir, solver, a);
+  if (dtype == 0) return (int)negdiv::launch_any<float>(recon, dir, solver, a);
+  if (dtype == 1) return (int)negdiv::launch_any<double>(recon, dir, solver, a);
   return (int)cudaErrorInvalidValue;
 }
 
@@ -440,9 +502,11 @@ extern "C" int negdiv_sweep(const void* prim, void* out, int dtype, int solver,
 // blocks (128 threads) the current device keeps resident per SM.
 extern "C" int negdiv_sweep_occupancy(int dtype, int solver, int recon,
                                       int dir, int* out) {
-  Args a{};
+  negdiv::Args a{};
   a.query = out;
-  if (dtype == 0) return (int)launch_recon<float>(recon, dir, solver, a);
-  if (dtype == 1) return (int)launch_recon<double>(recon, dir, solver, a);
+  if (dtype == 0) return (int)negdiv::launch_any<float>(recon, dir, solver, a);
+  if (dtype == 1) return (int)negdiv::launch_any<double>(recon, dir, solver, a);
   return (int)cudaErrorInvalidValue;
 }
+
+#endif  // HYDRO_UNIT_RECON

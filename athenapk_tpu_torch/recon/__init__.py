@@ -1,1 +1,2 @@
-from .schemes import RECONSTRUCTIONS, reconstruct, nghost_for  # noqa: F401
+from .schemes import (RECONSTRUCTIONS, nghost_for,  # noqa: F401
+                      positivity_mask, reconstruct)

@@ -15,13 +15,25 @@ wrapped values only land in the ghost rim.
   plm — piecewise linear, van-Leer limiter, ``src/recon/plm_simple.hpp``
   ppm — PPM with the Colella–Sekora 2008 extrema-preserving limiter,
         ``src/recon/ppm_simple.hpp``
+  weno3 — third-order WENO with the Yamaleev–Carpenter 2009 indicators,
+        ``src/recon/weno3_simple.hpp``
+  limo3 — Čada–Torrilhon 2009 third-order limiter, with the minmod fallback
+        for the fields named by ``positivity_mask`` (density and pressure),
+        ``src/recon/limo3_simple.hpp``
+  wenoz — WENO-Z+ (Del Zanna 2007 indicators, Acker 2016 weights),
+        ``src/recon/wenoz_simple.hpp``
 
-``weno3``, ``limo3`` and ``wenoz`` are not ported yet.
+The dtype-aware constants are the JAX package's (LimO3's switch width
+``10 eps(dtype)``, WENO-Z's ``epsL``), and each formula keeps its operation
+order: the CUDA kernels (``csrc/hydro_device.cuh``) transcribe these
+functions operation by operation.
 """
 
 from __future__ import annotations
 
 import torch
+
+from ..core.indices import IDN, IPR
 
 
 def _sh(q, n, axis):
@@ -156,13 +168,164 @@ def ppm(q, axis, dx):
     return qm, qp
 
 
+# ------------------------------------------------------------------------ weno3
+def weno3_dx2(dx):
+    """WENO3's regulariser dx^2 (a Python float, as the kernels take it)."""
+    return dx * dx
+
+
+def weno3(q, axis, dx):
+    qm1 = _sh(q, -1, axis)
+    qp1 = _sh(q, +1, axis)
+    dx2 = weno3_dx2(dx)
+
+    beta0 = (qp1 - q) ** 2
+    beta1 = (q - qm1) ** 2
+    tau = (qp1 - 2.0 * q + qm1) ** 2  # YC09 eq 22
+
+    ind0 = tau / (beta0 + dx2)
+    ind1 = tau / (beta1 + dx2)
+
+    # right edge (qL_{i+1/2})
+    f0 = q + qp1
+    f1 = -qm1 + 3.0 * q
+    a0 = (1.0 + ind0) * (2.0 / 3.0)
+    a1 = (1.0 + ind1) / 3.0
+    qp = (a0 * f0 + a1 * f1) / (2.0 * (a0 + a1))
+
+    # left edge (qR_{i-1/2}) — mirrored stencil
+    f0 = q + qm1
+    f1 = -qp1 + 3.0 * q
+    a0 = (1.0 + ind1) * (2.0 / 3.0)
+    a1 = (1.0 + ind0) / 3.0
+    qm = (a0 * f0 + a1 * f1) / (2.0 * (a0 + a1))
+
+    return qm, qp
+
+
+# ------------------------------------------------------------------------ limo3
+_TINY = 1.0e-20  # Athena TINY_NUMBER in the CT09 theta ratio
+
+
+def limo3_eps(dtype):
+    """Half-width of LimO3's asymptotic-region switch: 10 eps of the dtype
+    (with the reference's fixed 10 eps(f64), an f32 run could not represent
+    1 +- eps and the smooth blend would degenerate to a hard jump)."""
+    return 10.0 * torch.finfo(dtype).eps
+
+
+def limo3_rdx2(dx):
+    """(r dx)^2 with LimO3's r = 0.1: the scale of its smoothness measure
+    eta (a Python float, as the kernels take it)."""
+    r = 0.1
+    return (r * dx) ** 2
+
+
+def _limo3_phi(dvp, dvm, dx):
+    """CT09 third-order limiter with the asymptotic-region switch (eqs 2.8,
+    3.13, 3.17, 3.22); ``src/recon/limo3_simple.hpp``."""
+    eps = limo3_eps(dvp.dtype)
+    theta = dvm / (dvp + _TINY)
+    qq = (2.0 + theta) / 3.0
+    phi = torch.clamp(
+        torch.minimum(qq, torch.maximum(-0.5 * theta, torch.minimum(
+            2.0 * theta, torch.clamp(qq, max=1.6)))), min=0.0)
+    eta = (dvm * dvm + dvp * dvp) / limo3_rdx2(dx)
+    blend = 0.5 * ((1.0 - (eta - 1.0) / eps) * qq
+                   + (1.0 + (eta - 1.0) / eps) * phi)
+    return torch.where(eta <= 1.0 - eps, qq,
+                       torch.where(eta >= 1.0 + eps, phi, blend))
+
+
+def _minmod(a, b):
+    return torch.where(a * b > 0.0,
+                       torch.where(torch.abs(a) < torch.abs(b), a, b), 0.0)
+
+
+def limo3(q, axis, dx, positivity_mask=None):
+    """LimO3; ``positivity_mask`` is a per-variable bool sequence [nvar]
+    marking the fields (rho, p) whose edge values fall back to minmod where
+    either edge of the cell goes non-positive (the reference's
+    ``ensure_positivity`` for IDN/IPR).  The variable axis is ``ndim - 4``."""
+    qm1 = _sh(q, -1, axis)
+    qp1 = _sh(q, +1, axis)
+    dqp = qp1 - q
+    dqm = q - qm1
+    qp = q + 0.5 * dqp * _limo3_phi(dqp, dqm, dx)
+    qm = q - 0.5 * dqm * _limo3_phi(dqm, dqp, dx)
+
+    if positivity_mask is not None:
+        vax = q.dim() - 4
+        for v, m in enumerate(positivity_mask):
+            if not m:
+                continue
+            pick = lambda t: t.select(vax, v)   # noqa: E731
+            dqmm = _minmod(pick(dqp), pick(dqm))
+            qv, qpv, qmv = pick(q), pick(qp), pick(qm)
+            bad = (qpv <= 0.0) | (qmv <= 0.0)
+            qpv.copy_(torch.where(bad, qv + 0.5 * dqmm, qpv))
+            qmv.copy_(torch.where(bad, qv - 0.5 * dqmm, qmv))
+    return qm, qp
+
+
+# ------------------------------------------------------------------------ wenoz
+def wenoz_eps(dtype):
+    """WENO-Z's ``epsL``: the reference's 1e-42 is below f32's range and
+    1e-30 lets ``ind**2`` overflow f32, so 1e-30 in f64 and 1e-18 in f32."""
+    return 1.0e-30 if dtype == torch.float64 else 1.0e-18
+
+
+def wenoz(q, axis, dx):
+    """WENO-Z+ (Del Zanna 2007 smoothness indicators, Acker 2016 weights);
+    ``src/recon/wenoz_simple.hpp``."""
+    qm2 = _sh(q, -2, axis)
+    qm1 = _sh(q, -1, axis)
+    qp1 = _sh(q, +1, axis)
+    qp2 = _sh(q, +2, axis)
+
+    b_hi = 13.0 / 12.0
+    b_lo = 0.25
+    beta0 = (b_hi * (qm2 + q - 2.0 * qm1) ** 2
+             + b_lo * (qm2 + 3.0 * q - 4.0 * qm1) ** 2)
+    beta1 = b_hi * (qm1 + qp1 - 2.0 * q) ** 2 + b_lo * (qm1 - qp1) ** 2
+    beta2 = (b_hi * (qp2 + q - 2.0 * qp1) ** 2
+             + b_lo * (qp2 + 3.0 * q - 4.0 * qp1) ** 2)
+
+    epsL = wenoz_eps(q.dtype)
+    tau5 = torch.abs(beta0 - beta2)
+    ind0 = tau5 / (beta0 + epsL)
+    ind1 = tau5 / (beta1 + epsL)
+    ind2 = tau5 / (beta2 + epsL)
+
+    # right edge
+    f0 = 2.0 * qm2 - 7.0 * qm1 + 11.0 * q
+    f1 = -qm1 + 5.0 * q + 2.0 * qp1
+    f2 = 2.0 * q + 5.0 * qp1 - qp2
+    a0 = 0.1 * (1.0 + ind0 * ind0)
+    a1 = 0.6 * (1.0 + ind1 * ind1)
+    a2 = 0.3 * (1.0 + ind2 * ind2)
+    qp = (f0 * a0 + f1 * a1 + f2 * a2) / (6.0 * (a0 + a1 + a2))
+
+    # left edge — mirrored
+    f0 = 2.0 * qp2 - 7.0 * qp1 + 11.0 * q
+    f1 = -qp1 + 5.0 * q + 2.0 * qm1
+    f2 = 2.0 * q + 5.0 * qm1 - qm2
+    a0 = 0.1 * (1.0 + ind2 * ind2)
+    a1 = 0.6 * (1.0 + ind1 * ind1)
+    a2 = 0.3 * (1.0 + ind0 * ind0)
+    qm = (f0 * a0 + f1 * a1 + f2 * a2) / (6.0 * (a0 + a1 + a2))
+
+    return qm, qp
+
+
 RECONSTRUCTIONS = {
     "dc": dc,
     "plm": plm,
     "ppm": ppm,
+    "weno3": weno3,
+    "limo3": limo3,
+    "wenoz": wenoz,
 }
-
-_NOT_PORTED = ("weno3", "limo3", "wenoz")
 
 # ghost zones needed (reference ``recon_need_nghost``: dc/plm/weno3/limo3 -> 2,
 # ppm/wenoz -> 3)
@@ -173,14 +336,17 @@ def nghost_for(recon: str) -> int:
     return _NGHOST[recon]
 
 
+def positivity_mask(nvar):
+    """The static mask of the fields LimO3 keeps positive: density and
+    pressure (the JAX package's ``HydroPackage._positivity_mask``)."""
+    return tuple(v in (IDN, IPR) for v in range(nvar))
+
+
 def reconstruct(recon: str, q, axis, dx, positivity_mask=None):
     """Dispatch; q is [..., nvar, nz, ny, nx], axis in {-3,-2,-1} or
-    absolute.  ``positivity_mask`` serves limo3 only (not ported yet)."""
-    if recon in _NOT_PORTED:
-        raise NotImplementedError(
-            f"reconstruction '{recon}' is not ported to athenapk_tpu_torch "
-            f"yet (ported: {', '.join(RECONSTRUCTIONS)}; still to port: "
-            f"{', '.join(_NOT_PORTED)})")
+    absolute.  ``positivity_mask`` serves limo3 only."""
     if recon not in RECONSTRUCTIONS:
         raise ValueError(f"unknown reconstruction '{recon}'")
+    if recon == "limo3":
+        return limo3(q, axis, dx, positivity_mask=positivity_mask)
     return RECONSTRUCTIONS[recon](q, axis, dx)

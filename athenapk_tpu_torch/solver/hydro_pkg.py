@@ -18,14 +18,21 @@ counterpart):
 * ``ATHENAPK_PALLAS_HYBRID=1`` — only the donor-cell stages (VL2's
   predictor) take ``stage.fused_stage``; full-order stages keep the sweep.
 
-The default is the sweep path.
+The default is the sweep path.  A deck with ``first_order_flux_correct =
+true`` always runs the sweep path, as in the JAX package: its rescue reads
+the unfused prim, u0 and u1, so neither rung applies (the package says so
+once when ``ATHENAPK_PALLAS_STAGE=1`` or ``ATHENAPK_PALLAS_HYBRID=1`` is
+set).  Each stage of such a deck reads one flag from the card: whether the
+sweep's candidate state has an interior cell with rho <= 0 or p <= 0 (or
+NaN).  If it has, the stage is recomputed with the plain fluxes, the
+first-order (DC + LLF) flux correction and their divergence, as PyTorch
+operations on the card; ``fofc_rescues`` counts those stages.
 
 State layout: conserved ``u`` is ``[nblocks, nvar, NZ, NY, NX]`` (ghost-
 inclusive); fluxes are co-indexed with cells (index i = face i-1/2).
 
 Not ported yet (the constructor raises ``NotImplementedError``):
-diffusion (and with it ``riemann = none``), cooling, problem source terms,
-first-order flux correction, weno3/limo3/wenoz.
+diffusion (and with it ``riemann = none``), cooling, problem source terms.
 """
 
 from __future__ import annotations
@@ -38,14 +45,80 @@ from typing import Callable, Optional
 import torch
 
 from ..core.boundaries import check_reflecting_mhd, make_boundary_fn
-from ..core.indices import (IPS, IB1, IB2, IB3, IM1, IM2, IM3, IEN,
+from ..core.indices import (IDN, IPS, IB1, IB2, IB3, IM1, IM2, IM3, IEN,
                             EULER, GLMMHD, nvar_for_fluid)
 from ..core.mesh import Mesh
 from ..eos.adiabatic import EOS, cons_to_prim
-from ..recon import RECONSTRUCTIONS, nghost_for
+from ..recon import nghost_for
+from ..riemann import solve_riemann
 from . import stage, sweep
 from .integrators import INTEGRATORS
 from .sweep import AXIS_OF_DIR, active_dirs
+
+
+def _p_like(cfg, u_new):
+    """rho and e - ke (- the magnetic energy) of a candidate state: the
+    good-cell test's operands (``hydro.cpp:1280``)."""
+    rho = u_new[:, IDN:IDN + 1]
+    ke_ = 0.5 * (u_new[:, IM1:IM1 + 1] ** 2 + u_new[:, IM2:IM2 + 1] ** 2
+                 + u_new[:, IM3:IM3 + 1] ** 2) / rho
+    p_like = u_new[:, IEN:IEN + 1] - ke_
+    if cfg.fluid == GLMMHD:
+        p_like = p_like - 0.5 * (u_new[:, IB1:IB1 + 1] ** 2
+                                 + u_new[:, IB2:IB2 + 1] ** 2
+                                 + u_new[:, IB3:IB3 + 1] ** 2)
+    return rho, p_like
+
+
+def fofc_bad_cells(cfg, u_new, interior):
+    """Interior cells whose candidate state fails the reference's
+    good-cell test ``rho > 0 && p > 0`` (``hydro.cpp:1280``), phrased as a
+    negation so that NaN candidates are flagged and rescued too."""
+    rho, p_like = _p_like(cfg, u_new)
+    return ~((rho > 0.0) & (p_like > 0.0)) & interior
+
+
+def first_order_flux_correct(cfg, eos, dirs, dx_of_dir, interior, u0, u1,
+                             prim, fluxes, gam0, gam1, beta_dt, c_h):
+    """Iterative first-order flux correction (``FirstOrderFluxCorrect``,
+    ``src/hydro/hydro.cpp:1223-1342``): the face fluxes of cells whose
+    candidate update would go rho <= 0 or p <= 0 are replaced by DC + LLF
+    fluxes; the reference's early-exit loop is 4 unrolled masked passes (a
+    pass with no bad cell changes nothing), the last checking rho only.
+    ``interior`` is a bool [1, 1, NZ, NY, NX] mask; ``dx_of_dir`` the cell
+    width per direction (level-scaled on refined meshes).  Returns new
+    flux tensors."""
+    llf = {d: solve_riemann("llf", cfg.fluid, eos,
+                            torch.roll(prim, 1, dims=AXIS_OF_DIR[d]), prim, d,
+                            c_h=c_h, nscalars=cfg.nscalars)
+           for d in dirs}
+
+    def flux_div(fl):
+        div = None
+        for d in dirs:
+            dF = (torch.roll(fl[d], -1, dims=AXIS_OF_DIR[d]) - fl[d]) \
+                / dx_of_dir[d]
+            div = dF if div is None else div + dF
+        return div
+
+    for attempt in range(4):
+        u_new = gam0 * u0 + gam1 * u1 - beta_dt * flux_div(fluxes)
+        rho, p_like = _p_like(cfg, u_new)
+        bad = ~((rho > 0.0) & (p_like > 0.0))
+        if attempt > 2:
+            # last pass: rho > 0 but p < 0 cells are left to the floors
+            bad = ~(rho > 0.0)
+        bad = bad & interior
+        fluxes = {d: torch.where(bad | torch.roll(bad, 1, dims=AXIS_OF_DIR[d]),
+                                 llf[d], fluxes[d]) for d in dirs}
+    return fluxes
+
+
+def interior_mask(block_shape, interior_slices, device):
+    """bool [1, 1, NZ, NY, NX]: the interior cells of a block."""
+    m = torch.zeros(tuple(block_shape), dtype=torch.bool, device=device)
+    m[tuple(interior_slices[2:])] = True
+    return m[None, None]
 
 
 @dataclasses.dataclass(frozen=True)
@@ -54,7 +127,7 @@ class HydroConfig:
     options, ``src/hydro/hydro.cpp:264-470``)."""
 
     fluid: str = EULER                # euler | glmmhd
-    reconstruction: str = "plm"       # dc | plm | ppm (weno3/limo3/wenoz: not ported)
+    reconstruction: str = "plm"       # dc | plm | ppm | weno3 | limo3 | wenoz
     riemann: str = "hlle"             # llf | hlle | hllc | hlld | none
     integrator: str = "vl2"           # rk1 | rk2 | rk3 | vl2
     cfl: float = 0.3
@@ -118,10 +191,6 @@ class HydroPackage:
         missing = [name for name, value in (
             ("diffusion", diffusion), ("cooling", cooling),
             ("problem source terms", problem_source_unsplit)) if value]
-        if cfg.first_order_flux_correct:
-            missing.append("first_order_flux_correct")
-        if cfg.reconstruction not in RECONSTRUCTIONS:
-            missing.append(f"reconstruction '{cfg.reconstruction}'")
         if cfg.riemann == "none":
             missing.append("riemann 'none' (diffusion-only runs)")
         if missing:
@@ -147,6 +216,13 @@ class HydroPackage:
         self._active_dirs = active_dirs(mesh)
         self._stage_rung = os.environ.get("ATHENAPK_PALLAS_STAGE") == "1"
         self._hybrid_rung = os.environ.get("ATHENAPK_PALLAS_HYBRID") == "1"
+        if cfg.first_order_flux_correct and (self._stage_rung
+                                             or self._hybrid_rung):
+            print("first_order_flux_correct: the stage and hybrid rungs do "
+                  "not apply (the rescue reads the unfused prim, u0 and u1); "
+                  "this deck runs the sweep kernel")
+        self._interior = {}       # interior masks per device
+        self.fofc_rescues = 0     # stages that took the first-order rescue
 
     # ------------------------------------------------------------------ prim
     def cons_to_prim(self, u):
@@ -217,6 +293,25 @@ class HydroPackage:
         """``sweep.flux_divergence`` (the plain path's second half)."""
         return sweep.flux_divergence(fluxes, self.mesh)
 
+    # ------------------------------------------------------- flux correction
+    def _interior_mask(self, device):
+        if device not in self._interior:
+            self._interior[device] = interior_mask(
+                self.mesh.block_shape, self.mesh.interior_slices, device)
+        return self._interior[device]
+
+    def _fofc_bad_cells(self, u_new):
+        return fofc_bad_cells(self.cfg, u_new, self._interior_mask(
+            u_new.device))
+
+    def _first_order_flux_correct(self, u0, u1, prim, fluxes, gam0, gam1,
+                                  beta_dt, c_h):
+        dx_of = {d: self.mesh.dx[d - 1] for d in self._active_dirs}
+        return first_order_flux_correct(
+            self.cfg, self.eos, self._active_dirs, dx_of,
+            self._interior_mask(u0.device), u0, u1, prim, fluxes, gam0, gam1,
+            beta_dt, c_h)
+
     # ---------------------------------------------------------------- sources
     def _dedner_source(self, u, prim, beta_dt, c_h):
         """Dedner psi damping (+ optional extended divB terms);
@@ -256,12 +351,22 @@ class HydroPackage:
     # ------------------------------------------------------------------ step
     def _stage_update(self, u0, u1, prim, gam0, gam1, beta_dt, c_h,
                       recon: str):
-        """One 2S stage: -div(F) -> update -> Dedner source -> ghosts
-        (the per-stage task chain of ``MakeTaskCollection``,
-        ``src/hydro/hydro_driver.cpp:499-577``)."""
+        """One 2S stage: -div(F) -> update -> (first-order rescue) ->
+        Dedner source -> ghosts (the per-stage task chain of
+        ``MakeTaskCollection``, ``src/hydro/hydro_driver.cpp:499-577``)."""
         negdiv = sweep.fused_negdiv(prim, c_h, self.mesh, self.cfg, self.eos,
                                     recon)
         u_new = gam0 * u0 + gam1 * u1 + beta_dt * negdiv
+        if self.cfg.first_order_flux_correct \
+                and bool(self._fofc_bad_cells(u_new).any()):
+            # the JAX package's lax.cond: a stage with a bad candidate cell
+            # is recomputed through the plain fluxes and the 4-pass rescue
+            self.fofc_rescues += 1
+            fluxes = self._first_order_flux_correct(
+                u0, u1, prim, self._compute_fluxes(prim, c_h, recon), gam0,
+                gam1, beta_dt, c_h)
+            u_new = gam0 * u0 + gam1 * u1 \
+                - beta_dt * self._flux_divergence(fluxes)
         if self.cfg.fluid == GLMMHD:
             u_new = self._dedner_source(u_new, prim, beta_dt, c_h)
         return self.apply_boundaries(u_new)

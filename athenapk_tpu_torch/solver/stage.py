@@ -15,8 +15,10 @@ shift wraps within a block, as in ``solver/sweep.py``.
 
 * ``stage_plain`` — the plain PyTorch version.
 * ``stage_cuda`` — the hand-written Hopper kernel (``csrc/fused_stage.cu``:
-  Euler with HLLE or HLLC, GLM-MHD with HLLD; DC, PLM or PPM; f32 and f64),
-  one launch per stage, built with ``nvcc`` into ``build/`` at first use.
+  Euler with LLF, HLLE or HLLC, GLM-MHD with LLF, HLLE or HLLD; DC, PLM,
+  PPM, WENO3, LimO3 or WENO-Z, as ``make_fused_stage`` takes them; f32 and
+  f64), one launch per stage, built with ``nvcc`` into ``build/`` at first
+  use.
 * ``fused_stage`` — takes the plain version for a CPU tensor and the kernel
   for any other; it never falls back from one to the other.
 
@@ -117,7 +119,7 @@ def _library():
         lib = ctypes.CDLL(str(path))
         lib.fused_stage.argtypes = [ctypes.c_void_p] * 8 \
             + [ctypes.c_int] * 9 + [ctypes.c_double] * 7 \
-            + [ctypes.POINTER(ctypes.c_double), ctypes.c_void_p]
+            + [ctypes.POINTER(ctypes.c_double)] * 2 + [ctypes.c_void_p]
         lib.fused_stage.restype = ctypes.c_int
         lib.fused_stage_tiles.argtypes = [ctypes.c_int] * 4
         lib.fused_stage_tiles.restype = ctypes.c_int
@@ -166,6 +168,9 @@ def _stage_launch(name, u0, u1, gam0, gam1, beta_dt, c_h, mesh, cfg, eos,
     eos_args = (ctypes.c_double * 6)(
         eos.gamma, eos.density_floor, eos.pressure_floor,
         eos.internal_e_floor, eos.velocity_ceiling, eos.internal_e_ceiling)
+    recon_k = (ctypes.c_double * 6)(*(
+        k for d in (1, 2, 3) for k in sweep.recon_constants(
+            float(mesh.dx[d - 1]))))
     with torch.cuda.device(u0.device):
         rc = lib.fused_stage(
             u0.data_ptr(), u1.data_ptr(), u_new.data_ptr(),
@@ -177,7 +182,7 @@ def _stage_launch(name, u0, u1, gam0, gam1, beta_dt, c_h, mesh, cfg, eos,
             sweep.KERNEL_SOLVERS[cfg.fluid, cfg.riemann],
             sweep.KERNEL_RECONS[recon], nb, nvar, nz, ny, nx,
             float(mesh.dx1), float(mesh.dx2), float(mesh.dx3), float(gam0),
-            float(gam1), float(beta_dt), float(c_h), eos_args,
+            float(gam1), float(beta_dt), float(c_h), eos_args, recon_k,
             torch.cuda.current_stream(u0.device).cuda_stream)
     if rc != 0:
         raise RuntimeError(f"fused_stage launch failed with cudaError {rc}")

@@ -11,10 +11,12 @@ the ghost-free layout and lands in the ghost rim otherwise.
 * ``negdiv_plain`` — the plain PyTorch version (whole-tensor sweeps),
   ``-flux_divergence(compute_fluxes(...))``.
 * ``negdiv_cuda`` — the hand-written Hopper kernel
-  (``csrc/negdiv_sweep.cu``: Euler with HLLE or HLLC, GLM-MHD with HLLD;
-  DC, PLM or PPM), one launch per active direction accumulating into the
-  output.  It is built with ``nvcc`` into ``build/`` at first use and
-  loaded with ``ctypes``.
+  (``csrc/negdiv_sweep.cu``: Euler with LLF, HLLE or HLLC, GLM-MHD with
+  LLF, HLLE or HLLD; DC, PLM, PPM, WENO3, LimO3 or WENO-Z), one launch per
+  active direction accumulating into the output.  It is built with
+  ``nvcc`` into ``build/`` at first use (one translation unit per
+  reconstruction and dtype, compiled in parallel) and loaded with
+  ``ctypes``.
 * ``fused_negdiv`` — takes the plain version for a CPU tensor and the
   kernel for a CUDA tensor; it never falls back from one to the other.
 
@@ -45,7 +47,7 @@ from pathlib import Path
 import torch
 
 from ..core.indices import AXIS_X, AXIS_Y, AXIS_Z, EULER, GLMMHD
-from ..recon import reconstruct
+from ..recon import positivity_mask, reconstruct, schemes
 from ..riemann import solve_riemann
 
 AXIS_OF_DIR = {1: AXIS_X, 2: AXIS_Y, 3: AXIS_Z}
@@ -57,8 +59,10 @@ HEADERS = (CSRC_DIR / "hydro_device.cuh",)
 BUILD_DIR = Path(__file__).resolve().parents[2] / "build"
 
 # codes of the kernels' template switches (csrc/hydro_device.cuh)
-KERNEL_RECONS = {"dc": 0, "plm": 1, "ppm": 2}
-KERNEL_SOLVERS = {(EULER, "hlle"): 0, (EULER, "hllc"): 1, (GLMMHD, "hlld"): 2}
+KERNEL_RECONS = {"dc": 0, "plm": 1, "ppm": 2, "weno3": 3, "limo3": 4,
+                 "wenoz": 5}
+KERNEL_SOLVERS = {(EULER, "hlle"): 0, (EULER, "hllc"): 1, (GLMMHD, "hlld"): 2,
+                  (EULER, "llf"): 3, (GLMMHD, "llf"): 4, (GLMMHD, "hlle"): 5}
 KERNEL_DTYPES = {torch.float32: 0, torch.float64: 1}
 
 
@@ -74,9 +78,11 @@ def active_dirs(mesh):
 # ------------------------------------------------------------------ plain
 def directional_flux(prim, c_h, d, dx, cfg, eos, recon):
     """Flux tensor of direction ``d``, co-indexed faces (index i = face
-    i-1/2): ``wl = qp[i-1]``, ``wr = qm[i]``."""
+    i-1/2): ``wl = qp[i-1]``, ``wr = qm[i]``.  LimO3 keeps density and
+    pressure positive (``recon.positivity_mask``)."""
     axis = AXIS_OF_DIR[d]
-    qm, qp = reconstruct(recon, prim, axis, dx)
+    qm, qp = reconstruct(recon, prim, axis, dx,
+                         positivity_mask=positivity_mask(cfg.nvar))
     wl = torch.roll(qp, 1, dims=axis)   # right edge of cell i-1
     return solve_riemann(cfg.riemann, cfg.fluid, eos, wl, qm, d,
                          c_h=c_h, nscalars=cfg.nscalars)
@@ -151,12 +157,21 @@ def _nvcc():
     return nvcc
 
 
+def build_units():
+    """The translation units of a kernel source: ``-D`` flags of one unit
+    per (reconstruction, dtype) and, first, the entry points' (none)."""
+    return [()] + [(f"-DHYDRO_UNIT_RECON={r}", f"-DHYDRO_UNIT_DTYPE={t}")
+                   for r in KERNEL_RECONS.values()
+                   for t in KERNEL_DTYPES.values()]
+
+
 def build_library(source=None):
     """Compile one kernel source of ``csrc/`` (default: the sweep's) for
     sm_90a into ``build/``, keyed by the hash of the source and of the
-    header it includes, so editing either rebuilds.  Returns
-    ``(path, compiler_log)``; the log holds ptxas' register and shared
-    memory report."""
+    header it includes, so editing either rebuilds.  Each unit of
+    ``build_units`` is one ``nvcc`` process, all started together; the
+    objects link into one library.  Returns ``(path, compiler_log)``; the
+    log holds ptxas' register and shared memory report."""
     source = Path(source) if source is not None else CSRC
     digest = hashlib.sha256()
     for path in (source,) + HEADERS:
@@ -165,16 +180,36 @@ def build_library(source=None):
     if lib.exists():
         return lib, ""
     BUILD_DIR.mkdir(parents=True, exist_ok=True)
+    work = lib.with_name(f"{lib.stem}.{os.getpid()}.units")
+    work.mkdir(exist_ok=True)
+    flags = [_nvcc(), "-gencode", "arch=compute_90a,code=sm_90a",
+             "-std=c++17", "-O3", "--fmad=false"]
+    procs = []
+    for k, defines in enumerate(build_units()):
+        obj = work / f"unit{k}.o"
+        cmd = flags + ["-Xptxas", "-v", "-Xcompiler", "-fPIC", "-c",
+                       *defines, "-o", str(obj), str(source)]
+        procs.append((obj, subprocess.Popen(
+            cmd, stdout=subprocess.PIPE, stderr=subprocess.STDOUT,
+            text=True)))
+    log, failed = [], []
+    for obj, proc in procs:
+        out, _ = proc.communicate()
+        log.append(out)
+        if proc.returncode != 0:
+            failed.append(f"{obj.name} ({proc.returncode}):\n{out}")
+    if failed:
+        raise RuntimeError("nvcc failed: " + "\n".join(failed))
     tmp = lib.with_name(f"{lib.name}.{os.getpid()}.tmp")
-    cmd = [_nvcc(), "-gencode", "arch=compute_90a,code=sm_90a",
-           "-std=c++17", "-O3", "--fmad=false", "-Xptxas", "-v",
-           "-shared", "-Xcompiler", "-fPIC", "-o", str(tmp), str(source)]
-    res = subprocess.run(cmd, capture_output=True, text=True)
+    res = subprocess.run(flags + ["-shared", "-o", str(tmp)]
+                         + [str(obj) for obj, _ in procs],
+                         capture_output=True, text=True)
     if res.returncode != 0:
-        raise RuntimeError(f"nvcc failed ({res.returncode}):\n"
+        raise RuntimeError(f"nvcc link failed ({res.returncode}):\n"
                            f"{res.stdout}{res.stderr}")
     os.replace(tmp, lib)
-    return lib, res.stdout + res.stderr
+    shutil.rmtree(work, ignore_errors=True)
+    return lib, "".join(log)
 
 
 _lib = None
@@ -187,7 +222,7 @@ def _library():
         lib = ctypes.CDLL(str(path))
         fn = lib.negdiv_sweep
         fn.argtypes = [ctypes.c_void_p, ctypes.c_void_p] \
-            + [ctypes.c_int] * 9 + [ctypes.c_double] * 3 \
+            + [ctypes.c_int] * 9 + [ctypes.c_double] * 5 \
             + [ctypes.c_int, ctypes.c_void_p, ctypes.c_int, ctypes.c_void_p]
         fn.restype = ctypes.c_int
         lib.negdiv_sweep_occupancy.argtypes = [ctypes.c_int] * 4 \
@@ -222,8 +257,9 @@ def ptxas_summary(compiler_log, occupancy=False):
              "fused_stage": lambda dt, k: stage.kernel_occupancy(
                  dt, k[1], k[0], k[2])}
     names = {"f": "f32", "d": "f64"}
-    recons = "dc plm ppm".split()
-    solvers = "euler-hlle euler-hllc glmmhd-hlld".split()
+    recons = sorted(KERNEL_RECONS, key=KERNEL_RECONS.get)
+    solvers = [f"{f}-{r}" for f, r in sorted(KERNEL_SOLVERS,
+                                             key=KERNEL_SOLVERS.get)]
     lines, current = [], None
     for line in compiler_log.splitlines():
         m = re.search(r"Compiling entry function .*(negdiv_sweep|fused_stage)"
@@ -250,19 +286,29 @@ def ptxas_summary(compiler_log, occupancy=False):
     return lines
 
 
+def recon_constants(dx):
+    """``(dx^2, (0.1 dx)^2)`` as WENO3 and LimO3 compute them in Python
+    from a cell width (``recon/schemes.py``): the kernels take them as
+    doubles and round them to the dtype as PyTorch rounds Python floats."""
+    return schemes.weno3_dx2(dx), schemes.limo3_rdx2(dx)
+
+
 def check_kernel_config(cfg, recon):
-    """Raise NotImplementedError for what the CUDA kernels do not take."""
-    if (cfg.fluid, cfg.riemann) not in KERNEL_SOLVERS or cfg.nscalars != 0:
+    """Raise for what the CUDA kernels do not take: passive scalars
+    (``NotImplementedError``: the next slice of the port), or a
+    (fluid, solver) pair or reconstruction that no deck may ask for
+    (``ValueError``)."""
+    if cfg.nscalars != 0:
         raise NotImplementedError(
-            "the CUDA kernels cover fluid=euler with riemann=hlle or hllc "
-            "and fluid=glmmhd with riemann=hlld, nscalars=0 (got "
-            f"fluid={cfg.fluid}, riemann={cfg.riemann}, "
-            f"nscalars={cfg.nscalars}); llf, GLM-MHD hlle and passive "
-            "scalars run on the CPU only")
+            f"the CUDA kernels take no passive scalars yet (nscalars="
+            f"{cfg.nscalars}): passive scalars are the next slice of the "
+            "port, and such decks run on the CPU only")
+    if (cfg.fluid, cfg.riemann) not in KERNEL_SOLVERS:
+        raise ValueError(f"the CUDA kernels have no riemann={cfg.riemann} "
+                         f"for fluid={cfg.fluid}")
     if recon not in KERNEL_RECONS:
-        raise NotImplementedError(
-            f"the CUDA kernels have no '{recon}' reconstruction "
-            f"(they have {', '.join(KERNEL_RECONS)})")
+        raise ValueError(f"the CUDA kernels have no '{recon}' "
+                         "reconstruction")
 
 
 def check_kernel_tensor(name, q, mesh, cfg):
@@ -305,11 +351,12 @@ def _sweep_launches(name, prim, c_h, mesh, cfg, eos, recon, faces):
     with torch.cuda.device(prim.device):
         stream = torch.cuda.current_stream(prim.device).cuda_stream
         for k, d in enumerate(dirs):
+            dx = float(mesh.dx[d - 1])
             rc = fn(prim.data_ptr(), out.data_ptr(),
                     KERNEL_DTYPES[prim.dtype],
                     KERNEL_SOLVERS[cfg.fluid, cfg.riemann],
                     KERNEL_RECONS[recon], d, nb, nvar, nz, ny, nx,
-                    float(mesh.dx[d - 1]), float(eos.gamma), float(c_h),
+                    dx, float(eos.gamma), float(c_h), *recon_constants(dx),
                     int(k > 0),
                     slabs[d].data_ptr() if faces else None,
                     (mesh.ng1, mesh.ng2, mesh.ng3)[d - 1], stream)

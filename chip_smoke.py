@@ -10,11 +10,12 @@ no result, when there is no CUDA card or when the port is not beside it.
 Phases (each one fails the run if it fails):
 
 1. card: name and power limit (``nvidia-smi``), torch's device name;
-2. build: the sweep and the whole-stage kernel, one ``nvcc`` each, and the
-   forest binding (``g++``), started together, timed, with each
-   instantiation's registers and spills (ptxas), dynamic shared memory and
-   resident warps per SM (the runtime's occupancy query); an instantiation
-   that spills fails the phase;
+2. build: the sweep and the whole-stage kernel (each source one ``nvcc``
+   per translation unit: the entry points and one unit per reconstruction
+   and dtype, 13 per source) and the forest binding (``g++``), all started
+   together, timed, with each instantiation's registers and spills
+   (ptxas), dynamic shared memory and resident warps per SM (the runtime's
+   occupancy query); an instantiation that spills fails the phase;
 3. kernel against plain, states made from ``--seed``: ``negdiv_cuda``
    against ``negdiv_plain`` (GLM-MHD HLLD, Euler HLLE and HLLC; 128^3 in
    one block and 8 ghosted 32^3 blocks, 2-D 512^2 and 1-D 4096) and
@@ -23,7 +24,13 @@ Phases (each one fails the run if it fails):
    and 8 ghosted 32^3 blocks, stage-start prim included), f32 and f64,
    DC/PLM/PPM; the stage kernel again on white noise beside floored cells,
    where f64 is held in every cell and f32 in all but a bounded share of
-   cells that the sweep kernel accounts for;
+   cells that the sweep kernel accounts for; then every case that this
+   slice added (a reconstruction of WENO3, LimO3, WENO-Z or a solver of
+   Euler LLF, GLM-MHD LLF, GLM-MHD HLLE, with any of the six
+   reconstructions and six pairs) on each kernel route, #1, #6/#2, #4
+   (2-D and 1-D), #5, #3 (floors, CFL, prim) and #7, f32 and f64, on
+   states with steep dips (LimO3's positivity fallback), and LimO3's
+   switch at eta = 1 (each branch taken);
 4. main paths, each through ``Simulation(pin)`` for 12 cycles (2 warm-up)
    with every kernel's launch count set to 0 just before and read just
    after: the ``bench.py:run_bench`` deck (3-D MHD linear wave, 256^3,
@@ -58,7 +65,8 @@ Phases (each one fails the run if it fails):
    main deck at 32^3 on each rung, the vortex at 64^2, Sod at 256,
    ``inputs/blast_3d_smr.in`` on both refined rungs and the 2-D refined
    blast at 256^2 (with seeded noise off the blasts' symmetric ties), and
-   the refined runs' mass drift (f64, 1e-13);
+   the refined runs' mass drift (f64, 1e-13); path F's decks (64^3, and
+   the refined one at 32^3 base) with the same stages rescued;
    adaptive runs side by side cycle by cycle (``inputs/
    blast_3d_adaptive.in`` on both rungs and the 2-D adaptive blast at
    256^2, ``derefine_count = 1``): leaf tables equal, state and every step
@@ -73,9 +81,13 @@ Phases (each one fails the run if it fails):
    data need (FP32 at 67 TFLOP/s), and the kernel's share of that bound
    (the stage-faces kernel at path D's level arrays, and at path A's);
    the main deck's sweep and stage calls again on the same inputs in f64
-   (held to the f64 tolerance, the bound at FP64's 34 TFLOP/s);
+   (held to the f64 tolerance, the bound at FP64's 34 TFLOP/s); a row per
+   path E and F case at its own final state (#1, #3, #6/#2, and #7 at path
+   F's refined level arrays);
 7. profile: a torch.profiler trace of 3 cycles of each rung of the main
-   deck, of the vortex and of each refined path (the fill, the flux
+   deck, of path E's GLM-MHD RK3 + WENO-Z + HLLE, of path F's first three
+   cycles (with the rescue), of the vortex and of each refined path (the
+   fill, the flux
    correction and the dt package told apart by profiler ranges), and of 3
    cycles of adaptive path D (the step, the fill, the tag dispatch and the
    remesh, with its host ms), device time by kernel and the device's idle
@@ -425,6 +437,153 @@ type = pressure_gradient
 threshold_pressure_gradient = 0.3
 """)
 
+# The reference performance suite's linear wave
+# (``tst/regression/test_suites/performance/performance.py:32-54``,
+# ``scripts/performance_grid.py:33-50``): n^3 in one block, ghost-free.
+PERF_DECK = """
+<job>
+problem_id = {pid}
+
+<problem/linear_wave>
+compute_error = false
+wave_flag = 0
+amp = 1.0e-6
+test = true
+
+<parthenon/mesh>
+nghost = 0
+nx1 = {n}
+x1min = 0.0
+x1max = 3.0
+nx2 = {n}
+x2min = 0.0
+x2max = 1.5
+nx3 = {n}
+x3min = 0.0
+x3max = 1.5
+
+<parthenon/meshblock>
+nx1 = {n}
+nx2 = {n}
+nx3 = {n}
+
+<parthenon/time>
+integrator = {integ}
+cfl = 0.3
+tlim = 100.0
+nlim = {ncycles}
+ncycle_out = 0
+perf_cycle_offset = {warmup}
+
+<hydro>
+fluid = {fluid}
+eos = adiabatic
+riemann = {riemann}
+reconstruction = {recon}
+gamma = 1.666666666666667
+precision = {precision}
+"""
+
+# path E: the (fluid, integrator, reconstruction, Riemann solver)
+# combinations of the performance suite that the kernels took up in this
+# slice (WENO3, LimO3, WENO-Z, GLM-MHD HLLE), on the sweep rung; E' is the
+# last of them on the whole-stage rung
+PERF_MATRIX = [("euler", "rk3", "wenoz", "hlle"),
+               ("glmmhd", "vl2", "plm", "hlle"),
+               ("glmmhd", "vl2", "weno3", "hlle"),
+               ("glmmhd", "rk2", "weno3", "hlle"),
+               ("glmmhd", "rk3", "weno3", "hlle"),
+               ("glmmhd", "rk2", "limo3", "hlle"),
+               ("glmmhd", "rk3", "wenoz", "hlle")]
+NSTAGES = {"rk1": 1, "rk2": 2, "vl2": 2, "rk3": 3}
+
+# Path F: the strong blast of ``tests/test_flux_correct.py`` (pressure
+# ratio 1e6) in 3-D with first-order flux correction, Euler HLLC + LimO3 +
+# RK2, expanding into a near-vacuum (ambient density and pressure 1e-6,
+# density ratio 1e6: the blast at density and pressure 1).  Its radii are
+# 6.4 and 3.2 cells of the finest level (0.025 and 0.0125 at 256 cells):
+# the first cycle's higher-order candidate then has cells at rho <= 0 or
+# p <= 0, which the rescue takes.  The first stage depends only on the
+# radius in cells; the test's radii, 0.1 and 0.05, would be 25.6 cells at
+# 256 (a blast of more cells starts smoother).
+FOFC_DECK = """
+<job>
+problem_id = blast
+
+<problem/blast>
+radius_outer = {r_out}
+radius_inner = {r_in}
+pressure_ratio = 1.0e6
+density_ratio = 1.0e6
+pressure_ambient = 1.0e-6
+density_ambient = 1.0e-6
+
+<parthenon/mesh>
+nghost = 2
+nx1 = {n}
+x1min = -0.5
+x1max = 0.5
+nx2 = {n}
+x2min = -0.5
+x2max = 0.5
+nx3 = {n}
+x3min = -0.5
+x3max = 0.5
+
+<parthenon/meshblock>
+nx1 = {mb}
+nx2 = {mb}
+nx3 = {mb}
+
+<parthenon/time>
+integrator = rk2
+cfl = 0.3
+tlim = 100.0
+nlim = {ncycles}
+ncycle_out = 0
+perf_cycle_offset = {warmup}
+
+<hydro>
+fluid = euler
+eos = adiabatic
+riemann = hllc
+reconstruction = limo3
+gamma = 1.666666666666667
+first_order_flux_correct = true
+precision = {precision}
+"""
+# the same blast on path B's refined mesh (a level-1 region at the centre)
+FOFC_SMR_DECK = FOFC_DECK.replace("""<parthenon/mesh>
+nghost = 2""", """<parthenon/mesh>
+refinement = static
+numlevel = 2
+nghost = 2""").replace("<parthenon/meshblock>", """\
+<parthenon/static_refinement0>
+x1min = -0.25
+x1max = 0.25
+x2min = -0.25
+x2max = 0.25
+x3min = -0.25
+x3max = 0.25
+level = 1
+
+<parthenon/meshblock>""")
+
+
+def fofc_deck(n, ncycles, precision, refined=False, mb=None, warmup=0):
+    """Path F's deck with its radii at 6.4 and 3.2 cells of the finest
+    level (level 1 of the refined deck: twice the base resolution)."""
+    fine = 2 * n if refined else n
+    return (FOFC_SMR_DECK if refined else FOFC_DECK).format(
+        n=n, mb=mb or n, ncycles=ncycles, warmup=warmup, precision=precision,
+        r_out=6.4 / fine, r_in=3.2 / fine)
+
+
+# the kernels' template codes in order (csrc/hydro_device.cuh)
+RECON_NAMES = ["dc", "plm", "ppm", "weno3", "limo3", "wenoz"]
+SOLVER_PAIRS = [("euler", "hlle"), ("euler", "hllc"), ("glmmhd", "hlld"),
+                ("euler", "llf"), ("glmmhd", "llf"), ("glmmhd", "hlle")]
+
 RUNGS = {"sweep": None, "stage": "ATHENAPK_PALLAS_STAGE",
          "hybrid": "ATHENAPK_PALLAS_HYBRID"}
 # refined-mesh paths: (deck, rung, face-kernel launches per cycle:
@@ -730,7 +889,8 @@ def count_ops(fn):
 
 
 def phase_build():
-    log("== phase 2: build (one nvcc per source, started together) ==")
+    log("== phase 2: build (one nvcc per translation unit, 13 per source, "
+        "all started together) ==")
     results = {}
 
     def build(name, fn):
@@ -917,6 +1077,186 @@ def phase_kernel_vs_plain(seed):
         raise AssertionError(f"kernel disagrees with plain: {failed}")
 
 
+def dip_prim(mesh, fluid, seed, dtype, dips=True):
+    """Smooth fields and 5 % noise (numpy, then on the card); with ``dips``
+    also isolated cells of density 0.02 and of pressure 0.01 beside O(1)
+    neighbours, where LimO3's density and pressure edges overshoot below
+    zero and its positivity fallback runs (the other reconstructions' edges
+    go negative there too, and their solvers return NaN: both versions
+    alike, so those take the state without dips)."""
+    rng = np.random.default_rng(seed)
+    nvar = 9 if fluid == "glmmhd" else 5
+    x, y, z = mesh.cell_centers_mesh()
+    tp = 2.0 * np.pi
+    w = np.zeros((mesh.nblocks, nvar) + mesh.block_shape)
+    w[:, 0] = 1.0 + 0.3 * np.sin(tp * x) * np.cos(tp * y) + 0.0 * z
+    w[:, 1] = 0.3 * np.sin(tp * z) + 0.0 * x
+    w[:, 2] = 0.2 * np.cos(tp * x) + 0.0 * y
+    w[:, 3] = -0.15 + 0.1 * np.sin(tp * y) + 0.0 * z
+    w[:, 4] = 0.6 + 0.3 * np.cos(tp * (x + y + z))
+    if nvar == 9:
+        w[:, 5] = 1.0 + 0.1 * np.sin(tp * y) + 0.0 * x
+        w[:, 6] = 0.5 + 0.1 * np.cos(tp * z) + 0.0 * x
+        w[:, 7] = 0.1 + 0.0 * x
+        w[:, 8] = 0.01 * np.sin(tp * (x - y)) + 0.0 * z
+    w += 0.05 * rng.standard_normal(w.shape)
+    if dips:
+        pick = rng.random((mesh.nblocks,) + mesh.block_shape)
+        w[:, 0][pick < 0.05] = 0.02
+        w[:, 4][(pick > 0.05) & (pick < 0.1)] = 0.01
+    return torch.tensor(w, dtype=dtype, device="cuda")
+
+
+def limo3_switch_prim(dtype):
+    """A 1-D GLM-MHD state whose every variable climbs in steps that put
+    LimO3's smoothness measure eta within a few eps of 1 at dx = 1/4096:
+    the three-way select on eta against 1 +- 10 eps takes each branch."""
+    rng = np.random.default_rng(3)
+    n, dx = 4096, 1.0 / 4096
+    eps = float(torch.finfo(dtype).eps)
+    a = np.sqrt(0.5) * 0.1 * dx
+    steps = a * (1.0 + eps * rng.integers(-12, 13, size=(9, n)))
+    w = np.cumsum(steps, axis=-1)       # from a, small: little rounding
+    return torch.tensor(w[None, :, None, None, :], dtype=dtype,
+                        device="cuda")
+
+
+def phase_new_cases(seed):
+    """Every kernel route against its plain version for each (fluid,
+    solver) pair and reconstruction that this slice added (the cases with
+    a new reconstruction or a new solver), f32 and f64: #1 (3-D, one
+    block), #6/#2 (3-D ghosted, with faces), #4 (2-D and 1-D), #5 (2-D
+    ghosted, with faces), #3 (stage, floors, CFL and prim outputs), #7
+    (stage on ghosted blocks, with faces); then LimO3's switch at eta = 1."""
+    log("== phase 3: kernels against plain, the new reconstructions and "
+        "solvers ==")
+    sweep, stage = PORT.sweep, PORT.stage
+    failed, n_checks = [], 0
+    worst = {}
+    layouts = {"#1 3-D 64^3": ((64,) * 3, (64,) * 3, 0),
+               "#6/#2 3-D 2 blocks of 32^3, nghost 3, faces": (
+                   (64, 32, 32), (32,) * 3, 3),
+               "#4 2-D 256^2": ((256, 256, 1), (256, 256, 1), 0),
+               "#4 1-D 2048": ((2048, 1, 1), (2048, 1, 1), 0),
+               "#5 2-D 4 blocks of 64^2, nghost 3, faces": (
+                   (128, 128, 1), (64, 64, 1), 3)}
+    stage_layouts = {"#3 stage 3-D 48^3 +dt +prim": ((48,) * 3, (48,) * 3, 0),
+                     "#7 stage 3-D 2 blocks of 24^3, nghost 3, faces": (
+                         (48, 24, 24), (24,) * 3, 3)}
+    cases = [(f, r, rec) for f, r in SOLVER_PAIRS for rec in RECON_NAMES
+             if rec not in ("dc", "plm", "ppm") or (f, r) not in PAIRS]
+    eos = PORT.EOS(gamma=5.0 / 3.0)
+    eos_f = PORT.EOS(gamma=5.0 / 3.0, **FLOORS)
+
+    def check(route, what, err, tol, finite):
+        nonlocal n_checks
+        n_checks += 1
+        worst[route] = max(worst.get(route, 0.0), err)
+        if not (err <= tol and finite):
+            failed.append(f"{what}: {err:.3e}")
+            log(f"  FAIL {what}: max rel err {err:.3e} (tol {tol:.0e})")
+
+    for label, (n, mb, g) in layouts.items():
+        mesh = _mesh(n, mb, g)
+        sl = mesh.interior_slices
+        for dtype, tol in TOLS:
+            prims = {(f, d): dip_prim(mesh, f, seed, dtype, dips=d)
+                     for f in ("euler", "glmmhd") for d in (False, True)}
+            for fluid, riemann, recon in cases:
+                prim = prims[fluid, recon == "limo3"]
+                c_h = 1.3 if fluid == "glmmhd" else 0.0
+                cfg = PORT.HydroConfig(fluid=fluid, riemann=riemann,
+                                       reconstruction=recon)
+                what = f"{label}, {fluid} {riemann} {recon} {str(dtype)[6:]}"
+                if g:
+                    got, gf = sweep.negdiv_faces_cuda(prim, c_h, mesh, cfg,
+                                                      eos, recon)
+                    torch.cuda.synchronize()
+                    ref, rf = sweep.negdiv_faces_plain(prim, c_h, mesh, cfg,
+                                                       eos, recon)
+                    err = max([max_rel_err(got[sl], ref[sl])]
+                              + [face_err(gf[d], rf[d]) for d in rf])
+                    finite = bool(torch.isfinite(got[sl]).all())
+                else:
+                    got = sweep.negdiv_cuda(prim, c_h, mesh, cfg, eos, recon)
+                    torch.cuda.synchronize()
+                    ref = sweep.negdiv_plain(prim, c_h, mesh, cfg, eos, recon)
+                    err = max_rel_err(got[sl], ref[sl])
+                    finite = bool(torch.isfinite(got[sl]).all())
+                check(label, what, err, tol, finite)
+                del got, ref
+            del prims
+        torch.cuda.empty_cache()
+    for label, (n, mb, g) in stage_layouts.items():
+        mesh = _mesh(n, mb, g)
+        sl = mesh.interior_slices
+        for dtype, tol in TOLS:
+            states = {f: floor_tripping_states(mesh, f, seed, dtype)
+                      for f in ("euler", "glmmhd")}
+            for fluid, riemann, recon in cases:
+                u0, u1 = states[fluid]
+                c_h = 1.3 if fluid == "glmmhd" else 0.0
+                cfg = PORT.HydroConfig(fluid=fluid, riemann=riemann,
+                                       reconstruction=recon)
+                args = (u0, u1, 0.25, 0.75, 1e-3, c_h, mesh, cfg, eos_f,
+                        recon)
+                what = f"{label}, {fluid} {riemann} {recon} {str(dtype)[6:]}"
+                if g:
+                    got = stage.stage_faces_cuda(*args, emit_prim=True)
+                    torch.cuda.synchronize()
+                    ref = stage.stage_faces_plain(*args, emit_prim=True)
+                    err = max([max_rel_err(got[0][sl], ref[0][sl]),
+                               max_rel_err(got[1], ref[1])]
+                              + [face_err(got[2][d], ref[2][d])
+                                 for d in ref[2]])
+                else:
+                    got = stage.stage_cuda(*args, emit_dt=True,
+                                           emit_prim=True)
+                    torch.cuda.synchronize()
+                    ref = stage.stage_plain(*args, emit_dt=True,
+                                            emit_prim=True)
+                    a, b = got[1].min().item(), ref[1].min().item()
+                    err = max(max_rel_err(got[0], ref[0]),
+                              max_rel_err(got[2], ref[2]), abs(a - b) / b)
+                check(label, what, err, tol,
+                      bool(torch.isfinite(got[0][sl]).all()))
+                del got, ref
+            del states
+        torch.cuda.empty_cache()
+    # LimO3's three-way switch: each branch taken, kernel and plain alike
+    mesh = _mesh((4096, 1, 1), (4096, 1, 1), 0)
+    cfg = PORT.HydroConfig(fluid="glmmhd", riemann="hlle",
+                           reconstruction="limo3")
+    for dtype, tol in TOLS:
+        prim = limo3_switch_prim(dtype)
+        got = sweep.negdiv_cuda(prim, 0.5, mesh, cfg, eos, "limo3")
+        torch.cuda.synchronize()
+        ref = sweep.negdiv_plain(prim, 0.5, mesh, cfg, eos, "limo3")
+        dvp = torch.roll(prim, -1, -1) - prim
+        dvm = prim - torch.roll(prim, 1, -1)
+        eta = ((dvm * dvm + dvp * dvp)
+               / PORT.schemes.limo3_rdx2(mesh.dx1))[..., 1:-1]
+        e = PORT.schemes.limo3_eps(dtype)
+        below = int((eta <= 1.0 - e).sum())
+        above = int((eta >= 1.0 + e).sum())
+        blend = eta.numel() - below - above
+        err = max_rel_err(got, ref)
+        log(f"  LimO3 switch, 1-D 4096 {str(dtype)[6:]}: eta <= 1 - eps in "
+            f"{below} cells, >= 1 + eps in {above}, in the blend in {blend}; "
+            f"max rel err {err:.3e}")
+        check("#4 1-D 4096, LimO3 switch", f"LimO3 switch {str(dtype)[6:]}",
+              err, tol,
+              bool(torch.isfinite(got).all()) and min(below, above,
+                                                      blend) > 0)
+    for route, err in worst.items():
+        log(f"  {route}: worst max rel err over its new cases {err:.3e}")
+    log(f"  {n_checks} checks ({len(cases)} new cases x 2 dtypes on each "
+        f"route), {len(failed)} failed")
+    if failed:
+        raise AssertionError(f"kernel disagrees with plain: {failed[:10]}")
+    return worst
+
+
 def run_sim(sim):
     """``sim.run()`` with the launch counts set to 0 just before and read
     just after; returns ``(sweep launches, stage launches, zone-cycles per
@@ -1027,6 +1367,174 @@ def phase_sod(n):
             raise AssertionError(f"kernel disagrees with plain at Sod's "
                                  f"inputs ({recon}): {rel:.3e}")
     return n_sweep, sim.ncycle
+
+
+def perf_deck(fluid, integ, recon, riemann, n, ncycles, warmup, precision):
+    pid = "linear_wave_mhd" if fluid == "glmmhd" else "linear_wave"
+    return PERF_DECK.format(pid=pid, fluid=fluid, integ=integ, recon=recon,
+                            riemann=riemann, n=n, ncycles=ncycles,
+                            warmup=warmup, precision=precision)
+
+
+def phase_perf_matrix(n, ncycles, warmup):
+    """Path E: each combination of ``PERF_MATRIX`` through ``Simulation``
+    on the sweep rung (3 sweep launches per stage), and the last on the
+    whole-stage rung (E', one stage launch per stage); the launch counts
+    set to 0 just before each run and read just after."""
+    runs = {}
+    todo = [(c, "sweep") for c in PERF_MATRIX] + [(PERF_MATRIX[-1], "stage")]
+    for combo, rung in todo:
+        fluid, integ, recon, riemann = combo
+        name = "-".join(combo) + ("" if rung == "sweep" else " (stage rung)")
+        log(f"== phase 4: path E, {name} ({n}^3, f32, {ncycles} cycles, "
+            f"{warmup} warm-up) ==")
+        t0 = time.time()
+        sim = make_sim(perf_deck(fluid, integ, recon, riemann, n, ncycles,
+                                 warmup, "single"), rung)
+        u0 = sim.u.clone()
+        setup = time.time() - t0
+        n_sweep, n_stage, zcps = run_sim(sim)
+        k = NSTAGES[integ] * ncycles
+        want = (3 * k, 0) if rung == "sweep" else (0, k)
+        drift = (sim.u - u0).abs().max().item()
+        del u0
+        log(f"  set-up {setup:.2f} s; launches: sweep kernel {n_sweep}, "
+            f"stage kernel {n_stage} (expected {want[0]} and {want[1]}); "
+            f"zone-cycles/wallsecond {zcps}; max |u - u(t=0)| {drift:.3e}")
+        if sim.ncycle != ncycles or (n_sweep, n_stage) != want \
+                or zcps is None or not bool(torch.isfinite(sim.u).all()) \
+                or drift > 1e-5:
+            raise AssertionError(f"path E {name}: {sim.ncycle} cycles, "
+                                 f"launches {(n_sweep, n_stage)}, drift "
+                                 f"{drift}")
+        runs[name] = dict(sim=sim, combo=combo, rung=rung,
+                          launches=n_sweep + n_stage, zcps=zcps,
+                          cycles=ncycles)
+    return runs
+
+
+def phase_fofc_path(n, ncycles, warmup):
+    """Path F: the FOFC blast through ``Simulation`` at ``n``^3 f32 on the
+    default rung (the sweep kernel and, on a stage whose candidate has a
+    bad cell, the rescue's plain operations on the card), then on path B's
+    refined mesh through ``SmrSimulation`` (the negdiv-faces rung, which
+    FOFC selects); each prints the stages that took the rescue."""
+    log(f"== phase 4: path F, the FOFC blast ({n}^3, f32, Euler HLLC + LimO3 "
+        f"+ RK2, {ncycles} cycles, {warmup} warm-up) ==")
+    sim = make_sim(fofc_deck(n, ncycles, "single", warmup=warmup), "stage")
+    m0 = sim.u[:, 0].double().sum().item()
+    n_sweep, n_stage, zcps = run_sim(sim)
+    rescues = sim.pkg.fofc_rescues
+    _, w = sim.pkg.cons_to_prim(sim.u)
+    rho_min, p_min = w[:, 0].min().item(), w[:, 4].min().item()
+    drift = abs(sim.u[:, 0].double().sum().item() - m0) / m0
+    want = 3 * 2 * ncycles
+    log(f"  (asked for the stage rung: FOFC keeps the sweep) launches: "
+        f"sweep kernel {n_sweep} (expected {want}), stage kernel {n_stage}; "
+        f"stages rescued {rescues} of {2 * ncycles}; min rho {rho_min:.3e}, "
+        f"min p {p_min:.3e}; mass drift {drift:.3e} (f32 sums); "
+        f"zone-cycles/wallsecond {zcps}")
+    if sim.ncycle != ncycles or (n_sweep, n_stage) != (want, 0) \
+            or rescues < 1 or zcps is None or not rho_min > 0 \
+            or not p_min > 0 or not drift <= 1e-5:
+        raise AssertionError(f"path F: {sim.ncycle} cycles, launches "
+                             f"{(n_sweep, n_stage)}, {rescues} rescues")
+    uniform = dict(sim=sim, launches=n_sweep, zcps=zcps, rescues=rescues,
+                   stages=2 * ncycles, cycles=ncycles)
+
+    nb = n // 2
+    log(f"== phase 4: path F on path B's refined mesh ({nb}^3 base, 32^3 "
+        f"blocks, level-1 centre, f32, {ncycles} cycles, {warmup} warm-up) "
+        f"==")
+    smr = make_smr_sim(fofc_deck(nb, warmup, "single", refined=True, mb=32),
+                       "stage")
+    st = smr._stepper_now()
+    sm = smr._smesh_now()
+    leaves = {lev: int(ids.size) for lev, ids in sm.level_ids.items()}
+    m0 = smr.total_mass()
+    counts, zcps_r = run_smr(smr, ncycles, warmup)
+    st = smr._stepper_now()
+    drift = abs(smr.total_mass() - m0) / m0
+    want = 3 * 2 * len(leaves) * ncycles
+    log(f"  leaves {leaves}; stage rung taken: {st._stage_rung}; launches: "
+        f"negdiv-faces kernel {counts[1]} (expected {want}), stage-faces "
+        f"{counts[0]}; level stages rescued {st.fofc_rescues} of "
+        f"{2 * len(leaves) * ncycles}; mass drift across levels {drift:.3e}; "
+        f"zone-cycles/wallsecond {zcps_r}")
+    finite = all(bool(torch.isfinite(v).all()) for v in smr.state.values())
+    if smr.ncycle != ncycles or counts[:2] != (0, want) or st._stage_rung \
+            or st.fofc_rescues < 1 or zcps_r is None or not finite \
+            or not drift <= 1e-5:
+        raise AssertionError(f"path F refined: {smr.ncycle} cycles, launches "
+                             f"{counts}, {st.fofc_rescues} rescues")
+    refined = dict(sim=smr, launches=counts[1], zcps=zcps_r,
+                   rescues=st.fofc_rescues,
+                   stages=2 * len(leaves) * ncycles, cycles=ncycles,
+                   leaves=leaves)
+    return uniform, refined
+
+
+def phase_fofc_whole_steps():
+    """Path F's decks in f64 for 5 cycles through the kernels and with
+    their plain versions forced (no noise: kernel and plain round alike
+    on the blast's ties): the same stages rescued, at least one, and the
+    state and every dt to STEP_TOL; mass across levels kept."""
+    log("== phase 5: path F, kernels against plain over whole steps (f64, 5 "
+        "cycles) ==")
+    sweep = PORT.sweep
+    cases = [("FOFC blast 64^3", fofc_deck(64, 5, "double"), False),
+             ("FOFC blast, refined, 32^3 base", fofc_deck(
+                 32, 5, "double", refined=True, mb=8), True)]
+    hst_block = "\n<parthenon/output9>\nfile_type = hst\n"
+    for label, deck, refined in cases:
+        runs = {}
+        for name in ("kernel", "plain"):
+            outdir = ROOT / "build" / "chip_smoke" / f"fofc_{name}"
+            outdir.mkdir(parents=True, exist_ok=True)
+            for old in outdir.glob("*.hst"):
+                old.unlink()
+            cwd = os.getcwd()
+            dispatch = (sweep.fused_negdiv, sweep.fused_negdiv_faces)
+            os.chdir(outdir)
+            try:
+                sim = make_smr_sim(deck + hst_block, "stage") if refined \
+                    else make_sim(deck + hst_block)
+                sim.quiet = True
+                m0 = sim.total_mass() if refined else None
+                if name == "plain":
+                    sweep.fused_negdiv = sweep.negdiv_plain
+                    sweep.fused_negdiv_faces = sweep.negdiv_faces_plain
+                reset_counts()
+                with contextlib.redirect_stdout(io.StringIO()):
+                    sim.run()
+                counts = read_counts() + read_face_counts()
+            finally:
+                sweep.fused_negdiv, sweep.fused_negdiv_faces = dispatch
+                os.chdir(cwd)
+            if (sum(counts) == 0) != (name == "plain"):
+                raise AssertionError(f"{label}: {name} run launched {counts}")
+            if refined:
+                state = {lev: v.cpu().numpy() for lev, v in sim.state.items()}
+                rescues = sim._stepper_now().fofc_rescues
+                drift = abs(sim.total_mass() - m0) / m0
+            else:
+                state = {0: sim.u.cpu().numpy()}
+                rescues = sim.pkg.fofc_rescues
+                drift = 0.0
+            runs[name] = (state, np.loadtxt(next(outdir.glob("*.hst"))),
+                          rescues, drift)
+        (uk, hk, rk, dk), (up, hp, rp, dp) = runs["kernel"], runs["plain"]
+        err_u = max(float(np.abs(uk[lev] - up[lev]).max()
+                          / np.abs(up[lev]).max()) for lev in up)
+        err_dt = float(np.abs(hk[:, 1] - hp[:, 1]).max()
+                       / np.abs(hp[:, 1]).max())
+        log(f"  {label:32s} state max rel err {err_u:.3e}, dt max rel err "
+            f"{err_dt:.3e} (tol {STEP_TOL:.0e}); stages rescued: kernels "
+            f"{rk}, plain {rp}; mass drift kernels {dk:.3e}, plain {dp:.3e}")
+        if not (err_u <= STEP_TOL and err_dt <= STEP_TOL and rk == rp >= 1
+                and hk.shape == hp.shape and dk <= 1e-13):
+            raise AssertionError(f"{label}: kernel and plain FOFC steps "
+                                 f"disagree or took no rescue")
 
 
 def phase_whole_steps(seed):
@@ -1172,13 +1680,21 @@ def face_err(got, ref):
 
 def smr_stage_calls(sim):
     """What one stage-rung cycle of ``sim`` hands the stage-faces function:
-    per level, the DC predictor ``(u, u)`` and the PLM corrector ``(u_half,
-    u)``, with ``u_half`` the filled predictor result of this very state."""
+    per level, with VL2 the DC predictor ``(u, u)`` and the full-order
+    corrector ``(u_half, u)``, with ``u_half`` the filled predictor result
+    of this very state; with another integrator its first stage ``(u,
+    u)``."""
     st = sim._stepper_now()
     dt_raw, dt, c_h = sim._dt_pack().tolist()
-    half = st.fill_ghosts(st._stage_impl(0, sim.state, sim.state, dt, c_h))
     recon = sim.cfg.reconstruction
     calls = []
+    if sim.cfg.integrator != "vl2":
+        for lev, u in sim.state.items():
+            calls.append((f"level {lev} {recon}", (
+                u, u, 0.0, 1.0, dt, c_h, st.level_mesh[lev], sim.cfg,
+                sim.eos, recon)))
+        return calls
+    half = st.fill_ghosts(st._stage_impl(0, sim.state, sim.state, dt, c_h))
     for lev, u in sim.state.items():
         lm = st.level_mesh[lev]
         calls.append((f"level {lev} dc", (u, u, 0.0, 1.0, 0.5 * dt, c_h, lm,
@@ -1191,14 +1707,16 @@ def smr_stage_calls(sim):
 
 def smr_negdiv_calls(sim):
     """What one negdiv-rung cycle of ``sim`` hands the negdiv-faces
-    function: per level, prim of the state with DC and with the deck's
-    reconstruction."""
+    function: per level, prim of the state with the deck's reconstruction
+    (and with DC first, VL2's predictor)."""
     st = sim._stepper_now()
     _, _, c_h = sim._dt_pack().tolist()
+    recons = (("dc",) if sim.cfg.integrator == "vl2" else ()) \
+        + (sim.cfg.reconstruction,)
     calls = []
     for lev, u in sim.state.items():
         _, prim = PORT.cons_to_prim(sim.eos, u, sim.cfg.fluid, 0)
-        for recon in ("dc", sim.cfg.reconstruction):
+        for recon in recons:
             calls.append((f"level {lev} {recon}", (
                 prim, c_h, st.level_mesh[lev], sim.cfg, sim.eos, recon)))
     return calls
@@ -1770,6 +2288,80 @@ def phase_stage_timings(sim, launches, reps):
     }
 
 
+def phase_case_timings(runs, reps):
+    """A timing row per new case at its path's own inputs (the state each
+    path E or F run ended with, f32): the deck's call of the sweep kernel
+    (one per stage: 3 launches) or, on the stage rung, of the stage kernel
+    (one launch), against plain (f32 tolerance), kernel and plain per
+    call, the bound from this call's bytes (prim read once, -div(F) or
+    u_new written once) and the operations its data need, per launch."""
+    sweep, stage = PORT.sweep, PORT.stage
+    rows = {}
+    for name, run in runs.items():
+        sim = run["sim"]
+        mesh, cfg, eos = sim.mesh, sim.cfg, sim.eos
+        recon = cfg.reconstruction
+        dt, dt_hyp = sim._estimate()
+        c_h = sim.pkg.c_h_from_dt_hyp(dt_hyp)
+        if run["rung"] == "stage":
+            u = sim.u
+            x, n_launch = u, 1
+
+            def kern():
+                return stage.stage_cuda(u, u, 0.0, 1.0, dt, c_h, mesh, cfg,
+                                        eos, recon)
+
+            def plain():
+                return stage.stage_plain(u, u, 0.0, 1.0, dt, c_h, mesh, cfg,
+                                         eos, recon)
+            route = "#3 fused_stage"
+        else:
+            _, x = sim.pkg.cons_to_prim(sim.u)
+            n_launch = len(sweep.active_dirs(mesh))
+
+            def kern():
+                return sweep.negdiv_cuda(x, c_h, mesh, cfg, eos, recon)
+
+            def plain():
+                return sweep.negdiv_plain(x, c_h, mesh, cfg, eos, recon)
+            route = "#1 negdiv_sweep"
+        got, ref = kern(), plain()
+        torch.cuda.synchronize()
+        abs_err = (got - ref).abs().max().item()
+        rel = max_rel_err(got, ref)
+        finite = bool(torch.isfinite(got).all())
+        del got, ref
+        torch.cuda.empty_cache()
+        if not (rel <= F32_TOL and finite):
+            raise AssertionError(f"{route} disagrees with plain at the inputs "
+                                 f"of {name}: {rel:.3e}")
+        ms = cuda_ms(kern, reps)
+        plain_ms = cuda_ms(plain, 2)
+        torch.cuda.empty_cache()
+        ops, slow, _ = count_ops(plain)
+        torch.cuda.empty_cache()
+        cells = x.numel() // x.shape[1]
+        nbytes = 2 * x.numel() * x.element_size()
+        b = bound_of(nbytes / n_launch, ops / n_launch, ms / n_launch)
+        rows[name] = dict(
+            route=route, ms=ms / n_launch, call_ms=ms,
+            plain_ms=plain_ms, launches_per_call=n_launch,
+            max_abs_err=abs_err, max_rel_err=rel, ops_per_cell=ops / cells,
+            div_sqrt_per_cell=slow / cells, launches_on_path=run["launches"],
+            cycles=run["cycles"], zone_cycles_per_s=run["zcps"], **b)
+        if "rescues" in run:
+            rows[name]["stages_rescued"] = run["rescues"]
+            rows[name]["stages"] = run["stages"]
+        log(f"  {name} ({route}, {recon}): kernel {ms / n_launch:.4f} ms per "
+            f"launch ({ms:.4f} per call of {n_launch}), plain {plain_ms:.4f} "
+            f"ms per call; bound {b['bound_ms']:.4f} ms per launch "
+            f"({b['bound_by']}; {ops / cells:.1f} operations per cell, "
+            f"{slow / cells:.1f} divisions and roots); "
+            f"{100 * b['share_of_bound']:.2f} % of the bound; max abs err "
+            f"{abs_err:.3e}; {run['launches']} launches on the path")
+    return rows
+
+
 def phase_profile(sim, ncycles, what):
     """Where one cycle's device time goes: a torch.profiler trace of
     ``ncycles`` steps, kernels grouped by name, and the share of the window
@@ -1794,7 +2386,7 @@ def phase_profile(sim, ncycles, what):
     if not kernels:
         log("  the profiler recorded no device kernels: not measured")
         return None
-    recons = "dc plm ppm".split()
+    recons = RECON_NAMES
     groups = {}
     for e in kernels:
         m = re.search(r"negdiv_sweep_kernel<\w+, (\d), (\d), \d>", e["name"])
@@ -1892,6 +2484,7 @@ def phase_smr_timings(sim, kind, launches, reps, name, replaces, what):
             f"{100 * b['share_of_bound']:.2f} % of the bound")
     n = sum(r["launches"] for r in per_call.values())
     mix = lambda k: sum(r[k] for r in per_call.values()) / n  # noqa: E731
+    dc_and = "a DC and " if sim.cfg.integrator == "vl2" else ""
     t_b = sum(r["bytes"] for r in per_call.values()) / HBM_BYTES_PER_S
     t_o = sum(r["ops"] for r in per_call.values()) / FP32_OPS_PER_S
     return {
@@ -1913,7 +2506,7 @@ def phase_smr_timings(sim, kind, launches, reps, name, replaces, what):
                         "Riemann solve + flux divergence with the boundary "
                         "face fluxes",
         "unit": f"per launch, averaged over the calls of one cycle of {what} "
-                f"(per level a DC and a {sim.cfg.reconstruction.upper()} "
+                f"(per level {dc_and}a {sim.cfg.reconstruction.upper()} "
                 f"call), f32",
         "per_call": per_call,
     }
@@ -1967,7 +2560,7 @@ def phase_smr_profile(sim, ncycles, what):
         if e.get("cat") == "user_annotation" and \
                 e.get("name", "").startswith("smr."):
             host[e["name"]] = host.get(e["name"], 0.0) + e["dur"] / 1e3
-    recons = "dc plm ppm".split()
+    recons = RECON_NAMES
     groups, count = {}, {}
     for e in kernels:
         m = re.search(r"negdiv_sweep_kernel<\w+, (\d), (\d), \d>", e["name"])
@@ -2119,8 +2712,41 @@ def phase_amr_profile(sim, ncycles, what):
             "window_ms_per_cycle": span_ms / ncycles, "idle_share": idle}
 
 
-def main(argv=None):
+def entry_route(entry):
+    """The phase-3 route label prefix of a kernel line entry."""
+    return {"negdiv_sweep": "#1", "fused_stage": "#3", "negdiv_sweep_2d": "#4",
+            "fused_stage_faces": "#7", "negdiv_sweep_faces": "#6/#2",
+            "negdiv_sweep_faces_2d": "#5"}[entry["name"]]
+
+
+def load_port():
+    """Import the port's modules into ``PORT`` (ImportError where the port
+    is not beside this script)."""
     global PORT
+    from athenapk_tpu_torch.amr.driver import SmrSimulation
+    from athenapk_tpu_torch.amr.remesh import AmrHydro
+    from athenapk_tpu_torch.amr.smr import SmrState
+    from athenapk_tpu_torch.amr.smr_hydro import SmrHydro
+    from athenapk_tpu_torch.config.parameter_input import ParameterInput
+    from athenapk_tpu_torch.core import amr_forest
+    from athenapk_tpu_torch.core.mesh import Mesh
+    from athenapk_tpu_torch.driver import Simulation
+    from athenapk_tpu_torch.eos.adiabatic import (EOS, cons_to_prim,
+                                                  prim_to_cons)
+    from athenapk_tpu_torch.recon import schemes
+    from athenapk_tpu_torch.solver import stage, sweep
+    from athenapk_tpu_torch.solver.hydro_pkg import HydroConfig
+    from athenapk_tpu_torch.utils import exact_riemann
+    PORT = types.SimpleNamespace(
+        ParameterInput=ParameterInput, Mesh=Mesh, Simulation=Simulation,
+        EOS=EOS, cons_to_prim=cons_to_prim, prim_to_cons=prim_to_cons,
+        stage=stage, sweep=sweep, HydroConfig=HydroConfig,
+        exact_riemann=exact_riemann, SmrSimulation=SmrSimulation,
+        amr_forest=amr_forest, AmrHydro=AmrHydro, SmrHydro=SmrHydro,
+        SmrState=SmrState, schemes=schemes)
+
+
+def main(argv=None):
     ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
     ap.add_argument("--seed", type=int, default=0,
                     help="seed of the kernel-against-plain states")
@@ -2131,30 +2757,11 @@ def main(argv=None):
               file=sys.stderr)
         return 1
     try:
-        from athenapk_tpu_torch.amr.driver import SmrSimulation
-        from athenapk_tpu_torch.amr.remesh import AmrHydro
-        from athenapk_tpu_torch.amr.smr import SmrState
-        from athenapk_tpu_torch.amr.smr_hydro import SmrHydro
-        from athenapk_tpu_torch.config.parameter_input import ParameterInput
-        from athenapk_tpu_torch.core import amr_forest
-        from athenapk_tpu_torch.core.mesh import Mesh
-        from athenapk_tpu_torch.driver import Simulation
-        from athenapk_tpu_torch.eos.adiabatic import (EOS, cons_to_prim,
-                                                      prim_to_cons)
-        from athenapk_tpu_torch.solver import stage, sweep
-        from athenapk_tpu_torch.solver.hydro_pkg import HydroConfig
-        from athenapk_tpu_torch.utils import exact_riemann
+        load_port()
     except ImportError as e:
         print(f"chip_smoke: the port is not beside this script ({e})",
               file=sys.stderr)
         return 1
-    PORT = types.SimpleNamespace(
-        ParameterInput=ParameterInput, Mesh=Mesh, Simulation=Simulation,
-        EOS=EOS, cons_to_prim=cons_to_prim, prim_to_cons=prim_to_cons,
-        stage=stage, sweep=sweep, HydroConfig=HydroConfig,
-        exact_riemann=exact_riemann, SmrSimulation=SmrSimulation,
-        amr_forest=amr_forest, AmrHydro=AmrHydro, SmrHydro=SmrHydro,
-        SmrState=SmrState)
     t_start = time.time()
 
     log("== phase 1: card ==")
@@ -2165,6 +2772,7 @@ def main(argv=None):
 
     phase_build()
     phase_kernel_vs_plain(args.seed)
+    new_case_worst = phase_new_cases(args.seed)
 
     sims, counts, zcps = {}, {}, {}
     for rung in RUNGS:
@@ -2183,9 +2791,16 @@ def main(argv=None):
             phase_amr_path(path, ncycles=40, warmup=10)
         zcps[f"amr_{path}"] = amr_face[f"{path} numbers"][
             "zone_cycles_per_s"]
+    perf = phase_perf_matrix(n=256, ncycles=12, warmup=2)
+    fofc_u, fofc_r = phase_fofc_path(n=256, ncycles=12, warmup=2)
+    for name, run in perf.items():
+        zcps[f"path_E {name}"] = run["zcps"]
+    zcps["path_F"] = fofc_u["zcps"]
+    zcps["path_F refined"] = fofc_r["zcps"]
     phase_whole_steps(args.seed)
     smr_drift = phase_smr_whole_steps(args.seed)
     amr_2d_launches = phase_amr_whole_steps(args.seed)
+    phase_fofc_whole_steps()
     phase_smr_kernels_vs_plain(smr["A"], "A", "stage-faces")
     phase_smr_kernels_vs_plain(smr["B"], "B", "negdiv-faces")
     phase_smr_kernels_vs_plain(smr["C"], "C", "negdiv-faces")
@@ -2265,7 +2880,70 @@ def main(argv=None):
     nd2_entry["launches_per_cycle"]["2-D adaptive blast 256^2, f64, 5 "
                                     "cycles"] = amr_2d_launches / 5
 
+    # this slice's new cases: a row each at paths E and F's own inputs
+    log("== phase 6: timings of the new cases at paths E and F's inputs ==")
+    case_rows = phase_case_timings(
+        {**{name: run for name, run in perf.items()},
+         "path F (FOFC blast)": {**fofc_u, "rung": "sweep"}}, 10)
+    fofc_faces = phase_smr_timings(
+        fofc_r["sim"], "negdiv-faces", fofc_r["launches"], 10,
+        "negdiv_sweep_faces", "athenapk_tpu/solver/pallas_sweep.py:525",
+        "path F on the refined mesh")
+    fofc_stage_faces = phase_smr_timings(
+        fofc_r["sim"], "stage-faces", 0, 10, "fused_stage_faces",
+        "athenapk_tpu/solver/pallas_sweep.py:641",
+        "path F's refined level arrays (not a call of the path: FOFC takes "
+        "the negdiv-faces rung)")
+    cases = {"reconstructions": RECON_NAMES,
+             "solvers": [f"{f} {r}" for f, r in SOLVER_PAIRS]}
+    for entry in (sweep_entry, stage_entry, flat_entry, faces_entry,
+                  nd3_entry, nd2_entry):
+        entry["cases"] = cases
+        entry["new_cases_max_rel_err"] = {
+            k: v for k, v in new_case_worst.items()
+            if k.startswith(entry_route(entry))}
+    sweep_entry["new_cases"] = {k: v for k, v in case_rows.items()
+                                if v["route"].startswith("#1")}
+    stage_entry["new_cases"] = {k: v for k, v in case_rows.items()
+                                if v["route"].startswith("#3")}
+    nd3_entry["new_cases"] = {"path F refined (FOFC, LimO3 + HLLC)": {
+        k: fofc_faces[k] for k in ("ms", "plain_ms", "bound_ms",
+                                   "share_of_bound", "bound_by",
+                                   "max_abs_err", "unit", "per_call")}}
+    nd3_entry["new_cases"]["path F refined (FOFC, LimO3 + HLLC)"].update(
+        launches_on_path=fofc_r["launches"], cycles=fofc_r["cycles"],
+        zone_cycles_per_s=fofc_r["zcps"], stages_rescued=fofc_r["rescues"],
+        level_stages=fofc_r["stages"])
+    faces_entry["new_cases"] = {"LimO3 + HLLC at path F's refined level "
+                                "arrays": {
+        k: fofc_stage_faces[k] for k in ("ms", "plain_ms", "bound_ms",
+                                         "share_of_bound", "bound_by",
+                                         "max_abs_err", "unit", "per_call")}}
+    for name, run in perf.items():
+        key = f"path E {name}"
+        entry = stage_entry if run["rung"] == "stage" else sweep_entry
+        entry["launches_by_path"][key] = run["launches"]
+        cycles[key] = run["cycles"]
+    sweep_entry["launches_by_path"]["path F (FOFC blast)"] = \
+        fofc_u["launches"]
+    cycles["path F (FOFC blast)"] = fofc_u["cycles"]
+    nd3_entry["launches_by_path"]["path F refined (FOFC blast)"] = \
+        fofc_r["launches"]
+    nd3_entry["launches_per_cycle"]["path F refined (FOFC blast)"] = \
+        fofc_r["launches"] / fofc_r["cycles"]
+
     profiles = {}
+    e_name = "-".join(PERF_MATRIX[-1])
+    profiles["path_E"] = phase_profile(perf[e_name]["sim"], 3,
+                                       f"path E, {e_name}")
+    fresh = make_sim(fofc_deck(256, 3, "single"))
+    profiles["path_F"] = phase_profile(
+        fresh, 3, "path F from its initial state (the first cycle's stage "
+        "takes the rescue)")
+    log(f"  stages rescued in the profiled cycles: {fresh.pkg.fofc_rescues}")
+    del fresh
+    sweep_entry["path_E_profile"] = profiles["path_E"]
+    sweep_entry["path_F_profile"] = profiles["path_F"]
     faces_entry["adaptive_path_D"]["profile"] = phase_amr_profile(
         amr["D"], 3, "adaptive path D")
     for path in SMR_PATHS:
@@ -2283,7 +2961,8 @@ def main(argv=None):
     flat_entry["zone_cycles_per_s"] = zcps["orszag_tang_2048"]
     flat_entry["main_path_profile"] = profiles["orszag_tang_2048"]
     for entry in (sweep_entry, stage_entry, flat_entry):
-        # from this run's counts, not from what a rung should launch
+        # from this run's counts, not from what a rung should launch;
+        # path E and F runs count their own cycles
         entry["launches_per_cycle"] = {
             path: n / cycles[path]
             for path, n in entry["launches_by_path"].items()}

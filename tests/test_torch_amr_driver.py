@@ -29,6 +29,7 @@ from athenapk_tpu.config.parameter_input import ParameterInput as JPin
 from athenapk_tpu_torch import driver as tdriver
 from athenapk_tpu_torch.amr.driver import SmrSimulation
 from athenapk_tpu_torch.config.parameter_input import ParameterInput
+from athenapk_tpu_torch.eos.adiabatic import cons_to_prim
 from torch_decks import symmetry_noise
 
 torch.set_num_threads(2)
@@ -124,6 +125,26 @@ def test_cli_runs_an_adaptive_deck_on_the_cpu(tmp_path, monkeypatch, capsys):
     assert (tmp_path / "blast.out0.hst").exists()
 
 
+def test_fofc_adaptive_deck_runs_on_the_cpu(tmp_path, monkeypatch):
+    """First-order flux correction on an adaptive deck (it was refused
+    before): every stepper the run builds takes the negdiv-faces rung, and
+    the leaves still change while the state stays finite and positive."""
+    monkeypatch.chdir(tmp_path)
+    sim = SmrSimulation(ParameterInput.from_file(DECK, OVERRIDES + [
+        "hydro/first_order_flux_correct=true",
+        "parthenon/time/nlim=3"]), quiet=True, device="cpu")
+    sim.run()
+    assert sim.ncycle == 3
+    assert all(not st._stage_rung for st in sim.driver._steppers.values())
+    assert len(sim.driver._steppers) >= 2     # the table changed
+    st = sim._stepper_now()
+    for u in sim.state.values():
+        _, w = cons_to_prim(st.eos, u, "euler", 0)
+        w = w[st._int_sl]
+        assert bool(torch.isfinite(w).all())
+        assert w[:, 0].min() > 0 and w[:, 4].min() > 0
+
+
 def test_adaptive_deck_needs_the_card_unless_the_cpu_is_asked_for():
     if torch.cuda.is_available():
         pytest.skip("a CUDA card is present")
@@ -213,7 +234,6 @@ def test_check_interval_limits_remesh_cadence():
     ("tracers/enabled=true", "tracers"),
     ("cooling/enable_cooling=tabular", "cooling"),
     ("diffusion/conduction=isotropic", "diffusion"),
-    ("hydro/first_order_flux_correct=true", "first_order_flux_correct"),
     ("job/problem_id=cloud", "cloud"),
 ])
 def test_unported_features_raise_on_adaptive_decks(override, match, tmp_path,

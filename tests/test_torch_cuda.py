@@ -112,9 +112,10 @@ def test_wrapper_refuses_what_the_kernel_does_not_take(card):
         sweep.negdiv_cuda(prim.transpose(2, 4), C_H, mesh, cfg, eos, "ppm")
     with pytest.raises(ValueError):
         sweep.negdiv_cuda(prim[..., :-1], C_H, mesh, cfg, eos, "ppm")
-    llf = HydroConfig(fluid="glmmhd", riemann="llf", reconstruction="ppm")
-    with pytest.raises(NotImplementedError):
-        sweep.fused_negdiv(prim, C_H, mesh, llf, eos, "ppm")
+    scalars = HydroConfig(fluid="glmmhd", riemann="hlld",
+                          reconstruction="ppm", nscalars=1)
+    with pytest.raises(NotImplementedError, match="passive scalars"):
+        sweep.fused_negdiv(prim, C_H, mesh, scalars, eos, "ppm")
 
 
 def test_simulation_on_card_matches_plain_steps(card, tmp_path, monkeypatch):
@@ -168,7 +169,8 @@ gamma = 1.666666666666667
 
 
 # ------------------------------------------- Euler, and 1-D and 2-D meshes
-PAIRS = [("euler", "hlle"), ("euler", "hllc"), ("glmmhd", "hlld")]
+PAIRS = list(sweep.KERNEL_SOLVERS)       # every (fluid, solver) pair
+RECONS = list(sweep.KERNEL_RECONS)      # every reconstruction
 # (nx1, nx2, nx3, block nx1, nx2, nx3, nghost)
 FLAT_LAYOUTS = {
     "3d_ghostfree": (32, 24, 16, 32, 24, 16, 0),
@@ -211,7 +213,7 @@ def _per_var_err(got, ref):
 @pytest.mark.parametrize("dtype,tol", [(torch.float64, 1e-10),
                                        (torch.float32, 1e-4)])
 @pytest.mark.parametrize("layout", sorted(FLAT_LAYOUTS))
-@pytest.mark.parametrize("recon", ["dc", "plm", "ppm"])
+@pytest.mark.parametrize("recon", RECONS)
 @pytest.mark.parametrize("fluid,riemann", PAIRS)
 def test_sweep_kernel_euler_and_flat_meshes(card, fluid, riemann, recon,
                                             layout, dtype, tol):
@@ -254,7 +256,7 @@ def _stage_states(mesh, fluid, seed):
 @pytest.mark.parametrize("dtype,tol", [(torch.float64, 1e-10),
                                        (torch.float32, 1e-4)])
 @pytest.mark.parametrize("layout", sorted(STAGE_LAYOUTS))
-@pytest.mark.parametrize("recon", ["dc", "plm", "ppm"])
+@pytest.mark.parametrize("recon", RECONS)
 @pytest.mark.parametrize("fluid,riemann", PAIRS)
 def test_stage_kernel_matches_plain(card, fluid, riemann, recon, layout,
                                     dtype, tol):
@@ -305,9 +307,11 @@ def test_stage_wrapper_refuses_what_the_kernel_does_not_take(card):
     with pytest.raises(ValueError, match="ghost-free"):
         stage.stage_cuda(u, u, 0.25, 0.75, 1e-3, C_H, _mesh("ghosted"), cfg,
                          eos, "ppm", emit_dt=True)
-    llf = HydroConfig(fluid="glmmhd", riemann="llf", reconstruction="ppm")
-    with pytest.raises(NotImplementedError):
-        stage.fused_stage(u, u, 0.25, 0.75, 1e-3, C_H, mesh, llf, eos, "ppm")
+    scalars = HydroConfig(fluid="glmmhd", riemann="hlld",
+                          reconstruction="ppm", nscalars=1)
+    with pytest.raises(NotImplementedError, match="passive scalars"):
+        stage.fused_stage(u, u, 0.25, 0.75, 1e-3, C_H, mesh, scalars, eos,
+                          "ppm")
 
 
 # ------------------------------------------------ decks through Simulation
@@ -462,8 +466,44 @@ def test_flat_decks_on_card_match_cpu(card, deck, launches_per_stage,
     np.testing.assert_allclose(hst[:, :2], href[:, :2], rtol=1e-10)
 
 
-# what the kernels refuse: passive scalars, GLM-MHD with hlle
-REFUSED = {"advection_scalar": "nscalars", "field_loop_1": "hlle"}
+# the near-vacuum blast with first-order flux correction (LimO3 + HLLC +
+# RK2), its radii 6.4 and 3.2 cells at 32^3, where the first cycle's
+# candidate needs the rescue (tests/torch_decks.py:NEAR_VACUUM)
+FOFC_BLAST = ("<problem/blast>\nradius_outer = 0.2\nradius_inner = 0.1\n"
+              "pressure_ratio = 1.0e6\ndensity_ratio = 1.0e6\n"
+              "pressure_ambient = 1.0e-6\ndensity_ambient = 1.0e-6\n")
+
+
+def test_fofc_blast_kernel_matches_plain_on_card(card, tmp_path,
+                                                monkeypatch):
+    """Five f64 cycles of the FOFC blast on the card through the sweep
+    kernel against the same run with its plain version (the rescue's
+    plain operations on the card in both): the same stages rescued, state
+    and every dt to 1e-10.  Against the CPU the blast's exactly symmetric
+    state sits on the selects' ties, which the CPU's and the card's
+    roundings (a division by a scalar against a multiplication by its
+    reciprocal) break differently, and seeded noise would take the state
+    off the rescue."""
+    text = deck("blast", riemann="hllc", recon="limo3", integ="rk2",
+                nx=(32, 32, 32), mb=(32, 32, 32), extra=FOFC_BLAST,
+                extra_hydro="first_order_flux_correct = true", tlim=10.0,
+                merge="auto") + "\n<parthenon/output1>\nfile_type = hst\n"
+    monkeypatch.delenv("ATHENAPK_PALLAS_STAGE", raising=False)
+    before = sweep.negdiv_cuda.launches
+    sim, hst = _run_deck(text, "cuda", tmp_path / "kernel")
+    assert sim.u.is_cuda and sim.ncycle == 5
+    assert sweep.negdiv_cuda.launches - before == 5 * 2 * 3
+    monkeypatch.setattr(sweep, "fused_negdiv", sweep.negdiv_plain)
+    ref, href = _run_deck(text, "cuda", tmp_path / "plain")
+    assert sweep.negdiv_cuda.launches - before == 5 * 2 * 3
+    assert sim.pkg.fofc_rescues == ref.pkg.fofc_rescues >= 1
+    a, b = ref.u.cpu().numpy(), sim.u.cpu().numpy()
+    assert np.abs(a - b).max() <= 1e-10 * np.abs(a).max()
+    np.testing.assert_allclose(hst[:, :2], href[:, :2], rtol=1e-10)
+
+
+# what the kernels refuse: passive scalars
+REFUSED = {"advection_scalar": "nscalars"}
 DECK_RUNS = [(case, rung) for case in sorted(CASES) for rung in (
     ("sweep", "stage", "hybrid")
     if CASES[case].get("nx", (1, 1, 1))[2] > 1 and case not in REFUSED
@@ -510,7 +550,10 @@ def test_pgen_decks_on_card_match_cpu(card, case, rung, tmp_path,
 # puts the faces one cell from a column's first
 FACE_CASES = [("euler", "hllc", "ppm", 8, 3), ("euler", "hlle", "plm", 16, 3),
               ("glmmhd", "hlld", "ppm", 8, 3), ("euler", "hlle", "dc", 8, 2),
-              ("euler", "hllc", "plm", 32, 2)]
+              ("euler", "hllc", "plm", 32, 2),
+              ("glmmhd", "hlle", "wenoz", 8, 3),
+              ("euler", "llf", "limo3", 16, 2),
+              ("glmmhd", "llf", "weno3", 8, 2)]
 
 
 def _face_mesh(mb, g, ndim=3):

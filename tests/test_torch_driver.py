@@ -216,8 +216,6 @@ def test_cuda_requested_without_a_card_raises():
     ("parthenon/mesh/refinement=adaptive", "refinement"),
     ("diffusion/conduction=isotropic", "diffusion"),
     ("cooling/enable_cooling=tabular", "cooling"),
-    ("hydro/first_order_flux_correct=true", "first_order_flux_correct"),
-    ("hydro/reconstruction=wenoz", "wenoz"),
     ("job/problem_id=rand_blast", "rand_blast"),
 ])
 def test_unported_features_raise(override, match):

@@ -62,10 +62,71 @@ def test_reconstruction_sign_of_zero(recon):
                     ).tolist() == [1.0, 1.0, -1.0]
 
 
+MASK = (True, False, False, False, True)   # density and pressure of 5
+
+
+def _high_order_state(seed, shape):
+    """Noise of O(0.3) in the velocities (LimO3's limited branch at dx =
+    0.1); density and pressure small and positive with jumps of a few
+    1e-3, LimO3's smooth third-order branch, whose edges overshoot below
+    zero (the positivity fallback's cases)."""
+    rng = np.random.default_rng(seed)
+    q = rng.standard_normal(shape) * 0.3
+    q[:, 0] = 1e-4 + 5e-3 * rng.random(q[:, 0].shape)
+    q[:, 4] = 1e-4 + 4e-3 * rng.random(q[:, 4].shape)
+    return q
+
+
+@pytest.mark.parametrize("masked", [False, True], ids=["plain", "mask"])
+@pytest.mark.parametrize("axis", [-1, -2, -3])
 @pytest.mark.parametrize("recon", ["weno3", "limo3", "wenoz"])
-def test_unported_reconstruction_raises(recon):
-    with pytest.raises(NotImplementedError, match=recon):
-        trec.reconstruct(recon, torch.zeros(1, 1, 4, 4, 4), -1, 1.0)
+def test_high_order_reconstruction_matches_jax(recon, axis, masked):
+    q = _high_order_state(7, (2, 5, 8, 9, 10))
+    mask = MASK if masked else None
+    jm, jp = jrec.reconstruct(recon, jnp.asarray(q), axis, 0.1,
+                              positivity_mask=mask)
+    tm, tp = trec.reconstruct(recon, torch.tensor(q), axis, 0.1,
+                              positivity_mask=mask)
+    assert _rel(jm, tm.numpy()) <= TOL
+    assert _rel(jp, tp.numpy()) <= TOL
+    if recon == "limo3":
+        # the state reaches the fallback: without it some density or
+        # pressure edge is <= 0, with it none is
+        um, up = trec.reconstruct(recon, torch.tensor(q), axis, 0.1)
+        low = (torch.minimum(um, up)[:, [0, 4]] <= 0.0).sum().item()
+        assert low > 0
+        if masked:
+            assert (torch.minimum(tm, tp)[:, [0, 4]] <= 0.0).sum() < low
+
+
+@pytest.mark.parametrize("dtype", ["float64", "float32"])
+def test_limo3_switch_at_eta_one(dtype):
+    """LimO3's three-way select on eta against 1 +- 10 eps: steps of a
+    size that puts eta within a few eps of 1, so every branch is taken in
+    f64 and in f32 (each dtype with its own eps), and the port agrees
+    with the JAX package on each."""
+    rng = np.random.default_rng(3)
+    dx = 0.1
+    np_t = np.dtype(dtype)
+    a = np.sqrt(0.5) * 0.1 * dx           # eta = 1 for two steps of a
+    eps = np.finfo(np_t).eps
+    steps = a * (1.0 + eps * rng.integers(-12, 13, size=(1, 1, 1, 1, 64)))
+    q = np.cumsum(steps, axis=-1).astype(np_t)
+    q = np.broadcast_to(q, (1, 2, 2, 2, 64)).copy()
+    jm, jp = jrec.reconstruct("limo3", jnp.asarray(q), -1, dx)
+    tm, tp = trec.reconstruct("limo3", torch.tensor(q), -1, dx)
+    np.testing.assert_allclose(tm.numpy(), np.asarray(jm), rtol=0,
+                               atol=8 * eps * np.abs(q).max())
+    np.testing.assert_allclose(tp.numpy(), np.asarray(jp), rtol=0,
+                               atol=8 * eps * np.abs(q).max())
+    # eta on both sides of the switch and inside its blend
+    t = torch.tensor(q)
+    dvp = torch.roll(t, -1, -1) - t
+    dvm = t - torch.roll(t, 1, -1)
+    eta = ((dvm * dvm + dvp * dvp) / trec.limo3_rdx2(dx))[..., 1:-1]
+    e = trec.limo3_eps(t.dtype)
+    assert (eta <= 1.0 - e).any() and (eta >= 1.0 + e).any()
+    assert ((eta > 1.0 - e) & (eta < 1.0 + e)).any()
 
 
 def _face_states(fluid, nscalars, seed):

@@ -26,7 +26,7 @@ from athenapk_tpu.config.parameter_input import ParameterInput as JPin
 from athenapk_tpu_torch import driver as tdriver
 from athenapk_tpu_torch.amr.driver import SmrSimulation
 from athenapk_tpu_torch.config.parameter_input import ParameterInput
-from athenapk_tpu_torch.eos.adiabatic import EOS, prim_to_cons
+from athenapk_tpu_torch.eos.adiabatic import EOS, cons_to_prim, prim_to_cons
 from torch_decks import symmetry_noise
 
 torch.set_num_threads(2)
@@ -170,7 +170,6 @@ def test_cli_runs_a_refined_deck_on_the_cpu(tmp_path, monkeypatch, capsys):
     ("tracers/enabled=true", "tracers"),
     ("cooling/enable_cooling=tabular", "cooling"),
     ("diffusion/conduction=isotropic", "diffusion"),
-    ("hydro/first_order_flux_correct=true", "first_order_flux_correct"),
     ("job/problem_id=rand_blast", "rand_blast"),
 ])
 def test_unported_refined_features_raise(override, match, tmp_path,
@@ -179,6 +178,26 @@ def test_unported_refined_features_raise(override, match, tmp_path,
     pin = ParameterInput.from_file(DECK, OVERRIDES + [override])
     with pytest.raises(NotImplementedError, match=match):
         SmrSimulation(pin, device="cpu").run()
+
+
+def test_cli_runs_a_refined_fofc_deck_on_the_cpu(tmp_path, monkeypatch):
+    """First-order flux correction on a refined deck (it was refused
+    before): the CLI's ``run_from_file`` runs it on the negdiv-faces rung,
+    as the JAX package's ``_use_stage_fused`` puts such decks, and the
+    state stays finite with positive density and pressure."""
+    monkeypatch.chdir(tmp_path)
+    monkeypatch.delenv("ATHENAPK_PALLAS_STAGE", raising=False)
+    sim = tdriver.run_from_file(DECK, OVERRIDES[:6] + [
+        "hydro/first_order_flux_correct=true", "hydro/reconstruction=limo3",
+        "parthenon/time/nlim=2"], quiet=True, device="cpu")
+    assert sim.ncycle == 2
+    st = sim._stepper_now()
+    assert not st._stage_rung and st.cfg.first_order_flux_correct
+    for u in sim.state.values():
+        _, w = cons_to_prim(st.eos, u, "euler", 0)
+        w = w[st._int_sl]
+        assert bool(torch.isfinite(w).all())
+        assert w[:, 0].min() > 0 and w[:, 4].min() > 0
 
 
 def test_refined_deck_needs_the_card_unless_the_cpu_is_asked_for():

@@ -175,12 +175,27 @@ def test_non_cpu_tensor_never_takes_the_plain_stage():
     with pytest.raises(ValueError, match="CUDA tensor"):
         stage.fused_stage(u[:, :5], u[:, :5], GAM0, GAM1, BDT, 0.0, mesh,
                           euler, eos, "plm")
+    # llf, GLM-MHD hlle and the weno-type reconstructions are taken now:
+    # they get as far as the tensor checks; passive scalars are refused
     llf = HydroConfig(fluid="euler", riemann="llf", reconstruction="plm")
-    with pytest.raises(NotImplementedError, match="llf"):
+    with pytest.raises(ValueError, match="CUDA tensor"):
         stage.fused_stage(u[:, :5], u[:, :5], GAM0, GAM1, BDT, 0.0, mesh, llf,
                           eos, "plm")
-    with pytest.raises(NotImplementedError, match="limo3"):
-        stage.fused_stage(u, u, GAM0, GAM1, BDT, 1.3, mesh, ok, eos, "limo3")
+    for riemann in ("hlle", "llf"):
+        glm = HydroConfig(fluid="glmmhd", riemann=riemann,
+                          reconstruction="wenoz")
+        with pytest.raises(ValueError, match="CUDA tensor"):
+            stage.fused_stage(u, u, GAM0, GAM1, BDT, 1.3, mesh, glm, eos,
+                              "wenoz")
+    for recon in ("weno3", "limo3", "wenoz"):
+        with pytest.raises(ValueError, match="CUDA tensor"):
+            stage.fused_stage(u, u, GAM0, GAM1, BDT, 1.3, mesh, ok, eos,
+                              recon)
+    scalars = HydroConfig(fluid="euler", riemann="hllc", reconstruction="plm",
+                          nscalars=1)
+    with pytest.raises(NotImplementedError, match="passive scalars"):
+        stage.fused_stage(u[:, :6], u[:, :6], GAM0, GAM1, BDT, 0.0, mesh,
+                          scalars, eos, "plm")
 
 
 @pytest.mark.parametrize("fn", [stage.stage_plain, stage.stage_cuda],

@@ -136,25 +136,22 @@ def test_non_cpu_tensor_never_takes_the_plain_path():
     prim = torch.empty((1, 9) + mesh.block_shape, device="meta")
     with pytest.raises(ValueError, match="CUDA tensor"):
         sweep.fused_negdiv(prim, C_H, mesh, ppm, eos, "ppm")
-    # what the kernel still lacks: llf, GLM-MHD hlle, scalars, weno-type
-    # reconstructions
-    for fluid, riemann, nscalars in (("glmmhd", "hlle", 0),
-                                     ("glmmhd", "llf", 0),
-                                     ("euler", "llf", 0),
-                                     ("euler", "hllc", 2)):
-        cfg = HydroConfig(fluid=fluid, riemann=riemann, reconstruction="ppm",
-                          nscalars=nscalars)
-        with pytest.raises(NotImplementedError, match="hlld"):
-            sweep.fused_negdiv(prim, C_H, mesh, cfg, eos, "ppm")
-    for recon in ("weno3", "limo3", "wenoz"):
-        with pytest.raises(NotImplementedError, match=recon):
-            sweep.fused_negdiv(prim, C_H, mesh, ppm, eos, recon)
-    # Euler with hllc or hlle is taken: it gets as far as the tensor checks
-    for riemann in ("hllc", "hlle"):
-        euler = HydroConfig(fluid="euler", riemann=riemann,
-                            reconstruction="plm")
-        with pytest.raises(ValueError, match="CUDA tensor"):
-            sweep.fused_negdiv(prim[:, :5], C_H, mesh, euler, eos, "plm")
+    # what the kernel still lacks: passive scalars
+    scalars = HydroConfig(fluid="euler", riemann="hllc", reconstruction="ppm",
+                          nscalars=2)
+    with pytest.raises(NotImplementedError, match="passive scalars"):
+        sweep.fused_negdiv(prim[:, :7], C_H, mesh, scalars, eos, "ppm")
+    # every (fluid, solver) pair and every reconstruction is taken: each
+    # gets as far as the tensor checks
+    for fluid, riemann in sweep.KERNEL_SOLVERS:
+        nvar = 9 if fluid == "glmmhd" else 5
+        for recon in sweep.KERNEL_RECONS:
+            cfg = HydroConfig(fluid=fluid, riemann=riemann,
+                              reconstruction=recon)
+            with pytest.raises(ValueError, match="CUDA tensor"):
+                sweep.fused_negdiv(prim[:, :nvar], C_H, mesh, cfg, eos,
+                                   recon)
+    assert len(sweep.KERNEL_SOLVERS) == len(sweep.KERNEL_RECONS) == 6
 
 
 def test_build_without_nvcc_raises(monkeypatch, tmp_path):

@@ -30,6 +30,7 @@ from athenapk_tpu_torch.eos.adiabatic import EOS
 from athenapk_tpu_torch.solver import sweep
 from athenapk_tpu_torch.solver.hydro_pkg import HydroConfig
 from athenapk_tpu_torch.utils import exact_riemann
+from test_sod import SOD_DECK as SOD_256
 
 torch.set_num_threads(2)
 
@@ -277,3 +278,43 @@ def test_sod_converges_to_the_exact_solution(tmp_path):
                                            1.4)
     l1 = np.abs(rho - rho_exact).mean()
     assert l1 < 1.2e-2, f"Sod L1(rho) {l1:.3e}"
+
+
+@pytest.mark.parametrize("riemann,recon,integ,tol", [
+    ("llf", "plm", "rk2", 0.02),
+    ("hllc", "weno3", "rk2", 0.012),
+    ("hllc", "limo3", "rk2", 0.012),
+    ("hllc", "wenoz", "rk3", 0.012),
+])
+def test_sod_shock_tube_port(riemann, recon, integ, tol, tmp_path):
+    """Twins of ``tests/test_sod.py::test_sod_shock_tube``'s rows that the
+    port's kernels took up (LLF, WENO3, LimO3, WENO-Z): the JAX test's deck
+    (256 cells in 4 blocks, nghost 3) to t = 0.25 on the port, the L2
+    density error against the exact solution under the JAX test's bound;
+    and its first 5 cycles against the JAX package's from one state, to
+    1e-12 of the state's largest magnitude."""
+    over = [f"hydro/riemann={riemann}", f"hydro/reconstruction={recon}",
+            f"parthenon/time/integrator={integ}"]
+    sim = TSim(TPin.from_string(SOD_256, over), quiet=True,
+               device="cpu").run()
+    assert sim.t == pytest.approx(0.25)
+    mesh = sim.mesh
+    g = mesh.nghost
+    rho = sim.cons()[:, 0, 0, 0, g:-g].reshape(-1)
+    x = mesh.cell_centers()[0][:, g:-g].reshape(-1)
+    order = np.argsort(x)
+    xi = (x[order] - 0.5) / sim.t
+    rho_exact, _, _ = exact_riemann.sample(xi, 1.0, 0.0, 1.0, 0.125, 0.0, 0.1,
+                                           1.4)
+    err = np.sqrt(np.mean((rho[order] - rho_exact) ** 2))
+    assert err < tol, f"L2 rho error {err} exceeds {tol}"
+
+    over += ["parthenon/time/nlim=5", "parthenon/mesh/merge_blocks=false"]
+    js = JSim(JPin.from_string(SOD_256, over), quiet=True)
+    ts = TSim(TPin.from_string(SOD_256, over), quiet=True, device="cpu")
+    ts.load_state(np.asarray(js.u), js.t, js.ncycle)
+    js.run()
+    ts.run()
+    a, b = np.asarray(js.u), ts.u.numpy()
+    assert ts.ncycle == js.ncycle == 5
+    assert np.abs(a - b).max() <= 1e-12 * np.abs(a).max()
