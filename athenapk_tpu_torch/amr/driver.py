@@ -29,11 +29,18 @@ the leaves per level, ``mesh structure`` lines (``ncycle_out_mesh``; a
 negative value also prints on every remesh) and ``zone-cycles/wallsecond``
 (zones summed over each cycle's leaves).
 
+The problem's hooks, as the JAX driver wires them
+(``athenapk_tpu/amr/driver.py:179-197``): ``register_boundary_conditions_smr``
+gives the ghost fill its boundary conditions, ``check_refinement_block``
+tags blocks beside the criterion (adaptive meshes, combined by ``max``);
+tabular cooling is built as the uniform driver builds it
+(``driver.make_cooling``) and acts on every level.
+
 The state lives on ``cuda`` unless the caller asks for the CPU; asking for
 CUDA where there is none raises.  Not ported (``NotImplementedError``):
-restart, hdf5 and rst outputs, tracers, diffusion and cooling, and the
-problems whose refined-mesh hooks or split sources the JAX driver calls
-(among them the pgen refinement check of ``cloud``).
+restart, hdf5 and rst outputs, tracers, diffusion, and the problems whose
+split sources the JAX driver calls (``rand_blast``, ``turbulence``,
+``cluster``).
 """
 
 from __future__ import annotations
@@ -93,7 +100,8 @@ class SmrSimulation:
 
     def __init__(self, pin: ParameterInput, quiet: bool = False,
                  device="cuda"):
-        from ..driver import DTYPES, check_unported, resolve_device
+        from ..driver import (DTYPES, check_unported, make_cooling,
+                              resolve_device)
 
         self.pin = pin
         self.quiet = quiet
@@ -119,12 +127,23 @@ class SmrSimulation:
         self.cfg = HydroConfig.from_parameter_input(pin)
         check_reflecting_mhd(base, self.cfg.fluid)
         self.eos = EOS.from_parameter_input(pin)
-        # the problems with refined-mesh hooks or split sources (rand_blast,
-        # cloud, turbulence, cluster) are not ported: get_pgen refuses them
+        # the problems with split sources (rand_blast, turbulence, cluster)
+        # are not ported: get_pgen refuses them
         self.pgen = get_pgen(self.problem_id)
         init_hook = getattr(self.pgen, "init_user_mesh_data", None)
         if init_hook is not None:
             init_hook(pin)
+        bc_hook = getattr(self.pgen, "register_boundary_conditions_smr",
+                          None)
+        self._custom_bcs = (bc_hook(pin, self.smesh, self.cfg, self.eos)
+                            if bc_hook is not None else None)
+        pc_hook = getattr(self.pgen, "check_refinement_block", None)
+        self._problem_check = None
+        if pc_hook is not None:
+            cfg, eos = self.cfg, self.eos
+            self._problem_check = lambda prim, base: pc_hook(  # noqa: E731
+                pin, base, cfg, eos, prim)
+        self.cooling = make_cooling(pin)
         if self.adaptive:
             self.driver = AmrHydro(
                 self.smesh, self.cfg, self.eos,
@@ -133,11 +152,14 @@ class SmrSimulation:
                     "parthenon/mesh", "check_interval", 1),
                 derefine_count=pin.get_or_add_integer(
                     "parthenon/mesh", "derefine_count", 10),
-                device=self.device)
+                device=self.device, cooling=self.cooling,
+                custom_bcs=self._custom_bcs,
+                problem_check=self._problem_check)
         else:
             self.driver = None
             self.stepper = SmrHydro(self.smesh, self.cfg, self.eos,
-                                    device=self.device)
+                                    device=self.device, cooling=self.cooling,
+                                    custom_bcs=self._custom_bcs)
         self.state = self._generate_state()
         if self.adaptive:
             # Parthenon's Mesh::Initialize loop: tag, remesh, then

@@ -27,11 +27,15 @@ flux-correction plans are built in Python loops over leaves, so a blast
 that revisits a topology pays for its plans once.  Nothing is compiled per
 topology.
 
+``AmrHydro`` passes ``cooling`` and ``custom_bcs`` on to every stepper,
+and combines the pgen's per-block refinement check (``problem_check(prim,
+base) -> [nblocks] tags``) with the criterion's tags by ``max``, in the
+same enqueued tag tensors (the JAX package's ``_tag_fn``).
+
 Not ported: the sharded placements (``_PaddedStepper``, ``_FlatStepper``,
 ``AmrHydro._place``, ``device_leaf_counts``), which belong to multi-device
-runs, and the hooks the JAX ``AmrHydro`` takes for diffusion, cooling,
-problem sources, custom boundaries and the pgen's per-block refinement
-check (``SmrSimulation`` refuses the decks that need them).
+runs, and the hooks the JAX ``AmrHydro`` takes for diffusion and problem
+sources (``SmrSimulation`` refuses the decks that need them).
 """
 
 from __future__ import annotations
@@ -172,15 +176,15 @@ def transfer(smesh: SmrMesh, state, tags, timings=None):
     return new_sm, new_state
 
 
-def remesh(smesh: SmrMesh, state, tags):
+def remesh(smesh: SmrMesh, state, tags, custom_bcs=None):
     """Apply per-leaf tags; -> (new SmrMesh, transferred state with its
     ghosts filled by a new ``SmrState`` on the state's device).
     ``AmrHydro`` fills through its cached stepper of the new topology
     instead."""
     new_sm, new_state = transfer(smesh, state, tags)
     first = next(iter(new_state.values()))
-    return new_sm, SmrState(new_sm, first.shape[1],
-                            first.device).fill_ghosts(new_state)
+    return new_sm, SmrState(new_sm, first.shape[1], first.device,
+                            custom_bcs=custom_bcs).fill_ghosts(new_state)
 
 
 class AmrHydro:
@@ -193,12 +197,16 @@ class AmrHydro:
     """
 
     def __init__(self, smesh: SmrMesh, cfg, eos, refine_cfg,
-                 check_interval=1, derefine_count=10, device="cuda"):
+                 check_interval=1, derefine_count=10, device="cuda",
+                 cooling=None, custom_bcs=None, problem_check=None):
         from ..driver import resolve_device
 
         self.smesh = smesh
         self.cfg = cfg
         self.eos = eos
+        self.cooling = cooling
+        self.custom_bcs = custom_bcs
+        self.problem_check = problem_check
         self.device = resolve_device(device)
         self.refine_cfg = refine_cfg
         self.check_interval = max(1, int(check_interval))
@@ -225,14 +233,19 @@ class AmrHydro:
         st = self._steppers.get(sig)
         if st is None:
             st = SmrHydro(self.smesh, self.cfg, self.eos, device=self.device,
-                          stage_rung=self._stage_rung)
+                          stage_rung=self._stage_rung, cooling=self.cooling,
+                          custom_bcs=self.custom_bcs)
             self._steppers[sig] = st
         return st
 
     # ------------------------------------------------------------------ tags
     def _level_tags(self, u):
         _, prim = cons_to_prim(self.eos, u, self.cfg.fluid, self.cfg.nscalars)
-        return check_refinement(self.refine_cfg, prim, self.smesh.base)
+        tags = check_refinement(self.refine_cfg, prim, self.smesh.base)
+        if self.problem_check is not None:
+            tags = torch.maximum(tags, self.problem_check(
+                prim, self.smesh.base).to(tags.dtype))
+        return tags
 
     def dispatch_tags(self, state):
         """The per-level tags, enqueued on the device and NOT read: ->

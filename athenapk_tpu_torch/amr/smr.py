@@ -18,8 +18,17 @@ physical boundaries at full extent.  It updates the level tensors in place.
 
 ``SmrMesh.from_forest`` wraps a forest that an adaptive remesh has just
 updated (``amr/remesh.py``), ``SmrMesh.from_leaf_table`` rebuilds the mesh
-of a saved leaf table.  Not ported: the ``scatter`` and ``buffered`` A/B
-fills (they give the same bits) and custom boundary hooks.
+of a saved leaf table.  Problem-registered boundary conditions
+(``SmrState(custom_bcs=...)``, the cloud's inflow): a physical face whose
+BC name is a key calls ``fn(u, didx, gsl, lev, axis, lo)`` after the
+axis's slabs are written, with ``u`` the level tensor, ``didx`` the
+blocks on that face and ``gsl`` the ghost region's (z, y, x) slices at
+the pass's transverse extents; it writes ``u[didx, :, *gsl]`` in place.
+(The JAX package's sequential fill hands its hooks the same slices
+without the variable axis, which its cloud hook then misreads; its
+``scatter`` fill passes the variable axis and is the one the port's
+results are held against.)  Not ported: the ``scatter`` and ``buffered``
+A/B fills (they give the same bits).
 """
 
 from __future__ import annotations
@@ -263,11 +272,13 @@ class SmrState:
     tensors live on ``device``, where the state is: the card unless the
     caller asks for the CPU."""
 
-    def __init__(self, smesh: SmrMesh, nvar: int, device="cuda"):
+    def __init__(self, smesh: SmrMesh, nvar: int, device="cuda",
+                 custom_bcs=None):
         from ..driver import resolve_device
 
         self.smesh = smesh
         self.nvar = nvar
+        self.custom_bcs = custom_bcs or {}
         self.device = resolve_device(device)
         b = smesh.base
         self.block_shape = b.block_shape
@@ -424,16 +435,20 @@ class SmrState:
     def _fill_axis(self, out, lev, axis, ext_axes, phys_only=False):
         """Assemble the lo/hi ghost slabs of ``axis`` from the current level
         tensors, then write them: every read precedes both writes."""
-        new_slabs = self._assemble_axis(out, lev, axis, ext_axes, phys_only)
+        new_slabs, custom_ops = self._assemble_axis(out, lev, axis, ext_axes,
+                                                    phys_only)
         u = out[lev]
         for gidx, slab in new_slabs.values():
             u[gidx] = slab
+        for bc, d, gsl, lo in custom_ops:
+            self.custom_bcs[bc](u, d, gsl, lev, axis, lo)
 
     def _assemble_axis(self, out, lev, axis, ext_axes, phys_only=False):
-        """The lo/hi ghost slabs of ``axis`` for one level: ``{lo: (index of
-        the ghost region, slab)}``.  ``ext_axes``: transverse axes whose
-        ghost columns are included (already filled this round);
-        ``phys_only``: pass C, physical boundaries only."""
+        """The lo/hi ghost slabs of ``axis`` for one level: ``({lo: (index
+        of the ghost region, slab)}, [custom boundary calls])``.
+        ``ext_axes``: transverse axes whose ghost columns are included
+        (already filled this round); ``phys_only``: pass C, physical
+        boundaries only."""
         sm = self.smesh
         n_of, g_of, act = self.n_of, self.g_of, self.act
         half_of = self.half_of
@@ -469,7 +484,7 @@ class SmrState:
                 idx[ax + 1] = sl_axis if ax == axis else tsl(ax)
             return tuple(idx)
 
-        new_slabs = {}
+        new_slabs, custom_ops = {}, []
         for lo in (True, False):
             face = 2 * (3 - axis) + (0 if lo else 1)
             if phys_only and face not in batch["phys"]:
@@ -624,11 +639,12 @@ class SmrState:
                     mirror[:, mom_of_axis[axis]].neg_()
                     slab.index_copy_(0, d, mirror)
                     touched = True
+                elif bc in self.custom_bcs:
+                    custom_ops.append((bc, d, vsl(ghost)[2:], lo))
                 else:
-                    raise NotImplementedError(
-                        f"refined-mesh boundary '{bc}': the port has "
-                        "periodic, outflow and reflecting (custom boundary "
-                        "hooks are not ported)")
+                    raise ValueError(
+                        f"unsupported refined-mesh BC '{bc}' (periodic, "
+                        "outflow, reflecting or a problem-registered one)")
             if touched:
                 new_slabs[lo] = (vsl(ghost), slab)
-        return new_slabs
+        return new_slabs, custom_ops

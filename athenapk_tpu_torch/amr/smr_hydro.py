@@ -33,13 +33,15 @@ On a CUDA tensor each call launches a Hopper kernel, on a CPU tensor its
 plain twin runs: one code path.  (The JAX package's XLA branch, which
 replaces whole flux arrays in ``_flux_correct``, is the same correction
 written for full flux arrays; it is not ported.)  GLM-MHD takes the Dedner
-damping (``dedner_plain``).
+damping (``dedner_plain``).  ``cooling`` (``srcterms.TabularCooling``)
+acts on every level after the Dedner damping of each stage, and its dt
+joins the CFL dt over all levels; ``custom_bcs`` go to the ghost fill
+(``SmrState``).
 
 Not ported: ``riemann = none`` and ``dedner_extended`` (the constructor
-raises ``NotImplementedError``), and
-diffusion and RKL2, cooling, problem sources and custom boundary hooks
-(the JAX constructor's other arguments; ``SmrSimulation`` refuses the
-decks that need them).
+raises ``NotImplementedError``), and diffusion and RKL2 and problem
+sources (the JAX constructor's other arguments; ``SmrSimulation`` refuses
+the decks that need them).
 """
 
 from __future__ import annotations
@@ -63,7 +65,7 @@ from .smr import SmrMesh, SmrState
 
 class SmrHydro:
     def __init__(self, smesh: SmrMesh, cfg, eos, device="cuda",
-                 stage_rung=None):
+                 stage_rung=None, cooling=None, custom_bcs=None):
         from ..driver import resolve_device
 
         missing = []
@@ -84,7 +86,9 @@ class SmrHydro:
         self.cfg = cfg
         self.eos = eos
         self.device = resolve_device(device)
-        self.state_mgr = SmrState(smesh, cfg.nvar, self.device)
+        self.cooling = cooling
+        self.state_mgr = SmrState(smesh, cfg.nvar, self.device,
+                                  custom_bcs=custom_bcs)
         self.level_mesh = {lev: smesh.level_mesh(lev)
                            for lev in smesh.level_ids}
         self._dirs = tuple(active_dirs(b))
@@ -247,10 +251,14 @@ class SmrHydro:
             negdivs = self._slab_flux_correct(negdivs, slabs)
             out = {lev: gam0 * u0f[lev] + gam1 * state1[lev]
                    + beta_dt * negdivs[lev] for lev in state}
-        if cfg.fluid == GLMMHD:
-            for lev in out:
+        for lev in out:
+            if cfg.fluid == GLMMHD:
                 out[lev] = self._dedner_source_level(out[lev], beta_dt, c_h,
                                                      lev)
+            if self.cooling is not None:
+                # pointwise unsplit cooling per level and stage, after the
+                # Dedner damping (the uniform path's order)
+                out[lev] = self.cooling.apply(out[lev], beta_dt, cfg.fluid)
         return out
 
     def step(self, state, dt, c_h):
@@ -268,16 +276,25 @@ class SmrHydro:
 
     # ------------------------------------------------------------------- dt
     def estimate_dt(self, state):
-        """The hyperbolic CFL dt over every level's interior cells, as a
-        0-d tensor on the state's device."""
+        """The hyperbolic CFL dt over every level's interior cells, and the
+        cooling dt over them with cooling, as a 0-d tensor on the state's
+        device."""
         min_dt = None
+        prims = {}
         for lev, u in state.items():
             _, w = cons_to_prim(self.eos, u, self.cfg.fluid, self.cfg.nscalars)
+            prims[lev] = w
             m = torch.min(stage.raw_cfl_dt(w[self._int_sl],
                                            self.level_mesh[lev], self.cfg,
                                            self.eos, self._dirs))
             min_dt = m if min_dt is None else torch.minimum(min_dt, m)
-        return self.cfg.cfl * min_dt
+        dt = self.cfg.cfl * min_dt
+        if self.cooling is not None:
+            for lev, w in prims.items():
+                dt = torch.minimum(dt, torch.as_tensor(
+                    self.cooling.estimate_timestep(w, self.level_mesh[lev]),
+                    dtype=dt.dtype, device=dt.device))
+        return dt
 
     def dt_pack(self, state, tm_dt, t, tlim):
         """``[dt_raw, dt_eff, c_h]`` on the device, in the state's dtype:

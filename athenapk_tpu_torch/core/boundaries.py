@@ -12,6 +12,12 @@ x -> y -> z so edge and corner ghosts come out consistent.
 All functions act on conserved variables; reflecting therefore flips the
 sign of the normal momentum.  On the ghost-free layout (nghost = 0) the
 fill is the identity: the stencils' cyclic rolls are the boundary.
+
+Problem-registered boundary conditions (``RegisterBoundaryCondition``,
+reference ``main.cpp:129-140``; the JAX package's ``custom_bcs``): a face
+whose BC name is a key of ``custom_bcs`` calls ``fn(layer, ghost_slice,
+mesh, dirn, pos)``, which writes the ghost slab ``layer[ghost_slice]`` of
+the domain-boundary block layer in place.
 """
 
 from __future__ import annotations
@@ -55,7 +61,8 @@ def _bslice(blk_ax: int, pos: str):
     return tuple(idx)
 
 
-def apply_physical_dir(grid, mesh: Mesh, dirn: int, bc: str, pos: str):
+def apply_physical_dir(grid, mesh: Mesh, dirn: int, bc: str, pos: str,
+                       custom_bcs=None):
     """Apply one physical BC, in place, to the domain-boundary block layer
     of ``grid`` ([nb3, nb2, nb1, nvar, NZ, NY, NX])."""
     if bc == "periodic":
@@ -66,7 +73,9 @@ def apply_physical_dir(grid, mesh: Mesh, dirn: int, bc: str, pos: str):
     cs = lambda a, b: _cslice(cell_ax, a, b)  # noqa: E731
     layer = grid[_bslice(_BLK_AX[dirn], pos)]        # a view into grid
     ghost = cs(0, g) if pos == "inner" else cs(N - g, N)
-    if bc == "outflow":
+    if custom_bcs and bc in custom_bcs:
+        custom_bcs[bc](layer, ghost, mesh, dirn, pos)
+    elif bc == "outflow":
         edge = cs(g, g + 1) if pos == "inner" else cs(N - g - 1, N - g)
         layer[ghost] = layer[edge].expand_as(layer[ghost])
     elif bc == "reflecting":
@@ -80,7 +89,8 @@ def apply_physical_dir(grid, mesh: Mesh, dirn: int, bc: str, pos: str):
         raise ValueError(f"unknown boundary condition '{bc}'")
 
 
-def _fill_dir(grid, mesh: Mesh, dirn: int, inner_bc: str, outer_bc: str):
+def _fill_dir(grid, mesh: Mesh, dirn: int, inner_bc: str, outer_bc: str,
+              custom_bcs=None):
     """Exchange + physical BC along one direction, in place."""
     g = mesh.nghost
     cell_ax = _CELL_AX[dirn]
@@ -95,16 +105,19 @@ def _fill_dir(grid, mesh: Mesh, dirn: int, inner_bc: str, outer_bc: str):
                             dims=blk_ax)
     grid[_cslice(cell_ax, 0, g)] = from_left
     grid[_cslice(cell_ax, N - g, N)] = from_right
-    apply_physical_dir(grid, mesh, dirn, inner_bc, "inner")
-    apply_physical_dir(grid, mesh, dirn, outer_bc, "outer")
+    apply_physical_dir(grid, mesh, dirn, inner_bc, "inner", custom_bcs)
+    apply_physical_dir(grid, mesh, dirn, outer_bc, "outer", custom_bcs)
 
 
-def make_boundary_fn(mesh: Mesh) -> Callable:
-    """Build the ghost-fill function for this mesh (problem-registered
-    boundary conditions are not ported yet)."""
+def make_boundary_fn(mesh: Mesh, custom_bcs=None) -> Callable:
+    """Build the ghost-fill function for this mesh; ``custom_bcs``:
+    ``{bc_name: fn(layer, ghost_slice, mesh, dirn, pos)}`` for
+    problem-registered boundary conditions (the cloud's inflow)."""
     if mesh.nghost == 0:
         # ghost-free periodic layout (Mesh.__post_init__ validated
         # all-periodic single-block): the ghost fill is the identity
+        if custom_bcs:
+            raise ValueError("custom boundary conditions require nghost > 0")
         return lambda u: u
     nb3, nb2, nb1 = mesh.nb3, mesh.nb2, mesh.nb1
 
@@ -113,11 +126,11 @@ def make_boundary_fn(mesh: Mesh) -> Callable:
         copy (``u`` itself is left as it was)."""
         nvar = u.shape[1]
         grid = u.reshape(nb3, nb2, nb1, nvar, *mesh.block_shape).clone()
-        _fill_dir(grid, mesh, 1, mesh.ix1_bc, mesh.ox1_bc)
+        _fill_dir(grid, mesh, 1, mesh.ix1_bc, mesh.ox1_bc, custom_bcs)
         if mesh.nx2 > 1:
-            _fill_dir(grid, mesh, 2, mesh.ix2_bc, mesh.ox2_bc)
+            _fill_dir(grid, mesh, 2, mesh.ix2_bc, mesh.ox2_bc, custom_bcs)
         if mesh.nx3 > 1:
-            _fill_dir(grid, mesh, 3, mesh.ix3_bc, mesh.ox3_bc)
+            _fill_dir(grid, mesh, 3, mesh.ix3_bc, mesh.ox3_bc, custom_bcs)
         return grid.reshape(u.shape)
 
     return apply_boundaries

@@ -71,14 +71,32 @@
 //    (z) that owns its right cell; a compile-time switch, so the uniform
 //    instantiations carry no capture code.
 //
-// Plain C interface (loaded with ctypes): fused_stage(...) returns the
-// cudaError_t of the launch (0 on success); it never synchronises.
+// Passive scalars (nvar = 5 or 9 + nscalars), as in negdiv_sweep.cu: this
+// kernel keeps the fluid's compile-time variable count; its instantiation
+// for decks with scalars (SCAL) reads and writes the fluid rows of the
+// [nb, nvar, ...] states (runtime block stride) and writes each face's
+// mass flux per direction into three [nb, nz, ny, nx] arrays (entry c: the
+// face before cell c), by the column or segment that owns the face's
+// right cell, while the SCAL = false instantiations are the code without
+// scalars, unchanged; the scalar kernel launched
+// right after it on the same stream (stage_scalars) then does the scalar
+// rows of the same stage: prim = u0 / rho with rho the floored density
+// (eos/adiabatic.py), each direction's reconstruction and upwind flux
+// fd >= 0 ? fd * wl : fd * wr, -div(F) summed x, + y, + z, and the update
+// gam0 u0 + gam1 u1 + beta_dt (-div F); the scalar rows of prim_out and of
+// the face slabs too.  One thread per cell.
+//
+// Plain C interface (loaded with ctypes): fused_stage(...) and
+// stage_scalars(...) return the cudaError_t of the launch (0 on success);
+// they never synchronise.
 //
 // Translation units, as negdiv_sweep.cu's: the 6 reconstructions x 6
-// (fluid, solver) pairs x 2 face options x 2 dtypes make 144
-// instantiations; the source is compiled once per (reconstruction, dtype)
-// with -DHYDRO_UNIT_RECON=r -DHYDRO_UNIT_DTYPE=t, each unit defining
-// launch_recon<T, r>, and once without them for the C entry points.
+// (fluid, solver) pairs x 2 face options x 2 dtypes x 2 (without and with
+// scalars) make 288 instantiations (and the scalar kernel's 6 x 2 = 12);
+// the source is compiled once per (reconstruction, dtype, scalars) with
+// -DHYDRO_UNIT_RECON=r -DHYDRO_UNIT_DTYPE=t -DHYDRO_UNIT_SCAL=s, each unit
+// defining launch_recon<T, r, s>, and once per s for the C entry points
+// (-DHYDRO_ENTRY_SCAL=s); the units of one s link into one library.
 
 #include <cuda_runtime.h>
 
@@ -95,8 +113,9 @@ struct Args {
   void* dt_out;     // null: no CFL bound
   void* prim_out;   // null: no prim
   void* faces[3];   // null: no face capture
+  void* mflux[3];   // null: no mass-flux output (no scalars)
   int g_face;
-  int nb, nz, ny, nx;
+  int nb, nvar, nz, ny, nx;
   double dx1, dx2, dx3, gam0, gam1, beta_dt, c_h;
   double recon_dx2[3], recon_rdx2[3];   // per direction: dx^2, (0.1 dx)^2
   hydro::EosArgs eos;
@@ -168,8 +187,11 @@ inline Shape shape_of(int nb, int nz, int ny, int nx) {
 }
 
 // Defined by the unit of (T, RECON): dispatch over the solver.
-template <typename T, int RECON>
+template <typename T, int RECON, bool SCAL>
 cudaError_t launch_recon(int solver, const Args& a);
+// ... the scalar kernel of (T, RECON); nbase: the fluid's variable count
+template <typename T, int RECON>
+cudaError_t launch_scalars_recon(int nbase, const Args& a);
 
 }  // namespace stage
 
@@ -201,12 +223,22 @@ struct Scalars {
   ReconK<T> rk[3];      // the reconstruction's constants per direction
 };
 
-// Face output: per direction [nb, NV, A, B, 2] (x: A, B = z, y; y: z, x;
-// z: y, x), entry 0 at sweep index g, 1 at n - g; null pointers: none.
+// Face output: per direction [nb, nvar, A, B, 2] (x: A, B = z, y; y: z,
+// x; z: y, x), entry 0 at sweep index g, 1 at n - g; null pointers: none.
 template <typename T>
 struct Faces {
   T* d[3];
   int g;
+};
+
+// What a deck with scalars adds: the variables of the state (fluid +
+// scalars) and the mass flux per direction, [nb, nz, ny, nx] (entry c: the
+// face before cell c).  The last argument of the kernels, so that the
+// instantiations without scalars see the arguments they always had.
+template <typename T>
+struct ScalarArgs {
+  T* mf[3];
+  int nvar;
 };
 
 // Plane coordinates (y, x) of halo cell i: the x halo (TY rows of h cells
@@ -231,11 +263,12 @@ __device__ __forceinline__ void halo_coords(int i, int& y, int& x) {
 // (x) or added (y) to nd.  With FACES the faces at sweep index g and n - g
 // are written by the tile that owns their right cell.
 template <typename T, typename CL, int NV, int RECON, int SOLVER, int D,
-          bool FACES>
+          bool FACES, bool SCAL>
 __device__ __forceinline__ void plane_sweep(T* sm, T (&nd)[NV],
                                             const Params<T>& p,
                                             const ReconK<T>& rk, T idx,
-                                            T* faces, int g, const Shape& sh,
+                                            T* faces, T* mf, int nvar, int g,
+                                            const Shape& sh,
                                             int b, int zc, int y0, int x0,
                                             int vy, int vx) {
   constexpr int TX = CL::TX, H = CL::H, PX = CL::PX, PY = CL::PY;
@@ -300,6 +333,11 @@ __device__ __forceinline__ void plane_sweep(T* sm, T (&nd)[NV],
     riemann_flux<T, SOLVER, D>(wl, wr, p, F);
 #pragma unroll
     for (int v = 0; v < NV; ++v) fl_s[v * CL::NF + i] = F[v];
+    if constexpr (SCAL) {
+      if (x < vx && y < vy)
+        mf[(((long long)b * sh.nz + zc) * sh.ny + y0 + y) * sh.nx + x0 + x] =
+            F[IDN];
+    }
     if constexpr (FACES) {
       const int G = D == 1 ? x0 + x : y0 + y;   // the face's right cell
       const int n_d = D == 1 ? sh.nx : sh.ny;
@@ -307,7 +345,8 @@ __device__ __forceinline__ void plane_sweep(T* sm, T (&nd)[NV],
         const long long A = sh.nz;
         const long long B = D == 1 ? sh.ny : sh.nx;
         const long long bb = D == 1 ? y0 + y : x0 + x;
-        const long long o = (((long long)b * NV * A + zc) * B + bb) * 2
+        const long long o = (((long long)b * (SCAL ? nvar : NV) * A + zc)
+                             * B + bb) * 2
                             + (G == g ? 0 : 1);
 #pragma unroll
         for (int v = 0; v < NV; ++v) faces[o + 2 * v * A * B] = F[v];
@@ -334,14 +373,15 @@ __device__ __forceinline__ void plane_sweep(T* sm, T (&nd)[NV],
   }
 }
 
-template <typename T, int RECON, int SOLVER, bool FACES>
+template <typename T, int RECON, int SOLVER, bool FACES, bool SCAL>
 __global__ void __launch_bounds__(
     (Col<T, NVar<SOLVER>::value, RECON>::NT),
     (MinBlocks<T, RECON, SOLVER>::value))
 fused_stage_kernel(const T* __restrict__ u0, const T* __restrict__ u1,
                    T* __restrict__ out, T* __restrict__ dt_out,
                    T* __restrict__ prim_out, const Faces<T> fc,
-                   const Shape sh, const Params<T> p, const Scalars<T> sc) {
+                   const Shape sh, const Params<T> p, const Scalars<T> sc,
+                   const ScalarArgs<T> xs) {
   constexpr int NV = NVar<SOLVER>::value;
   using CL = Col<T, NV, RECON>;
   constexpr int TY = CL::TY, TX = CL::TX, NC = CL::NC, NT = CL::NT;
@@ -363,7 +403,7 @@ fused_stage_kernel(const T* __restrict__ u0, const T* __restrict__ u1,
   const int vx = min(TX, sh.nx - x0), vy = min(TY, sh.ny - y0);
   const long long s_var = (long long)sh.nz * sh.ny * sh.nx;
   const int b = blockIdx.y;
-  const long long base = (long long)b * NV * s_var;
+  const long long base = (long long)b * (SCAL ? xs.nvar : NV) * s_var;
   const int t = threadIdx.x;
   const bool has_cell = t < NC;
   const int ty = t / TX, tx = t % TX;
@@ -453,12 +493,14 @@ fused_stage_kernel(const T* __restrict__ u0, const T* __restrict__ u1,
     // accumulates in nd in the plain version's order (x, + y, + z)
     T nd[NV];
     if (zc >= zs) {
-      plane_sweep<T, CL, NV, RECON, SOLVER, 1, FACES>(
-          sm, nd, p, sc.rk[0], sc.idx1, fc.d[0], fc.g, sh, b, zc, y0, x0, vy,
-          vx);
-      plane_sweep<T, CL, NV, RECON, SOLVER, 2, FACES>(
-          sm, nd, p, sc.rk[1], sc.idx2, fc.d[1], fc.g, sh, b, zc, y0, x0, vy,
-          vx);
+      plane_sweep<T, CL, NV, RECON, SOLVER, 1, FACES, SCAL>(
+          sm, nd, p, sc.rk[0], sc.idx1, fc.d[0], xs.mf[0], xs.nvar, fc.g, sh,
+          b, zc,
+          y0, x0, vy, vx);
+      plane_sweep<T, CL, NV, RECON, SOLVER, 2, FACES, SCAL>(
+          sm, nd, p, sc.rk[1], sc.idx2, fc.d[1], xs.mf[1], xs.nvar, fc.g, sh,
+          b, zc,
+          y0, x0, vy, vx);
     }
 
     // 4. the z face between zc and zc + 1: edge states of plane zc + 1;
@@ -484,10 +526,16 @@ fused_stage_kernel(const T* __restrict__ u0, const T* __restrict__ u1,
     if (zc + 1 >= zs) {
       T F[NV];
       riemann_flux<T, SOLVER, 3>(wl, qm, p, F);
+      if constexpr (SCAL) {
+        if (own_xy && zc + 1 < ze)
+          xs.mf[2][(((long long)b * sh.nz + zc + 1) * sh.ny + y0 + ty) * sh.nx
+                   + x0 + tx] = F[IDN];
+      }
       if constexpr (FACES) {
         const int G = zc + 1;
         if (own_xy && G < ze && (G == fc.g || G == sh.nz - fc.g)) {
-          const long long o = (((long long)b * NV * sh.ny + y0 + ty) * sh.nx
+          const long long o = (((long long)b * (SCAL ? xs.nvar : NV) * sh.ny
+                                + y0 + ty) * sh.nx
                                + x0 + tx) * 2 + (G == fc.g ? 0 : 1);
 #pragma unroll
           for (int v = 0; v < NV; ++v)
@@ -531,14 +579,14 @@ fused_stage_kernel(const T* __restrict__ u0, const T* __restrict__ u1,
   }
 }
 
-template <typename T, int RECON, int SOLVER>
+template <typename T, int RECON, int SOLVER, bool SCAL>
 cudaError_t launch(const Args& a) {
   using CL = Col<T, NVar<SOLVER>::value, RECON>;
   static_assert(CL::TX == ColShape::TX && CL::TY == ColShape::TY,
                 "one column shape");
   static_assert(CL::SMEM <= 232448, "column exceeds a block's shared memory");
-  auto kernel = a.with_faces ? fused_stage_kernel<T, RECON, SOLVER, true>
-                             : fused_stage_kernel<T, RECON, SOLVER, false>;
+  auto kernel = a.with_faces ? fused_stage_kernel<T, RECON, SOLVER, true, SCAL>
+                             : fused_stage_kernel<T, RECON, SOLVER, false, SCAL>;
   cudaError_t err = cudaFuncSetAttribute(
       kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)CL::SMEM);
   if (err != cudaSuccess) return err;
@@ -560,25 +608,158 @@ cudaError_t launch(const Args& a) {
   for (int d = 0; d < 3; ++d)
     sc.rk[d] = make_recon_k<T>(a.recon_dx2[d], a.recon_rdx2[d]);
   Faces<T> fc;
-  for (int d = 0; d < 3; ++d) fc.d[d] = static_cast<T*>(a.faces[d]);
+  ScalarArgs<T> xs;
+  for (int d = 0; d < 3; ++d) {
+    fc.d[d] = static_cast<T*>(a.faces[d]);
+    xs.mf[d] = static_cast<T*>(a.mflux[d]);
+  }
   fc.g = a.g_face;
+  xs.nvar = a.nvar;
   dim3 grid(sh.ntx * sh.nty * sh.nseg, a.nb);
   kernel<<<grid, CL::NT, CL::SMEM, a.stream>>>(
       static_cast<const T*>(a.u0), static_cast<const T*>(a.u1),
       static_cast<T*>(a.out), static_cast<T*>(a.dt_out),
-      static_cast<T*>(a.prim_out), fc, sh, p, sc);
+      static_cast<T*>(a.prim_out), fc, sh, p, sc, xs);
   return cudaGetLastError();
 }
 
+// ------------------------------------------------------------ the scalars
+// 128 threads a block, and one resident block asked for: ptxas then keeps
+// every instantiation in registers (without the minimum it traded a few
+// spills for occupancy on f32 PLM and WENO-Z and f64 WENO3)
+constexpr int SCALAR_THREADS = 128;
+
+// The scalar rows nbase .. nvar - 1 of the stage, after the fluid launch
+// that wrote the mass fluxes: thread t takes cell t of the state (x
+// fastest).  Per scalar and direction: the primitive scalar u0[v] * (1 /
+// rho) (rho floored as cons_to_prim floors it) at the cell and its
+// neighbours along the direction (wrapped within the block), the edge
+// states of the cell and its two neighbours, the fluxes of its two faces
+// and -(F[c+1] - F[c]) / dx, summed x, + y, + z; then the update.  The
+// cells at sweep index g and n - g write their left face into the slab.
 template <typename T, int RECON>
+__global__ void __launch_bounds__(SCALAR_THREADS, 1)
+stage_scalars_kernel(const T* __restrict__ u0, const T* __restrict__ u1,
+                     T* __restrict__ out, T* __restrict__ prim_out,
+                     const Faces<T> fc, const Shape sh, const int nb,
+                     const int nbase, const Params<T> p, const Scalars<T> sc,
+                     const ScalarArgs<T> xs) {
+  constexpr int R = Halo<RECON>::h - 1;
+  const long long s_var = (long long)sh.nz * sh.ny * sh.nx;
+  const long long cell = (long long)blockIdx.x * SCALAR_THREADS + threadIdx.x;
+  if (cell >= (long long)nb * s_var) return;
+  const int b = (int)(cell / s_var);
+  const long long in_b = cell - (long long)b * s_var;
+  const int x = (int)(in_b % sh.nx);
+  const long long zy = in_b / sh.nx;
+  const int y = (int)(zy % sh.ny), z = (int)(zy / sh.ny);
+  const int cell_b = (int)in_b;   // a block has < 2^31 cells
+  const T* rho = u0 + (long long)b * xs.nvar * s_var;
+  const bool has_dfloor = p.has_dfloor;
+  const T dfloor = p.dfloor;
+  for (int v = nbase; v < xs.nvar; ++v) {
+    const long long row = ((long long)b * xs.nvar + v) * s_var;
+    T nd = T(0);
+    // one direction at a time, not unrolled: the three directions'
+    // stencils together would not fit in registers
+#pragma unroll 1
+    for (int d = 0; d < 3; ++d) {
+      const int c = d == 0 ? x : (d == 1 ? y : z);
+      const int n = d == 0 ? sh.nx : (d == 1 ? sh.ny : sh.nz);
+      const int stride = d == 0 ? 1 : (d == 1 ? sh.nx : sh.ny * sh.nx);
+      // the direction's constants picked field by field (a struct picked
+      // by a runtime index would go through local memory)
+      ReconK<T> rk;
+      rk.dx2 = d == 0 ? sc.rk[0].dx2 : (d == 1 ? sc.rk[1].dx2 : sc.rk[2].dx2);
+      rk.inv_rdx2 = d == 0 ? sc.rk[0].inv_rdx2
+                           : (d == 1 ? sc.rk[1].inv_rdx2 : sc.rk[2].inv_rdx2);
+      const int off = cell_b - c * stride;
+      T st[2 * R + 3];
+      int at[2 * R + 3];
+#pragma unroll
+      for (int o = 0; o < 2 * R + 3; ++o) {
+        at[o] = off + wrap_index(c - 1 - R + o, n) * stride;
+        T d_o = rho[at[o]];
+        if (has_dfloor) d_o = d_o < dfloor ? dfloor : d_o;
+        st[o] = u0[row + at[o]] * (T(1) / d_o);
+      }
+      T qm_l, qp_l, qm_c, qp_c, qm_r, qp_r;
+      cell_edges<T, RECON>(st, false, rk, qm_l, qp_l);
+      cell_edges<T, RECON>(st + 1, false, rk, qm_c, qp_c);
+      cell_edges<T, RECON>(st + 2, false, rk, qm_r, qp_r);
+      T* const fdir = d == 0 ? fc.d[0] : (d == 1 ? fc.d[1] : fc.d[2]);
+      const T* mf = (d == 0 ? xs.mf[0] : (d == 1 ? xs.mf[1] : xs.mf[2]))
+                    + (long long)b * s_var;
+      const T fdl = mf[at[R + 1]], fdr = mf[at[R + 2]];
+      const T fl = fdl >= T(0) ? fdl * qp_l : fdl * qm_c;
+      const T fr = fdr >= T(0) ? fdr * qp_c : fdr * qm_r;
+      const T idx = d == 0 ? sc.idx1 : (d == 1 ? sc.idx2 : sc.idx3);
+      const T res = -((fr - fl) * idx);
+      nd = d == 0 ? res : nd + res;
+      if (fdir != nullptr && (c == fc.g || c == n - fc.g)) {
+        // the slab's pencil index (x: z, y; y: z, x; z: y, x)
+        const long long q = d == 0 ? zy : (d == 1 ? (long long)z * sh.nx + x
+                                                  : (long long)y * sh.nx + x);
+        const long long npen = s_var / n;
+        fdir[(((long long)b * xs.nvar + v) * npen + q) * 2
+                + (c == fc.g ? 0 : 1)] = fl;
+      }
+    }
+    const T u0v = u0[row + in_b];
+    out[row + in_b] = sc.gam0 * u0v + sc.gam1 * u1[row + in_b]
+                      + sc.beta_dt * nd;
+    if (prim_out != nullptr) {
+      T d_c = rho[in_b];
+      if (has_dfloor) d_c = d_c < dfloor ? dfloor : d_c;
+      prim_out[row + in_b] = u0v * (T(1) / d_c);
+    }
+  }
+}
+
+template <typename T, int RECON>
+cudaError_t launch_scalars(int nbase, const Args& a) {
+  auto kernel = stage_scalars_kernel<T, RECON>;
+  if (a.query != nullptr) {
+    a.query[0] = 0;
+    return cudaOccupancyMaxActiveBlocksPerMultiprocessor(
+        &a.query[1], kernel, SCALAR_THREADS, 0);
+  }
+  Shape sh{};
+  sh.nz = a.nz; sh.ny = a.ny; sh.nx = a.nx;
+  const Params<T> p = make_params<T>(a.eos, a.c_h);
+  Scalars<T> sc;
+  sc.gam0 = T(a.gam0); sc.gam1 = T(a.gam1); sc.beta_dt = T(a.beta_dt);
+  sc.dx1 = T(a.dx1); sc.dx2 = T(a.dx2); sc.dx3 = T(a.dx3);
+  sc.idx1 = T(1) / sc.dx1; sc.idx2 = T(1) / sc.dx2; sc.idx3 = T(1) / sc.dx3;
+  sc.inf = std::numeric_limits<T>::infinity();
+  for (int d = 0; d < 3; ++d)
+    sc.rk[d] = make_recon_k<T>(a.recon_dx2[d], a.recon_rdx2[d]);
+  Faces<T> fc;
+  ScalarArgs<T> xs;
+  for (int d = 0; d < 3; ++d) {
+    fc.d[d] = static_cast<T*>(a.faces[d]);
+    xs.mf[d] = static_cast<T*>(a.mflux[d]);
+  }
+  fc.g = a.g_face;
+  xs.nvar = a.nvar;
+  const long long cells = (long long)a.nb * a.nz * a.ny * a.nx;
+  const unsigned blocks = (unsigned)((cells + SCALAR_THREADS - 1) / SCALAR_THREADS);
+  kernel<<<blocks, SCALAR_THREADS, 0, a.stream>>>(
+      static_cast<const T*>(a.u0), static_cast<const T*>(a.u1),
+      static_cast<T*>(a.out), static_cast<T*>(a.prim_out), fc, sh, a.nb,
+      nbase, p, sc, xs);
+  return cudaGetLastError();
+}
+
+template <typename T, int RECON, bool S>
 cudaError_t launch_solver(int solver, const Args& a) {
   switch (solver) {
-    case SOLVER_EULER_HLLE:  return launch<T, RECON, SOLVER_EULER_HLLE>(a);
-    case SOLVER_EULER_HLLC:  return launch<T, RECON, SOLVER_EULER_HLLC>(a);
-    case SOLVER_GLMMHD_HLLD: return launch<T, RECON, SOLVER_GLMMHD_HLLD>(a);
-    case SOLVER_EULER_LLF:   return launch<T, RECON, SOLVER_EULER_LLF>(a);
-    case SOLVER_GLMMHD_LLF:  return launch<T, RECON, SOLVER_GLMMHD_LLF>(a);
-    case SOLVER_GLMMHD_HLLE: return launch<T, RECON, SOLVER_GLMMHD_HLLE>(a);
+    case SOLVER_EULER_HLLE:  return launch<T, RECON, SOLVER_EULER_HLLE, S>(a);
+    case SOLVER_EULER_HLLC:  return launch<T, RECON, SOLVER_EULER_HLLC, S>(a);
+    case SOLVER_GLMMHD_HLLD: return launch<T, RECON, SOLVER_GLMMHD_HLLD, S>(a);
+    case SOLVER_EULER_LLF:   return launch<T, RECON, SOLVER_EULER_LLF, S>(a);
+    case SOLVER_GLMMHD_LLF:  return launch<T, RECON, SOLVER_GLMMHD_LLF, S>(a);
+    case SOLVER_GLMMHD_HLLE: return launch<T, RECON, SOLVER_GLMMHD_HLLE, S>(a);
   }
   return cudaErrorInvalidValue;
 }
@@ -593,33 +774,70 @@ cudaError_t launch_solver(int solver, const Args& a) {
 
 namespace stage {
 template <>
-cudaError_t launch_recon<HYDRO_UNIT_T, HYDRO_UNIT_RECON>(int solver,
-                                                         const Args& a) {
-  return launch_solver<HYDRO_UNIT_T, HYDRO_UNIT_RECON>(solver, a);
+cudaError_t launch_recon<HYDRO_UNIT_T, HYDRO_UNIT_RECON, HYDRO_UNIT_SCAL>(
+    int solver, const Args& a) {
+  return launch_solver<HYDRO_UNIT_T, HYDRO_UNIT_RECON, HYDRO_UNIT_SCAL>(solver,
+                                                                        a);
 }
+#if HYDRO_UNIT_SCAL
+template <>
+cudaError_t launch_scalars_recon<HYDRO_UNIT_T, HYDRO_UNIT_RECON>(
+    int nbase, const Args& a) {
+  return launch_scalars<HYDRO_UNIT_T, HYDRO_UNIT_RECON>(nbase, a);
+}
+#endif
 }  // namespace stage
 
 #else  // the entry points
 
+#ifndef HYDRO_ENTRY_SCAL
+#define HYDRO_ENTRY_SCAL 0
+#endif
+
 namespace stage {
 
 #define HYDRO_UNIT(T, R) \
-  template <> cudaError_t launch_recon<T, R>(int, const Args&);
+  template <> cudaError_t launch_recon<T, R, false>(int, const Args&); \
+  template <> cudaError_t launch_recon<T, R, true>(int, const Args&); \
+  template <> cudaError_t launch_scalars_recon<T, R>(int, const Args&);
 #define HYDRO_UNITS(T) \
   HYDRO_UNIT(T, 0) HYDRO_UNIT(T, 1) HYDRO_UNIT(T, 2) \
   HYDRO_UNIT(T, 3) HYDRO_UNIT(T, 4) HYDRO_UNIT(T, 5)
 HYDRO_UNITS(float)
 HYDRO_UNITS(double)
 
-template <typename T>
+template <typename T, bool S>
 cudaError_t launch_any(int recon, int solver, const Args& a) {
   switch (recon) {
-    case hydro::RECON_DC:    return launch_recon<T, hydro::RECON_DC>(solver, a);
-    case hydro::RECON_PLM:   return launch_recon<T, hydro::RECON_PLM>(solver, a);
-    case hydro::RECON_PPM:   return launch_recon<T, hydro::RECON_PPM>(solver, a);
-    case hydro::RECON_WENO3: return launch_recon<T, hydro::RECON_WENO3>(solver, a);
-    case hydro::RECON_LIMO3: return launch_recon<T, hydro::RECON_LIMO3>(solver, a);
-    case hydro::RECON_WENOZ: return launch_recon<T, hydro::RECON_WENOZ>(solver, a);
+    case hydro::RECON_DC:    return launch_recon<T, hydro::RECON_DC, S>(solver, a);
+    case hydro::RECON_PLM:   return launch_recon<T, hydro::RECON_PLM, S>(solver, a);
+    case hydro::RECON_PPM:   return launch_recon<T, hydro::RECON_PPM, S>(solver, a);
+    case hydro::RECON_WENO3: return launch_recon<T, hydro::RECON_WENO3, S>(solver, a);
+    case hydro::RECON_LIMO3: return launch_recon<T, hydro::RECON_LIMO3, S>(solver, a);
+    case hydro::RECON_WENOZ: return launch_recon<T, hydro::RECON_WENOZ, S>(solver, a);
+  }
+  return cudaErrorInvalidValue;
+}
+
+// The library's own family: the instantiations without scalars, or
+// (HYDRO_ENTRY_SCAL = 1, the library of decks with scalars) those that also
+// write the mass fluxes; each library holds one family and refuses the
+// other.
+template <typename T>
+cudaError_t launch_any(int recon, int solver, bool scal, const Args& a) {
+  if (scal != (HYDRO_ENTRY_SCAL != 0)) return cudaErrorInvalidValue;
+  return launch_any<T, (HYDRO_ENTRY_SCAL != 0)>(recon, solver, a);
+}
+
+template <typename T>
+cudaError_t launch_scalars_any(int recon, int nbase, const Args& a) {
+  switch (recon) {
+    case hydro::RECON_DC:    return launch_scalars_recon<T, hydro::RECON_DC>(nbase, a);
+    case hydro::RECON_PLM:   return launch_scalars_recon<T, hydro::RECON_PLM>(nbase, a);
+    case hydro::RECON_PPM:   return launch_scalars_recon<T, hydro::RECON_PPM>(nbase, a);
+    case hydro::RECON_WENO3: return launch_scalars_recon<T, hydro::RECON_WENO3>(nbase, a);
+    case hydro::RECON_LIMO3: return launch_scalars_recon<T, hydro::RECON_LIMO3>(nbase, a);
+    case hydro::RECON_WENOZ: return launch_scalars_recon<T, hydro::RECON_WENOZ>(nbase, a);
   }
   return cudaErrorInvalidValue;
 }
@@ -638,7 +856,10 @@ extern "C" int fused_stage_tiles(int nb, int nz, int ny, int nx) {
 // 2 = GLM-MHD HLLD, 3 = Euler LLF, 4 = GLM-MHD LLF, 5 = GLM-MHD HLLE.
 // recon: 0 = dc, 1 = plm, 2 = ppm, 3 = weno3, 4 = limo3, 5 = wenoz.  u0,
 // u1, out and prim_out: contiguous [nb, nvar, nz, ny, nx] on the current
-// device, nvar = 5 (Euler) or 9 (GLM-MHD); dt_out: nb *
+// device, nvar = 5 (Euler) or 9 (GLM-MHD) + the scalars, of which this
+// kernel reads and writes the fluid rows; with scalars mx, my, mz,
+// contiguous [nb, nz, ny, nx] each, get the mass flux of every x, y and z
+// face (entry c: the face before cell c), which stage_scalars reads; dt_out: nb *
 // fused_stage_tiles(nb, nz, ny, nx) values.
 // dt_out and prim_out may be null.  eos: gamma, density floor, pressure
 // floor, internal-energy floor, velocity ceiling, internal-energy ceiling
@@ -655,11 +876,14 @@ extern "C" int fused_stage(const void* u0, const void* u1, void* out,
                            double dx1, double dx2, double dx3, double gam0,
                            double gam1, double beta_dt, double c_h,
                            const double* eos, const double* recon_k,
-                           void* stream) {
+                           void* mx, void* my, void* mz, void* stream) {
   if (solver < 0 || solver > 5) return (int)cudaErrorInvalidValue;
   const int want = hydro::is_glmmhd(solver) ? 9 : 5;
   const bool any_faces = fx != nullptr || fy != nullptr || fz != nullptr;
-  if (nvar != want || nb <= 0 || nz <= 0 || ny <= 0 || nx <= 0
+  const bool mflux = mx != nullptr && my != nullptr && mz != nullptr;
+  if (nvar < want || (nvar > want) != mflux
+      || (!mflux && (mx != nullptr || my != nullptr || mz != nullptr))
+      || nb <= 0 || nz <= 0 || ny <= 0 || nx <= 0
       || (any_faces && (fx == nullptr || fy == nullptr || fz == nullptr
                         || g_face <= 0 || 2 * g_face >= nz
                         || 2 * g_face >= ny || 2 * g_face >= nx)))
@@ -667,7 +891,8 @@ extern "C" int fused_stage(const void* u0, const void* u1, void* out,
   stage::Args a;
   a.u0 = u0; a.u1 = u1; a.out = out; a.dt_out = dt_out; a.prim_out = prim_out;
   a.faces[0] = fx; a.faces[1] = fy; a.faces[2] = fz; a.g_face = g_face;
-  a.nb = nb; a.nz = nz; a.ny = ny; a.nx = nx;
+  a.mflux[0] = mx; a.mflux[1] = my; a.mflux[2] = mz;
+  a.nb = nb; a.nvar = nvar; a.nz = nz; a.ny = ny; a.nx = nx;
   a.dx1 = dx1; a.dx2 = dx2; a.dx3 = dx3;
   a.gam0 = gam0; a.gam1 = gam1; a.beta_dt = beta_dt; a.c_h = c_h;
   for (int d = 0; d < 3; ++d) {
@@ -678,22 +903,78 @@ extern "C" int fused_stage(const void* u0, const void* u1, void* out,
   a.stream = static_cast<cudaStream_t>(stream);
   a.with_faces = any_faces;
   a.query = nullptr;
-  if (dtype == 0) return (int)stage::launch_any<float>(recon, solver, a);
-  if (dtype == 1) return (int)stage::launch_any<double>(recon, solver, a);
+  if (dtype == 0) return (int)stage::launch_any<float>(recon, solver, mflux, a);
+  if (dtype == 1)
+    return (int)stage::launch_any<double>(recon, solver, mflux, a);
   return (int)cudaErrorInvalidValue;
 }
 
-// The instantiation fused_stage launches for (dtype, solver, recon, with
-// or without faces): out[0] = its dynamic shared memory in bytes, out[1] =
-// how many of its blocks (128 threads) the current device keeps resident
+#if HYDRO_ENTRY_SCAL
+// The scalar rows nbase .. nvar - 1 of the stage, after the fused_stage
+// launch (same stream, same arguments) that wrote mx, my and mz: u0, u1,
+// out, prim_out (may be null), fx, fy, fz (all null, or none), eos and
+// recon_k as fused_stage's.
+extern "C" int stage_scalars(const void* u0, const void* u1, void* out,
+                             void* prim_out, void* fx, void* fy, void* fz,
+                             int g_face, int dtype, int recon, int nb,
+                             int nvar, int nbase, int nz, int ny, int nx,
+                             double dx1, double dx2, double dx3, double gam0,
+                             double gam1, double beta_dt, const double* eos,
+                             const double* recon_k, const void* mx,
+                             const void* my, const void* mz, void* stream) {
+  const bool any_faces = fx != nullptr || fy != nullptr || fz != nullptr;
+  if ((nbase != 5 && nbase != 9) || nvar <= nbase || mx == nullptr
+      || my == nullptr || mz == nullptr || nb <= 0 || nz <= 0 || ny <= 0
+      || nx <= 0
+      || (any_faces && (fx == nullptr || fy == nullptr || fz == nullptr
+                        || g_face <= 0 || 2 * g_face >= nz
+                        || 2 * g_face >= ny || 2 * g_face >= nx)))
+    return (int)cudaErrorInvalidValue;
+  stage::Args a{};
+  a.u0 = u0; a.u1 = u1; a.out = out; a.prim_out = prim_out;
+  a.faces[0] = fx; a.faces[1] = fy; a.faces[2] = fz; a.g_face = g_face;
+  a.mflux[0] = const_cast<void*>(mx); a.mflux[1] = const_cast<void*>(my);
+  a.mflux[2] = const_cast<void*>(mz);
+  a.nb = nb; a.nvar = nvar; a.nz = nz; a.ny = ny; a.nx = nx;
+  a.dx1 = dx1; a.dx2 = dx2; a.dx3 = dx3;
+  a.gam0 = gam0; a.gam1 = gam1; a.beta_dt = beta_dt; a.c_h = 0.0;
+  for (int d = 0; d < 3; ++d) {
+    a.recon_dx2[d] = recon_k[2 * d];
+    a.recon_rdx2[d] = recon_k[2 * d + 1];
+  }
+  a.eos = hydro::EosArgs{eos[0], eos[1], eos[2], eos[3], eos[4], eos[5]};
+  a.stream = static_cast<cudaStream_t>(stream);
+  a.query = nullptr;
+  if (dtype == 0) return (int)stage::launch_scalars_any<float>(recon, nbase, a);
+  if (dtype == 1) return (int)stage::launch_scalars_any<double>(recon, nbase, a);
+  return (int)cudaErrorInvalidValue;
+}
+
+// The scalar kernel's instantiation for (dtype, recon): out[0] = its
+// dynamic shared memory (none), out[1] = its resident blocks (128 threads)
 // per SM.
+extern "C" int stage_scalars_occupancy(int dtype, int recon, int* out) {
+  stage::Args a{};
+  a.query = out;
+  if (dtype == 0) return (int)stage::launch_scalars_any<float>(recon, 5, a);
+  if (dtype == 1) return (int)stage::launch_scalars_any<double>(recon, 5, a);
+  return (int)cudaErrorInvalidValue;
+}
+#endif  // HYDRO_ENTRY_SCAL
+
+// The instantiation fused_stage launches for (dtype, solver, recon, with
+// or without faces, with or without scalars): out[0] = its dynamic shared
+// memory in bytes, out[1] = how many of its blocks (128 threads) the
+// current device keeps resident per SM.
 extern "C" int fused_stage_occupancy(int dtype, int solver, int recon,
-                                     int faces, int* out) {
+                                     int faces, int scal, int* out) {
   stage::Args a{};
   a.with_faces = faces != 0;
   a.query = out;
-  if (dtype == 0) return (int)stage::launch_any<float>(recon, solver, a);
-  if (dtype == 1) return (int)stage::launch_any<double>(recon, solver, a);
+  if (dtype == 0)
+    return (int)stage::launch_any<float>(recon, solver, scal != 0, a);
+  if (dtype == 1)
+    return (int)stage::launch_any<double>(recon, solver, scal != 0, a);
   return (int)cudaErrorInvalidValue;
 }
 

@@ -67,16 +67,39 @@
 //    pencil bundles to fill the card, else the extent is cut into segments
 //    (at least 8 steps each) until there are ~2048 blocks.
 //
-// Plain C interface (loaded with ctypes): negdiv_sweep(...) returns the
-// cudaError_t of the launch (0 on success); it never synchronises.
+// Passive scalars (nvar = 5 or 9 fluid variables + nscalars): the fluid
+// kernel keeps its compile-time variable count NV.  Its instantiation for
+// decks with scalars (template switch SCAL) reads the fluid rows of the
+// [nb, nvar, ...] state (runtime block and face-slab strides) and also
+// writes each face's mass flux (the Riemann solver's density flux) into a
+// [nb, nz, ny, nx] array, entry c the face before cell c; the scalar
+// kernel that the caller launches right after it on the same stream
+// (negdiv_scalars) reconstructs each scalar, takes the upwind flux
+// fd >= 0 ? fd * wl : fd * wr (riemann/solvers.py:_scalar_fluxes) and
+// writes or adds -(F[i+1] - F[i]) / dx and the scalar rows of the face
+// slab.  The SCAL = false instantiations are the code without scalars,
+// unchanged (a runtime stride and the store cost the stage kernel up to
+// 16 registers and 10-20 % of its time when every deck took them); no
+// template dimension follows the scalar count, so any count runs.  The
+// scalar kernel takes one thread per cell: a face's scalar edge states are
+// built by both cells beside it (1.5x the reconstructions), cheap beside
+// the fluid's solve.
+//
+// Plain C interface (loaded with ctypes): negdiv_sweep(...) and
+// negdiv_scalars(...) return the cudaError_t of the launch (0 on success);
+// they never synchronise.
 //
 // Translation units: the 6 reconstructions x 6 (fluid, solver) pairs x 3
-// directions x 2 dtypes make 216 instantiations, so the source is compiled
-// once per (reconstruction, dtype), with -DHYDRO_UNIT_RECON=r
-// -DHYDRO_UNIT_DTYPE=t (0 float, 1 double), each unit defining
-// launch_recon<T, r>, and once without them for the C entry points, which
-// dispatch to the units; the units compile in parallel and link into one
-// library (solver/sweep.py:build_library).
+// directions x 2 dtypes x 2 (without and with scalars) make 432
+// instantiations (and the scalar kernel's 6 x 3 x 2 = 36 small ones), so
+// the source is compiled once per (reconstruction, dtype, scalars), with
+// -DHYDRO_UNIT_RECON=r -DHYDRO_UNIT_DTYPE=t (0 float, 1 double)
+// -DHYDRO_UNIT_SCAL=s (0, 1), each unit defining launch_recon<T, r, s>
+// (and with s = 1 the scalar kernel's launch_scalars_recon<T, r>), and
+// once per s for the C entry points (-DHYDRO_ENTRY_SCAL=s), which dispatch
+// to the units; the units of one s compile in parallel and link into one
+// library, so a run without scalars never builds the other
+// (solver/sweep.py:build_library).
 
 #include <cuda_runtime.h>
 
@@ -88,8 +111,9 @@ struct Args {
   const void* prim;
   void* out;
   void* faces;      // null: no face capture
+  void* mflux;      // null: no mass-flux output (no scalars)
   int g_face;
-  int nb, nz, ny, nx;
+  int nb, nvar, nz, ny, nx;
   double dx, c_h;
   double recon_dx2, recon_rdx2;   // recon/schemes.py: dx^2, (0.1 dx)^2
   hydro::EosArgs eos;
@@ -98,9 +122,14 @@ struct Args {
   int* query;       // non-null: report, do not launch (negdiv_sweep_occupancy)
 };
 
-// Defined by the unit of (T, RECON): dispatch over direction and solver.
-template <typename T, int RECON>
+// Defined by the unit of (T, RECON, SCAL): dispatch over direction and
+// solver.
+template <typename T, int RECON, bool SCAL>
 cudaError_t launch_recon(int dir, int solver, const Args& a);
+// ... and over the direction of the scalar kernel (nbase: the fluid's
+// variable count, the first scalar's row)
+template <typename T, int RECON>
+cudaError_t launch_scalars_recon(int dir, int nbase, const Args& a);
 
 }  // namespace negdiv
 
@@ -165,14 +194,15 @@ struct Geom {
   long long s_plane;  // ny * nx
   long long s_var;
   long long s_block;
+  int nvar;           // variables of the state (fluid + scalars)
 };
 
-template <typename T, int RECON, int DIR, int SOLVER>
+template <typename T, int RECON, int DIR, int SOLVER, bool SCAL>
 __global__ void __launch_bounds__(NTHREADS, (MinBlocks<T, SOLVER>::value))
 negdiv_sweep_kernel(const T* __restrict__ prim, T* __restrict__ out,
                     T* __restrict__ faces, const Geom g, const Params<T> p,
                     const ReconK<T> rk, const T inv_dx, const int accumulate,
-                    const int g_face) {
+                    const int g_face, T* __restrict__ mflux) {
   constexpr int NV = NVar<SOLVER>::value;
   constexpr int H = Halo<RECON>::h;
   constexpr int R = H - 1;   // stencil radius of one cell's edge states
@@ -313,10 +343,18 @@ negdiv_sweep_kernel(const T* __restrict__ prim, T* __restrict__ out,
 
     if (face) {
       const int c = a - H0 + pc;   // the face's right cell, in [a, a + N]
+      // the mass flux for the scalar kernel, by the segment holding the
+      // face's right cell
+      if constexpr (SCAL) {
+        if (c < a + N)
+          mflux[base + b * (g.s_var - g.s_block)
+                + (long long)c * g.s_sweep] = F[IDN];
+      }
       // face capture, after the solve: the faces at sweep index g and n - g,
       // by the segment holding the face's right cell
       if (faces != nullptr && c < a + N && (c == g_face || c == n - g_face)) {
-        const long long o = ((long long)b * NV * g.npen + q) * 2
+        const long long o = ((long long)b * (SCAL ? g.nvar : NV) * g.npen
+                             + q) * 2
                             + (c == g_face ? 0 : 1);
 #pragma unroll
         for (int v = 0; v < NV; ++v) faces[o + 2LL * v * g.npen] = F[v];
@@ -336,14 +374,14 @@ negdiv_sweep_kernel(const T* __restrict__ prim, T* __restrict__ out,
   }
 }
 
-template <typename T, int RECON, int DIR, int SOLVER>
+template <typename T, int RECON, int DIR, int SOLVER, bool SCAL>
 cudaError_t launch(const Args& a) {
   constexpr int NV = NVar<SOLVER>::value;
   using S = Shape<DIR>;
   const size_t smem = sizeof(T) * smem_elems<DIR, NV, RECON>();
   static_assert(sizeof(T) * smem_elems<DIR, NV, RECON>() <= 232448,
                 "block exceeds a block's shared memory");
-  auto kernel = negdiv_sweep_kernel<T, RECON, DIR, SOLVER>;
+  auto kernel = negdiv_sweep_kernel<T, RECON, DIR, SOLVER, SCAL>;
   cudaError_t err = cudaFuncSetAttribute(
       kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
   if (err != cudaSuccess) return err;
@@ -354,9 +392,10 @@ cudaError_t launch(const Args& a) {
   }
   Geom g;
   g.nx = a.nx;
+  g.nvar = a.nvar;
   g.s_plane = (long long)a.ny * a.nx;
   g.s_var = (long long)a.nz * a.ny * a.nx;
-  g.s_block = NV * g.s_var;
+  g.s_block = a.nvar * g.s_var;
   if (DIR == 1) {
     g.n = a.nx; g.s_sweep = 1; g.npen = a.nz * a.ny;
   } else if (DIR == 2) {
@@ -389,29 +428,119 @@ cudaError_t launch(const Args& a) {
   dim3 grid((unsigned)bundles, nseg, 1);
   kernel<<<grid, NTHREADS, smem, a.stream>>>(
       static_cast<const T*>(a.prim), static_cast<T*>(a.out),
-      static_cast<T*>(a.faces), g, p, rk, inv_dx, a.accumulate, a.g_face);
+      static_cast<T*>(a.faces), g, p, rk, inv_dx, a.accumulate, a.g_face,
+      static_cast<T*>(a.mflux));
   return cudaGetLastError();
 }
 
+// ------------------------------------------------------------ the scalars
+constexpr int SCALAR_THREADS = 256;
+
+// -div(F) of the passive scalars along DIR, rows nbase .. nvar - 1, from
+// the mass flux of that direction: thread t takes cell t of the state (x
+// fastest) and, per scalar, the edge states of the cell and of its two
+// neighbours along DIR (wrapped within the block), the fluxes of its two
+// faces, and writes or adds -(F[c+1] - F[c]) / dx; the cell at sweep index
+// g or n - g also writes its left face into the face slab.
 template <typename T, int RECON, int DIR>
+__global__ void __launch_bounds__(SCALAR_THREADS, 1)
+negdiv_scalars_kernel(const T* __restrict__ prim, T* __restrict__ out,
+                      T* __restrict__ faces, const T* __restrict__ mflux,
+                      const Geom g, const int nbase, const ReconK<T> rk,
+                      const T inv_dx, const int accumulate, const int g_face) {
+  constexpr int R = Halo<RECON>::h - 1;
+  const long long cell = (long long)blockIdx.x * SCALAR_THREADS + threadIdx.x;
+  const long long nb = g.npen_all / g.npen;
+  if (cell >= nb * g.s_var) return;
+  const int b = (int)(cell / g.s_var);
+  const long long in_b = cell - (long long)b * g.s_var;   // z, y, x in the block
+  const int x = (int)(in_b % g.nx);
+  const long long zy = in_b / g.nx;
+  const int ny = (int)(g.s_plane / g.nx);
+  const int y = (int)(zy % ny), z = (int)(zy / ny);
+  const int c = DIR == 1 ? x : (DIR == 2 ? y : z);
+  const long long off = in_b - (long long)c * g.s_sweep;   // c = 0 on the line
+  // the face slab's pencil index (x: z, y; y: z, x; z: y, x)
+  const long long q = DIR == 1 ? zy : (DIR == 2 ? (long long)z * g.nx + x
+                                                : (long long)y * g.nx + x);
+  const int n = g.n;
+  long long at[2 * R + 3];   // stencil offsets: cells c - 1 - R .. c + 1 + R
+#pragma unroll
+  for (int o = 0; o < 2 * R + 3; ++o)
+    at[o] = off + (long long)wrap_index(c - 1 - R + o, n) * g.s_sweep;
+  const T* mf = mflux + (long long)b * g.s_var;
+  const T fdl = mf[at[R + 1]];   // the face before c
+  const T fdr = mf[at[R + 2]];   // the face before c + 1
+  const bool capture = faces != nullptr && (c == g_face || c == n - g_face);
+  for (int v = nbase; v < g.nvar; ++v) {
+    const T* r = prim + ((long long)b * g.nvar + v) * g.s_var;
+    T st[2 * R + 3];
+#pragma unroll
+    for (int o = 0; o < 2 * R + 3; ++o) st[o] = r[at[o]];
+    T qm_l, qp_l, qm_c, qp_c, qm_r, qp_r;
+    cell_edges<T, RECON>(st, false, rk, qm_l, qp_l);
+    cell_edges<T, RECON>(st + 1, false, rk, qm_c, qp_c);
+    cell_edges<T, RECON>(st + 2, false, rk, qm_r, qp_r);
+    const T fl = fdl >= T(0) ? fdl * qp_l : fdl * qm_c;
+    const T fr = fdr >= T(0) ? fdr * qp_c : fdr * qm_r;
+    const T res = -((fr - fl) * inv_dx);
+    T* dst = out + ((long long)b * g.nvar + v) * g.s_var + in_b;
+    *dst = accumulate ? *dst + res : res;
+    if (capture)
+      faces[(((long long)b * g.nvar + v) * g.npen + q) * 2
+            + (c == g_face ? 0 : 1)] = fl;
+  }
+}
+
+template <typename T, int RECON, int DIR>
+cudaError_t launch_scalars(int nbase, const Args& a) {
+  auto kernel = negdiv_scalars_kernel<T, RECON, DIR>;
+  if (a.query != nullptr) {
+    a.query[0] = 0;
+    return cudaOccupancyMaxActiveBlocksPerMultiprocessor(
+        &a.query[1], kernel, SCALAR_THREADS, 0);
+  }
+  Geom g;
+  g.nx = a.nx;
+  g.nvar = a.nvar;
+  g.s_plane = (long long)a.ny * a.nx;
+  g.s_var = (long long)a.nz * a.ny * a.nx;
+  g.s_block = a.nvar * g.s_var;
+  g.n = DIR == 1 ? a.nx : (DIR == 2 ? a.ny : a.nz);
+  g.s_sweep = DIR == 1 ? 1 : (DIR == 2 ? a.nx : g.s_plane);
+  g.npen = (int)(g.s_var / g.n);
+  g.npen_all = (long long)a.nb * g.npen;
+  g.seg_len = g.n;
+  const ReconK<T> rk = make_recon_k<T>(a.recon_dx2, a.recon_rdx2);
+  const T inv_dx = T(1) / T(a.dx);
+  const long long cells = (long long)a.nb * g.s_var;
+  const unsigned blocks = (unsigned)((cells + SCALAR_THREADS - 1) / SCALAR_THREADS);
+  kernel<<<blocks, SCALAR_THREADS, 0, a.stream>>>(
+      static_cast<const T*>(a.prim), static_cast<T*>(a.out),
+      static_cast<T*>(a.faces), static_cast<const T*>(a.mflux), g, nbase, rk,
+      inv_dx, a.accumulate, a.g_face);
+  return cudaGetLastError();
+}
+
+template <typename T, int RECON, int DIR, bool S>
 cudaError_t launch_solver(int solver, const Args& a) {
   switch (solver) {
-    case SOLVER_EULER_HLLE:  return launch<T, RECON, DIR, SOLVER_EULER_HLLE>(a);
-    case SOLVER_EULER_HLLC:  return launch<T, RECON, DIR, SOLVER_EULER_HLLC>(a);
-    case SOLVER_GLMMHD_HLLD: return launch<T, RECON, DIR, SOLVER_GLMMHD_HLLD>(a);
-    case SOLVER_EULER_LLF:   return launch<T, RECON, DIR, SOLVER_EULER_LLF>(a);
-    case SOLVER_GLMMHD_LLF:  return launch<T, RECON, DIR, SOLVER_GLMMHD_LLF>(a);
-    case SOLVER_GLMMHD_HLLE: return launch<T, RECON, DIR, SOLVER_GLMMHD_HLLE>(a);
+    case SOLVER_EULER_HLLE:  return launch<T, RECON, DIR, SOLVER_EULER_HLLE, S>(a);
+    case SOLVER_EULER_HLLC:  return launch<T, RECON, DIR, SOLVER_EULER_HLLC, S>(a);
+    case SOLVER_GLMMHD_HLLD: return launch<T, RECON, DIR, SOLVER_GLMMHD_HLLD, S>(a);
+    case SOLVER_EULER_LLF:   return launch<T, RECON, DIR, SOLVER_EULER_LLF, S>(a);
+    case SOLVER_GLMMHD_LLF:  return launch<T, RECON, DIR, SOLVER_GLMMHD_LLF, S>(a);
+    case SOLVER_GLMMHD_HLLE: return launch<T, RECON, DIR, SOLVER_GLMMHD_HLLE, S>(a);
   }
   return cudaErrorInvalidValue;
 }
 
-template <typename T, int RECON>
+template <typename T, int RECON, bool S>
 cudaError_t launch_dir(int dir, int solver, const Args& a) {
   switch (dir) {
-    case 1: return launch_solver<T, RECON, 1>(solver, a);
-    case 2: return launch_solver<T, RECON, 2>(solver, a);
-    case 3: return launch_solver<T, RECON, 3>(solver, a);
+    case 1: return launch_solver<T, RECON, 1, S>(solver, a);
+    case 2: return launch_solver<T, RECON, 2, S>(solver, a);
+    case 3: return launch_solver<T, RECON, 3, S>(solver, a);
   }
   return cudaErrorInvalidValue;
 }
@@ -426,33 +555,76 @@ cudaError_t launch_dir(int dir, int solver, const Args& a) {
 
 namespace negdiv {
 template <>
-cudaError_t launch_recon<HYDRO_UNIT_T, HYDRO_UNIT_RECON>(int dir, int solver,
-                                                         const Args& a) {
-  return launch_dir<HYDRO_UNIT_T, HYDRO_UNIT_RECON>(dir, solver, a);
+cudaError_t launch_recon<HYDRO_UNIT_T, HYDRO_UNIT_RECON, HYDRO_UNIT_SCAL>(
+    int dir, int solver, const Args& a) {
+  return launch_dir<HYDRO_UNIT_T, HYDRO_UNIT_RECON, HYDRO_UNIT_SCAL>(dir,
+                                                                     solver, a);
 }
+#if HYDRO_UNIT_SCAL
+template <>
+cudaError_t launch_scalars_recon<HYDRO_UNIT_T, HYDRO_UNIT_RECON>(
+    int dir, int nbase, const Args& a) {
+  switch (dir) {
+    case 1: return launch_scalars<HYDRO_UNIT_T, HYDRO_UNIT_RECON, 1>(nbase, a);
+    case 2: return launch_scalars<HYDRO_UNIT_T, HYDRO_UNIT_RECON, 2>(nbase, a);
+    case 3: return launch_scalars<HYDRO_UNIT_T, HYDRO_UNIT_RECON, 3>(nbase, a);
+  }
+  return cudaErrorInvalidValue;
+}
+#endif
 }  // namespace negdiv
 
 #else  // the entry points
 
+#ifndef HYDRO_ENTRY_SCAL
+#define HYDRO_ENTRY_SCAL 0
+#endif
+
 namespace negdiv {
 
 #define HYDRO_UNIT(T, R) \
-  template <> cudaError_t launch_recon<T, R>(int, int, const Args&);
+  template <> cudaError_t launch_recon<T, R, false>(int, int, const Args&); \
+  template <> cudaError_t launch_recon<T, R, true>(int, int, const Args&); \
+  template <> cudaError_t launch_scalars_recon<T, R>(int, int, const Args&);
 #define HYDRO_UNITS(T) \
   HYDRO_UNIT(T, 0) HYDRO_UNIT(T, 1) HYDRO_UNIT(T, 2) \
   HYDRO_UNIT(T, 3) HYDRO_UNIT(T, 4) HYDRO_UNIT(T, 5)
 HYDRO_UNITS(float)
 HYDRO_UNITS(double)
 
-template <typename T>
+template <typename T, bool S>
 cudaError_t launch_any(int recon, int dir, int solver, const Args& a) {
   switch (recon) {
-    case hydro::RECON_DC:    return launch_recon<T, hydro::RECON_DC>(dir, solver, a);
-    case hydro::RECON_PLM:   return launch_recon<T, hydro::RECON_PLM>(dir, solver, a);
-    case hydro::RECON_PPM:   return launch_recon<T, hydro::RECON_PPM>(dir, solver, a);
-    case hydro::RECON_WENO3: return launch_recon<T, hydro::RECON_WENO3>(dir, solver, a);
-    case hydro::RECON_LIMO3: return launch_recon<T, hydro::RECON_LIMO3>(dir, solver, a);
-    case hydro::RECON_WENOZ: return launch_recon<T, hydro::RECON_WENOZ>(dir, solver, a);
+    case hydro::RECON_DC:    return launch_recon<T, hydro::RECON_DC, S>(dir, solver, a);
+    case hydro::RECON_PLM:   return launch_recon<T, hydro::RECON_PLM, S>(dir, solver, a);
+    case hydro::RECON_PPM:   return launch_recon<T, hydro::RECON_PPM, S>(dir, solver, a);
+    case hydro::RECON_WENO3: return launch_recon<T, hydro::RECON_WENO3, S>(dir, solver, a);
+    case hydro::RECON_LIMO3: return launch_recon<T, hydro::RECON_LIMO3, S>(dir, solver, a);
+    case hydro::RECON_WENOZ: return launch_recon<T, hydro::RECON_WENOZ, S>(dir, solver, a);
+  }
+  return cudaErrorInvalidValue;
+}
+
+// The library's own family: the instantiations without scalars, or
+// (HYDRO_ENTRY_SCAL = 1, the library of decks with scalars) those that also
+// write the mass fluxes; each library holds one family and refuses the
+// other.
+template <typename T>
+cudaError_t launch_any(int recon, int dir, int solver, bool scal,
+                       const Args& a) {
+  if (scal != (HYDRO_ENTRY_SCAL != 0)) return cudaErrorInvalidValue;
+  return launch_any<T, (HYDRO_ENTRY_SCAL != 0)>(recon, dir, solver, a);
+}
+
+template <typename T>
+cudaError_t launch_scalars_any(int recon, int dir, int nbase, const Args& a) {
+  switch (recon) {
+    case hydro::RECON_DC:    return launch_scalars_recon<T, hydro::RECON_DC>(dir, nbase, a);
+    case hydro::RECON_PLM:   return launch_scalars_recon<T, hydro::RECON_PLM>(dir, nbase, a);
+    case hydro::RECON_PPM:   return launch_scalars_recon<T, hydro::RECON_PPM>(dir, nbase, a);
+    case hydro::RECON_WENO3: return launch_scalars_recon<T, hydro::RECON_WENO3>(dir, nbase, a);
+    case hydro::RECON_LIMO3: return launch_scalars_recon<T, hydro::RECON_LIMO3>(dir, nbase, a);
+    case hydro::RECON_WENOZ: return launch_scalars_recon<T, hydro::RECON_WENOZ>(dir, nbase, a);
   }
   return cudaErrorInvalidValue;
 }
@@ -463,7 +635,11 @@ cudaError_t launch_any(int recon, int dir, int solver, const Args& a) {
 // 2 = GLM-MHD HLLD, 3 = Euler LLF, 4 = GLM-MHD LLF, 5 = GLM-MHD HLLE.
 // recon: 0 = dc, 1 = plm, 2 = ppm, 3 = weno3, 4 = limo3, 5 = wenoz.  dir:
 // 1, 2, 3.  prim and out: contiguous [nb, nvar, nz, ny, nx] on the current
-// device, nvar = 5 (Euler) or 9 (GLM-MHD).  recon_dx2, recon_rdx2: dx^2 and
+// device, nvar = 5 (Euler) or 9 (GLM-MHD) + the scalars, of which this
+// kernel reads and writes the fluid rows; with scalars (nvar above the
+// fluid's) mflux, a contiguous [nb, nz, ny, nx], gets the mass flux of
+// each face (entry c: the face before cell c along dir), which
+// negdiv_scalars then reads.  recon_dx2, recon_rdx2: dx^2 and
 // (0.1 dx)^2 of the direction as the plain reconstruction computes them
 // (recon/schemes.py).  accumulate != 0 adds into out instead of writing
 // it.  faces (may be null): contiguous [nb, nvar, A, B, 2] of direction
@@ -474,16 +650,18 @@ extern "C" int negdiv_sweep(const void* prim, void* out, int dtype, int solver,
                             int ny, int nx, double dx, double gamma,
                             double c_h, double recon_dx2, double recon_rdx2,
                             int accumulate, void* faces, int g_face,
-                            void* stream) {
+                            void* mflux, void* stream) {
   if (solver < 0 || solver > 5) return (int)cudaErrorInvalidValue;
   const int want = hydro::is_glmmhd(solver) ? 9 : 5;
   const int n_dir = dir == 1 ? nx : (dir == 2 ? ny : nz);
-  if (nvar != want || nb <= 0 || nz <= 0 || ny <= 0 || nx <= 0
+  if (nvar < want || (nvar > want) != (mflux != nullptr) || nb <= 0
+      || nz <= 0 || ny <= 0 || nx <= 0
       || (faces != nullptr && (g_face <= 0 || 2 * g_face >= n_dir)))
     return (int)cudaErrorInvalidValue;
   negdiv::Args a;
-  a.prim = prim; a.out = out; a.faces = faces; a.g_face = g_face;
-  a.nb = nb; a.nz = nz; a.ny = ny; a.nx = nx;
+  a.prim = prim; a.out = out; a.faces = faces; a.mflux = mflux;
+  a.g_face = g_face;
+  a.nb = nb; a.nvar = nvar; a.nz = nz; a.ny = ny; a.nx = nx;
   a.dx = dx; a.c_h = c_h;
   a.recon_dx2 = recon_dx2; a.recon_rdx2 = recon_rdx2;
   // no floors here
@@ -492,21 +670,69 @@ extern "C" int negdiv_sweep(const void* prim, void* out, int dtype, int solver,
   a.accumulate = accumulate;
   a.stream = static_cast<cudaStream_t>(stream);
   a.query = nullptr;
-  if (dtype == 0) return (int)negdiv::launch_any<float>(recon, dir, solver, a);
-  if (dtype == 1) return (int)negdiv::launch_any<double>(recon, dir, solver, a);
+  const bool scal = nvar > want;
+  if (dtype == 0)
+    return (int)negdiv::launch_any<float>(recon, dir, solver, scal, a);
+  if (dtype == 1)
+    return (int)negdiv::launch_any<double>(recon, dir, solver, scal, a);
   return (int)cudaErrorInvalidValue;
 }
 
-// The instantiation negdiv_sweep launches for (dtype, solver, recon, dir):
-// out[0] = its dynamic shared memory in bytes, out[1] = how many of its
-// blocks (128 threads) the current device keeps resident per SM.
+// The instantiation negdiv_sweep launches for (dtype, solver, recon, dir,
+// with scalars or not): out[0] = its dynamic shared memory in bytes,
+// out[1] = how many of its blocks (128 threads) the current device keeps
+// resident per SM.
 extern "C" int negdiv_sweep_occupancy(int dtype, int solver, int recon,
-                                      int dir, int* out) {
+                                      int dir, int scal, int* out) {
   negdiv::Args a{};
   a.query = out;
-  if (dtype == 0) return (int)negdiv::launch_any<float>(recon, dir, solver, a);
-  if (dtype == 1) return (int)negdiv::launch_any<double>(recon, dir, solver, a);
+  if (dtype == 0)
+    return (int)negdiv::launch_any<float>(recon, dir, solver, scal != 0, a);
+  if (dtype == 1)
+    return (int)negdiv::launch_any<double>(recon, dir, solver, scal != 0, a);
   return (int)cudaErrorInvalidValue;
 }
+
+#if HYDRO_ENTRY_SCAL
+// The scalar rows nbase .. nvar - 1 of -div(F) along dir, after the
+// negdiv_sweep launch of the same direction (same stream) that wrote
+// mflux: prim, out and faces as negdiv_sweep's (the scalar rows of out
+// are written, or added to with accumulate != 0; those of faces written).
+extern "C" int negdiv_scalars(const void* prim, void* out, int dtype,
+                              int recon, int dir, int nb, int nvar, int nbase,
+                              int nz, int ny, int nx, double dx,
+                              double recon_dx2, double recon_rdx2,
+                              int accumulate, void* faces, int g_face,
+                              const void* mflux, void* stream) {
+  const int n_dir = dir == 1 ? nx : (dir == 2 ? ny : nz);
+  if ((nbase != 5 && nbase != 9) || nvar <= nbase || mflux == nullptr
+      || nb <= 0 || nz <= 0 || ny <= 0 || nx <= 0
+      || (faces != nullptr && (g_face <= 0 || 2 * g_face >= n_dir)))
+    return (int)cudaErrorInvalidValue;
+  negdiv::Args a{};
+  a.prim = prim; a.out = out; a.faces = faces;
+  a.mflux = const_cast<void*>(mflux); a.g_face = g_face;
+  a.nb = nb; a.nvar = nvar; a.nz = nz; a.ny = ny; a.nx = nx;
+  a.dx = dx; a.recon_dx2 = recon_dx2; a.recon_rdx2 = recon_rdx2;
+  a.accumulate = accumulate;
+  a.stream = static_cast<cudaStream_t>(stream);
+  a.query = nullptr;
+  if (dtype == 0) return (int)negdiv::launch_scalars_any<float>(recon, dir, nbase, a);
+  if (dtype == 1) return (int)negdiv::launch_scalars_any<double>(recon, dir, nbase, a);
+  return (int)cudaErrorInvalidValue;
+}
+
+// The scalar kernel's instantiation for (dtype, recon, dir): out[0] = its
+// dynamic shared memory (none), out[1] = its resident blocks (256 threads)
+// per SM.
+extern "C" int negdiv_scalars_occupancy(int dtype, int recon, int dir,
+                                        int* out) {
+  negdiv::Args a{};
+  a.query = out;
+  if (dtype == 0) return (int)negdiv::launch_scalars_any<float>(recon, dir, 5, a);
+  if (dtype == 1) return (int)negdiv::launch_scalars_any<double>(recon, dir, 5, a);
+  return (int)cudaErrorInvalidValue;
+}
+#endif  // HYDRO_ENTRY_SCAL
 
 #endif  // HYDRO_UNIT_RECON

@@ -19,14 +19,18 @@ state's dtype.
 refinement = static`` or ``adaptive`` to ``amr.driver.SmrSimulation`` (the
 JAX routing, ``athenapk_tpu/driver.py:515-518``).
 
+Tabular cooling (``<cooling> enable_cooling = tabular``) is built from
+``<units>`` and ``hydro/He_mass_fraction`` as the JAX driver builds it
+(``athenapk_tpu/driver.py:81-95``), and a problem's
+``register_boundary_conditions`` hook gives the ghost fill its boundary
+conditions.
+
 Not ported yet (``NotImplementedError``): hdf5 and rst outputs, tracers,
 restart (``-r``), profiler traces (``-t``), multi-device runs, diffusion,
-cooling, first-order flux correction, the ``weno3``/``limo3``/``wenoz``
-reconstructions, and the problems ``diffusion``, ``rand_blast``,
-``turbulence``, ``cloud`` and ``cluster`` (with their source terms and
-boundary hooks).  On a CUDA device the kernels take Euler with HLLE or HLLC
-and GLM-MHD with HLLD, without passive scalars; ``llf``, GLM-MHD ``hlle``
-and ``nscalars > 0`` run on the CPU only.
+and the problems ``diffusion``, ``rand_blast``, ``turbulence`` and
+``cluster`` (with their source terms).  On a CUDA device the kernels take
+every method of the decks (six reconstructions; Euler LLF, HLLE, HLLC;
+GLM-MHD LLF, HLLE, HLLD) with any number of passive scalars.
 """
 
 from __future__ import annotations
@@ -67,9 +71,6 @@ def check_unported(pin) -> None:
             for k in ("conduction", "viscosity", "resistivity")):
         raise NotImplementedError("diffusion is not ported to "
                                   "athenapk_tpu_torch yet")
-    if pin.get_or_add_string("cooling", "enable_cooling", "none") != "none":
-        raise NotImplementedError("cooling is not ported to "
-                                  "athenapk_tpu_torch yet")
     if pin.get_or_add_bool("tracers", "enabled", False):
         raise NotImplementedError("tracers are not ported to "
                                   "athenapk_tpu_torch yet")
@@ -79,6 +80,26 @@ def check_unported(pin) -> None:
             raise NotImplementedError(
                 f"<{blk}> file_type = {ftype}: {ftype} output is not ported "
                 "to athenapk_tpu_torch yet (hst is)")
+
+
+def make_cooling(pin):
+    """The deck's ``TabularCooling`` (``<cooling> enable_cooling =
+    tabular``, built from ``<units>`` and ``hydro/He_mass_fraction``), or
+    None."""
+    if pin.get_or_add_string("cooling", "enable_cooling", "none") \
+            != "tabular":
+        return None
+    from .srcterms.tabular_cooling import TabularCooling
+    from .utils.units import Units, mean_molecular_weights
+    if not (pin.has_block("units") and pin.has("hydro", "He_mass_fraction")):
+        raise ValueError("tabular cooling requires <units> block and "
+                         "hydro/He_mass_fraction")
+    units = Units(pin)
+    he_x = pin.get_real("hydro", "He_mass_fraction")
+    mu, _ = mean_molecular_weights(he_x)
+    mbar_over_kb = mu * units.mh() / units.k_boltzmann()
+    return TabularCooling(pin, units, pin.get_real("hydro", "gamma"), mu,
+                          he_x, mbar_over_kb)
 
 
 class Simulation:
@@ -114,7 +135,15 @@ class Simulation:
         if init_hook is not None:
             init_hook(pin)
         self.mesh = self._merge_blocks(pin, self.mesh)
-        self.pkg = HydroPackage(self.mesh, self.cfg, self.eos)
+        cooling = make_cooling(pin)
+        if cooling is not None and pin.has("cooling", "test_filename"):
+            cooling.test_cooling_table(pin)
+        custom_bcs = None
+        bc_hook = getattr(self.pgen, "register_boundary_conditions", None)
+        if bc_hook is not None:
+            custom_bcs = bc_hook(pin, self.mesh, self.cfg, self.eos)
+        self.pkg = HydroPackage(self.mesh, self.cfg, self.eos,
+                                cooling=cooling, custom_bcs=custom_bcs)
 
         t = "parthenon/time"
         self.tlim = pin.get_real(t, "tlim")
@@ -167,8 +196,9 @@ class Simulation:
     @staticmethod
     def _merge_blocks(pin, mesh):
         """A uniform mesh on one device solves as ONE mesh-spanning block,
-        ghost-free when every boundary is periodic (cyclic rolls are the
-        boundary; no ghost storage and no fill pass).
+        ghost-free when every boundary is periodic and the problem has no
+        boundary hook (cyclic rolls are the boundary; no ghost storage and
+        no fill pass).
 
         ``parthenon/mesh/merge_blocks = auto|true|false``: ``auto`` merges
         when the run has one device, and this port runs one device per
@@ -190,7 +220,10 @@ class Simulation:
             bcs |= {merged.ix2_bc, merged.ox2_bc}
         if merged.nx3 > 1:
             bcs |= {merged.ix3_bc, merged.ox3_bc}
-        if bcs == {"periodic"} and merged.nghost > 0:
+        has_bc_hook = getattr(
+            get_pgen(pin.get_string("job", "problem_id")),
+            "register_boundary_conditions", None) is not None
+        if bcs == {"periodic"} and not has_bc_hook and merged.nghost > 0:
             merged = dataclasses.replace(merged, nghost=0)
         return merged
 

@@ -4,10 +4,11 @@ The reference dispatches pgen callbacks by ``<job> problem_id``
 (``src/main.cpp:60-123``); each problem is a module exposing
 ``problem_generator(pin, mesh, cfg, eos) -> cons`` (a numpy array) plus
 optional hooks (``init_user_mesh_data``, ``history_columns``,
-``user_work_after_loop``).  Only the ported problems are listed; the others
-of the JAX package raise ``NotImplementedError``.  A deck with
-``nscalars > 0`` (``advection`` can carry scalars) runs on the CPU only: the
-CUDA kernels take no passive scalars yet.
+``user_work_after_loop``, ``register_boundary_conditions`` and its
+refined-mesh form, ``check_refinement_block``).  Only the ported problems
+are listed; the others of the JAX package raise ``NotImplementedError``.
+Decks with passive scalars (``advection``, ``cloud``) run on the CPU and on
+the card's kernels alike.
 """
 
 from importlib import import_module
@@ -23,10 +24,11 @@ _PGEN_MODULES = {
     "kh": "athenapk_tpu_torch.pgen.kh",
     "field_loop": "athenapk_tpu_torch.pgen.field_loop",
     "lw_implode": "athenapk_tpu_torch.pgen.lw_implode",
+    "cloud": "athenapk_tpu_torch.pgen.cloud",
 }
 
 # problem generators of the JAX package that this port does not have yet
-_NOT_PORTED = ("diffusion", "rand_blast", "turbulence", "cloud", "cluster")
+_NOT_PORTED = ("diffusion", "rand_blast", "turbulence", "cluster")
 
 
 def get_pgen(problem_id: str):

@@ -31,8 +31,15 @@ operations on the card; ``fofc_rescues`` counts those stages.
 State layout: conserved ``u`` is ``[nblocks, nvar, NZ, NY, NX]`` (ghost-
 inclusive); fluxes are co-indexed with cells (index i = face i-1/2).
 
+Tabular cooling (``cooling``, ``srcterms.TabularCooling``) acts after the
+Dedner source of every stage, on either path, and its dt joins
+``estimate_timestep``; a cooling deck does not take the dt-emitting stage
+(the bound would miss the cooling dt), as in the JAX package.
+Problem-registered boundary conditions (``custom_bcs``) go to the ghost
+fill (``core.boundaries.make_boundary_fn``).
+
 Not ported yet (the constructor raises ``NotImplementedError``):
-diffusion (and with it ``riemann = none``), cooling, problem source terms.
+diffusion (and with it ``riemann = none``), problem source terms.
 """
 
 from __future__ import annotations
@@ -187,9 +194,9 @@ class HydroPackage:
 
     def __init__(self, mesh: Mesh, cfg: HydroConfig, eos: EOS,
                  problem_source_unsplit: Optional[Callable] = None,
-                 diffusion=None, cooling=None):
+                 diffusion=None, cooling=None, custom_bcs=None):
         missing = [name for name, value in (
-            ("diffusion", diffusion), ("cooling", cooling),
+            ("diffusion", diffusion),
             ("problem source terms", problem_source_unsplit)) if value]
         if cfg.riemann == "none":
             missing.append("riemann 'none' (diffusion-only runs)")
@@ -199,7 +206,9 @@ class HydroPackage:
         self.mesh = mesh
         self.cfg = cfg
         self.eos = eos
-        self.apply_boundaries = make_boundary_fn(mesh)
+        self.cooling = cooling    # TabularCooling or None
+        self.custom_bcs = custom_bcs
+        self.apply_boundaries = make_boundary_fn(mesh, custom_bcs)
 
         check_reflecting_mhd(mesh, cfg.fluid)
         if cfg.fluid == GLMMHD and cfg.riemann == "hllc":
@@ -258,10 +267,12 @@ class HydroPackage:
     def _use_fused_stage_dt(self):
         """May the last stage emit the next dt?  Needs the whole-stage rung
         and a dt estimate that is the pure hyperbolic CFL bound over every
-        cell: ghost-free layout, hyperbolic dt enabled, and no epilogue that
-        reads prim (it would change the state after the bound was taken)."""
+        cell: ghost-free layout, hyperbolic dt enabled, no cooling dt, and
+        no epilogue that reads prim (it would change the state after the
+        bound was taken)."""
         return (self._use_fused_stage() and self.mesh.nghost == 0
-                and self.cfg.calc_dt_hyp and not self._stage_needs_prim())
+                and self.cfg.calc_dt_hyp and self.cooling is None
+                and not self._stage_needs_prim())
 
     def _fused_stage_update(self, u0, u1, gam0, gam1, beta_dt, c_h,
                             recon: str, emit_dt: bool = False):
@@ -280,6 +291,8 @@ class HydroPackage:
             # the plain source needs no prim, the extended one reads the
             # kernel's
             u_new = self._dedner_source(u_new, prim, beta_dt, c_h)
+        if self.cooling is not None:
+            u_new = self.cooling.apply(u_new, beta_dt, self.cfg.fluid)
         u_new = self.apply_boundaries(u_new)
         return (u_new, raw_dt) if emit_dt else u_new
 
@@ -369,6 +382,8 @@ class HydroPackage:
                 - beta_dt * self._flux_divergence(fluxes)
         if self.cfg.fluid == GLMMHD:
             u_new = self._dedner_source(u_new, prim, beta_dt, c_h)
+        if self.cooling is not None:
+            u_new = self.cooling.apply(u_new, beta_dt, self.cfg.fluid)
         return self.apply_boundaries(u_new)
 
     def step(self, u, dt, c_h, emit_dt: bool = False):
@@ -441,14 +456,22 @@ class HydroPackage:
     # ------------------------------------------------------------------- dt
     def estimate_timestep(self, prim):
         """Hyperbolic CFL timestep (``EstimateTimestep``,
-        ``src/hydro/hydro.cpp:914-976``) with the max_dt cap.  Returns
-        ``(dt_full, dt_hyp, dt_diff)`` as floats; dt_diff is inf (no
-        diffusion in this port yet)."""
+        ``src/hydro/hydro.cpp:914-976``), the cooling dt and the max_dt
+        cap.  Returns ``(dt_full, dt_hyp, dt_diff)`` as floats; dt_diff is
+        inf (no diffusion in this port yet)."""
         cfg = self.cfg
         w = prim[self.mesh.interior_slices]
-        dt_hyp = cfg.cfl * float(torch.min(stage.raw_cfl_dt(
-            w, self.mesh, cfg, self.eos, self._active_dirs)))
+        mins = torch.min(stage.raw_cfl_dt(
+            w, self.mesh, cfg, self.eos, self._active_dirs)).reshape(1)
+        dt_cool = math.inf if self.cooling is None \
+            else self.cooling.estimate_timestep(prim, self.mesh)
+        if torch.is_tensor(dt_cool):
+            # both minima in one read of the host
+            mins = torch.cat([mins, dt_cool.to(mins.dtype).reshape(1)])
+        mins = mins.tolist()
+        dt_hyp = cfg.cfl * mins[0]
         dt = dt_hyp if cfg.calc_dt_hyp else math.inf
+        dt = min(dt, mins[1] if torch.is_tensor(dt_cool) else dt_cool)
         if cfg.max_dt > 0.0:
             dt = min(dt, cfg.max_dt)
         return dt, dt_hyp, math.inf

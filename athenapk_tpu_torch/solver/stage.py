@@ -22,6 +22,10 @@ shift wraps within a block, as in ``solver/sweep.py``.
 * ``fused_stage`` — takes the plain version for a CPU tensor and the kernel
   for any other; it never falls back from one to the other.
 
+Passive scalars: the stage launch also writes every face's mass flux, and
+the scalar kernel of the same source (``stage_scalars_cuda``) then does
+the scalar rows of the stage; ``stage_scalars_plain`` is its plain twin.
+
 The refined-mesh form, counterpart of ``make_fused_stage_faces``: on
 ghosted 3-D blocks, the stage plus each direction's Riemann fluxes at the
 block's two interior boundary faces (``sweep.boundary_faces``), which the
@@ -103,51 +107,122 @@ def stage_faces_plain(u0, u1, gam0, gam1, beta_dt, c_h, mesh, cfg, eos, recon,
             sweep.boundary_faces(fluxes, mesh))
 
 
+def stage_scalars_plain(u0, u1, mfluxes, gam0, gam1, beta_dt, mesh, cfg, eos,
+                        recon):
+    """The scalar rows of the stage from the three directions' mass fluxes
+    (``{d: [nb, NZ, NY, NX]}``): ``(u_new, prim)`` of those rows, each
+    ``[nb, nscalars, NZ, NY, NX]``.  The plain twin of the scalar kernel
+    (what ``stage_plain`` computes for those rows)."""
+    nb0 = sweep.scalar_base(cfg)
+    u_d = u0[:, IDN:IDN + 1]
+    if eos.density_floor > 0.0:
+        u_d = torch.clamp(u_d, min=eos.density_floor)
+    w = u0[:, nb0:] * (1.0 / u_d)
+    prim = torch.cat([u0[:, :nb0], w], dim=1)
+    negdiv = None
+    for d in (1, 2, 3):
+        nd, _ = sweep.negdiv_scalars_plain(prim, mfluxes[d], d, mesh, cfg,
+                                           recon)
+        negdiv = nd if negdiv is None else negdiv + nd
+    return gam0 * u0[:, nb0:] + gam1 * u1[:, nb0:] + beta_dt * negdiv, w
+
+
 # ------------------------------------------------------------------- CUDA
-_lib = None
+_libs = {}
 
 
-def build_library():
+def build_library(scalars=False):
     """Compile ``csrc/fused_stage.cu`` (see ``sweep.build_library``)."""
-    return sweep.build_library(CSRC)
+    return sweep.build_library(CSRC, scalars)
 
 
-def _library():
-    global _lib
-    if _lib is None:
-        path, _ = build_library()
+def _library(scalars=False):
+    """The loaded library of decks without scalars or (``scalars``) of
+    decks with scalars, built at first use."""
+    scalars = bool(scalars)
+    if scalars not in _libs:
+        path, _ = build_library(scalars)
         lib = ctypes.CDLL(str(path))
         lib.fused_stage.argtypes = [ctypes.c_void_p] * 8 \
             + [ctypes.c_int] * 9 + [ctypes.c_double] * 7 \
-            + [ctypes.POINTER(ctypes.c_double)] * 2 + [ctypes.c_void_p]
+            + [ctypes.POINTER(ctypes.c_double)] * 2 + [ctypes.c_void_p] * 4
         lib.fused_stage.restype = ctypes.c_int
+        if scalars:
+            lib.stage_scalars.argtypes = [ctypes.c_void_p] * 7 \
+                + [ctypes.c_int] * 9 + [ctypes.c_double] * 6 \
+                + [ctypes.POINTER(ctypes.c_double)] * 2 \
+                + [ctypes.c_void_p] * 4
+            lib.stage_scalars.restype = ctypes.c_int
+            lib.stage_scalars_occupancy.argtypes = [ctypes.c_int] * 2 \
+                + [ctypes.POINTER(ctypes.c_int)]
+            lib.stage_scalars_occupancy.restype = ctypes.c_int
         lib.fused_stage_tiles.argtypes = [ctypes.c_int] * 4
         lib.fused_stage_tiles.restype = ctypes.c_int
-        lib.fused_stage_occupancy.argtypes = [ctypes.c_int] * 4 \
+        lib.fused_stage_occupancy.argtypes = [ctypes.c_int] * 5 \
             + [ctypes.POINTER(ctypes.c_int)]
         lib.fused_stage_occupancy.restype = ctypes.c_int
-        _lib = lib
-    return _lib
+        _libs[scalars] = lib
+    return _libs[scalars]
 
 
-def kernel_occupancy(dtype, solver, recon, faces):
+def kernel_occupancy(dtype, solver, recon, faces, scal=0):
     """``(dynamic shared memory in bytes, resident blocks per SM)`` of the
     instantiation the stage kernel launches for the kernel codes ``dtype``,
     ``solver``, ``recon`` (``sweep.KERNEL_DTYPES`` ... values), with or
-    without ``faces``, on the current card; a block is 128 threads."""
+    without ``faces``, for a deck without (``scal = 0``) or with scalars,
+    on the current card; a block is 128 threads."""
     out = (ctypes.c_int * 2)()
-    rc = _library().fused_stage_occupancy(dtype, solver, recon, int(faces),
-                                          out)
+    rc = _library(scal).fused_stage_occupancy(dtype, solver, recon,
+                                              int(faces), int(scal), out)
     if rc != 0:
         raise RuntimeError(f"fused_stage_occupancy failed with cudaError {rc}")
     return out[0], out[1]
 
 
+def stage_scalars_cuda(u0, u1, u_new, prim, slabs, mfluxes, gam0, gam1,
+                       beta_dt, mesh, cfg, eos, recon):
+    """The scalar rows of the stage by the scalar kernel, after the stage
+    launch (same stream) wrote the mass fluxes ``mfluxes`` (``{d:
+    tensor}``): writes the scalar rows of ``u_new``, ``prim`` and the face
+    ``slabs`` (either may be None).  ``stage_scalars_cuda.launches``
+    counts the launches."""
+    nb, nvar, nz, ny, nx = u0.shape
+    rc = _library(True).stage_scalars(
+        u0.data_ptr(), u1.data_ptr(), u_new.data_ptr(),
+        prim.data_ptr() if prim is not None else None,
+        *(slabs[d].data_ptr() if slabs else None for d in (1, 2, 3)),
+        mesh.nghost if slabs else 0, sweep.KERNEL_DTYPES[u0.dtype],
+        sweep.KERNEL_RECONS[recon], nb, nvar, sweep.scalar_base(cfg), nz, ny,
+        nx, float(mesh.dx1), float(mesh.dx2), float(mesh.dx3), float(gam0),
+        float(gam1), float(beta_dt), _eos_args(eos), _recon_k(mesh),
+        *(mfluxes[d].data_ptr() for d in (1, 2, 3)),
+        torch.cuda.current_stream(u0.device).cuda_stream)
+    if rc != 0:
+        raise RuntimeError(f"stage_scalars launch failed with cudaError {rc}")
+    stage_scalars_cuda.launches += 1
+
+
+stage_scalars_cuda.launches = 0
+
+
+def _eos_args(eos):
+    return (ctypes.c_double * 6)(
+        eos.gamma, eos.density_floor, eos.pressure_floor,
+        eos.internal_e_floor, eos.velocity_ceiling, eos.internal_e_ceiling)
+
+
+def _recon_k(mesh):
+    return (ctypes.c_double * 6)(*(
+        k for d in (1, 2, 3) for k in sweep.recon_constants(
+            float(mesh.dx[d - 1]))))
+
+
 def _stage_launch(name, u0, u1, gam0, gam1, beta_dt, c_h, mesh, cfg, eos,
                   recon, emit_dt, emit_prim, faces):
-    """One launch of the stage kernel on the current stream; returns
-    ``(u_new, raw_dt or None, prim or None, faces or None)``, ``faces``
-    allocated here when asked for."""
+    """One launch of the stage kernel on the current stream (and, with
+    scalars, one of the scalar kernel after it); returns ``(u_new, raw_dt
+    or None, prim or None, faces or None)``, ``faces`` allocated here when
+    asked for."""
     sweep.check_kernel_config(cfg, recon)
     _check_layout(mesh, emit_dt)
     sweep.check_kernel_tensor(name, u0, mesh, cfg)
@@ -156,7 +231,7 @@ def _stage_launch(name, u0, u1, gam0, gam1, beta_dt, c_h, mesh, cfg, eos,
             or u1.shape != u0.shape:
         raise ValueError(f"{name}: u0 and u1 must agree in shape, dtype "
                          "and device")
-    lib = _library()
+    lib = _library(cfg.nscalars > 0)
     nb, nvar, nz, ny, nx = u0.shape
     u_new = torch.empty_like(u0)
     raw_dt = torch.empty(nb * lib.fused_stage_tiles(nb, nz, ny, nx),
@@ -165,12 +240,9 @@ def _stage_launch(name, u0, u1, gam0, gam1, beta_dt, c_h, mesh, cfg, eos,
     slabs = {d: torch.empty(sweep.face_shape(u0, d), dtype=u0.dtype,
                             device=u0.device) for d in (1, 2, 3)} \
         if faces else None
-    eos_args = (ctypes.c_double * 6)(
-        eos.gamma, eos.density_floor, eos.pressure_floor,
-        eos.internal_e_floor, eos.velocity_ceiling, eos.internal_e_ceiling)
-    recon_k = (ctypes.c_double * 6)(*(
-        k for d in (1, 2, 3) for k in sweep.recon_constants(
-            float(mesh.dx[d - 1]))))
+    mfluxes = {d: torch.empty((nb, nz, ny, nx), dtype=u0.dtype,
+                              device=u0.device) for d in (1, 2, 3)} \
+        if cfg.nscalars else None
     with torch.cuda.device(u0.device):
         rc = lib.fused_stage(
             u0.data_ptr(), u1.data_ptr(), u_new.data_ptr(),
@@ -182,10 +254,16 @@ def _stage_launch(name, u0, u1, gam0, gam1, beta_dt, c_h, mesh, cfg, eos,
             sweep.KERNEL_SOLVERS[cfg.fluid, cfg.riemann],
             sweep.KERNEL_RECONS[recon], nb, nvar, nz, ny, nx,
             float(mesh.dx1), float(mesh.dx2), float(mesh.dx3), float(gam0),
-            float(gam1), float(beta_dt), float(c_h), eos_args, recon_k,
+            float(gam1), float(beta_dt), float(c_h), _eos_args(eos),
+            _recon_k(mesh),
+            *(mfluxes[d].data_ptr() if mfluxes else None for d in (1, 2, 3)),
             torch.cuda.current_stream(u0.device).cuda_stream)
-    if rc != 0:
-        raise RuntimeError(f"fused_stage launch failed with cudaError {rc}")
+        if rc != 0:
+            raise RuntimeError(f"fused_stage launch failed with cudaError "
+                               f"{rc}")
+        if mfluxes:
+            stage_scalars_cuda(u0, u1, u_new, prim, slabs, mfluxes, gam0,
+                               gam1, beta_dt, mesh, cfg, eos, recon)
     return u_new, raw_dt, prim, slabs
 
 

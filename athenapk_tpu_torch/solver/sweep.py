@@ -20,6 +20,12 @@ the ghost-free layout and lands in the ghost rim otherwise.
 * ``fused_negdiv`` — takes the plain version for a CPU tensor and the
   kernel for a CUDA tensor; it never falls back from one to the other.
 
+Passive scalars (``cfg.nscalars > 0``): each direction's fluid launch also
+writes the face mass fluxes, and a second hand-written kernel of the same
+source, ``negdiv_scalars_cuda``, does the scalar rows from them (upwind
+fluxes of the reconstructed scalars, as ``riemann/solvers.py``'s
+``_scalar_fluxes``); ``negdiv_scalars_plain`` is its plain twin.
+
 The refined-mesh form (counterpart of ``make_fused_negdiv_faces_v2``, 3-D
 and 2-D, and of ``make_lane_sweep_negdiv_faces`` as composed by
 ``make_fused_negdiv_faces``) also returns, per active direction d, the
@@ -46,7 +52,8 @@ from pathlib import Path
 
 import torch
 
-from ..core.indices import AXIS_X, AXIS_Y, AXIS_Z, EULER, GLMMHD
+from ..core.indices import (AXIS_X, AXIS_Y, AXIS_Z, EULER, GLMMHD,
+                            NGLMMHD, NHYDRO)
 from ..recon import positivity_mask, reconstruct, schemes
 from ..riemann import solve_riemann
 
@@ -138,6 +145,28 @@ def negdiv_faces_plain(prim, c_h, mesh, cfg, eos, recon):
     return -flux_divergence(fluxes, mesh), boundary_faces(fluxes, mesh)
 
 
+def scalar_base(cfg):
+    """The first scalar's row: the fluid's variable count."""
+    return NGLMMHD if cfg.fluid == GLMMHD else NHYDRO
+
+
+def negdiv_scalars_plain(prim, mflux, d, mesh, cfg, recon):
+    """The scalar rows of direction ``d``'s -(F[i+1] - F[i]) / dx and of
+    its co-indexed fluxes, from that direction's mass flux ``mflux``
+    ([nb, NZ, NY, NX], index i the face i-1/2): ``(negdiv, fluxes)``, each
+    ``[nb, nscalars, NZ, NY, NX]``.  The plain twin of the scalar kernel
+    (what ``directional_flux`` and ``flux_divergence`` compute for those
+    rows)."""
+    axis = AXIS_OF_DIR[d]
+    q = prim[:, scalar_base(cfg):]
+    qm, qp = reconstruct(recon, q, axis, mesh.dx[d - 1],
+                         positivity_mask=[False] * q.shape[1])
+    wl = torch.roll(qp, 1, dims=axis)
+    fd = mflux[:, None]
+    F = torch.where(fd >= 0.0, fd * wl, fd * qm)
+    return -((torch.roll(F, -1, dims=axis) - F) / mesh.dx[d - 1]), F
+
+
 def face_shape(q, d):
     """Shape of direction ``d``'s face slab of a state ``q``."""
     nb, nvar, nz, ny, nx = q.shape
@@ -157,26 +186,35 @@ def _nvcc():
     return nvcc
 
 
-def build_units():
+def build_units(scalars=False):
     """The translation units of a kernel source: ``-D`` flags of one unit
-    per (reconstruction, dtype) and, first, the entry points' (none)."""
-    return [()] + [(f"-DHYDRO_UNIT_RECON={r}", f"-DHYDRO_UNIT_DTYPE={t}")
-                   for r in KERNEL_RECONS.values()
-                   for t in KERNEL_DTYPES.values()]
+    per (reconstruction, dtype) and, first, the entry points', for the
+    library of decks without scalars or (``scalars``) the one of decks
+    with scalars."""
+    s = int(bool(scalars))
+    return [(f"-DHYDRO_ENTRY_SCAL={s}",)] + [
+        (f"-DHYDRO_UNIT_RECON={r}", f"-DHYDRO_UNIT_DTYPE={t}",
+         f"-DHYDRO_UNIT_SCAL={s}")
+        for r in KERNEL_RECONS.values() for t in KERNEL_DTYPES.values()]
 
 
-def build_library(source=None):
+def build_library(source=None, scalars=False):
     """Compile one kernel source of ``csrc/`` (default: the sweep's) for
     sm_90a into ``build/``, keyed by the hash of the source and of the
-    header it includes, so editing either rebuilds.  Each unit of
-    ``build_units`` is one ``nvcc`` process, all started together; the
-    objects link into one library.  Returns ``(path, compiler_log)``; the
-    log holds ptxas' register and shared memory report."""
+    header it includes, so editing either rebuilds.  Each source makes two
+    libraries: the kernels without scalars, and (``scalars``,
+    ``lib<name>_scalars_<hash>.so``) the fluid kernels' instantiations for
+    decks with scalars with the scalar kernels, built and loaded only when
+    a deck has scalars.  Each unit of ``build_units`` is one ``nvcc``
+    process, all started together; the objects link into one library.
+    Returns ``(path, compiler_log)``; the log holds ptxas' register and
+    shared memory report."""
     source = Path(source) if source is not None else CSRC
     digest = hashlib.sha256()
     for path in (source,) + HEADERS:
         digest.update(path.read_bytes())
-    lib = BUILD_DIR / f"lib{source.stem}_{digest.hexdigest()[:12]}.so"
+    kind = "_scalars" if scalars else ""
+    lib = BUILD_DIR / f"lib{source.stem}{kind}_{digest.hexdigest()[:12]}.so"
     if lib.exists():
         return lib, ""
     BUILD_DIR.mkdir(parents=True, exist_ok=True)
@@ -185,7 +223,7 @@ def build_library(source=None):
     flags = [_nvcc(), "-gencode", "arch=compute_90a,code=sm_90a",
              "-std=c++17", "-O3", "--fmad=false"]
     procs = []
-    for k, defines in enumerate(build_units()):
+    for k, defines in enumerate(build_units(scalars)):
         obj = work / f"unit{k}.o"
         cmd = flags + ["-Xptxas", "-v", "-Xcompiler", "-fPIC", "-c",
                        *defines, "-o", str(obj), str(source)]
@@ -212,35 +250,66 @@ def build_library(source=None):
     return lib, "".join(log)
 
 
-_lib = None
+_libs = {}
 
 
-def _library():
-    global _lib
-    if _lib is None:
-        path, _ = build_library()
+def _library(scalars=False):
+    """The loaded library of decks without scalars or (``scalars``) of
+    decks with scalars, built at first use."""
+    scalars = bool(scalars)
+    if scalars not in _libs:
+        path, _ = build_library(scalars=scalars)
         lib = ctypes.CDLL(str(path))
         fn = lib.negdiv_sweep
         fn.argtypes = [ctypes.c_void_p, ctypes.c_void_p] \
             + [ctypes.c_int] * 9 + [ctypes.c_double] * 5 \
-            + [ctypes.c_int, ctypes.c_void_p, ctypes.c_int, ctypes.c_void_p]
+            + [ctypes.c_int, ctypes.c_void_p, ctypes.c_int, ctypes.c_void_p,
+               ctypes.c_void_p]
         fn.restype = ctypes.c_int
-        lib.negdiv_sweep_occupancy.argtypes = [ctypes.c_int] * 4 \
+        lib.negdiv_sweep_occupancy.argtypes = [ctypes.c_int] * 5 \
             + [ctypes.POINTER(ctypes.c_int)]
         lib.negdiv_sweep_occupancy.restype = ctypes.c_int
-        _lib = lib
-    return _lib
+        if scalars:
+            lib.negdiv_scalars.argtypes = [ctypes.c_void_p] * 2 \
+                + [ctypes.c_int] * 9 + [ctypes.c_double] * 3 \
+                + [ctypes.c_int, ctypes.c_void_p, ctypes.c_int,
+                   ctypes.c_void_p, ctypes.c_void_p]
+            lib.negdiv_scalars.restype = ctypes.c_int
+            lib.negdiv_scalars_occupancy.argtypes = [ctypes.c_int] * 3 \
+                + [ctypes.POINTER(ctypes.c_int)]
+            lib.negdiv_scalars_occupancy.restype = ctypes.c_int
+        _libs[scalars] = lib
+    return _libs[scalars]
 
 
-def kernel_occupancy(dtype, solver, recon, d):
+def kernel_occupancy(dtype, solver, recon, d, scal=0):
     """``(dynamic shared memory in bytes, resident blocks per SM)`` of the
     instantiation ``negdiv_cuda`` launches for the kernel codes ``dtype``,
-    ``solver``, ``recon`` (``KERNEL_DTYPES`` ... values) and direction
-    ``d``, on the current card; a block is 128 threads."""
+    ``solver``, ``recon`` (``KERNEL_DTYPES`` ... values), direction ``d``
+    and a deck without (``scal = 0``) or with scalars, on the current card;
+    a block is 128 threads."""
     out = (ctypes.c_int * 2)()
-    rc = _library().negdiv_sweep_occupancy(dtype, solver, recon, d, out)
+    rc = _library(scal).negdiv_sweep_occupancy(dtype, solver, recon, d,
+                                               scal, out)
     if rc != 0:
         raise RuntimeError(f"negdiv_sweep_occupancy failed with cudaError {rc}")
+    return out[0], out[1]
+
+
+def scalar_occupancy(kernel, dtype, recon, d=None):
+    """``(dynamic shared memory, resident blocks per SM)`` of a scalar
+    kernel's instantiation (``"negdiv_scalars"`` of direction ``d``, or
+    ``"stage_scalars"``) on the current card; a block is 256 threads
+    (negdiv_scalars) or 128 (stage_scalars)."""
+    out = (ctypes.c_int * 2)()
+    if kernel == "negdiv_scalars":
+        rc = _library(True).negdiv_scalars_occupancy(dtype, recon, d, out)
+    else:
+        from . import stage
+        rc = stage._library(True).stage_scalars_occupancy(dtype, recon,
+                                                          out)
+    if rc != 0:
+        raise RuntimeError(f"{kernel}_occupancy failed with cudaError {rc}")
     return out[0], out[1]
 
 
@@ -252,25 +321,39 @@ def ptxas_summary(compiler_log, occupancy=False):
     checkout's kernels ask the current card for (``kernel_occupancy``); a
     block is 128 threads, 4 warps."""
     from . import stage
-    query = {"negdiv_sweep": lambda dt, k: kernel_occupancy(dt, k[2], k[0],
-                                                            k[1]),
+    query = {"negdiv_sweep": lambda dt, k: kernel_occupancy(
+                 dt, k[2], k[0], k[1], k[3] if len(k) > 3 else 0),
              "fused_stage": lambda dt, k: stage.kernel_occupancy(
-                 dt, k[1], k[0], k[2])}
+                 dt, k[1], k[0], k[2], k[3] if len(k) > 3 else 0),
+             "negdiv_scalars": lambda dt, k: scalar_occupancy(
+                 "negdiv_scalars", dt, k[0], k[1]),
+             "stage_scalars": lambda dt, k: scalar_occupancy(
+                 "stage_scalars", dt, k[0])}
+    threads = {"negdiv_sweep": 128, "fused_stage": 128,
+               "negdiv_scalars": 256, "stage_scalars": 128}
     names = {"f": "f32", "d": "f64"}
     recons = sorted(KERNEL_RECONS, key=KERNEL_RECONS.get)
     solvers = [f"{f}-{r}" for f, r in sorted(KERNEL_SOLVERS,
                                              key=KERNEL_SOLVERS.get)]
     lines, current = [], None
     for line in compiler_log.splitlines():
-        m = re.search(r"Compiling entry function .*(negdiv_sweep|fused_stage)"
+        m = re.search(r"Compiling entry function .*(negdiv_sweep|fused_stage|"
+                      r"negdiv_scalars|stage_scalars)"
                       r"_kernelI([fd])((?:L[ib]\d+E)+)E", line)
         if m:
             k = [int(x) for x in re.findall(r"L[ib](\d+)E", m.group(3))]
             kernel, dtype = m.group(1), "fd".index(m.group(2))
+            # the instantiation for decks with scalars (a fourth switch;
+            # a build from before it has three) is marked "+scalars"
+            scal = " +scalars" if kernel in ("negdiv_sweep", "fused_stage") \
+                and len(k) > 3 and k[3] else ""
+            what = {"negdiv_sweep": lambda: f"dir {k[1]} {solvers[k[2]]}",
+                    "fused_stage": lambda: solvers[k[1]] + (
+                        " faces" if k[2] else ""),
+                    "negdiv_scalars": lambda: f"dir {k[1]}",
+                    "stage_scalars": lambda: "all directions"}[kernel]()
             current = (f"{kernel} {names[m.group(2)]} {recons[k[0]]} "
-                       + (f"dir {k[1]} {solvers[k[2]]}"
-                          if kernel == "negdiv_sweep"
-                          else solvers[k[1]] + (" faces" if k[2] else "")))
+                       f"{what}{scal}")
             spill = ""
         elif current and "spill stores" in line:
             spill = line.strip()
@@ -279,8 +362,9 @@ def ptxas_summary(compiler_log, occupancy=False):
             text = f"{current}: {regs} registers, {spill}"
             if occupancy:
                 smem, blocks = query[kernel](dtype, k)
+                warps = threads[kernel] // 32 * blocks
                 text += (f"; {smem} bytes of dynamic shared memory, "
-                         f"{blocks} blocks = {4 * blocks} warps per SM")
+                         f"{blocks} blocks = {warps} warps per SM")
             lines.append(text)
             current = None
     return lines
@@ -294,15 +378,11 @@ def recon_constants(dx):
 
 
 def check_kernel_config(cfg, recon):
-    """Raise for what the CUDA kernels do not take: passive scalars
-    (``NotImplementedError``: the next slice of the port), or a
-    (fluid, solver) pair or reconstruction that no deck may ask for
-    (``ValueError``)."""
-    if cfg.nscalars != 0:
-        raise NotImplementedError(
-            f"the CUDA kernels take no passive scalars yet (nscalars="
-            f"{cfg.nscalars}): passive scalars are the next slice of the "
-            "port, and such decks run on the CPU only")
+    """Raise ``ValueError`` for what the CUDA kernels do not take: a
+    (fluid, solver) pair or reconstruction that no deck may ask for, or a
+    negative scalar count.  Any ``nscalars >= 0`` runs."""
+    if cfg.nscalars < 0:
+        raise ValueError(f"nscalars must be >= 0, got {cfg.nscalars}")
     if (cfg.fluid, cfg.riemann) not in KERNEL_SOLVERS:
         raise ValueError(f"the CUDA kernels have no riemann={cfg.riemann} "
                          f"for fluid={cfg.fluid}")
@@ -332,14 +412,40 @@ def check_kernel_tensor(name, q, mesh, cfg):
                          "launch")
 
 
+def negdiv_scalars_cuda(prim, out, slab, mflux, d, mesh, cfg, recon,
+                        accumulate):
+    """The scalar rows of direction ``d`` by the scalar kernel, after the
+    fluid launch of that direction (same stream) wrote ``mflux``: writes
+    (or, with ``accumulate``, adds to) ``out``'s scalar rows and writes
+    ``slab``'s (may be None).  ``negdiv_scalars_cuda.launches`` counts the
+    launches."""
+    nb, nvar, nz, ny, nx = prim.shape
+    dx = float(mesh.dx[d - 1])
+    rc = _library(True).negdiv_scalars(
+        prim.data_ptr(), out.data_ptr(), KERNEL_DTYPES[prim.dtype],
+        KERNEL_RECONS[recon], d, nb, nvar, scalar_base(cfg), nz, ny, nx, dx,
+        *recon_constants(dx), int(accumulate),
+        slab.data_ptr() if slab is not None else None,
+        (mesh.ng1, mesh.ng2, mesh.ng3)[d - 1], mflux.data_ptr(),
+        torch.cuda.current_stream(prim.device).cuda_stream)
+    if rc != 0:
+        raise RuntimeError(f"negdiv_scalars launch (direction {d}) failed "
+                           f"with cudaError {rc}")
+    negdiv_scalars_cuda.launches += 1
+
+
+negdiv_scalars_cuda.launches = 0
+
+
 def _sweep_launches(name, prim, c_h, mesh, cfg, eos, recon, faces):
     """One kernel launch per active direction on the current stream, the
     first writing -div(F) and the others adding to it; with ``faces`` each
-    launch also writes its direction's slab.  Returns ``(-div(F), {d:
-    slab} or None, launches)``."""
+    launch also writes its direction's slab.  With scalars each launch
+    also writes the face mass fluxes and the scalar kernel follows it.
+    Returns ``(-div(F), {d: slab} or None, fluid launches)``."""
     check_kernel_config(cfg, recon)
     check_kernel_tensor(name, prim, mesh, cfg)
-    fn = _library().negdiv_sweep
+    fn = _library(cfg.nscalars > 0).negdiv_sweep
     nb, nvar, nz, ny, nx = prim.shape
     out = torch.empty_like(prim)
     dirs = active_dirs(mesh)
@@ -348,6 +454,10 @@ def _sweep_launches(name, prim, c_h, mesh, cfg, eos, recon, faces):
         check_faces_layout(mesh)
         slabs = {d: torch.empty(face_shape(prim, d), dtype=prim.dtype,
                                 device=prim.device) for d in dirs}
+    # one mass-flux array serves every direction: each scalar launch has
+    # read it before the next fluid launch (same stream) writes it
+    mflux = (torch.empty((nb, nz, ny, nx), dtype=prim.dtype,
+                         device=prim.device) if cfg.nscalars else None)
     with torch.cuda.device(prim.device):
         stream = torch.cuda.current_stream(prim.device).cuda_stream
         for k, d in enumerate(dirs):
@@ -359,10 +469,14 @@ def _sweep_launches(name, prim, c_h, mesh, cfg, eos, recon, faces):
                     dx, float(eos.gamma), float(c_h), *recon_constants(dx),
                     int(k > 0),
                     slabs[d].data_ptr() if faces else None,
-                    (mesh.ng1, mesh.ng2, mesh.ng3)[d - 1], stream)
+                    (mesh.ng1, mesh.ng2, mesh.ng3)[d - 1],
+                    mflux.data_ptr() if mflux is not None else None, stream)
             if rc != 0:
                 raise RuntimeError(f"negdiv_sweep launch (direction {d}) "
                                    f"failed with cudaError {rc}")
+            if mflux is not None:
+                negdiv_scalars_cuda(prim, out, slabs[d] if faces else None,
+                                    mflux, d, mesh, cfg, recon, k > 0)
     return out, slabs, len(dirs)
 
 

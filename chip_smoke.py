@@ -10,12 +10,16 @@ no result, when there is no CUDA card or when the port is not beside it.
 Phases (each one fails the run if it fails):
 
 1. card: name and power limit (``nvidia-smi``), torch's device name;
-2. build: the sweep and the whole-stage kernel (each source one ``nvcc``
-   per translation unit: the entry points and one unit per reconstruction
-   and dtype, 13 per source) and the forest binding (``g++``), all started
-   together, timed, with each instantiation's registers and spills
-   (ptxas), dynamic shared memory and resident warps per SM (the runtime's
-   occupancy query); an instantiation that spills fails the phase;
+2. build: the sweep and the whole-stage kernel (each source two
+   libraries, for decks without and with scalars, each one ``nvcc`` per
+   translation unit: the entry points and one unit per reconstruction and
+   dtype, 13 per library) and the forest binding (``g++``), all started
+   together, timed, with each instantiation's
+   registers and spills (ptxas), dynamic shared memory and resident warps
+   per SM (the runtime's occupancy query), the instantiations for decks
+   with scalars marked "+scalars" and the two scalar kernels
+   (``negdiv_scalars``, ``stage_scalars``) among them; an instantiation
+   that spills fails the phase;
 3. kernel against plain, states made from ``--seed``: ``negdiv_cuda``
    against ``negdiv_plain`` (GLM-MHD HLLD, Euler HLLE and HLLC; 128^3 in
    one block and 8 ghosted 32^3 blocks, 2-D 512^2 and 1-D 4096) and
@@ -30,7 +34,11 @@ Phases (each one fails the run if it fails):
    reconstructions and six pairs) on each kernel route, #1, #6/#2, #4
    (2-D and 1-D), #5, #3 (floors, CFL, prim) and #7, f32 and f64, on
    states with steep dips (LimO3's positivity fallback), and LimO3's
-   switch at eta = 1 (each branch taken);
+   switch at eta = 1 (each branch taken); then passive scalars on every
+   route (#1, #6/#2, #4 2-D and 1-D, #5, #3, #7): GLM-MHD HLLD + PPM and
+   Euler HLLC + PLM with 1 and 3 scalars and Euler with 4, f32 and f64,
+   the fluid rows and the scalar rows held apart, one scalar-kernel
+   launch per fluid launch;
 4. main paths, each through ``Simulation(pin)`` for 12 cycles (2 warm-up)
    with every kernel's launch count set to 0 just before and read just
    after: the ``bench.py:run_bench`` deck (3-D MHD linear wave, 256^3,
@@ -59,7 +67,15 @@ Phases (each one fails the run if it fails):
    and over the run (a run without one after the initial refinement
    fails), the leaves per level at the start and the end, the host ms per
    remesh (forest update, transfer, new topology's plans, fill) and the
-   mass across levels;
+   mass across levels; the cloud-crushing paths (``CLOUD_DECK``: GLM-MHD
+   HLLD + PLM + VL2, one passive scalar, tabular cooling, the inflow
+   boundary, f32): path G' on a uniform mesh at 128x384x128 in one
+   ghosted block with rk12 cooling, on the sweep and the stage rung (12
+   cycles, 2 warm-up), with the cooling loop's host reads per cycle and
+   its share of the cycle; path G adaptive, base 64x192x64 with 16^3
+   blocks and numlevel 2, Townsend cooling, the pgen's scalar refinement
+   check, on the stage rung (#7) and the negdiv rung (#6/#2), 10 warm-up
+   + 20 timed cycles, with the leaves per cycle and the remeshes;
 5. whole steps in f64 for 5 cycles, once through the kernels and once
    with their plain versions forced, state and every dt compared: the
    main deck at 32^3 on each rung, the vortex at 64^2, Sod at 256,
@@ -67,6 +83,8 @@ Phases (each one fails the run if it fails):
    blast at 256^2 (with seeded noise off the blasts' symmetric ties), and
    the refined runs' mass drift (f64, 1e-13); path F's decks (64^3, and
    the refined one at 32^3 base) with the same stages rescued;
+   path G's deck at base 32x96x32 in f64 on both rungs (state, every
+   step and the leaf table after every cycle);
    adaptive runs side by side cycle by cycle (``inputs/
    blast_3d_adaptive.in`` on both rungs and the 2-D adaptive blast at
    256^2, ``derefine_count = 1``): leaf tables equal, state and every step
@@ -83,14 +101,18 @@ Phases (each one fails the run if it fails):
    the main deck's sweep and stage calls again on the same inputs in f64
    (held to the f64 tolerance, the bound at FP64's 34 TFLOP/s); a row per
    path E and F case at its own final state (#1, #3, #6/#2, and #7 at path
-   F's refined level arrays);
+   F's refined level arrays); the two scalar kernels at path G''s inputs
+   against their plain twins (from the same mass fluxes), with their
+   bounds, and the #1 and #3 calls with the scalar;
 7. profile: a torch.profiler trace of 3 cycles of each rung of the main
    deck, of path E's GLM-MHD RK3 + WENO-Z + HLLE, of path F's first three
    cycles (with the rescue), of the vortex and of each refined path (the
    fill, the flux
    correction and the dt package told apart by profiler ranges), and of 3
    cycles of adaptive path D (the step, the fill, the tag dispatch and the
-   remesh, with its host ms), device time by kernel and the device's idle
+   remesh, with its host ms), of 3 cycles of path G' on each rung (the
+   cooling's kernels apart) and of path G (the cooling apart), device
+   time by kernel and the device's idle
    share.
 
 The last lines are the kernels' JSON line, the card line and
@@ -650,6 +672,8 @@ def reset_counts():
     PORT.stage.stage_cuda.launches = 0
     PORT.stage.stage_faces_cuda.launches = 0
     PORT.sweep.negdiv_faces_cuda.launches = 0
+    PORT.sweep.negdiv_scalars_cuda.launches = 0
+    PORT.stage.stage_scalars_cuda.launches = 0
 
 
 def read_counts():
@@ -889,7 +913,8 @@ def count_ops(fn):
 
 
 def phase_build():
-    log("== phase 2: build (one nvcc per translation unit, 13 per source, "
+    log("== phase 2: build (one nvcc per translation unit, 13 per library, "
+        "two libraries per source (decks without and with scalars), "
         "all started together) ==")
     results = {}
 
@@ -901,6 +926,10 @@ def phase_build():
     threads = [threading.Thread(target=build, args=a) for a in (
         ("negdiv_sweep", PORT.sweep.build_library),
         ("fused_stage", PORT.stage.build_library),
+        ("negdiv_sweep (scalars)",
+         lambda: PORT.sweep.build_library(scalars=True)),
+        ("fused_stage (scalars)",
+         lambda: PORT.stage.build_library(scalars=True)),
         ("amr_forest (g++)",
          lambda: (PORT.amr_forest.build_library(), "")))]
     for t in threads:
@@ -1715,7 +1744,8 @@ def smr_negdiv_calls(sim):
         + (sim.cfg.reconstruction,)
     calls = []
     for lev, u in sim.state.items():
-        _, prim = PORT.cons_to_prim(sim.eos, u, sim.cfg.fluid, 0)
+        _, prim = PORT.cons_to_prim(sim.eos, u, sim.cfg.fluid,
+                                    sim.cfg.nscalars)
         for recon in recons:
             calls.append((f"level {lev} {recon}", (
                 prim, c_h, st.level_mesh[lev], sim.cfg, sim.eos, recon)))
@@ -1724,19 +1754,26 @@ def smr_negdiv_calls(sim):
 
 def phase_smr_kernels_vs_plain(sim, path, kind):
     """Each face kernel against its plain twin at the path's own level
-    arrays: f32 as the path runs, and the same arrays in f64."""
+    arrays: f32 as the path runs, and the same arrays in f64.  With
+    passive scalars the fluid rows and the scalar rows are held apart,
+    and the scalar kernel must launch once per fluid launch."""
     log(f"== phase 3: the {kind} kernel against plain at path {path}'s level "
         f"arrays ==")
     stage, sweep = PORT.stage, PORT.sweep
     failed = []
     calls = smr_stage_calls(sim) if kind == "stage-faces" \
         else smr_negdiv_calls(sim)
+    nb0 = sweep.scalar_base(sim.cfg)
+    parts = {"": slice(None)} if sim.cfg.nscalars == 0 else {
+        "fluid ": slice(0, nb0), "scalars ": slice(nb0, None)}
     for dtype, tol in TOLS[::-1]:
         for label, args in calls:
             args = tuple(a.to(dtype) if torch.is_tensor(a) else a
                          for a in args)
             lm = args[6] if kind == "stage-faces" else args[2]
             sl = lm.interior_slices
+            before = (sweep.negdiv_scalars_cuda.launches,
+                      stage.stage_scalars_cuda.launches)
             if kind == "stage-faces":
                 got = stage.stage_faces_cuda(*args)
                 torch.cuda.synchronize()
@@ -1746,15 +1783,23 @@ def phase_smr_kernels_vs_plain(sim, path, kind):
                 g_out, g_f = sweep.negdiv_faces_cuda(*args)
                 torch.cuda.synchronize()
                 r_out, r_f = sweep.negdiv_faces_plain(*args)
-            err_out = max_rel_err(g_out[sl], r_out[sl])
-            err_f = max(face_err(g_f[d], r_f[d]) for d in r_f)
+            launched = (sweep.negdiv_scalars_cuda.launches - before[0]) \
+                + (stage.stage_scalars_cuda.launches - before[1])
+            want = 0 if sim.cfg.nscalars == 0 else (
+                1 if kind == "stage-faces" else len(r_f))
+            errs = {name: (max_rel_err(g_out[sl][:, p], r_out[sl][:, p]),
+                           max(face_err(g_f[d][:, p], r_f[d][:, p])
+                               for d in r_f))
+                    for name, p in parts.items()}
             finite = bool(torch.isfinite(g_out[sl]).all()) and all(
                 bool(torch.isfinite(f).all()) for f in g_f.values())
-            ok = err_out <= tol and err_f <= tol and finite \
-                and sorted(g_f) == sorted(r_f)
+            ok = max(max(e) for e in errs.values()) <= tol and finite \
+                and sorted(g_f) == sorted(r_f) and launched == want
+            rows = ", ".join(f"{name}{e_out:.3e} (state), {e_f:.3e} (slabs)"
+                             for name, (e_out, e_f) in errs.items())
             log(f"  {kind} path {path} {label} {str(dtype)[6:]}: max rel err "
-                f"{err_out:.3e} (state), {err_f:.3e} (slabs; tol {tol:.0e} "
-                f"per variable) {'ok' if ok else 'FAIL'}")
+                f"{rows} (tol {tol:.0e} per variable); scalar-kernel "
+                f"launches {launched} (want {want}) {'ok' if ok else 'FAIL'}")
             if not ok:
                 failed.append(f"{label} {dtype}")
             del g_out, r_out, g_f, r_f
@@ -2369,15 +2414,30 @@ def phase_profile(sim, ncycles, what):
     log(f"== phase 7: device-time breakdown of {ncycles} cycles of {what} ==")
     from torch.profiler import ProfilerActivity, profile
 
+    from torch.profiler import record_function
+
     dt, dt_hyp = sim._estimate()
     c_h = sim.pkg.c_h_from_dt_hyp(dt_hyp)
     u = sim.u
+    cooling = sim.pkg.cooling
+    if cooling is not None:
+        # the cooling's plain kernels are told apart by a profiler range
+        apply = cooling.apply
+
+        def ranged(*a, **k):
+            with record_function("cooling"):
+                return apply(*a, **k)
+        cooling.apply = ranged
     torch.cuda.synchronize()
-    with profile(activities=[ProfilerActivity.CPU,
-                             ProfilerActivity.CUDA]) as prof:
-        for _ in range(ncycles):
-            u, _ = sim.pkg.step_with_dt(u, dt, c_h)
-        torch.cuda.synchronize()
+    try:
+        with profile(activities=[ProfilerActivity.CPU,
+                                 ProfilerActivity.CUDA]) as prof:
+            for _ in range(ncycles):
+                u, _ = sim.pkg.step_with_dt(u, dt, c_h)
+            torch.cuda.synchronize()
+    finally:
+        if cooling is not None:
+            del cooling.apply
     trace = ROOT / "build" / "chip_smoke" / "trace.json"
     trace.parent.mkdir(parents=True, exist_ok=True)
     prof.export_chrome_trace(str(trace))
@@ -2387,15 +2447,26 @@ def phase_profile(sim, ncycles, what):
         log("  the profiler recorded no device kernels: not measured")
         return None
     recons = RECON_NAMES
+    ranges = [e for e in events if e.get("cat") == "user_annotation"
+              and e.get("name") == "cooling"]
+    launched = {e["args"]["correlation"]: e["ts"] for e in events
+                if e.get("cat") in ("cuda_runtime", "cuda_driver")
+                and "correlation" in e.get("args", {})}
     groups = {}
     for e in kernels:
-        m = re.search(r"negdiv_sweep_kernel<\w+, (\d), (\d), \d>", e["name"])
-        s = re.search(r"fused_stage_kernel<\w+, (\d), \d(?:, \w+)?>",
+        m = re.search(r"negdiv_sweep_kernel<\w+, (\d), (\d), \d(?:, \w+)?>",
                       e["name"])
+        s = re.search(r"fused_stage_kernel<\w+, (\d), \d(?:, \w+)*>",
+                      e["name"])
+        ts = launched.get(e.get("args", {}).get("correlation"))
         key = (f"negdiv_sweep {recons[int(m.group(1))]} dir {m.group(2)}"
                if m else f"fused_stage {recons[int(s.group(1))]}" if s
+               else "scalar kernels (negdiv_scalars, stage_scalars)"
+               if "scalars_kernel" in e["name"]
                else "a kernel of the port (unparsed)"
                if re.search("negdiv_sweep|fused_stage", e["name"])
+               else "cooling (plain PyTorch)" if ts is not None and any(
+                   a["ts"] <= ts <= a["ts"] + a["dur"] for a in ranges)
                else "other kernels (plain PyTorch)")
         groups[key] = groups.get(key, 0.0) + e["dur"] / 1e3
     busy = sum(e["dur"] for e in kernels) / 1e3
@@ -2563,8 +2634,9 @@ def phase_smr_profile(sim, ncycles, what):
     recons = RECON_NAMES
     groups, count = {}, {}
     for e in kernels:
-        m = re.search(r"negdiv_sweep_kernel<\w+, (\d), (\d), \d>", e["name"])
-        s = re.search(r"fused_stage_kernel<\w+, (\d), \d(?:, \w+)?>",
+        m = re.search(r"negdiv_sweep_kernel<\w+, (\d), (\d), \d(?:, \w+)?>",
+                      e["name"])
+        s = re.search(r"fused_stage_kernel<\w+, (\d), \d(?:, \w+)*>",
                       e["name"])
         if m:
             key = f"negdiv_sweep (faces) {recons[int(m.group(1))]} dir " \
@@ -2616,7 +2688,8 @@ def phase_amr_profile(sim, ncycles, what):
     wrapped = ((PORT.SmrHydro, "step", "amr.step"),
                (PORT.SmrState, "fill_ghosts", "amr.fill"),
                (PORT.AmrHydro, "dispatch_tags", "amr.tags"),
-               (PORT.AmrHydro, "maybe_remesh", "amr.remesh"))
+               (PORT.AmrHydro, "maybe_remesh", "amr.remesh"),
+               (PORT.TabularCooling, "apply", "amr.cooling"))
 
     def wrap(fn, label):
         def call(*a, **k):
@@ -2669,6 +2742,10 @@ def phase_amr_profile(sim, ncycles, what):
             a["name"] for a in ranges if a["ts"] <= ts <= a["ts"] + a["dur"]}
         if "fused_stage_kernel" in name or "negdiv_sweep_kernel" in name:
             key = "face kernels (#7 or #6/#2)"
+        elif "scalars_kernel" in name:
+            key = "scalar kernels"
+        elif "amr.cooling" in labels:
+            key = "amr.cooling (plain PyTorch)"
         elif "amr.remesh" in labels:
             key = "amr.remesh (transfer and its fill)"
         elif "amr.tags" in labels:
@@ -2712,6 +2789,610 @@ def phase_amr_profile(sim, ncycles, what):
             "window_ms_per_cycle": span_ms / ncycles, "idle_share": idle}
 
 
+# ------------------------------------------------------- cloud crushing
+# The cloud-in-wind deck (pgen/cloud.py) with tabular cooling: a cloud of
+# 100 pc at 1e-24 g/cm^3 in a wind of 1e-27 g/cm^3 at 1e7 K and 1700 km/s
+# along x2 through the inner-x2 inflow boundary; GLM-MHD HLLD + PLM + VL2
+# with a transverse field at plasma beta 100, one passive scalar marking
+# the cloud, cooling on this script's own power-law table
+# (write_cooling_table).  The domain is 8 radii across x1 and x3 and 24
+# along x2; {n} cells across x1 (8 per radius at n = 64); x1, x3 and ox2
+# are outflow.  The code units (1 cm, about one hydrogen mass, 1e-8 s)
+# keep the cooling's Lambda and (X / m_h)^2 inside the f32 range
+# (tests/torch_decks.py:CLOUD says more).
+R_CLOUD = 3.085677580962325e+20     # 100 pc in code lengths (cm)
+CLOUD_DECK = """
+<job>
+problem_id = cloud
+
+<problem/cloud>
+r0_cgs = 3.085677580962325e+20
+rho_cloud_cgs = 1e-24
+rho_wind_cgs = 1e-27
+T_wind_cgs = 1e7
+v_wind_cgs = 1.7e8
+plasma_beta = 100.0
+mag_field_angle = transverse
+
+<parthenon/mesh>
+refinement = {refinement}
+numlevel = 2
+nghost = 2
+nx1 = {n}
+x1min = {lo}
+x1max = {hi}
+nx2 = {n2}
+x2min = {lo}
+x2max = {x2max}
+nx3 = {n}
+x3min = {lo}
+x3max = {hi}
+ix1_bc = outflow
+ox1_bc = outflow
+ix2_bc = cloud_inflow_x2
+ox2_bc = outflow
+ix3_bc = outflow
+ox3_bc = outflow
+
+<parthenon/meshblock>
+nx1 = {mb}
+nx2 = {mb}
+nx3 = {mb}
+
+<parthenon/time>
+integrator = vl2
+cfl = 0.3
+tlim = 1.0e30
+nlim = {ncycles}
+ncycle_out = {ncycle_out}
+perf_cycle_offset = {warmup}
+
+<hydro>
+fluid = glmmhd
+eos = adiabatic
+riemann = hlld
+reconstruction = plm
+gamma = 1.666666666666667
+nscalars = 1
+He_mass_fraction = 0.25
+precision = {precision}
+
+<units>
+code_length_cgs = 1.0
+code_mass_cgs = 1.6726e-24
+code_time_cgs = 1.0e-8
+
+<cooling>
+enable_cooling = tabular
+table_filename = {table}
+lambda_units_cgs = 1.0
+integrator = {integrator}
+cfl = 0.1
+"""
+# (fluid, riemann, reconstruction, nscalars): the scalar cases of phase 3
+SCALAR_CASES = [("glmmhd", "hlld", "ppm", 1), ("glmmhd", "hlld", "ppm", 3),
+                ("euler", "hllc", "plm", 1), ("euler", "hllc", "plm", 3),
+                ("euler", "hllc", "plm", 4)]
+
+
+def write_cooling_table(alpha=0.5, lam0=1e-23, t_ref=1e6):
+    """A two-column cooling table (log10 T, log10 Lambda), Lambda = lam0
+    (T / t_ref)^alpha from 1e4 to 1e8 K, under ``build/``; its path."""
+    path = ROOT / "build" / "chip_smoke" / "powerlaw.cool"
+    path.parent.mkdir(parents=True, exist_ok=True)
+    log_t = np.linspace(4.0, 8.0, 41)
+    log_l = np.log10(lam0) + alpha * (log_t - np.log10(t_ref))
+    path.write_text("# logT logLambda\n" + "".join(
+        f"{a} {b}\n" for a, b in zip(log_t, log_l)))
+    return str(path)
+
+
+def cloud_deck(refinement, n, mb, ncycles, warmup, precision, integrator,
+               ncycle_out=1):
+    return CLOUD_DECK.format(
+        refinement=refinement, n=n, n2=3 * n, lo=-4.0 * R_CLOUD,
+        hi=4.0 * R_CLOUD, x2max=20.0 * R_CLOUD, mb=mb, ncycles=ncycles,
+        warmup=warmup, precision=precision, table=write_cooling_table(),
+        integrator=integrator, ncycle_out=ncycle_out)
+
+
+def scalar_prim(mesh, fluid, ns, seed, dtype):
+    """``dip_prim`` (no dips) plus ``ns`` scalar rows, 0 in part of the
+    domain and positive elsewhere, on the card."""
+    rng = np.random.default_rng(seed + 1000)
+    w = dip_prim(mesh, fluid, seed, torch.float64, dips=False).cpu().numpy()
+    cells = (mesh.nblocks, ns) + mesh.block_shape
+    q = np.maximum(rng.standard_normal(cells), 0.0) * rng.random(cells)
+    return torch.tensor(np.concatenate([w, q], axis=1), dtype=dtype,
+                        device="cuda")
+
+
+def phase_scalar_cases(seed):
+    """Every kernel route with passive scalars against its plain version:
+    GLM-MHD HLLD + PPM and Euler HLLC + PLM with 1 and 3 scalars, Euler
+    with 4, f32 and f64, on #1, #6/#2, #4 (2-D, 1-D), #5, #3 (floors, CFL,
+    prim) and #7; the fluid rows and the scalar rows are held apart."""
+    log("== phase 3: kernels against plain with passive scalars ==")
+    sweep, stage = PORT.sweep, PORT.stage
+    layouts = {"#1 3-D 64^3": ((64,) * 3, (64,) * 3, 0),
+               "#6/#2 3-D 2 blocks of 32^3, nghost 3, faces": (
+                   (64, 32, 32), (32,) * 3, 3),
+               "#4 2-D 256^2": ((256, 256, 1), (256, 256, 1), 0),
+               "#4 1-D 2048": ((2048, 1, 1), (2048, 1, 1), 0),
+               "#5 2-D 4 blocks of 64^2, nghost 3, faces": (
+                   (128, 128, 1), (64, 64, 1), 3),
+               "#3 stage 3-D 48^3 +dt +prim": ((48,) * 3, (48,) * 3, 0),
+               "#7 stage 3-D 2 blocks of 24^3, nghost 3, faces": (
+                   (48, 24, 24), (24,) * 3, 3)}
+    eos, eos_f = PORT.EOS(gamma=5.0 / 3.0), PORT.EOS(gamma=5.0 / 3.0,
+                                                       **FLOORS)
+    worst, failed, n_checks = {}, [], 0
+    n_scalar = {"negdiv": 0, "stage": 0}
+    for label, (n, mb, g) in layouts.items():
+        mesh = _mesh(n, mb, g)
+        sl = mesh.interior_slices
+        is_stage = label.startswith(("#3", "#7"))
+        for dtype, tol in TOLS:
+            for fluid, riemann, recon, ns in SCALAR_CASES:
+                cfg = PORT.HydroConfig(fluid=fluid, riemann=riemann,
+                                       reconstruction=recon, nscalars=ns)
+                nb0 = sweep.scalar_base(cfg)
+                c_h = 1.3 if fluid == "glmmhd" else 0.0
+                w = scalar_prim(mesh, fluid, ns, seed, torch.float64)
+                before = (sweep.negdiv_scalars_cuda.launches,
+                          stage.stage_scalars_cuda.launches)
+                rows = {}
+                if is_stage:
+                    w[:, 0][w[:, 0] < 1.03] = 0.8      # under the floor
+                    u0 = PORT.prim_to_cons(eos, w, fluid, ns).to(dtype)
+                    u1 = 1.01 * u0 + 0.001
+                    args = (u0, u1, 0.25, 0.75, 1e-3, c_h, mesh, cfg, eos_f,
+                            recon)
+                    if g:
+                        got = stage.stage_faces_cuda(*args, emit_prim=True)
+                        ref = stage.stage_faces_plain(*args, emit_prim=True)
+                        outs = [(got[0][sl], ref[0][sl]), (got[1], ref[1])] \
+                            + [(got[2][d], ref[2][d]) for d in ref[2]]
+                    else:
+                        got = stage.stage_cuda(*args, emit_dt=True,
+                                               emit_prim=True)
+                        ref = stage.stage_plain(*args, emit_dt=True,
+                                                emit_prim=True)
+                        outs = [(got[0], ref[0]), (got[2], ref[2])]
+                        a, b = got[1].min().item(), ref[1].min().item()
+                        rows["dt"] = abs(a - b) / b
+                else:
+                    prim = w.to(dtype)
+                    if g:
+                        got = sweep.negdiv_faces_cuda(prim, c_h, mesh, cfg,
+                                                      eos, recon)
+                        ref = sweep.negdiv_faces_plain(prim, c_h, mesh, cfg,
+                                                       eos, recon)
+                        outs = [(got[0][sl], ref[0][sl])] + [
+                            (got[1][d], ref[1][d]) for d in ref[1]]
+                    else:
+                        got = sweep.negdiv_cuda(prim, c_h, mesh, cfg, eos,
+                                                recon)
+                        ref = sweep.negdiv_plain(prim, c_h, mesh, cfg, eos,
+                                                 recon)
+                        outs = [(got[sl], ref[sl])]
+                torch.cuda.synchronize()
+                launched = (sweep.negdiv_scalars_cuda.launches - before[0],
+                            stage.stage_scalars_cuda.launches - before[1])
+                n_scalar["stage" if is_stage else "negdiv"] += sum(launched)
+                rows["fluid"] = max(max_rel_err(a[:, :nb0], b[:, :nb0])
+                                    for a, b in outs)
+                rows["scalars"] = max(max_rel_err(a[:, nb0:], b[:, nb0:])
+                                      for a, b in outs)
+                finite = all(bool(torch.isfinite(a).all()) for a, _ in outs)
+                want = (1, 0) if is_stage else (0, len(
+                    sweep.active_dirs(mesh)))
+                ok = finite and max(rows.values()) <= tol \
+                    and launched == want[::-1]
+                what = (f"{label}, {fluid} {riemann} {recon} + {ns} scalars "
+                        f"{str(dtype)[6:]}")
+                for part, err in rows.items():
+                    key = f"{label} [{part}]"
+                    worst[key] = max(worst.get(key, 0.0), err)
+                n_checks += 1
+                if not ok:
+                    failed.append(f"{what}: {rows}, scalar launches "
+                                  f"{launched}")
+                    log(f"  FAIL {what}: {rows} (tol {tol:.0e}), scalar "
+                        f"launches {launched}")
+                del got, ref, outs
+            torch.cuda.empty_cache()
+    for key, err in worst.items():
+        log(f"  {key}: worst max rel err {err:.3e}")
+    log(f"  {n_checks} checks ({len(SCALAR_CASES)} cases x 2 dtypes on each "
+        f"of {len(layouts)} routes; fluid and scalar rows apart), "
+        f"{len(failed)} failed; scalar-kernel launches {n_scalar}")
+    if failed:
+        raise AssertionError(f"kernel disagrees with plain with scalars: "
+                             f"{failed[:10]}")
+    return worst
+
+
+def cooling_meter(sim):
+    """Wrap the cooling's subcycling so that its host time (ending in a
+    synchronise) accumulates in ``meter['s']``; its host reads count in
+    ``TabularCooling.host_reads``."""
+    cooling = sim.pkg.cooling if hasattr(sim, "pkg") else sim.cooling
+    meter = {"s": 0.0}
+    inner = cooling._subcycle
+
+    def timed(*a, **k):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        out = inner(*a, **k)
+        torch.cuda.synchronize()
+        meter["s"] += time.perf_counter() - t0
+        return out
+
+    cooling._subcycle = timed
+    return cooling, meter
+
+
+def phase_cloud_uniform(rung, n, ncycles, warmup):
+    """Path G': the cloud deck on a uniform mesh at level 1's resolution
+    (one merged ghosted block), rk12 cooling, f32, on the default (sweep)
+    or the stage rung; the host reads of the cooling loop per cycle and
+    the loop's share of the cycle."""
+    log(f"== phase 4: path G' (cloud, uniform {n}x{3 * n}x{n}, one ghosted "
+        f"block, rk12 cooling, {rung} rung, f32, {warmup} warm-up + "
+        f"{ncycles - warmup} timed cycles) ==")
+    t0 = time.time()
+    sim = make_sim(cloud_deck("none", n, n, ncycles, warmup, "single",
+                              "rk12", ncycle_out=0), rung)
+    if sim.mesh.nghost == 0 or sim.mesh.nblocks != 1 \
+            or sim.cfg.nscalars != 1:
+        raise AssertionError("path G' must run one ghosted block with a "
+                             "scalar")
+    cooling, meter = cooling_meter(sim)
+    log(f"  set-up {time.time() - t0:.2f} s: block {sim.mesh.block_shape}, "
+        f"dtype {sim.dtype}")
+    PORT.sweep.negdiv_scalars_cuda.launches = 0
+    PORT.stage.stage_scalars_cuda.launches = 0
+    reads0 = cooling.host_reads
+    t1 = time.time()
+    n_sweep, n_stage, zcps = run_sim(sim)
+    wall = time.time() - t1
+    scal = (PORT.sweep.negdiv_scalars_cuda.launches,
+            PORT.stage.stage_scalars_cuda.launches)
+    reads = cooling.host_reads - reads0
+    share = meter["s"] / wall
+    log(f"  launches: sweep {n_sweep}, stage {n_stage}, scalar kernels "
+        f"(negdiv, stage) {scal}; cooling loop: {reads / ncycles:.1f} host "
+        f"reads per cycle, {1e3 * meter['s'] / ncycles:.3f} ms per cycle "
+        f"of the loop (synchronised), {100 * share:.1f} % of the run's "
+        f"wall time ({wall:.3f} s for {ncycles} cycles); zone-cycles/"
+        f"wallsecond {zcps}")
+    want_stage = 2 * ncycles if rung == "stage" else 0
+    want_sweep = 0 if rung == "stage" else 6 * ncycles
+    finite = bool(torch.isfinite(sim.u).all())
+    if (n_sweep, n_stage) != (want_sweep, want_stage) or zcps is None \
+            or scal != (want_sweep, want_stage) or not finite:
+        raise AssertionError(f"path G' ({rung}): launches "
+                             f"{(n_sweep, n_stage)}, scalar {scal}, finite "
+                             f"{finite}")
+    return sim, dict(zone_cycles_per_s=zcps, launches=n_sweep + n_stage,
+                     scalar_launches=sum(scal),
+                     cooling_reads_per_cycle=reads / ncycles,
+                     cooling_loop_ms_per_cycle=1e3 * meter["s"] / ncycles,
+                     cooling_loop_share=share, cycles=ncycles)
+
+
+def phase_cooling_passes(n, ncycles):
+    """Why path G''s rk12 loop takes the passes it takes: path G''s deck
+    in f32 (as the path runs) and in f64, sweep rung; the loop's passes
+    per stage, host reads and time with the log off, then, with
+    ``TabularCooling.pass_log`` on, the cells accepted and rejected per
+    pass and the active cells' error estimates by bin, over the stages of
+    the logged cycles."""
+    log(f"== phase 4: path G''s cooling loop in f32 and f64 ({n}x{3 * n}x"
+        f"{n}, rk12, sweep rung; 1 warm-up cycle, {ncycles} with the log "
+        f"off, {ncycles} with it on) ==")
+    names = PORT.PASS_COUNTS
+    out = {}
+    for precision in ("single", "double"):
+        sim = make_sim(cloud_deck("none", n, n, 1, 0, precision, "rk12",
+                                  ncycle_out=0))
+        cooling, meter = cooling_meter(sim)
+        sim.run()
+        meter["s"], reads0 = 0.0, cooling.host_reads
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        sim.nlim = 1 + ncycles
+        sim.run()
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        loop_s = meter["s"]
+        reads = (cooling.host_reads - reads0) / ncycles
+        # the log on, each stage's first pass marked
+        starts, timed = [], cooling._subcycle
+
+        def marked(*a, **k):
+            starts.append(len(cooling.pass_log))
+            return timed(*a, **k)
+
+        cooling.pass_log, cooling._subcycle = [], marked
+        sim.nlim = 1 + 2 * ncycles
+        sim.run()
+        rows = torch.stack(cooling.pass_log).cpu().numpy()
+        cooling.pass_log, cooling._subcycle = None, timed
+        passes = np.diff(starts + [len(rows)]).tolist()
+        tot = dict(zip(names, rows.sum(axis=0).tolist()))
+        cells = sim.u[:, 0].numel()
+        act = max(tot["active"], 1)
+        steps = (tot["accepted"] + tot["accepted_at_min_step"]) \
+            / (cells * len(passes))
+        hist = {k: tot[k] / act for k in names[4:]}
+        first = rows[:passes[0]]
+        shown = sorted(set(range(min(6, len(first))))
+                       | set(range(0, len(first), 25)) | {len(first) - 1})
+        log(f"  {precision}: {reads:.1f} host reads per cycle, the loop "
+            f"{1e3 * loop_s / ncycles:.3f} ms per cycle, "
+            f"{100 * loop_s / wall:.1f} % of the cycle "
+            f"({1e3 * wall / ncycles:.3f} ms); passes per stage (log on) "
+            f"{passes}")
+        log(f"  {precision}: over {len(passes)} stages of {cells} cells: "
+            f"{tot['active']} active cell-passes, accepted by the error test "
+            f"{tot['accepted']}, accepted at the least step "
+            f"{tot['accepted_at_min_step']}, rejected {tot['rejected']}; "
+            f"accepted steps per cell and stage {steps:.3f}")
+        log(f"  {precision}: active cell-passes by error estimate (d_e_tol "
+            f"{cooling.d_e_tol:.0e}): " + ", ".join(
+                f"{k} {v:.4f}" for k, v in hist.items()))
+        log(f"  {precision}: the first stage's passes (pass: " + ", ".join(
+            names[:4]) + "): " + "; ".join(
+                f"{i}: {' '.join(str(int(x)) for x in first[i, :4])}"
+                for i in shown))
+        if not bool(torch.isfinite(sim.u).all()):
+            raise AssertionError(f"path G' in {precision}: state not finite")
+        out[precision] = dict(
+            host_reads_per_cycle=reads,
+            loop_ms_per_cycle=1e3 * loop_s / ncycles,
+            loop_share=loop_s / wall, ms_per_cycle=1e3 * wall / ncycles,
+            passes_per_stage=passes, totals=tot, error_bins=hist)
+        del sim, cooling, rows
+        torch.cuda.empty_cache()
+    return out
+
+
+def phase_cloud_adaptive(rung, n, ncycles, warmup):
+    """Path G: the cloud deck adaptive (base {n}x{3n}x{n}, 16^3 blocks,
+    numlevel 2), Townsend cooling, f32, on the default rung (#7) or the
+    negdiv rung (#6/#2): zone-cycles/s over the timed window, remeshes, the
+    leaves per cycle."""
+    log(f"== phase 4: path G (cloud crushing, adaptive, base {n}x{3 * n}x"
+        f"{n}, 16^3 blocks, numlevel 2, {rung} rung, f32, {warmup} warm-up "
+        f"+ {ncycles - warmup} timed cycles) ==")
+    t0 = time.time()
+    sim = make_smr_sim(cloud_deck("adaptive", n, 16, warmup, 0, "single",
+                                  "townsend"), rung)
+    drv = sim.driver
+    n_init = len(drv.remesh_log)
+    leaves0 = leaves_of(sim)
+    log(f"  set-up {time.time() - t0:.2f} s (initial refinement: {n_init} "
+        f"remeshes): leaves {leaves0}")
+    out = io.StringIO()
+    torch.cuda.synchronize()
+    reset_counts()
+    with contextlib.redirect_stdout(out):
+        sim.run()
+        n_warm = len(drv.remesh_log)
+        sim.nlim = ncycles
+        sim.run()
+    counts = read_face_counts() + read_counts()
+    scal = (PORT.sweep.negdiv_scalars_cuda.launches,
+            PORT.stage.stage_scalars_cuda.launches)
+    text = out.getvalue()
+    rates = re.findall(r"zone-cycles/wallsecond = (\S+)", text)
+    per_cycle = [m.group(1) for m in
+                 re.finditer(r"cycle=\d+ .*blocks=(\{[^}]*\})", text)]
+    zcps = float(rates[-1]) if len(rates) == 2 else None
+    face = counts[0] if rung == "stage" else counts[1]
+    window = drv.remesh_log[n_warm:]
+    changed = sum(e["changed"] for e in drv.remesh_log[n_init:])
+    log(f"  leaves per cycle: {' '.join(per_cycle)}")
+    log(f"  launches: face kernel {face} ({face / ncycles:.2f} per cycle), "
+        f"all wrappers {counts}, scalar kernels (negdiv, stage) {scal}; "
+        f"remesh checks in the window {len(window)}, remeshes that changed "
+        f"the leaf table: {sim.perf_remeshes} in the window, {changed} over "
+        f"the run after the initial refinement; leaves at the end "
+        f"{leaves_of(sim)}; zone-cycles/wallsecond over the window {zcps}")
+    finite = all(bool(torch.isfinite(v).all()) for v in sim.state.values())
+    if sim.ncycle != ncycles or zcps is None or face == 0 or not finite \
+            or sum(scal) != face:
+        raise AssertionError(f"path G ({rung}): {sim.ncycle} cycles, "
+                             f"launches {counts}, scalar {scal}, finite "
+                             f"{finite}")
+    return sim, dict(zone_cycles_per_s=zcps, cycles_timed=ncycles - warmup,
+                     launches=face, scalar_launches=sum(scal),
+                     launches_per_cycle=face / ncycles,
+                     remeshes_window=sim.perf_remeshes,
+                     remeshes_run=changed, leaves_start=leaves0,
+                     leaves_end=leaves_of(sim), leaves_per_cycle=per_cycle,
+                     host_ms_per_remesh=remesh_host_ms(
+                         drv.remesh_log[n_init:]))
+
+
+def phase_cloud_whole_steps():
+    """Path G's deck in f64 at base 32x96x32 (16^3 blocks), 5 cycles
+    through the kernels and with the plain versions forced, side by side:
+    leaf tables equal, state and every step to STEP_TOL, on both rungs."""
+    log("== phase 5: path G's deck, kernels against plain over whole steps "
+        "(f64, base 32x96x32, 5 cycles) ==")
+    stage, sweep = PORT.stage, PORT.sweep
+    deck = cloud_deck("adaptive", 32, 16, 5, 0, "double", "townsend",
+                      ncycle_out=0)
+    for rung in ("stage", "negdiv"):
+        sims = {name: make_smr_sim(deck, rung) for name in ("kernel",
+                                                            "plain")}
+        err_u, err_dt, launches = 0.0, 0.0, 0
+        for k in range(1, 6):
+            for name, sim in sims.items():
+                sim.quiet = True
+                dispatch = (sweep.fused_negdiv_faces, stage.fused_stage_faces)
+                try:
+                    if name == "plain":
+                        sweep.fused_negdiv_faces = sweep.negdiv_faces_plain
+                        stage.fused_stage_faces = stage.stage_faces_plain
+                    sim.nlim = k
+                    reset_counts()
+                    sim.run()
+                    counts = read_face_counts()
+                finally:
+                    sweep.fused_negdiv_faces, stage.fused_stage_faces = \
+                        dispatch
+                if (sum(counts) == 0) != (name == "plain"):
+                    raise AssertionError(f"path G f64 ({rung}): {name} run "
+                                         f"launched {counts}")
+                launches += sum(counts)
+            kern, plain = sims["kernel"], sims["plain"]
+            if any(not np.array_equal(a, b) for a, b in
+                   zip(table_of(kern), table_of(plain))):
+                raise AssertionError(f"path G f64 ({rung}): leaf tables "
+                                     f"differ after cycle {k}")
+            for lev, u in plain.state.items():
+                err_u = max(err_u, (kern.state[lev] - u).abs().max().item()
+                            / u.abs().max().item())
+            err_dt = max(err_dt, abs(kern.tm_dt - plain.tm_dt)
+                         / plain.tm_dt, abs(kern.t - plain.t) / plain.t)
+        log(f"  {rung} rung: state max rel err {err_u:.3e}, dt and t max "
+            f"rel err {err_dt:.3e} over 5 cycles (tol {STEP_TOL:.0e}); leaf "
+            f"tables equal every cycle ({leaves_of(sims['kernel'])}); "
+            f"{launches} face launches")
+        if not (err_u <= STEP_TOL and err_dt <= STEP_TOL):
+            raise AssertionError(f"path G f64 ({rung}): kernel and plain "
+                                 "disagree")
+        del sims
+        torch.cuda.empty_cache()
+
+
+def phase_scalar_timings(sim, launches, reps):
+    """The two scalar kernels at path G''s inputs (one merged block,
+    128x384x128 + ghosts, f32): each against its plain twin from the same
+    mass fluxes, timed per launch, with the bound from this call's bytes
+    (the scalar rows, the density the stage converts by and the mass
+    fluxes read once, the scalar rows written once) and the operations its
+    data need; then the whole #1 and #3 calls with the scalar, per call."""
+    log("== phase 6: the scalar kernels at path G''s inputs ==")
+    sweep, stage = PORT.sweep, PORT.stage
+    mesh, cfg, eos = sim.mesh, sim.cfg, sim.eos
+    recon = cfg.reconstruction
+    dt, dt_hyp = sim._estimate()
+    c_h = sim.pkg.c_h_from_dt_hyp(dt_hyp)
+    u = sim.u
+    _, prim = sim.pkg.cons_to_prim(u)
+    nb0, ns = sweep.scalar_base(cfg), cfg.nscalars
+    cells = u.numel() // u.shape[1]
+    elt = u.element_size()
+    mf = {d: sweep.directional_flux(prim, c_h, d, mesh.dx[d - 1], cfg, eos,
+                                    recon)[:, 0].contiguous()
+          for d in (1, 2, 3)}
+    entries = {}
+    # negdiv_scalars: one launch per direction
+    out = torch.zeros_like(prim)
+
+    def kern_n():
+        for d in (1, 2, 3):
+            sweep.negdiv_scalars_cuda(prim, out, None, mf[d], d, mesh, cfg,
+                                      recon, d > 1)
+        return out[:, nb0:]
+
+    def plain_n():
+        nd = None
+        for d in (1, 2, 3):
+            x, _ = sweep.negdiv_scalars_plain(prim, mf[d], d, mesh, cfg,
+                                              recon)
+            nd = x if nd is None else nd + x
+        return nd
+
+    u_new = torch.empty_like(u)
+
+    def kern_s():
+        stage.stage_scalars_cuda(u, u, u_new, None, None, mf, 0.0, 1.0, dt,
+                                 mesh, cfg, eos, recon)
+        return u_new[:, nb0:]
+
+    def plain_s():
+        return stage.stage_scalars_plain(u, u, mf, 0.0, 1.0, dt, mesh, cfg,
+                                         eos, recon)[0]
+
+    for name, kern, plain, nl, nbytes, src in (
+            ("negdiv_scalars", kern_n, plain_n, 3,
+             (2 * ns + 3) * cells * elt, "negdiv_sweep.cu"),
+            ("stage_scalars", kern_s, plain_s, 1,
+             (3 * ns + 4) * cells * elt, "fused_stage.cu")):
+        got, ref = kern(), plain()
+        torch.cuda.synchronize()
+        abs_err = (got - ref).abs().max().item()
+        rel = max_rel_err(got, ref)
+        if not (rel <= F32_TOL and bool(torch.isfinite(got).all())):
+            raise AssertionError(f"{name} disagrees with its plain twin at "
+                                 f"path G''s inputs: {rel:.3e}")
+        before = (sweep.negdiv_scalars_cuda.launches,
+                  stage.stage_scalars_cuda.launches)
+        ms = cuda_ms(kern, reps)
+        plain_ms = cuda_ms(plain, 2)
+        lib_ms = None
+        ops, slow, _ = count_ops(plain)
+        torch.cuda.empty_cache()
+        b = bound_of(nbytes / nl, ops / nl, ms / nl)
+        log(f"  {name}: {ms / nl:.4f} ms per launch ({nl} per call), plain "
+            f"{plain_ms:.4f} ms per call; bound {b['bound_ms']:.4f} ms "
+            f"({b['bound_by']}: {nbytes / nl / 1e6:.1f} MB, "
+            f"{ops / nl / cells:.1f} operations per cell); "
+            f"{100 * b['share_of_bound']:.2f} % of the bound; max abs err "
+            f"{abs_err:.3e} (rel {rel:.3e})")
+        del got, ref
+        sweep.negdiv_scalars_cuda.launches, \
+            stage.stage_scalars_cuda.launches = before
+        entries[name] = dict(
+            name=name, route="cuda",
+            source=f"athenapk_tpu_torch/csrc/{src}",
+            replaces=("athenapk_tpu/solver/pallas_sweep.py:55 (the scalar "
+                      "fluxes every sweep body appends: solve_riemann(..., "
+                      "nscalars), riemann/solvers.py:63-69)"
+                      if name == "negdiv_scalars" else
+                      "athenapk_tpu/solver/pallas_sweep.py:250 (the scalar "
+                      "rows of the whole-stage bodies: cons_to_prim(..., "
+                      "nscalars) and their fluxes, :684)"),
+            launches=launches[name], max_abs_err=abs_err, ms=ms / nl,
+            plain_ms=plain_ms, library_ms=lib_ms, unit="ms per launch",
+            inputs="path G' (cloud, uniform 128x384x128 + ghosts, f32, 1 "
+                   "scalar)", **b)
+    # the whole calls with the scalar (fluid and scalar launches)
+    for name, kern, plain in (
+            ("#1 negdiv_cuda with 1 scalar",
+             lambda: sweep.negdiv_cuda(prim, c_h, mesh, cfg, eos, recon),
+             lambda: sweep.negdiv_plain(prim, c_h, mesh, cfg, eos, recon)),
+            ("#3 stage_cuda with 1 scalar",
+             lambda: stage.stage_cuda(u, u, 0.0, 1.0, dt, c_h, mesh, cfg,
+                                      eos, recon),
+             lambda: stage.stage_plain(u, u, 0.0, 1.0, dt, c_h, mesh, cfg,
+                                       eos, recon))):
+        got, ref = kern(), plain()
+        torch.cuda.synchronize()
+        sl = mesh.interior_slices
+        rel = max_rel_err(got[sl], ref[sl])
+        if not rel <= F32_TOL:
+            raise AssertionError(f"{name} disagrees with plain: {rel:.3e}")
+        del got, ref
+        ms = cuda_ms(kern, reps)
+        plain_ms = cuda_ms(plain, 2)
+        nbytes = (2 if name.startswith("#1") else 3) * u.numel() * elt
+        b = bound_of(nbytes, 0.0, ms)
+        log(f"  {name}: {ms:.4f} ms per call, plain {plain_ms:.4f} ms; the "
+            f"bytes alone bound it at {b['bytes_ms']:.4f} ms "
+            f"({u.shape[1]} variables); max rel err {rel:.3e}")
+        entries[name] = dict(ms_per_call=ms, plain_ms=plain_ms,
+                             bytes_ms=b["bytes_ms"], max_rel_err=rel)
+        torch.cuda.empty_cache()
+    return entries
+
+
 def entry_route(entry):
     """The phase-3 route label prefix of a kernel line entry."""
     return {"negdiv_sweep": "#1", "fused_stage": "#3", "negdiv_sweep_2d": "#4",
@@ -2736,8 +3417,11 @@ def load_port():
     from athenapk_tpu_torch.recon import schemes
     from athenapk_tpu_torch.solver import stage, sweep
     from athenapk_tpu_torch.solver.hydro_pkg import HydroConfig
+    from athenapk_tpu_torch.srcterms import TabularCooling
+    from athenapk_tpu_torch.srcterms.tabular_cooling import PASS_COUNTS
     from athenapk_tpu_torch.utils import exact_riemann
-    PORT = types.SimpleNamespace(
+    PORT = types.SimpleNamespace(TabularCooling=TabularCooling,
+        PASS_COUNTS=PASS_COUNTS,
         ParameterInput=ParameterInput, Mesh=Mesh, Simulation=Simulation,
         EOS=EOS, cons_to_prim=cons_to_prim, prim_to_cons=prim_to_cons,
         stage=stage, sweep=sweep, HydroConfig=HydroConfig,
@@ -2773,6 +3457,7 @@ def main(argv=None):
     phase_build()
     phase_kernel_vs_plain(args.seed)
     new_case_worst = phase_new_cases(args.seed)
+    scalar_worst = phase_scalar_cases(args.seed)
 
     sims, counts, zcps = {}, {}, {}
     for rung in RUNGS:
@@ -2797,16 +3482,33 @@ def main(argv=None):
         zcps[f"path_E {name}"] = run["zcps"]
     zcps["path_F"] = fofc_u["zcps"]
     zcps["path_F refined"] = fofc_r["zcps"]
+    # the cloud-crushing paths (each kernel's launches counted from
+    # 0 just before the path's run)
+    cloud_u, cloud_a = {}, {}
+    for rung in ("sweep", "stage"):
+        cloud_u[rung] = phase_cloud_uniform(rung, n=128, ncycles=12,
+                                            warmup=2)
+        zcps[f"path_G' {rung}"] = cloud_u[rung][1]["zone_cycles_per_s"]
+    for rung in ("stage", "negdiv"):
+        cloud_a[rung] = phase_cloud_adaptive(rung, n=64, ncycles=30,
+                                             warmup=10)
+        zcps[f"path_G {rung}"] = cloud_a[rung][1]["zone_cycles_per_s"]
+    cooling_passes = phase_cooling_passes(n=128, ncycles=2)
     phase_whole_steps(args.seed)
     smr_drift = phase_smr_whole_steps(args.seed)
     amr_2d_launches = phase_amr_whole_steps(args.seed)
     phase_fofc_whole_steps()
+    phase_cloud_whole_steps()
     phase_smr_kernels_vs_plain(smr["A"], "A", "stage-faces")
     phase_smr_kernels_vs_plain(smr["B"], "B", "negdiv-faces")
     phase_smr_kernels_vs_plain(smr["C"], "C", "negdiv-faces")
     # at the adaptive paths' level arrays after their last remesh
     phase_smr_kernels_vs_plain(amr["D"], "D", "stage-faces")
     phase_smr_kernels_vs_plain(amr["D'"], "D'", "negdiv-faces")
+    # the +scalars instantiations path G runs (f32 GLM-MHD HLLD + PLM,
+    # nghost 2) and the scalar kernels at its level arrays
+    phase_smr_kernels_vs_plain(cloud_a["stage"][0], "G", "stage-faces")
+    phase_smr_kernels_vs_plain(cloud_a["negdiv"][0], "G", "negdiv-faces")
 
     sim = sims["stage"]
     by_path = {"main deck, sweep rung": counts["sweep"][0],
@@ -2932,6 +3634,31 @@ def main(argv=None):
     nd3_entry["launches_per_cycle"]["path F refined (FOFC blast)"] = \
         fofc_r["launches"] / fofc_r["cycles"]
 
+    scalar_rows = phase_scalar_timings(cloud_u["sweep"][0], {
+        "negdiv_scalars": cloud_u["sweep"][1]["scalar_launches"],
+        "stage_scalars": cloud_a["stage"][1]["scalar_launches"]}, 20)
+    scalar_entries = [scalar_rows["negdiv_scalars"],
+                      scalar_rows["stage_scalars"]]
+    for entry in scalar_entries:
+        entry["scalar_cases_max_rel_err"] = scalar_worst
+        entry["whole_calls_with_a_scalar"] = {
+            k: v for k, v in scalar_rows.items() if k.startswith("#")}
+    scalar_entries[0]["launches_by_path"] = {
+        f"path G' {r} rung": cloud_u[r][1]["scalar_launches"]
+        for r in cloud_u} | {f"path G {r} rung": cloud_a[r][1][
+            "scalar_launches"] for r in ("negdiv",)}
+    scalar_entries[1]["launches_by_path"] = {
+        "path G' stage rung": cloud_u["stage"][1]["scalar_launches"],
+        "path G stage rung": cloud_a["stage"][1]["scalar_launches"]}
+    scalar_entries[0]["path_G_prime"] = {r: v[1] for r, v in cloud_u.items()}
+    scalar_entries[0]["path_G_prime_cooling_passes"] = cooling_passes
+    scalar_entries[1]["path_G"] = {r: v[1] for r, v in cloud_a.items()}
+    scalar_entries[0]["path_G_prime_profile"] = {
+        r: phase_profile(cloud_u[r][0], 3, f"path G' ({r} rung)")
+        for r in cloud_u}
+    scalar_entries[1]["path_G_profile"] = phase_amr_profile(
+        cloud_a["stage"][0], 3, "path G (stage rung)")
+
     profiles = {}
     e_name = "-".join(PERF_MATRIX[-1])
     profiles["path_E"] = phase_profile(perf[e_name]["sim"], 3,
@@ -2971,8 +3698,8 @@ def main(argv=None):
     log(f"== done in {time.time() - t_start:.1f} s ==")
 
     print(json.dumps({"kernels": [sweep_entry, stage_entry, flat_entry,
-                                  faces_entry, nd3_entry, nd2_entry]}),
-          flush=True)
+                                  faces_entry, nd3_entry, nd2_entry]
+                      + scalar_entries}), flush=True)
     print(card, flush=True)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

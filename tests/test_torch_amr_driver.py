@@ -232,9 +232,9 @@ def test_check_interval_limits_remesh_cadence():
     ("parthenon/output1/file_type=hdf5", "hdf5"),
     ("parthenon/output1/file_type=rst", "rst"),
     ("tracers/enabled=true", "tracers"),
-    ("cooling/enable_cooling=tabular", "cooling"),
+    ("diffusion/viscosity=isotropic", "diffusion"),
     ("diffusion/conduction=isotropic", "diffusion"),
-    ("job/problem_id=cloud", "cloud"),
+    ("job/problem_id=rand_blast", "rand_blast"),
 ])
 def test_unported_features_raise_on_adaptive_decks(override, match, tmp_path,
                                                    monkeypatch):

@@ -5,7 +5,9 @@ face-capturing forms of both kernels (``stage_faces_cuda``,
 ``negdiv_faces_cuda``) against their plain twins, also at the level sizes
 an adaptive mesh hands them, and refined-mesh decks, static and adaptive,
 through ``SmrSimulation`` on the card; the adaptive remesh on the card
-against the CPU.
+against the CPU; every kernel route with passive scalars against its
+plain version (the fluid kernels' instantiations for decks with scalars
+and the two scalar kernels).
 
 Every test here needs a CUDA card (the kernel has no CPU mode) and skips
 with that reason elsewhere.  The file imports neither jax nor the JAX
@@ -112,10 +114,18 @@ def test_wrapper_refuses_what_the_kernel_does_not_take(card):
         sweep.negdiv_cuda(prim.transpose(2, 4), C_H, mesh, cfg, eos, "ppm")
     with pytest.raises(ValueError):
         sweep.negdiv_cuda(prim[..., :-1], C_H, mesh, cfg, eos, "ppm")
+    # a deck with scalars runs on the kernels: the fluid rows as without
+    # them, the scalar row against the plain version
     scalars = HydroConfig(fluid="glmmhd", riemann="hlld",
                           reconstruction="ppm", nscalars=1)
-    with pytest.raises(NotImplementedError, match="passive scalars"):
-        sweep.fused_negdiv(prim, C_H, mesh, scalars, eos, "ppm")
+    prim_s = torch.cat([prim, 0.5 + 0.4 * torch.tanh(prim[:, :1])], dim=1)
+    before = sweep.negdiv_scalars_cuda.launches
+    got = sweep.fused_negdiv(prim_s, C_H, mesh, scalars, eos, "ppm")
+    assert sweep.negdiv_scalars_cuda.launches == before + 3
+    assert torch.equal(got[:, :9], sweep.negdiv_cuda(prim, C_H, mesh, cfg,
+                                                     eos, "ppm"))
+    ref = sweep.negdiv_plain(prim_s, C_H, mesh, scalars, eos, "ppm")
+    assert _per_var_err(got, ref) <= 1e-10
 
 
 def test_simulation_on_card_matches_plain_steps(card, tmp_path, monkeypatch):
@@ -307,11 +317,21 @@ def test_stage_wrapper_refuses_what_the_kernel_does_not_take(card):
     with pytest.raises(ValueError, match="ghost-free"):
         stage.stage_cuda(u, u, 0.25, 0.75, 1e-3, C_H, _mesh("ghosted"), cfg,
                          eos, "ppm", emit_dt=True)
+    # a deck with scalars runs on the kernels
     scalars = HydroConfig(fluid="glmmhd", riemann="hlld",
                           reconstruction="ppm", nscalars=1)
-    with pytest.raises(NotImplementedError, match="passive scalars"):
-        stage.fused_stage(u, u, 0.25, 0.75, 1e-3, C_H, mesh, scalars, eos,
-                          "ppm")
+    cons = prim_to_cons(eos, u, "glmmhd")
+    u_s = torch.cat([cons, cons[:, :1] * (0.5 + 0.4 * torch.tanh(u[:, 1:2]))],
+                    dim=1)
+    before = stage.stage_scalars_cuda.launches
+    got = stage.fused_stage(u_s, u_s, 0.25, 0.75, 1e-3, C_H, mesh, scalars,
+                            eos, "ppm")
+    assert stage.stage_scalars_cuda.launches == before + 1
+    assert torch.equal(got[:, :9], stage.fused_stage(
+        cons, cons, 0.25, 0.75, 1e-3, C_H, mesh, cfg, eos, "ppm"))
+    ref = stage.stage_plain(u_s, u_s, 0.25, 0.75, 1e-3, C_H, mesh, scalars,
+                            eos, "ppm")
+    assert _per_var_err(got, ref) <= 1e-10
 
 
 # ------------------------------------------------ decks through Simulation
@@ -502,12 +522,10 @@ def test_fofc_blast_kernel_matches_plain_on_card(card, tmp_path,
     np.testing.assert_allclose(hst[:, :2], href[:, :2], rtol=1e-10)
 
 
-# what the kernels refuse: passive scalars
-REFUSED = {"advection_scalar": "nscalars"}
+# every deck runs on the card, the advection deck with a scalar too
 DECK_RUNS = [(case, rung) for case in sorted(CASES) for rung in (
     ("sweep", "stage", "hybrid")
-    if CASES[case].get("nx", (1, 1, 1))[2] > 1 and case not in REFUSED
-    else ("sweep",))]
+    if CASES[case].get("nx", (1, 1, 1))[2] > 1 else ("sweep",))]
 
 
 @pytest.mark.parametrize("case,rung", DECK_RUNS,
@@ -516,16 +534,11 @@ def test_pgen_decks_on_card_match_cpu(card, case, rung, tmp_path,
                                       monkeypatch):
     """Every ported problem's deck for 5 f64 cycles on the card (3-D decks
     on each rung) against the default path on the CPU, from the initial
-    state times seeded noise: state 1e-10.  Decks the kernels do not take
-    raise instead of running elsewhere."""
+    state times seeded noise: state 1e-10."""
     text = deck(**{**CASES[case], "merge": "auto"}) \
         + "\n<parthenon/output1>\nfile_type = hst\n"
     for name in ("ATHENAPK_PALLAS_STAGE", "ATHENAPK_PALLAS_HYBRID"):
         monkeypatch.delenv(name, raising=False)
-    if case in REFUSED:
-        with pytest.raises(NotImplementedError, match=REFUSED[case]):
-            _run_deck(text, "cuda", tmp_path / "card", noise=1e-3)
-        return
     ref, href = _run_deck(text, "cpu", tmp_path / "cpu", noise=1e-3)
     if rung != "sweep":
         monkeypatch.setenv(f"ATHENAPK_PALLAS_{rung.upper()}", "1")
@@ -542,6 +555,111 @@ def test_pgen_decks_on_card_match_cpu(card, case, rung, tmp_path,
     assert np.isfinite(b).all()
     assert np.abs(a - b).max() <= 1e-10 * np.abs(a).max()
     np.testing.assert_allclose(hst[:, :2], href[:, :2], rtol=1e-10)
+
+
+# ---------------------------------------------------------- passive scalars
+# (fluid, riemann, reconstruction, nscalars): the cases chip_smoke.py's
+# phase 3 holds on every route
+SCALAR_CASES = [("glmmhd", "hlld", "ppm", 1), ("glmmhd", "hlld", "ppm", 3),
+                ("euler", "hllc", "plm", 1), ("euler", "hllc", "plm", 3),
+                ("euler", "hllc", "plm", 4)]
+SCALAR_LAYOUTS = ["3d_ghostfree", "2d_ghosted", "1d_ghosted"]
+
+
+def _scalar_prim(mesh, fluid, nscalars, seed):
+    """``_random_prim`` plus ``nscalars`` scalar rows: a tracer that is 0
+    in part of the domain and positive elsewhere (numpy, f64)."""
+    rng = np.random.default_rng(seed)
+    w = _random_prim(mesh, fluid, seed)
+    cells = (mesh.nblocks, nscalars) + mesh.block_shape
+    q = np.maximum(rng.standard_normal(cells), 0.0) * rng.random(cells)
+    return np.concatenate([w, q], axis=1)
+
+
+def _scalar_case(case):
+    fluid, riemann, recon, ns = case
+    cfg = HydroConfig(fluid=fluid, riemann=riemann, reconstruction=recon,
+                      nscalars=ns)
+    return cfg, recon, (C_H if fluid == "glmmhd" else 0.0)
+
+
+@pytest.mark.parametrize("dtype,tol", [(torch.float64, 1e-10),
+                                       (torch.float32, 1e-4)])
+@pytest.mark.parametrize("faces", [False, True])
+@pytest.mark.parametrize("layout", SCALAR_LAYOUTS)
+@pytest.mark.parametrize("case", SCALAR_CASES,
+                         ids=lambda c: "-".join(map(str, c)))
+def test_sweep_kernels_with_scalars_match_plain(card, case, layout, faces,
+                                                dtype, tol):
+    """Routes #1, #4 (2-D, 1-D) and, with faces, #6/#2 and #5 with passive
+    scalars: -div(F) and every face slab, fluid and scalar rows, against
+    the plain version; one scalar launch per fluid launch."""
+    cfg, recon, c_h = _scalar_case(case)
+    mesh = _flat_mesh(layout)
+    if faces and mesh.nghost == 0:
+        mesh = _face_mesh(16, 3, 3)
+    eos = EOS(gamma=5.0 / 3.0)
+    prim = torch.tensor(_scalar_prim(mesh, cfg.fluid, cfg.nscalars, 31),
+                        dtype=dtype, device=card)
+    ndir = len(sweep.active_dirs(mesh))
+    before = sweep.negdiv_scalars_cuda.launches
+    sl = mesh.interior_slices
+    if faces:
+        nd, fc = sweep.fused_negdiv_faces(prim, c_h, mesh, cfg, eos, recon)
+        ref_nd, ref_fc = sweep.negdiv_faces_plain(prim, c_h, mesh, cfg, eos,
+                                                  recon)
+        for d in fc:
+            assert _face_err(fc[d], ref_fc[d]) <= tol, d
+    else:
+        nd = sweep.fused_negdiv(prim, c_h, mesh, cfg, eos, recon)
+        ref_nd = sweep.negdiv_plain(prim, c_h, mesh, cfg, eos, recon)
+    torch.cuda.synchronize()
+    assert sweep.negdiv_scalars_cuda.launches - before == ndir
+    assert bool(torch.isfinite(nd[sl]).all())
+    assert _per_var_err(nd[sl], ref_nd[sl]) <= tol
+
+
+@pytest.mark.parametrize("dtype,tol", [(torch.float64, 1e-10),
+                                       (torch.float32, 1e-4)])
+@pytest.mark.parametrize("faces", [False, True])
+@pytest.mark.parametrize("case", SCALAR_CASES,
+                         ids=lambda c: "-".join(map(str, c)))
+def test_stage_kernels_with_scalars_match_plain(card, case, faces, dtype,
+                                                tol):
+    """Routes #3 (floors, CFL bound, stage-start prim) and #7 (faces) with
+    passive scalars against the plain version."""
+    cfg, recon, c_h = _scalar_case(case)
+    if faces:
+        mesh = _face_mesh(16, 3, 3)
+    else:
+        n1, n2, n3, m1, m2, m3, g = STAGE_LAYOUTS["ghostfree"]
+        mesh = Mesh(nx1=n1, nx2=n2, nx3=n3, mbnx1=m1, mbnx2=m2, mbnx3=m3,
+                    x1min=0.0, x1max=1.0, x2min=0.0, x2max=1.5, x3min=0.0,
+                    x3max=1.5, nghost=g)
+    eos = EOS(gamma=5.0 / 3.0, **FLOORS)
+    w = torch.tensor(_scalar_prim(mesh, cfg.fluid, cfg.nscalars, 37))
+    w[:, 0][w[:, 0] < 1.03] = 0.8          # below the density floor
+    u0 = prim_to_cons(eos, w, cfg.fluid, cfg.nscalars).to(card, dtype)
+    u1 = 1.01 * u0 + 0.001
+    args = (u0, u1, 0.25, 0.75, 1e-3, c_h, mesh, cfg, eos, recon)
+    before = stage.stage_scalars_cuda.launches
+    if faces:
+        got = stage.fused_stage_faces(*args, emit_prim=True)
+        ref = stage.stage_faces_plain(*args, emit_prim=True)
+        for d in (1, 2, 3):
+            assert _face_err(got[2][d], ref[2][d]) <= tol, d
+    else:
+        got = stage.fused_stage(*args, emit_dt=True, emit_prim=True)
+        ref = stage.stage_plain(*args, emit_dt=True, emit_prim=True)
+        assert got[1].min().item() == pytest.approx(ref[1].min().item(),
+                                                    rel=tol)
+    torch.cuda.synchronize()
+    assert stage.stage_scalars_cuda.launches == before + 1
+    sl = mesh.interior_slices
+    assert bool(torch.isfinite(got[0][sl]).all())
+    assert _per_var_err(got[0][sl], ref[0][sl]) <= tol
+    assert _per_var_err(got[-1 if not faces else 1],
+                        ref[-1 if not faces else 1]) <= tol
 
 
 # ------------------------------------- the face-capturing kernels (SMR)

@@ -215,7 +215,7 @@ def test_cuda_requested_without_a_card_raises():
     ("parthenon/mesh/refinement=static", "refinement"),
     ("parthenon/mesh/refinement=adaptive", "refinement"),
     ("diffusion/conduction=isotropic", "diffusion"),
-    ("cooling/enable_cooling=tabular", "cooling"),
+    ("diffusion/viscosity=isotropic", "diffusion"),
     ("job/problem_id=rand_blast", "rand_blast"),
 ])
 def test_unported_features_raise(override, match):

@@ -59,7 +59,8 @@ def test_registry_lists_the_ported_problems():
     for pid in ("sod", "orszag_tang", "blast", "lw_implode", "field_loop",
                 "cpaw", "kh", "advection", "linear_wave", "linear_wave_mhd"):
         assert callable(get_pgen(pid).problem_generator)
-    for pid in ("diffusion", "rand_blast", "turbulence", "cloud", "cluster"):
+    assert callable(get_pgen("cloud").check_refinement_block)
+    for pid in ("diffusion", "rand_blast", "turbulence", "cluster"):
         with pytest.raises(NotImplementedError, match=pid):
             get_pgen(pid)
     with pytest.raises(ValueError):

@@ -168,7 +168,7 @@ def test_cli_runs_a_refined_deck_on_the_cpu(tmp_path, monkeypatch, capsys):
     ("parthenon/output1/file_type=hdf5", "hdf5"),
     ("parthenon/output1/file_type=rst", "rst"),
     ("tracers/enabled=true", "tracers"),
-    ("cooling/enable_cooling=tabular", "cooling"),
+    ("diffusion/viscosity=isotropic", "diffusion"),
     ("diffusion/conduction=isotropic", "diffusion"),
     ("job/problem_id=rand_blast", "rand_blast"),
 ])

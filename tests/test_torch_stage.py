@@ -176,7 +176,7 @@ def test_non_cpu_tensor_never_takes_the_plain_stage():
         stage.fused_stage(u[:, :5], u[:, :5], GAM0, GAM1, BDT, 0.0, mesh,
                           euler, eos, "plm")
     # llf, GLM-MHD hlle and the weno-type reconstructions are taken now:
-    # they get as far as the tensor checks; passive scalars are refused
+    # they get as far as the tensor checks, and so do passive scalars
     llf = HydroConfig(fluid="euler", riemann="llf", reconstruction="plm")
     with pytest.raises(ValueError, match="CUDA tensor"):
         stage.fused_stage(u[:, :5], u[:, :5], GAM0, GAM1, BDT, 0.0, mesh, llf,
@@ -193,7 +193,7 @@ def test_non_cpu_tensor_never_takes_the_plain_stage():
                               recon)
     scalars = HydroConfig(fluid="euler", riemann="hllc", reconstruction="plm",
                           nscalars=1)
-    with pytest.raises(NotImplementedError, match="passive scalars"):
+    with pytest.raises(ValueError, match="CUDA tensor"):
         stage.fused_stage(u[:, :6], u[:, :6], GAM0, GAM1, BDT, 0.0, mesh,
                           scalars, eos, "plm")
 

@@ -136,10 +136,10 @@ def test_non_cpu_tensor_never_takes_the_plain_path():
     prim = torch.empty((1, 9) + mesh.block_shape, device="meta")
     with pytest.raises(ValueError, match="CUDA tensor"):
         sweep.fused_negdiv(prim, C_H, mesh, ppm, eos, "ppm")
-    # what the kernel still lacks: passive scalars
+    # passive scalars are taken too: they get as far as the tensor checks
     scalars = HydroConfig(fluid="euler", riemann="hllc", reconstruction="ppm",
                           nscalars=2)
-    with pytest.raises(NotImplementedError, match="passive scalars"):
+    with pytest.raises(ValueError, match="CUDA tensor"):
         sweep.fused_negdiv(prim[:, :7], C_H, mesh, scalars, eos, "ppm")
     # every (fluid, solver) pair and every reconstruction is taken: each
     # gets as far as the tensor checks
@@ -223,3 +223,30 @@ def test_ptxas_summary_reads_each_instantiation():
         "fused_stage f64 plm euler-hlle faces: 255 registers, 0 bytes stack "
         "frame, 8 bytes spill stores, 8 bytes spill loads",
     ]
+
+
+def test_decks_with_scalars_build_their_own_library(monkeypatch, tmp_path):
+    """The instantiations for decks with scalars (and the scalar kernels)
+    build into a second library of each source, named apart, so that a
+    run without scalars never compiles them; each library's units carry
+    their family's switch."""
+    for scalars in (False, True):
+        units = sweep.build_units(scalars)
+        assert units[0] == (f"-DHYDRO_ENTRY_SCAL={int(scalars)}",)
+        assert len(units) == 1 + len(sweep.KERNEL_RECONS) * len(
+            sweep.KERNEL_DTYPES)
+        assert all(u[-1] == f"-DHYDRO_UNIT_SCAL={int(scalars)}"
+                   for u in units[1:])
+    monkeypatch.setattr(sweep, "BUILD_DIR", tmp_path / "build")
+    monkeypatch.setattr(sweep.shutil, "which", lambda name: None)
+    monkeypatch.setenv("CUDA_HOME", str(tmp_path / "no_cuda"))
+    digest = hashlib.sha256()
+    for path in (sweep.CSRC,) + sweep.HEADERS:
+        digest.update(path.read_bytes())
+    (tmp_path / "build").mkdir()
+    lib = (tmp_path / "build"
+           / f"libnegdiv_sweep_scalars_{digest.hexdigest()[:12]}.so")
+    lib.write_bytes(b"")
+    assert sweep.build_library(scalars=True) == (lib, "")
+    with pytest.raises(RuntimeError, match="nvcc not found"):
+        sweep.build_library()      # the other library is not there

@@ -408,3 +408,114 @@ precision = {precision}
 # GLM-MHD on the same 2-D deck: HLLD with a uniform Bx
 ADAPTIVE_2D_MHD = ["hydro/fluid=glmmhd", "hydro/riemann=hlld",
                    "problem/blast/b0=0.5"]
+
+
+# ------------------------------------------------------------ cloud crushing
+# The cloud-in-wind deck (``pgen/cloud.py``) with tabular cooling, written
+# here because the reference's ``inputs/cloud.in`` and its cooling table are
+# not in the repository: a cloud of 100 pc at 1e-24 g/cm^3 in a wind of
+# 1e-27 g/cm^3 at 1e7 K and 1700 km/s along x2, entering through the
+# inner-x2 inflow boundary; GLM-MHD with a transverse field at plasma beta
+# 100; one passive scalar; cooling on a power-law table
+# (``write_cooling_table``).  The domain is 8 cloud radii across x1 and x3,
+# from 4 radii upwind of the cloud's centre.  The code units (1 cm, about
+# one hydrogen mass, 1e-8 s) keep every quantity of the cooling (Lambda,
+# (X / m_h)^2) and of the state inside the f32 range, so that the deck
+# also runs in single precision (with a parsec-sized length unit, Lambda
+# in code units is ~1e-123 and (X / m_h)^2 ~1e122).
+R_CLOUD = 3.085677580962325e+20     # 100 pc in code lengths (cm)
+CLOUD = """
+<job>
+problem_id = cloud
+
+<problem/cloud>
+r0_cgs = 3.085677580962325e+20
+rho_cloud_cgs = 1e-24
+rho_wind_cgs = 1e-27
+T_wind_cgs = 1e7
+v_wind_cgs = 1.7e8
+plasma_beta = 100.0
+mag_field_angle = transverse
+
+<parthenon/mesh>
+refinement = {refinement}
+numlevel = {numlevel}
+merge_blocks = {merge}
+nghost = 2
+nx1 = {nx1}
+x1min = {lo}
+x1max = {hi}
+nx2 = {nx2}
+x2min = {lo}
+x2max = {x2max}
+nx3 = {nx3}
+x3min = {lo}
+x3max = {hi}
+ix1_bc = outflow
+ox1_bc = outflow
+ix2_bc = cloud_inflow_x2
+ox2_bc = outflow
+ix3_bc = outflow
+ox3_bc = outflow
+
+<parthenon/meshblock>
+nx1 = {mb}
+nx2 = {mb}
+nx3 = {mb}
+
+<parthenon/time>
+integrator = vl2
+cfl = 0.3
+tlim = 1.0e30
+nlim = {nlim}
+ncycle_out = 0
+
+<hydro>
+fluid = glmmhd
+eos = adiabatic
+riemann = hlld
+reconstruction = plm
+gamma = 1.666666666666667
+nscalars = 1
+He_mass_fraction = 0.25
+precision = {precision}
+
+<units>
+code_length_cgs = 1.0
+code_mass_cgs = 1.6726e-24
+code_time_cgs = 1.0e-8
+
+<cooling>
+enable_cooling = tabular
+table_filename = {table}
+lambda_units_cgs = 1.0
+integrator = {integrator}
+cfl = 0.1
+"""
+
+
+def cloud_deck(table, refinement="none", nx=(16, 32, 16), mb=8, numlevel=2,
+               nlim=5, integrator="townsend", precision="double",
+               merge="true"):
+    """The cloud deck at ``nx`` cells (x2 spans ``nx[1] / nx[0]`` times
+    the 8 radii of x1)."""
+    return CLOUD.format(refinement=refinement, numlevel=numlevel, nx1=nx[0],
+                        nx2=nx[1], nx3=nx[2], lo=-4.0 * R_CLOUD,
+                        hi=4.0 * R_CLOUD,
+                        x2max=(-4.0 + 8.0 * nx[1] / nx[0]) * R_CLOUD, mb=mb,
+                        nlim=nlim, table=table, integrator=integrator,
+                        precision=precision, merge=merge)
+
+
+def write_cooling_table(path, alpha=0.5, lam0=1e-23, t_ref=1e6):
+    """A two-column cooling table (log10 T, log10 Lambda), Lambda =
+    lam0 (T / t_ref)^alpha from 1e4 to 1e8 K (``tests/test_cooling.py``'s
+    power law)."""
+    import math
+    log_t = np.linspace(4.0, 8.0, 41)
+    log_l = math.log10(lam0) + alpha * (log_t - math.log10(t_ref))
+    with open(path, "w") as fh:
+        fh.write("# logT logLambda\n")
+        for a, b in zip(log_t, log_l):
+            fh.write(f"{a} {b}\n")
+    return str(path)
