@@ -36,11 +36,25 @@ tags blocks beside the criterion (adaptive meshes, combined by ``max``);
 tabular cooling is built as the uniform driver builds it
 (``driver.make_cooling``) and acts on every level.
 
+Diffusion is built as the uniform driver builds it
+(``driver.make_diffusion``): unsplit diffusion joins every stage
+(``SmrHydro``), RKL2 wraps the cycle.  The problem's source hooks are the
+JAX driver's (``athenapk_tpu/amr/driver.py:119-140, 225-282``):
+``problem_source_unsplit_smr`` joins every stage; for the split sources
+(``problem_source_first_order``, ``problem_source_strang``) a ``_smr`` hook
+wins (sources with reductions over the mesh, e.g. turbulence's driving),
+else ``adapt_split_source`` runs the uniform hook per level with a
+``LevelLeafView`` (pointwise sources, e.g. rand_blast's blasts);
+``estimate_timestep_smr`` caps the dt.  Each is rebuilt for every new leaf
+table.  A deck with RKL2, a split source or a dt hook runs the JAX
+driver's non-pipelined branch (``_run_split``, ``:590-680``): the dt read
+before the cycle, the half super-step, the Strang source, the step, the
+Strang source, the first-order source, the half super-step, each source
+followed by a ghost fill.  Every other deck keeps the pipelined loop.
+
 The state lives on ``cuda`` unless the caller asks for the CPU; asking for
 CUDA where there is none raises.  Not ported (``NotImplementedError``):
-restart, hdf5 and rst outputs, tracers, diffusion, and the problems whose
-split sources the JAX driver calls (``rand_blast``, ``turbulence``,
-``cluster``).
+restart, hdf5 and rst outputs, tracers, and the problem ``cluster``.
 """
 
 from __future__ import annotations
@@ -78,6 +92,72 @@ def leaf_mesh(smesh: SmrMesh, gid: int) -> Mesh:
                 nghost=b.nghost)
 
 
+class LevelLeafView:
+    """Mesh-like view of one refinement level's leaves, so that a uniform
+    mesh's problem hook (a split-source factory, say) runs unchanged on a
+    refined mesh: the block axis is the level's leaves, ``cell_centers_mesh``
+    gives each leaf's own coordinates, dx is the level's, and the domain
+    extents stay global (factories read them for whole-domain
+    constants)."""
+
+    def __init__(self, smesh: SmrMesh, lev: int):
+        b = smesh.base
+        self._smesh = smesh
+        self._ids = smesh.level_ids[lev]
+        self.nblocks = len(self._ids)
+        self.nghost = b.nghost
+        self.ng1, self.ng2, self.ng3 = b.ng1, b.ng2, b.ng3
+        self.NX, self.NY, self.NZ = b.NX, b.NY, b.NZ
+        self.block_shape = b.block_shape
+        self.mbnx1, self.mbnx2, self.mbnx3 = b.mbnx1, b.mbnx2, b.mbnx3
+        self.dx1, self.dx2, self.dx3 = smesh.dx(lev)
+        self.dx = (self.dx1, self.dx2, self.dx3)
+        self.min_dx = smesh.min_dx(lev)
+        self.cell_volume = self.dx1 * self.dx2 * self.dx3
+        self.x1min, self.x1max = b.x1min, b.x1max
+        self.x2min, self.x2max = b.x2min, b.x2max
+        self.x3min, self.x3max = b.x3min, b.x3max
+        self.nx1, self.nx2, self.nx3 = b.nx1, b.nx2, b.nx3
+        self.interior_slices = b.interior_slices
+        self.ndim = b.ndim
+
+    def cell_centers(self, dtype=np.float64):
+        nb = self.nblocks
+        x = np.empty((nb, self.NX), dtype=dtype)
+        y = np.empty((nb, self.NY), dtype=dtype)
+        z = np.empty((nb, self.NZ), dtype=dtype)
+        for li, gid in enumerate(self._ids):
+            xs, ys, zs = self._smesh.cell_centers_leaf(gid)
+            x[li] = np.ravel(xs)
+            y[li] = np.ravel(ys)
+            z[li] = np.ravel(zs)
+        return x, y, z
+
+    def cell_centers_mesh(self, dtype=np.float64):
+        x, y, z = self.cell_centers(dtype)
+        return (x[:, None, None, :], y[:, None, :, None],
+                z[:, :, None, None])
+
+
+def adapt_split_source(factory, pin, smesh, cfg, eos):
+    """Run a uniform mesh's split-source factory on a refined mesh: one
+    instance per level, built with a ``LevelLeafView`` (the leaves'
+    coordinates, the level's dx).  Right for POINTWISE sources (rand_blast's
+    blasts, the reference's ``ProblemSourceFirstOrder`` contract,
+    ``hydro_driver.cpp:548-561``); a source with reductions over the mesh
+    needs a ``*_smr`` hook, which wins where present."""
+    fns = {lev: factory(pin, LevelLeafView(smesh, lev), cfg, eos)
+           for lev in smesh.level_ids}
+    if all(fn is None for fn in fns.values()):
+        return None
+
+    def src(state, dt, t):
+        return {lev: (fns[lev](u, dt, t) if fns[lev] is not None else u)
+                for lev, u in state.items()}
+
+    return src
+
+
 def init_state_from_pgen(smesh: SmrMesh, pgen, pin, cfg, eos,
                          dtype=torch.float64, device="cuda"):
     """``{level: [nb, nvar, NZ, NY, NX]}`` from the uniform problem
@@ -101,7 +181,7 @@ class SmrSimulation:
     def __init__(self, pin: ParameterInput, quiet: bool = False,
                  device="cuda"):
         from ..driver import (DTYPES, check_unported, make_cooling,
-                              resolve_device)
+                              make_diffusion, resolve_device)
 
         self.pin = pin
         self.quiet = quiet
@@ -127,8 +207,6 @@ class SmrSimulation:
         self.cfg = HydroConfig.from_parameter_input(pin)
         check_reflecting_mhd(base, self.cfg.fluid)
         self.eos = EOS.from_parameter_input(pin)
-        # the problems with split sources (rand_blast, turbulence, cluster)
-        # are not ported: get_pgen refuses them
         self.pgen = get_pgen(self.problem_id)
         init_hook = getattr(self.pgen, "init_user_mesh_data", None)
         if init_hook is not None:
@@ -144,6 +222,12 @@ class SmrSimulation:
             self._problem_check = lambda prim, base: pc_hook(  # noqa: E731
                 pin, base, cfg, eos, prim)
         self.cooling = make_cooling(pin)
+        self.diffusion = make_diffusion(pin)
+        factories = self._source_factories()
+        pe_hook = getattr(self.pgen, "estimate_timestep_smr", None)
+        self._pe_factory = (None if pe_hook is None else (
+            lambda sm: pe_hook(pin, sm, self.cfg, self.eos)))
+        self._pe_cache = (None, None)   # (smesh, fn)
         if self.adaptive:
             self.driver = AmrHydro(
                 self.smesh, self.cfg, self.eos,
@@ -154,12 +238,21 @@ class SmrSimulation:
                     "parthenon/mesh", "derefine_count", 10),
                 device=self.device, cooling=self.cooling,
                 custom_bcs=self._custom_bcs,
-                problem_check=self._problem_check)
+                problem_check=self._problem_check,
+                diffusion=self.diffusion,
+                problem_source_factory=factories[0],
+                problem_first_order_factory=factories[1],
+                problem_strang_factory=factories[2])
         else:
             self.driver = None
-            self.stepper = SmrHydro(self.smesh, self.cfg, self.eos,
-                                    device=self.device, cooling=self.cooling,
-                                    custom_bcs=self._custom_bcs)
+            built = [f(self.smesh) if f is not None else None
+                     for f in factories]
+            self.stepper = SmrHydro(
+                self.smesh, self.cfg, self.eos, device=self.device,
+                cooling=self.cooling, custom_bcs=self._custom_bcs,
+                diffusion=self.diffusion, problem_source_unsplit=built[0],
+                problem_source_first_order=built[1],
+                problem_source_strang=built[2])
         self.state = self._generate_state()
         if self.adaptive:
             # Parthenon's Mesh::Initialize loop: tag, remesh, then
@@ -195,14 +288,39 @@ class SmrSimulation:
                     f"{self.problem_id}.out{oid}.hst", self.cfg.fluid,
                     pin.get_or_add_real(blk, "dt", -1.0))
 
+    def _source_factories(self):
+        """``factory(smesh)`` of the unsplit source, the first-order and
+        the Strang split source (each None where the problem has none; the
+        JAX driver's ``_split_factory``: an ``_smr`` hook wins over the
+        per-level adapter of the uniform hook)."""
+        pin, cfg, eos, pgen = self.pin, self.cfg, self.eos, self.pgen
+        unsplit = getattr(pgen, "problem_source_unsplit_smr", None)
+
+        def split(name):
+            smr_hook = getattr(pgen, f"{name}_smr", None)
+            if smr_hook is not None:
+                return lambda sm: smr_hook(pin, sm, cfg, eos)
+            uni = getattr(pgen, name, None)
+            if uni is not None:
+                return lambda sm: adapt_split_source(uni, pin, sm, cfg, eos)
+            return None
+
+        return ((None if unsplit is None
+                 else (lambda sm: unsplit(pin, sm, cfg, eos))),
+                split("problem_source_first_order"),
+                split("problem_source_strang"))
+
     # ----------------------------------------------------------- state I/O
     def load_state(self, state, t: float, ncycle: int,
-                   dt: Optional[float] = None):
+                   dt: Optional[float] = None, forcing=None):
         """Replace the state with ``{level: array}`` (ghosts included, in
         this simulation's layout, e.g. the JAX package's ``SmrSimulation.
         state``) at time ``t`` and cycle ``ncycle``, on this simulation's
-        device and dtype.  ``dt``, the last cycle's step, caps the first
-        step at 2*dt."""
+        device and dtype.  ``dt``, the last cycle's step (the JAX driver's
+        ``tm_dt``), caps the first step at 2*dt.  ``forcing``
+        (turbulence): the forcing driver's ``(var_hat, bit_generator
+        state)`` (``driver.load_payload`` maps the JAX package's driver
+        state onto these arguments)."""
         new = {}
         sm = self._smesh_now()
         for lev, ids in sm.level_ids.items():
@@ -217,6 +335,8 @@ class SmrSimulation:
         self.t = float(t)
         self.ncycle = int(ncycle)
         self.tm_dt = float(dt) if dt else None
+        if forcing is not None:
+            self.pgen.forcing_driver_smr(self.pin, sm).set_state(*forcing)
         return self
 
     # ------------------------------------------------------------- helpers
@@ -232,6 +352,31 @@ class SmrSimulation:
         return self._stepper_now().fill_ghosts(init_state_from_pgen(
             self._smesh_now(), self.pgen, self.pin, self.cfg, self.eos,
             self.dtype, self.device))
+
+    def _problem_dt(self):
+        """The pgen's dt constraint on the current mesh (inf without one),
+        its closure rebuilt after every remesh; a float or a 0-d tensor."""
+        if self._pe_factory is None:
+            return float("inf")
+        sm = self._smesh_now()
+        if self._pe_cache[0] is not sm:
+            self._pe_cache = (sm, self._pe_factory(sm))
+        fn = self._pe_cache[1]
+        return float("inf") if fn is None else fn(self.state, self.t)
+
+    def _split_loop(self):
+        """Does the run take the JAX driver's non-pipelined branch (RKL2, a
+        split source or a pgen dt constraint)?"""
+        st = self._stepper_now()
+        return (st.sts or st.problem_source_first_order is not None
+                or st.problem_source_strang is not None
+                or self._pe_factory is not None)
+
+    def _c_h(self, dt):
+        if self.cfg.fluid != "glmmhd":
+            return 0.0
+        sm = self._smesh_now()
+        return self.cfg.cfl * sm.min_dx(sm.max_level) / dt if dt > 0 else 0.0
 
     def _write_hst(self, dt):
         if self._hst is None or not self._hst.due(self.t):
@@ -282,9 +427,97 @@ class SmrSimulation:
         b = self._smesh_now().base
         zones_per_block = b.mbnx1 * b.mbnx2 * b.mbnx3
         t0 = time.time()
+        self._write_hst(0.0)
+        if self._split_loop():
+            zone_cycles, n_remesh = self._run_split(zones_per_block)
+        else:
+            zone_cycles, n_remesh = self._run_pipelined(zones_per_block)
+        if self.device.type == "cuda":
+            torch.cuda.synchronize(self.device)
+        wall = time.time() - t0
+        self.perf_zone_cycles = zone_cycles
+        self.perf_wall = wall
+        self.perf_remeshes = n_remesh
+        if not self.quiet and zone_cycles:
+            print(f"zone-cycles/wallsecond = {zone_cycles / wall:.6e}",
+                  flush=True)
+        return self
+
+    def _end_cycle(self, dt, zones_per_block):
+        """The cycle's output: the ``cycle=`` line, the mesh structure,
+        the ``.hst`` row."""
+        if not self.quiet and self.ncycle_out > 0 \
+                and self.ncycle % self.ncycle_out == 0:
+            nlv = {lev: v.shape[0] for lev, v in self.state.items()}
+            print(f"cycle={self.ncycle} time={self.t:.8e} "
+                  f"dt={dt:.8e} blocks={nlv}", flush=True)
+        if not self.quiet and self.ncycle_out_mesh != 0 \
+                and self.ncycle % abs(self.ncycle_out_mesh) == 0:
+            self._print_mesh(zones_per_block)
+        self._write_hst(dt)
+
+    def _run_split(self, zones_per_block):
+        """The JAX driver's non-pipelined cycle: remesh check, the dt (one
+        host read of the estimate, dt_diff and the pgen's dt), then the
+        RKL2 half super-step, the Strang source, the step, the Strang
+        source, the first-order source and the second half super-step.
+        -> (zone-cycles, remeshes)."""
+        zone_cycles = n_remesh = 0
+        while self._running():
+            if self.adaptive and \
+                    self.ncycle % self.driver.check_interval == 0:
+                self.state, changed = self.driver.maybe_remesh(self.state)
+                if changed:
+                    n_remesh += 1
+                    if not self.quiet and self.ncycle_out_mesh < 0:
+                        self._print_mesh(zones_per_block)
+            st = self._stepper_now()
+            if st.sts:
+                dt_j, dt_diff = st.estimate_dt_with_diff(self.state)
+            else:
+                dt_j, dt_diff = st.estimate_dt(self.state), None
+            parts = (dt_j, dt_j if dt_diff is None else dt_diff,
+                     self._problem_dt())
+            vals = torch.stack([torch.as_tensor(
+                v, dtype=dt_j.dtype, device=dt_j.device).reshape(())
+                for v in parts]).tolist()
+            dt_raw = min(vals[0], vals[2])
+            if self.tm_dt is not None:
+                dt_raw = min(dt_raw, 2.0 * self.tm_dt)
+            self.tm_dt = dt_raw
+            dt = min(dt_raw, self.tlim - self.t)
+            src_strang = st.problem_source_strang
+            src_fo = st.problem_source_first_order
+            if st.sts:
+                # the Strang wrap: a half super-step on each side of the
+                # hyperbolic cycle (hydro_driver.cpp:456-458)
+                self.state = st.sts_half_step(self.state, 0.5 * dt, vals[1])
+            if src_strang is not None:
+                # AddSplitSourcesStrang (hydro_driver.cpp:460-470)
+                self.state = st.fill_ghosts(
+                    src_strang(self.state, dt, self.t))
+            self.state = st.step(self.state, dt, self._c_h(dt), self.t)
+            if src_strang is not None:
+                self.state = st.fill_ghosts(
+                    src_strang(self.state, dt, self.t))
+            if src_fo is not None:
+                # AddSplitSourcesFirstOrder, once per cycle at full dt
+                # (hydro_driver.cpp:548-561)
+                self.state = st.fill_ghosts(src_fo(self.state, dt, self.t))
+            if st.sts:
+                self.state = st.sts_half_step(self.state, 0.5 * dt, vals[1])
+            self.t += dt
+            self.ncycle += 1
+            zone_cycles += zones_per_block * sum(
+                v.shape[0] for v in self.state.values())
+            self._end_cycle(dt, zones_per_block)
+        return zone_cycles, n_remesh
+
+    def _run_pipelined(self, zones_per_block):
+        """The pipelined loop (module docstring). -> (zone-cycles,
+        remeshes)."""
         zone_cycles = 0
         n_remesh = 0
-        self._write_hst(0.0)
         pack, tags = self._read_next() if self._running() else (None, None)
         while self._running():
             if tags is not None:
@@ -298,7 +531,8 @@ class SmrSimulation:
                     # the state changed under the dt read with the tags
                     pack, _ = self._read_next(with_tags=False)
             dt_raw, dt, c_h = pack
-            self.state = self._stepper_now().step(self.state, dt, c_h)
+            self.state = self._stepper_now().step(self.state, dt, c_h,
+                                                  self.t)
             self.tm_dt = dt_raw
             self.t += dt
             self.ncycle += 1
@@ -308,25 +542,8 @@ class SmrSimulation:
             # is enqueued
             pack, tags = (self._read_next() if self._running()
                           else (None, None))
-            if not self.quiet and self.ncycle_out > 0 \
-                    and self.ncycle % self.ncycle_out == 0:
-                nlv = {lev: v.shape[0] for lev, v in self.state.items()}
-                print(f"cycle={self.ncycle} time={self.t:.8e} "
-                      f"dt={dt:.8e} blocks={nlv}", flush=True)
-            if not self.quiet and self.ncycle_out_mesh != 0 \
-                    and self.ncycle % abs(self.ncycle_out_mesh) == 0:
-                self._print_mesh(zones_per_block)
-            self._write_hst(dt)
-        if self.device.type == "cuda":
-            torch.cuda.synchronize(self.device)
-        wall = time.time() - t0
-        self.perf_zone_cycles = zone_cycles
-        self.perf_wall = wall
-        self.perf_remeshes = n_remesh
-        if not self.quiet and zone_cycles:
-            print(f"zone-cycles/wallsecond = {zone_cycles / wall:.6e}",
-                  flush=True)
-        return self
+            self._end_cycle(dt, zones_per_block)
+        return zone_cycles, n_remesh
 
     # ------------------------------------------------------------ accessors
     def total_mass(self):

@@ -194,17 +194,30 @@ class AmrHydro:
     ``remesh_log`` keeps, per remesh, whether the leaf table changed, whether
     its topology was new, and the host milliseconds of the forest update,
     the transfer, the new topology's plans and the ghost fill.
+
+    The problem's sources depend on the leaves' coordinates, so each new
+    leaf table builds its own from the factories (``factory(smesh)``; the
+    JAX package's ``athenapk_tpu/amr/remesh.py:379-450``): the unsplit
+    source ``src(state, prims, beta_dt, t)``, and the first-order and
+    Strang split sources ``src(state, dt, t)`` that the driver applies.
     """
 
     def __init__(self, smesh: SmrMesh, cfg, eos, refine_cfg,
                  check_interval=1, derefine_count=10, device="cuda",
-                 cooling=None, custom_bcs=None, problem_check=None):
+                 cooling=None, custom_bcs=None, problem_check=None,
+                 diffusion=None, problem_source_factory=None,
+                 problem_first_order_factory=None,
+                 problem_strang_factory=None):
         from ..driver import resolve_device
 
         self.smesh = smesh
         self.cfg = cfg
         self.eos = eos
         self.cooling = cooling
+        self.diffusion = diffusion
+        self.problem_source_factory = problem_source_factory
+        self.problem_first_order_factory = problem_first_order_factory
+        self.problem_strang_factory = problem_strang_factory
         self.custom_bcs = custom_bcs
         self.problem_check = problem_check
         self.device = resolve_device(device)
@@ -232,9 +245,17 @@ class AmrHydro:
         sig = self._signature()
         st = self._steppers.get(sig)
         if st is None:
-            st = SmrHydro(self.smesh, self.cfg, self.eos, device=self.device,
-                          stage_rung=self._stage_rung, cooling=self.cooling,
-                          custom_bcs=self.custom_bcs)
+            def build(factory):
+                return factory(self.smesh) if factory is not None else None
+
+            st = SmrHydro(
+                self.smesh, self.cfg, self.eos, device=self.device,
+                stage_rung=self._stage_rung, cooling=self.cooling,
+                custom_bcs=self.custom_bcs, diffusion=self.diffusion,
+                problem_source_unsplit=build(self.problem_source_factory),
+                problem_source_first_order=build(
+                    self.problem_first_order_factory),
+                problem_source_strang=build(self.problem_strang_factory))
             self._steppers[sig] = st
         return st
 

@@ -33,15 +33,27 @@ On a CUDA tensor each call launches a Hopper kernel, on a CPU tensor its
 plain twin runs: one code path.  (The JAX package's XLA branch, which
 replaces whole flux arrays in ``_flux_correct``, is the same correction
 written for full flux arrays; it is not ported.)  GLM-MHD takes the Dedner
-damping (``dedner_plain``).  ``cooling`` (``srcterms.TabularCooling``)
-acts on every level after the Dedner damping of each stage, and its dt
-joins the CFL dt over all levels; ``custom_bcs`` go to the ghost fill
-(``SmrState``).
+source of the level (``dedner_plain``, or ``dedner_extended`` with the
+divB terms of the stage-start prim, ``emit_prim`` on the stage rung).
+``cooling`` (``srcterms.TabularCooling``) acts on every level after the
+Dedner source of each stage, and its dt joins the CFL dt over all levels;
+``custom_bcs`` go to the ghost fill (``SmrState``).
 
-Not ported: ``riemann = none`` and ``dedner_extended`` (the constructor
-raises ``NotImplementedError``), and diffusion and RKL2 and problem
-sources (the JAX constructor's other arguments; ``SmrSimulation`` refuses
-the decks that need them).
+Diffusion (``athenapk_tpu/amr/smr_hydro.py:336-442``): with ``integrator
+= unsplit`` each level's diffusive fluxes of the stage-start prim (plain
+PyTorch, the level's cell widths) add their -div(F_diff) to the kernel's
+-div(F) (or, on the stage rung, beta_dt times it to ``u_new``) and their
+boundary-face slabs to the kernel's slabs before ``_slab_flux_correct``,
+so the coarse-fine correction conserves the sum (the JAX package corrects
+the summed fluxes; the results differ by rounding).  ``riemann = none``
+launches no kernel (zero hyperbolic fluxes) and takes the negdiv rung's
+code.  With ``integrator = rkl2`` the stages carry no diffusion:
+``sts_half_step`` runs the RKL2 recursion over all levels, each stage's
+diffusive fluxes coarse-fine corrected through their slabs (``_diff_div``)
+and followed by a ghost fill.  ``problem_source_unsplit(state, prims,
+beta_dt, t)`` acts after the per-level sources of every stage; the split
+sources (``problem_source_first_order``, ``problem_source_strang``) are
+stored here for the driver, which applies them outside the step.
 """
 
 from __future__ import annotations
@@ -52,12 +64,15 @@ import os
 import numpy as np
 import torch
 
-from ..core.indices import GLMMHD, IDN, IPS
+from ..core.indices import (GLMMHD, IB1, IB2, IB3, IDN, IEN, IM1, IM2, IM3,
+                            IPS)
+from ..diffusion import calc_diff_fluxes, estimate_diff_dt
 from ..eos.adiabatic import cons_to_prim
 from ..recon import nghost_for
 from ..solver import stage, sweep
 from ..solver.hydro_pkg import (first_order_flux_correct, fofc_bad_cells,
-                                interior_mask)
+                                interior_mask, rkl2_super_step,
+                                stage_needs_prim)
 from ..solver.integrators import INTEGRATORS
 from ..solver.sweep import AXIS_OF_DIR, active_dirs
 from .smr import SmrMesh, SmrState
@@ -65,18 +80,12 @@ from .smr import SmrMesh, SmrState
 
 class SmrHydro:
     def __init__(self, smesh: SmrMesh, cfg, eos, device="cuda",
-                 stage_rung=None, cooling=None, custom_bcs=None):
+                 stage_rung=None, cooling=None, custom_bcs=None,
+                 diffusion=None, problem_source_unsplit=None,
+                 problem_source_first_order=None,
+                 problem_source_strang=None):
         from ..driver import resolve_device
 
-        missing = []
-        if cfg.riemann == "none":
-            missing.append("riemann 'none' (diffusion-only runs)")
-        if cfg.fluid == GLMMHD and cfg.glmmhd_source != "dedner_plain":
-            missing.append(f"glmmhd_source '{cfg.glmmhd_source}'")
-        if missing:
-            raise NotImplementedError("not ported to athenapk_tpu_torch's "
-                                      f"refined meshes yet: "
-                                      f"{', '.join(missing)}")
         b = smesh.base
         if b.nghost < nghost_for(cfg.reconstruction):
             raise ValueError(
@@ -87,6 +96,19 @@ class SmrHydro:
         self.eos = eos
         self.device = resolve_device(device)
         self.cooling = cooling
+        self.diffusion = (diffusion if diffusion is not None
+                          and diffusion.any_enabled else None)
+        self.sts = (self.diffusion is not None
+                    and self.diffusion.integrator == "rkl2")
+        self._unsplit_diff = (self.diffusion is not None
+                              and self.diffusion.integrator == "unsplit")
+        self.rkl2_stages = 0
+        # problem_source_unsplit(state, prims, beta_dt, t) -> state, per
+        # stage; the split sources src(state, dt, t) -> state are applied
+        # by the driver outside the step
+        self.problem_source_unsplit = problem_source_unsplit
+        self.problem_source_first_order = problem_source_first_order
+        self.problem_source_strang = problem_source_strang
         self.state_mgr = SmrState(smesh, cfg.nvar, self.device,
                                   custom_bcs=custom_bcs)
         self.level_mesh = {lev: smesh.level_mesh(lev)
@@ -98,6 +120,7 @@ class SmrHydro:
         if stage_rung is None:
             stage_rung = os.environ.get("ATHENAPK_PALLAS_STAGE") != "0"
         self._stage_rung = (b.nx2 > 1 and b.nx3 > 1 and bool(stage_rung)
+                            and cfg.riemann != "none"
                             and not cfg.first_order_flux_correct)
         self._interior = interior_mask(b.block_shape, b.interior_slices,
                                        self.device)
@@ -189,14 +212,48 @@ class SmrHydro:
         return targets
 
     # ----------------------------------------------------------------- core
-    def _dedner_source_level(self, u, beta_dt, c_h, lev):
-        """Dedner psi damping with the level's smallest cell width
-        (``src/hydro/glmmhd/dedner_source.cpp:17-79``); in place on ``u``,
-        the fresh stage result."""
+    def _dedner_source_level(self, u, prim, beta_dt, c_h, lev):
+        """Dedner psi damping with the level's smallest cell width, and with
+        ``dedner_extended`` the divB terms from central differences of the
+        stage-start ``prim`` (``src/hydro/glmmhd/dedner_source.cpp:17-79``;
+        the JAX package's ``_dedner_source_level``); in place on ``u``, the
+        fresh stage result."""
         coeff = math.exp(-self.cfg.glmmhd_alpha * c_h * beta_dt
                          / self.smesh.min_dx(lev))
+        if self.cfg.glmmhd_source == "dedner_extended":
+            dx = self.smesh.dx(lev)
+
+            def cdiff(q, d):
+                ax = AXIS_OF_DIR[d] - 1    # q has no var axis
+                return (torch.roll(q, -1, dims=ax)
+                        - torch.roll(q, 1, dims=ax)) / (2.0 * dx[d - 1])
+
+            b1, b2, b3 = prim[:, IB1], prim[:, IB2], prim[:, IB3]
+            psi = prim[:, IPS]
+            divB = cdiff(b1, 1) + cdiff(b2, 2) + cdiff(b3, 3)
+            psi_gradB = (b1 * cdiff(psi, 1) + b2 * cdiff(psi, 2)
+                         + b3 * cdiff(psi, 3))
+            u[:, IM1] += -beta_dt * divB * b1
+            u[:, IM2] += -beta_dt * divB * b2
+            u[:, IM3] += -beta_dt * divB * b3
+            u[:, IEN] += -beta_dt * psi_gradB
         u[:, IPS] *= coeff
         return u
+
+    def _need_prim(self):
+        return stage_needs_prim(self.cfg, self._unsplit_diff,
+                                self.problem_source_unsplit)
+
+    def _diff_fluxes(self, prim, lev):
+        """The level's diffusive flux tensors (the level's cell widths)."""
+        return calc_diff_fluxes(self.diffusion, prim, self.level_mesh[lev])
+
+    def _diff_terms(self, lev, prim):
+        """One level's diffusion: ``(-div(F_diff), F_diff's boundary-face
+        slabs)``."""
+        lm = self.level_mesh[lev]
+        fd = self._diff_fluxes(prim, lev)
+        return -sweep.flux_divergence(fd, lm), sweep.boundary_faces(fd, lm)
 
     def _fofc_level(self, lev, u0f, u1, prim, c_h, recon, gam0, gam1,
                     beta_dt, negdiv, slabs):
@@ -209,8 +266,14 @@ class SmrHydro:
             return negdiv, slabs
         self.fofc_rescues += 1
         lm = self.level_mesh[lev]
-        fluxes = sweep.compute_fluxes(prim, c_h, lm, self.cfg, self.eos,
-                                      recon)
+        if self.cfg.riemann == "none":
+            fluxes = {d: torch.zeros_like(prim) for d in self._dirs}
+        else:
+            fluxes = sweep.compute_fluxes(prim, c_h, lm, self.cfg, self.eos,
+                                          recon)
+        if self._unsplit_diff:
+            fd = self._diff_fluxes(prim, lev)
+            fluxes = {d: fluxes[d] + fd[d] for d in fluxes}
         fluxes = first_order_flux_correct(
             self.cfg, self.eos, self._dirs,
             {d: lm.dx[d - 1] for d in self._dirs}, self._interior, u0f, u1,
@@ -218,10 +281,11 @@ class SmrHydro:
         return (-sweep.flux_divergence(fluxes, lm),
                 sweep.boundary_faces(fluxes, lm))
 
-    def _stage_impl(self, s, state, state1, dt, c_h):
-        """One 2S-integrator stage without the ghost fill: per-level sweeps,
-        the coarse-fine correction, the update and the Dedner damping.
-        Returns new level tensors."""
+    def _stage_impl(self, s, state, state1, dt, c_h, t=0.0):
+        """One 2S-integrator stage without the ghost fill: per-level sweeps
+        (and unsplit diffusion), the coarse-fine correction, the update, the
+        Dedner source, cooling and the unsplit problem source.  Returns new
+        level tensors."""
         cfg = self.cfg
         tab = INTEGRATORS[cfg.integrator]
         recon = cfg.reconstruction
@@ -230,20 +294,43 @@ class SmrHydro:
         gam0, gam1 = tab["gam0"][s], tab["gam1"][s]
         beta_dt = tab["beta"][s] * dt
         slabs = {}
+        prims = {}
+        need_prim = self._need_prim()
         if self._stage_rung:
             u_news = {}
             for lev, u in state.items():
-                u_news[lev], _, slabs[lev] = stage.fused_stage_faces(
-                    u, state1[lev], gam0, gam1, beta_dt, c_h,
-                    self.level_mesh[lev], cfg, self.eos, recon)
+                u_news[lev], prims[lev], slabs[lev] = \
+                    stage.fused_stage_faces(
+                        u, state1[lev], gam0, gam1, beta_dt, c_h,
+                        self.level_mesh[lev], cfg, self.eos, recon,
+                        emit_prim=need_prim)
+                if self._unsplit_diff:
+                    nd, fs = self._diff_terms(lev, prims[lev])
+                    u_news[lev] += beta_dt * nd
+                    slabs[lev] = {d: slabs[lev][d] + fs[d] for d in fs}
             out = self._slab_flux_correct(u_news, slabs, scale=beta_dt)
         else:
             negdivs, u0f = {}, {}
             for lev, u in state.items():
                 u0f[lev], prim = cons_to_prim(self.eos, u, cfg.fluid,
                                               cfg.nscalars)
-                negdivs[lev], slabs[lev] = sweep.fused_negdiv_faces(
-                    prim, c_h, self.level_mesh[lev], cfg, self.eos, recon)
+                prims[lev] = prim
+                if cfg.riemann != "none":
+                    negdivs[lev], slabs[lev] = sweep.fused_negdiv_faces(
+                        prim, c_h, self.level_mesh[lev], cfg, self.eos,
+                        recon)
+                    if self._unsplit_diff:
+                        nd, fs = self._diff_terms(lev, prim)
+                        negdivs[lev] += nd
+                        slabs[lev] = {d: slabs[lev][d] + fs[d] for d in fs}
+                elif self._unsplit_diff:
+                    # the null solver: the diffusive fluxes alone
+                    negdivs[lev], slabs[lev] = self._diff_terms(lev, prim)
+                else:
+                    zero = torch.zeros_like(prim)
+                    negdivs[lev] = zero
+                    slabs[lev] = sweep.boundary_faces(
+                        {d: zero for d in self._dirs}, self.level_mesh[lev])
                 if cfg.first_order_flux_correct:
                     negdivs[lev], slabs[lev] = self._fofc_level(
                         lev, u0f[lev], state1[lev], prim, c_h, recon, gam0,
@@ -253,29 +340,104 @@ class SmrHydro:
                    + beta_dt * negdivs[lev] for lev in state}
         for lev in out:
             if cfg.fluid == GLMMHD:
-                out[lev] = self._dedner_source_level(out[lev], beta_dt, c_h,
-                                                     lev)
+                out[lev] = self._dedner_source_level(
+                    out[lev], prims.get(lev), beta_dt, c_h, lev)
             if self.cooling is not None:
                 # pointwise unsplit cooling per level and stage, after the
                 # Dedner damping (the uniform path's order)
                 out[lev] = self.cooling.apply(out[lev], beta_dt, cfg.fluid)
+        if self.problem_source_unsplit is not None:
+            # per-level sources with cross-level reductions
+            # (AddUnsplitSources)
+            out = self.problem_source_unsplit(out, prims, beta_dt, t)
         return out
 
-    def step(self, state, dt, c_h):
+    def step(self, state, dt, c_h, t=0.0):
         """One cycle (all integrator stages, each followed by the ghost
         fill): ``{level: u}`` ghost-filled in, new ghost-filled tensors out;
-        the input tensors are left as they were."""
+        the input tensors are left as they were.  ``t``: the cycle's start
+        time (the unsplit problem source reads it)."""
         u0 = state
         for s in range(INTEGRATORS[self.cfg.integrator]["nstages"]):
             u0 = self.state_mgr.fill_ghosts(
-                self._stage_impl(s, u0, state, dt, c_h))
+                self._stage_impl(s, u0, state, dt, c_h, t))
         return u0
 
     def fill_ghosts(self, state):
         return self.state_mgr.fill_ghosts(state)
 
+    # ------------------------------------------------------------------ RKL2
+    def _diff_div(self, state):
+        """-div(F_diff) per level from the ghost-filled cons (the RKL2
+        operator M), the diffusive fluxes coarse-fine corrected through
+        their face slabs, for conservation across levels."""
+        negdivs, slabs = {}, {}
+        for lev, u in state.items():
+            _, prim = cons_to_prim(self.eos, u, self.cfg.fluid,
+                                   self.cfg.nscalars)
+            negdivs[lev], slabs[lev] = self._diff_terms(lev, prim)
+        return self._slab_flux_correct(negdivs, slabs)
+
+    def _rkl2_first(self, state, tau, s_rkl):
+        """Y1 = Y0 + mu_tilde_1 tau M(Y0) on every level
+        (``RKL2StepFirst``)."""
+        s = float(s_rkl)
+        mu_tilde_1 = 4.0 / 3.0 / (s * s + s - 2.0)
+        MY0 = self._diff_div(state)
+        self.rkl2_stages += 1
+        return self.state_mgr.fill_ghosts(
+            {lev: state[lev] + mu_tilde_1 * tau * MY0[lev]
+             for lev in state}), MY0
+
+    def _rkl2_other(self, Yjm1, Yjm2, Y0, MY0, coeffs, tau):
+        """One RKL2 recursion stage on every level (``RKL2StepOther``)."""
+        mu_j, nu_j, mu_tilde_j, gamma_tilde_j = coeffs
+        MYjm1 = self._diff_div(Yjm1)
+        self.rkl2_stages += 1
+        return self.state_mgr.fill_ghosts(
+            {lev: (mu_j * Yjm1[lev] + nu_j * Yjm2[lev]
+                   + (1.0 - mu_j - nu_j) * Y0[lev]
+                   + mu_tilde_j * tau * MYjm1[lev]
+                   + gamma_tilde_j * tau * MY0[lev]) for lev in Y0})
+
+    def sts_half_step(self, state, tau, dt_diff: float):
+        """RKL2 super-time-step over ``tau`` on the refined mesh (one half
+        of the Strang wrap; ``hydro_pkg.HydroPackage.sts_half_step``)."""
+        return rkl2_super_step(state, tau, dt_diff, self._rkl2_first,
+                               self._rkl2_other)
+
     # ------------------------------------------------------------------- dt
     def estimate_dt(self, state):
+        """The dt over every level's interior cells as a 0-d tensor on the
+        state's device: the hyperbolic CFL dt, the cooling dt with cooling,
+        and with diffusion ``estimate_dt_with_diff``'s policy."""
+        if self.diffusion is not None:
+            return self.estimate_dt_with_diff(state)[0]
+        return self._hyp_dt(state)
+
+    def estimate_dt_with_diff(self, state):
+        """``(dt, dt_diff)`` as 0-d tensors: unsplit takes the strict
+        minimum, rkl2 keeps the hyperbolic dt capped at
+        ``rkl2_max_dt_ratio * dt_diff`` (the JAX package's
+        ``_estimate_dt_with_diff_impl``)."""
+        dt_hyp = self._hyp_dt(state)
+        dt_diff = torch.full_like(dt_hyp, math.inf)
+        for lev, u in state.items():
+            _, w = cons_to_prim(self.eos, u, self.cfg.fluid,
+                                self.cfg.nscalars)
+            dt_diff = torch.minimum(dt_diff, torch.as_tensor(
+                estimate_diff_dt(self.diffusion, w, self.level_mesh[lev],
+                                 self.cfg.cfl),
+                dtype=dt_hyp.dtype, device=dt_hyp.device))
+        if not self.sts:
+            return torch.minimum(dt_hyp, dt_diff), dt_diff
+        ratio = self.diffusion.rkl2_max_dt_ratio
+        dt = dt_hyp
+        if ratio > 0.0:
+            dt = torch.where(dt_hyp / dt_diff > ratio, ratio * dt_diff, dt)
+        return dt, dt_diff
+
+    def _hyp_dt(self, state):
         """The hyperbolic CFL dt over every level's interior cells, and the
         cooling dt over them with cooling, as a 0-d tensor on the state's
         device."""

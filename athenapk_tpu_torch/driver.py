@@ -19,23 +19,35 @@ state's dtype.
 refinement = static`` or ``adaptive`` to ``amr.driver.SmrSimulation`` (the
 JAX routing, ``athenapk_tpu/driver.py:515-518``).
 
-Tabular cooling (``<cooling> enable_cooling = tabular``) is built from
-``<units>`` and ``hydro/He_mass_fraction`` as the JAX driver builds it
-(``athenapk_tpu/driver.py:81-95``), and a problem's
+Tabular cooling (``<cooling> enable_cooling = tabular``) and diffusion
+(``<diffusion>``, Spitzer conduction through ``<units>``) are built from
+``<units>`` and ``hydro/He_mass_fraction`` as the JAX driver builds them
+(``athenapk_tpu/driver.py:66-95``), and a problem's
 ``register_boundary_conditions`` hook gives the ghost fill its boundary
 conditions.
 
+The problem's source hooks are the JAX driver's
+(``athenapk_tpu/driver.py:96-121``): ``problem_source_unsplit`` joins every
+stage (``HydroPackage``); ``problem_source_strang`` acts before and after
+the hydro cycle and ``problem_source_first_order`` once per cycle at full
+dt, each followed by a boundary fill; ``estimate_timestep_factory`` (or
+``estimate_timestep``) caps the dt.  A deck with any of these, or with
+RKL2 diffusion (the cycle inside two half super-steps, the Strang wrap),
+runs ``step`` and then a separate estimate (the JAX package's
+non-pipelined branch, ``:360-420``); every other deck runs the fused
+``step_with_dt``.  The hyperbolic stages take the kernels either way.
+
 Not ported yet (``NotImplementedError``): hdf5 and rst outputs, tracers,
-restart (``-r``), profiler traces (``-t``), multi-device runs, diffusion,
-and the problems ``diffusion``, ``rand_blast``, ``turbulence`` and
-``cluster`` (with their source terms).  On a CUDA device the kernels take
-every method of the decks (six reconstructions; Euler LLF, HLLE, HLLC;
-GLM-MHD LLF, HLLE, HLLD) with any number of passive scalars.
+restart (``-r``), profiler traces (``-t``), multi-device runs and the
+problem ``cluster``.  On a CUDA device the kernels take every method of
+the decks (six reconstructions; Euler LLF, HLLE, HLLC; GLM-MHD LLF, HLLE,
+HLLD) with any number of passive scalars.
 """
 
 from __future__ import annotations
 
 import dataclasses
+import math
 import sys
 import time
 from typing import Optional
@@ -66,11 +78,6 @@ def resolve_device(device) -> torch.device:
 def check_unported(pin) -> None:
     """Raise NotImplementedError for deck features this port lacks, on
     uniform and refined meshes alike."""
-    if pin.has_block("diffusion") and any(
-            pin.get_or_add_string("diffusion", k, "none") != "none"
-            for k in ("conduction", "viscosity", "resistivity")):
-        raise NotImplementedError("diffusion is not ported to "
-                                  "athenapk_tpu_torch yet")
     if pin.get_or_add_bool("tracers", "enabled", False):
         raise NotImplementedError("tracers are not ported to "
                                   "athenapk_tpu_torch yet")
@@ -82,6 +89,19 @@ def check_unported(pin) -> None:
                 "to athenapk_tpu_torch yet (hst is)")
 
 
+def _units_and_mu(pin):
+    """The deck's ``Units`` (or None without ``<units>``) and the mean
+    molecular weight (None without ``<units>`` and
+    ``hydro/He_mass_fraction``)."""
+    from .utils.units import Units, mean_molecular_weights
+    units = Units(pin) if pin.has_block("units") else None
+    mu = None
+    if units is not None and pin.has("hydro", "He_mass_fraction"):
+        mu, _ = mean_molecular_weights(
+            pin.get_real("hydro", "He_mass_fraction"))
+    return units, mu
+
+
 def make_cooling(pin):
     """The deck's ``TabularCooling`` (``<cooling> enable_cooling =
     tabular``, built from ``<units>`` and ``hydro/He_mass_fraction``), or
@@ -90,16 +110,38 @@ def make_cooling(pin):
             != "tabular":
         return None
     from .srcterms.tabular_cooling import TabularCooling
-    from .utils.units import Units, mean_molecular_weights
-    if not (pin.has_block("units") and pin.has("hydro", "He_mass_fraction")):
+    units, mu = _units_and_mu(pin)
+    if mu is None:
         raise ValueError("tabular cooling requires <units> block and "
                          "hydro/He_mass_fraction")
-    units = Units(pin)
     he_x = pin.get_real("hydro", "He_mass_fraction")
-    mu, _ = mean_molecular_weights(he_x)
     mbar_over_kb = mu * units.mh() / units.k_boltzmann()
     return TabularCooling(pin, units, pin.get_real("hydro", "gamma"), mu,
                           he_x, mbar_over_kb)
+
+
+def make_diffusion(pin):
+    """The deck's ``DiffusionConfig`` (all processes off without a
+    ``<diffusion>`` block)."""
+    from .diffusion import DiffusionConfig
+    units, mu = _units_and_mu(pin)
+    return DiffusionConfig.from_parameter_input(pin, units=units, mu=mu)
+
+
+def load_payload(sim, payload):
+    """Continue another run's state in ``sim`` (a ``Simulation`` or an
+    ``amr.driver.SmrSimulation``): ``payload`` is the JAX package's driver
+    state as numpy arrays and a dict, with the keys of its restart payload
+    (``cons`` on a uniform mesh, ``state`` as ``{level: array}`` on a
+    refined one; ``t``, ``ncycle``, ``dt``, and where they apply
+    ``dt_diff`` and ``few_modes_ft`` = ``(var_hat, bit_generator
+    state)``).  Returns ``sim``."""
+    kw = dict(t=payload["t"], ncycle=payload["ncycle"],
+              dt=payload.get("dt"), forcing=payload.get("few_modes_ft"))
+    if "state" in payload:
+        return sim.load_state(payload["state"], **kw)
+    return sim.load_state(payload["cons"], dt_diff=payload.get("dt_diff"),
+                          **kw)
 
 
 class Simulation:
@@ -135,6 +177,7 @@ class Simulation:
         if init_hook is not None:
             init_hook(pin)
         self.mesh = self._merge_blocks(pin, self.mesh)
+        diffusion = make_diffusion(pin)
         cooling = make_cooling(pin)
         if cooling is not None and pin.has("cooling", "test_filename"):
             cooling.test_cooling_table(pin)
@@ -142,8 +185,31 @@ class Simulation:
         bc_hook = getattr(self.pgen, "register_boundary_conditions", None)
         if bc_hook is not None:
             custom_bcs = bc_hook(pin, self.mesh, self.cfg, self.eos)
+
+        def hook(name):
+            factory = getattr(self.pgen, name, None)
+            return (factory(pin, self.mesh, self.cfg, self.eos)
+                    if factory is not None else None)
+
+        # the split sources (ProblemSourceFirstOrder once per cycle at full
+        # dt, ProblemSourceStrangSplit before and after the cycle, each
+        # handed the full dt: hydro_driver.cpp:460-470, 548-561)
+        self.src_first_order = hook("problem_source_first_order")
+        self.src_strang = hook("problem_source_strang")
+        # the pgen's dt constraint (ProblemEstimateTimestep, main.cpp:107);
+        # a factory returning None keeps the fused-dt path
+        if getattr(self.pgen, "estimate_timestep_factory", None) is not None:
+            self._pe_fn = hook("estimate_timestep_factory")
+        else:
+            raw_pe = getattr(self.pgen, "estimate_timestep", None)
+            self._pe_fn = ((lambda prim, t: raw_pe(
+                self.pin, self.mesh, self.cfg, self.eos, prim, t))
+                if raw_pe is not None else None)
         self.pkg = HydroPackage(self.mesh, self.cfg, self.eos,
-                                cooling=cooling, custom_bcs=custom_bcs)
+                                problem_source_unsplit=hook(
+                                    "problem_source_unsplit"),
+                                diffusion=diffusion, cooling=cooling,
+                                custom_bcs=custom_bcs)
 
         t = "parthenon/time"
         self.tlim = pin.get_real(t, "tlim")
@@ -159,6 +225,8 @@ class Simulation:
         self.t = 0.0
         self.ncycle = 0
         self._prev_dt = 0.0   # dt before a loaded state (2x growth cap)
+        self._loaded_dt_diff = None   # dt_diff of a loaded state
+        self.dt_diff = math.inf   # the last estimate's diffusive dt
         self.tm_dt = None     # set by run
 
         self.outputs = []
@@ -176,11 +244,17 @@ class Simulation:
 
     # ----------------------------------------------------------- state I/O
     def load_state(self, cons: np.ndarray, t: float, ncycle: int,
-                   dt: Optional[float] = None):
+                   dt: Optional[float] = None,
+                   dt_diff: Optional[float] = None, forcing=None):
         """Replace the state with ``cons`` ([nblocks, nvar, NZ, NY, NX] in
         this simulation's layout, e.g. another package's state) at time
         ``t`` and cycle ``ncycle``, on this simulation's device and dtype.
-        ``dt``, the last cycle's step, caps the first step at 2*dt."""
+        ``dt``, the last cycle's step, caps the first step at 2*dt.
+        ``dt_diff`` (RKL2 decks): the diffusive dt the next cycle's
+        super-steps use.  ``forcing`` (turbulence): the forcing driver's
+        ``(var_hat, bit_generator state)``, so the next cycles draw what
+        the other run would (``load_payload`` maps the JAX package's
+        driver state onto these arguments)."""
         want = (self.mesh.nblocks, self.cfg.nvar) + self.mesh.block_shape
         if tuple(cons.shape) != want:
             raise ValueError(f"state shape {tuple(cons.shape)} does not match "
@@ -190,6 +264,9 @@ class Simulation:
         self.t = float(t)
         self.ncycle = int(ncycle)
         self._prev_dt = float(dt) if dt else 0.0
+        self._loaded_dt_diff = None if dt_diff is None else float(dt_diff)
+        if forcing is not None:
+            self.pgen.forcing_driver(self.pin, self.mesh).set_state(*forcing)
         return self
 
     # ----------------------------------------------------------- block merge
@@ -233,9 +310,40 @@ class Simulation:
             torch.cuda.synchronize(self.device)
 
     def _estimate(self):
+        """``(dt, dt_hyp)`` of the state, with the pgen's dt constraint;
+        keeps the diffusive dt in ``dt_diff``."""
         _, prim = self.pkg.cons_to_prim(self.u)
-        dt, dt_hyp, _ = self.pkg.estimate_timestep(prim)
+        dt, dt_hyp, self.dt_diff = self.pkg.estimate_timestep(prim)
+        if self._pe_fn is not None:
+            dt = min(dt, float(self._pe_fn(prim, self.t)))
         return dt, dt_hyp
+
+    def _split_cycle(self):
+        """Does a cycle run the JAX package's non-pipelined branch (RKL2,
+        split sources or a pgen dt constraint)?"""
+        return (self.pkg.sts or self.src_first_order is not None
+                or self.src_strang is not None or self._pe_fn is not None)
+
+    def _cycle(self, dt_eff, c_h):
+        """One cycle of the non-pipelined branch (``athenapk_tpu/driver.py:
+        360-396``): the RKL2 half super-step, the Strang source, the hydro
+        step, the Strang source again, the first-order source, the second
+        half super-step; each source followed by a boundary fill."""
+        pkg = self.pkg
+        if pkg.sts:
+            self.u = pkg.sts_half_step(self.u, 0.5 * dt_eff, self.dt_diff)
+        if self.src_strang is not None:
+            self.u = pkg.apply_boundaries(
+                self.src_strang(self.u, dt_eff, self.t))
+        self.u = pkg.step(self.u, dt_eff, c_h, self.t)
+        if self.src_strang is not None:
+            self.u = pkg.apply_boundaries(
+                self.src_strang(self.u, dt_eff, self.t))
+        if self.src_first_order is not None:
+            self.u = pkg.apply_boundaries(
+                self.src_first_order(self.u, dt_eff, self.t))
+        if pkg.sts:
+            self.u = pkg.sts_half_step(self.u, 0.5 * dt_eff, self.dt_diff)
 
     def _do_outputs(self, force=False):
         due = [out for out in self.outputs if force or out.due(self.t)]
@@ -249,6 +357,9 @@ class Simulation:
     # ------------------------------------------------------------------- run
     def run(self):
         dt, dt_hyp = self._estimate()
+        if self._loaded_dt_diff is not None:
+            self.dt_diff = self._loaded_dt_diff
+            self._loaded_dt_diff = None
         if self._prev_dt > 0.0:
             # continue the 2x growth cap across a loaded state
             dt = min(2.0 * self._prev_dt, dt)
@@ -259,6 +370,7 @@ class Simulation:
         zones = self.mesh.nx1 * self.mesh.nx2 * self.mesh.nx3
         perf_cycles = 0
         perf_start = None
+        split = self._split_cycle()
 
         while self.t < self.tlim and (self.nlim < 0 or self.ncycle < self.nlim):
             if self.ncycle == self.perf_cycle_offset:
@@ -266,13 +378,18 @@ class Simulation:
                 perf_start = time.time()
             dt_eff = min(dt, self.tlim - self.t)
             c_h = self.pkg.c_h_from_dt_hyp(dt_hyp)
-            self.u, (dt_new, dt_hyp, _) = self.pkg.step_with_dt(
-                self.u, dt_eff, c_h)
+            if split:
+                self._cycle(dt_eff, c_h)
+            else:
+                self.u, (dt_new, dt_hyp, self.dt_diff) = \
+                    self.pkg.step_with_dt(self.u, dt_eff, c_h, self.t)
             self.t += dt_eff
             self.ncycle += 1
             if perf_start is not None:
                 perf_cycles += 1
             self.tm_dt = dt_eff
+            if split:
+                dt_new, dt_hyp = self._estimate()
             dt = min(2.0 * dt, dt_new)
 
             if not self.quiet and self.ncycle_out > 0 and \

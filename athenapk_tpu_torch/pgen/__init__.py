@@ -5,10 +5,13 @@ The reference dispatches pgen callbacks by ``<job> problem_id``
 ``problem_generator(pin, mesh, cfg, eos) -> cons`` (a numpy array) plus
 optional hooks (``init_user_mesh_data``, ``history_columns``,
 ``user_work_after_loop``, ``register_boundary_conditions`` and its
-refined-mesh form, ``check_refinement_block``).  Only the ported problems
-are listed; the others of the JAX package raise ``NotImplementedError``.
-Decks with passive scalars (``advection``, ``cloud``) run on the CPU and on
-the card's kernels alike.
+refined-mesh form, ``check_refinement_block``, the source terms
+``problem_source_unsplit``, ``problem_source_first_order`` and
+``problem_source_strang`` with their ``_smr`` forms, and
+``estimate_timestep_factory`` / ``estimate_timestep``).  Only the ported
+problems are listed; ``cluster`` raises ``NotImplementedError``.  Decks
+with passive scalars (``advection``, ``cloud``) run on the CPU and on the
+card's kernels alike.
 """
 
 from importlib import import_module
@@ -25,10 +28,13 @@ _PGEN_MODULES = {
     "field_loop": "athenapk_tpu_torch.pgen.field_loop",
     "lw_implode": "athenapk_tpu_torch.pgen.lw_implode",
     "cloud": "athenapk_tpu_torch.pgen.cloud",
+    "diffusion": "athenapk_tpu_torch.pgen.diffusion",
+    "rand_blast": "athenapk_tpu_torch.pgen.rand_blast",
+    "turbulence": "athenapk_tpu_torch.pgen.turbulence",
 }
 
 # problem generators of the JAX package that this port does not have yet
-_NOT_PORTED = ("diffusion", "rand_blast", "turbulence", "cluster")
+_NOT_PORTED = ("cluster",)
 
 
 def get_pgen(problem_id: str):

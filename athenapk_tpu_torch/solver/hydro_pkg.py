@@ -38,8 +38,28 @@ Dedner source of every stage, on either path, and its dt joins
 Problem-registered boundary conditions (``custom_bcs``) go to the ghost
 fill (``core.boundaries.make_boundary_fn``).
 
-Not ported yet (the constructor raises ``NotImplementedError``):
-diffusion (and with it ``riemann = none``), problem source terms.
+Diffusion (``diffusion``, ``diffusion.DiffusionConfig``): with
+``integrator = unsplit`` each stage adds the diffusive -div(F_diff) of the
+stage-start prim (plain PyTorch) to the kernel's -div(F) before the FOFC
+check, Dedner, cooling and the unsplit source, in the JAX package's order
+(``athenapk_tpu/solver/hydro_pkg.py:535-592``); on the stage rung that prim
+comes from the kernel's ``emit_prim``.  The sum differs from the JAX
+package's -div(F + F_diff) only by rounding (the JAX package sums the
+fluxes first).  A FOFC rescue recomputes the stage from the plain fluxes
+plus F_diff, as the JAX package does.  ``riemann = none`` launches no
+kernel: its hyperbolic fluxes are zero (the null solver), so a stage is
+the diffusive update alone, and the hyperbolic dt does not bind
+(``calc_dt_hyp``).  With ``integrator = rkl2`` the stages have no
+diffusion; the driver wraps each cycle in two RKL2 half super-steps
+(``sts_half_step``: plain PyTorch over the whole state, one boundary fill
+per stage; ``rkl2_stages`` counts the stages).  The dt terms are the JAX
+package's: the strict minimum with the diffusive dt for unsplit, and for
+rkl2 the cap at ``rkl2_max_dt_ratio * dt_diff``; every minimum of an
+estimate reaches the host in one read.
+
+``problem_source_unsplit(u, prim, mesh, beta_dt, t)`` acts after cooling
+in every stage, with the stage-start prim (``emit_prim`` on the stage
+rung).
 """
 
 from __future__ import annotations
@@ -55,6 +75,7 @@ from ..core.boundaries import check_reflecting_mhd, make_boundary_fn
 from ..core.indices import (IDN, IPS, IB1, IB2, IB3, IM1, IM2, IM3, IEN,
                             EULER, GLMMHD, nvar_for_fluid)
 from ..core.mesh import Mesh
+from ..diffusion import DiffusionConfig, calc_diff_fluxes, estimate_diff_dt
 from ..eos.adiabatic import EOS, cons_to_prim
 from ..recon import nghost_for
 from ..riemann import solve_riemann
@@ -119,6 +140,16 @@ def first_order_flux_correct(cfg, eos, dirs, dx_of_dir, interior, u0, u1,
         fluxes = {d: torch.where(bad | torch.roll(bad, 1, dims=AXIS_OF_DIR[d]),
                                  llf[d], fluxes[d]) for d in dirs}
     return fluxes
+
+
+def stage_needs_prim(cfg, unsplit_diff, problem_source_unsplit):
+    """Does an epilogue after the hyperbolic stage read the stage-start
+    prim?  Unsplit diffusion, the problem's unsplit source and the extended
+    Dedner divB terms do (on the stage rung ``emit_prim`` serves them);
+    shared by ``HydroPackage`` and the refined ``SmrHydro``."""
+    return (unsplit_diff or problem_source_unsplit is not None
+            or (cfg.fluid == GLMMHD
+                and cfg.glmmhd_source == "dedner_extended"))
 
 
 def interior_mask(block_shape, interior_slices, device):
@@ -190,22 +221,24 @@ class HydroPackage:
     The JAX package pairs each function with its jitted wrapper (``_step``
     and ``step``, ``_step_with_dt`` and ``step_with_dt``, ...); eager
     PyTorch needs one method each: ``step``, ``step_with_dt``,
-    ``estimate_timestep``, ``cons_to_prim`` and ``advance_cycles``."""
+    ``estimate_timestep``, ``cons_to_prim``, ``advance_cycles`` and
+    ``sts_half_step``."""
 
     def __init__(self, mesh: Mesh, cfg: HydroConfig, eos: EOS,
                  problem_source_unsplit: Optional[Callable] = None,
                  diffusion=None, cooling=None, custom_bcs=None):
-        missing = [name for name, value in (
-            ("diffusion", diffusion),
-            ("problem source terms", problem_source_unsplit)) if value]
-        if cfg.riemann == "none":
-            missing.append("riemann 'none' (diffusion-only runs)")
-        if missing:
-            raise NotImplementedError(
-                f"not ported to athenapk_tpu_torch yet: {', '.join(missing)}")
         self.mesh = mesh
         self.cfg = cfg
         self.eos = eos
+        self.diffusion = (diffusion if diffusion is not None
+                          else DiffusionConfig())
+        # unsplit diffusion joins every stage; rkl2 wraps the cycle
+        self._unsplit_diff = (self.diffusion.any_enabled
+                              and self.diffusion.integrator == "unsplit")
+        self.sts = (self.diffusion.any_enabled
+                    and self.diffusion.integrator == "rkl2")
+        self.rkl2_stages = 0      # RKL2 stages run (each one host-side step)
+        self.problem_source_unsplit = problem_source_unsplit
         self.cooling = cooling    # TabularCooling or None
         self.custom_bcs = custom_bcs
         self.apply_boundaries = make_boundary_fn(mesh, custom_bcs)
@@ -242,16 +275,15 @@ class HydroPackage:
         return self.mesh.nx2 > 1 and self.mesh.nx3 > 1
 
     def _stage_needs_prim(self):
-        """Does an epilogue after the stage kernel read the stage-start
-        prim?  (The extended Dedner divB terms; served by ``emit_prim``.)"""
-        return (self.cfg.fluid == GLMMHD
-                and self.cfg.glmmhd_source == "dedner_extended")
+        return stage_needs_prim(self.cfg, self._unsplit_diff,
+                                self.problem_source_unsplit)
 
     def _use_fused_stage(self):
         """Whole-stage rung: asked for, a 3-D layout (ghost-free or
-        ghosted), and nothing else in the stage needs the raw face fluxes
-        (no first-order flux correction)."""
+        ghosted), a Riemann solver, and nothing else in the stage needs the
+        raw face fluxes (no first-order flux correction)."""
         return (self._stage_rung and self._is_3d()
+                and self.cfg.riemann != "none"
                 and not self.cfg.first_order_flux_correct)
 
     def _use_hybrid_dc_stage(self):
@@ -262,23 +294,26 @@ class HydroPackage:
                 and (self.cfg.integrator == "vl2"
                      or self.cfg.reconstruction == "dc")
                 and self.mesh.nghost == 0 and self._is_3d()
+                and self.cfg.riemann != "none"
                 and not self.cfg.first_order_flux_correct)
 
     def _use_fused_stage_dt(self):
         """May the last stage emit the next dt?  Needs the whole-stage rung
         and a dt estimate that is the pure hyperbolic CFL bound over every
-        cell: ghost-free layout, hyperbolic dt enabled, no cooling dt, and
-        no epilogue that reads prim (it would change the state after the
-        bound was taken)."""
+        cell: ghost-free layout, hyperbolic dt enabled, no diffusion or
+        cooling dt, and no epilogue that reads prim (it would change the
+        state after the bound was taken)."""
         return (self._use_fused_stage() and self.mesh.nghost == 0
                 and self.cfg.calc_dt_hyp and self.cooling is None
+                and not self.diffusion.any_enabled
                 and not self._stage_needs_prim())
 
     def _fused_stage_update(self, u0, u1, gam0, gam1, beta_dt, c_h,
-                            recon: str, emit_dt: bool = False):
-        """One 2S stage through ``stage.fused_stage``; the Dedner source
-        and the boundary fill stay outside.  Returns ``u_new``, or
-        ``(u_new, raw_dt)`` with ``emit_dt``."""
+                            recon: str, t=0.0, emit_dt: bool = False):
+        """One 2S stage through ``stage.fused_stage``; unsplit diffusion,
+        the Dedner source, cooling, the unsplit problem source and the
+        boundary fill stay outside.  Returns ``u_new``, or ``(u_new,
+        raw_dt)`` with ``emit_dt``."""
         emit_prim = self._stage_needs_prim()
         out = stage.fused_stage(u0, u1, gam0, gam1, beta_dt, c_h, self.mesh,
                                 self.cfg, self.eos, recon, emit_dt=emit_dt,
@@ -287,20 +322,43 @@ class HydroPackage:
         u_new = rest.pop(0)
         raw_dt = rest.pop(0) if emit_dt else None
         prim = rest.pop(0) if emit_prim else None
+        if self._unsplit_diff:
+            u_new += beta_dt * self._diff_negdiv(prim)
+        u_new = self._stage_epilogue(u_new, prim, beta_dt, c_h, t)
+        return (u_new, raw_dt) if emit_dt else u_new
+
+    def _stage_epilogue(self, u_new, prim, beta_dt, c_h, t):
+        """After the update: the Dedner source, cooling, the unsplit
+        problem source and the boundary fill, in the JAX package's order
+        (the plain Dedner source needs no prim)."""
         if self.cfg.fluid == GLMMHD:
-            # the plain source needs no prim, the extended one reads the
-            # kernel's
             u_new = self._dedner_source(u_new, prim, beta_dt, c_h)
         if self.cooling is not None:
             u_new = self.cooling.apply(u_new, beta_dt, self.cfg.fluid)
-        u_new = self.apply_boundaries(u_new)
-        return (u_new, raw_dt) if emit_dt else u_new
+        if self.problem_source_unsplit is not None:
+            u_new = self.problem_source_unsplit(u_new, prim, self.mesh,
+                                                beta_dt, t)
+        return self.apply_boundaries(u_new)
 
     # ----------------------------------------------------------------- fluxes
     def _compute_fluxes(self, prim, c_h, recon: str):
-        """``sweep.compute_fluxes`` (the plain path's first half)."""
-        return sweep.compute_fluxes(prim, c_h, self.mesh, self.cfg, self.eos,
-                                    recon)
+        """The plain fluxes: ``sweep.compute_fluxes`` (zero for the null
+        solver, ``rsolvers.hpp:35-63``) plus the unsplit diffusive fluxes,
+        as the JAX package's ``_compute_fluxes``."""
+        if self.cfg.riemann == "none":
+            fluxes = {d: torch.zeros_like(prim) for d in self._active_dirs}
+        else:
+            fluxes = sweep.compute_fluxes(prim, c_h, self.mesh, self.cfg,
+                                          self.eos, recon)
+        if self._unsplit_diff:
+            dflux = calc_diff_fluxes(self.diffusion, prim, self.mesh)
+            fluxes = {d: fluxes[d] + dflux[d] for d in fluxes}
+        return fluxes
+
+    def _diff_negdiv(self, prim):
+        """-div(F_diff) of ``prim`` (plain PyTorch)."""
+        return -self._flux_divergence(calc_diff_fluxes(self.diffusion, prim,
+                                                       self.mesh))
 
     def _flux_divergence(self, fluxes):
         """``sweep.flux_divergence`` (the plain path's second half)."""
@@ -363,12 +421,20 @@ class HydroPackage:
 
     # ------------------------------------------------------------------ step
     def _stage_update(self, u0, u1, prim, gam0, gam1, beta_dt, c_h,
-                      recon: str):
-        """One 2S stage: -div(F) -> update -> (first-order rescue) ->
-        Dedner source -> ghosts (the per-stage task chain of
-        ``MakeTaskCollection``, ``src/hydro/hydro_driver.cpp:499-577``)."""
-        negdiv = sweep.fused_negdiv(prim, c_h, self.mesh, self.cfg, self.eos,
-                                    recon)
+                      recon: str, t=0.0):
+        """One 2S stage: -div(F) (+ unsplit diffusion) -> update ->
+        (first-order rescue) -> Dedner source -> cooling -> unsplit
+        problem source -> ghosts (the per-stage task chain of
+        ``MakeTaskCollection``, ``src/hydro/hydro_driver.cpp:499-577``).
+        The null solver launches no kernel."""
+        if self.cfg.riemann == "none":
+            negdiv = self._diff_negdiv(prim) if self._unsplit_diff \
+                else torch.zeros_like(prim)
+        else:
+            negdiv = sweep.fused_negdiv(prim, c_h, self.mesh, self.cfg,
+                                        self.eos, recon)
+            if self._unsplit_diff:
+                negdiv += self._diff_negdiv(prim)
         u_new = gam0 * u0 + gam1 * u1 + beta_dt * negdiv
         if self.cfg.first_order_flux_correct \
                 and bool(self._fofc_bad_cells(u_new).any()):
@@ -380,17 +446,14 @@ class HydroPackage:
                 gam1, beta_dt, c_h)
             u_new = gam0 * u0 + gam1 * u1 \
                 - beta_dt * self._flux_divergence(fluxes)
-        if self.cfg.fluid == GLMMHD:
-            u_new = self._dedner_source(u_new, prim, beta_dt, c_h)
-        if self.cooling is not None:
-            u_new = self.cooling.apply(u_new, beta_dt, self.cfg.fluid)
-        return self.apply_boundaries(u_new)
+        return self._stage_epilogue(u_new, prim, beta_dt, c_h, t)
 
-    def step(self, u, dt, c_h, emit_dt: bool = False):
+    def step(self, u, dt, c_h, t=0.0, emit_dt: bool = False):
         """Advance one full cycle (all integrator stages); ``u`` enters
-        ghost-filled and ``u(t+dt)`` leaves ghost-filled.  ``emit_dt``
-        (whole-stage rung on the ghost-free layout only): the last stage
-        also emits the raw CFL bound; returns ``(u', raw_dt)``."""
+        ghost-filled and ``u(t+dt)`` leaves ghost-filled.  ``t`` is the
+        cycle's start time (the unsplit problem source reads it).
+        ``emit_dt`` (whole-stage rung on the ghost-free layout only): the
+        last stage also emits the raw CFL bound; returns ``(u', raw_dt)``."""
         cfg = self.cfg
         tab = INTEGRATORS[cfg.integrator]
         u0 = u
@@ -410,28 +473,28 @@ class HydroPackage:
                 # cons_to_prim happens inside the stage function
                 out = self._fused_stage_update(
                     u0, u1, tab["gam0"][s], tab["gam1"][s],
-                    tab["beta"][s] * dt, c_h, recon,
+                    tab["beta"][s] * dt, c_h, recon, t,
                     emit_dt=emit_dt and last)
                 u0, raw_dt = out if emit_dt and last else (out, raw_dt)
             else:
                 u0f, prim = self.cons_to_prim(u0)
                 u0 = self._stage_update(u0f, u1, prim, tab["gam0"][s],
                                         tab["gam1"][s], tab["beta"][s] * dt,
-                                        c_h, recon)
+                                        c_h, recon, t)
         return (u0, raw_dt) if emit_dt else u0
 
-    def step_with_dt(self, u, dt, c_h):
+    def step_with_dt(self, u, dt, c_h, t=0.0):
         """One cycle + the next dt estimate: ``(u', (dt, dt_hyp, dt_diff))``.
         Where the last stage can emit the CFL bound it does, and no
         cons_to_prim or reduction pass over the new state runs."""
         if self._use_fused_stage_dt():
-            u_new, raw = self.step(u, dt, c_h, emit_dt=True)
+            u_new, raw = self.step(u, dt, c_h, t, emit_dt=True)
             dt_hyp = self.cfg.cfl * float(torch.min(raw))
             dt_full = dt_hyp
             if self.cfg.max_dt > 0.0:
                 dt_full = min(dt_full, self.cfg.max_dt)
             return u_new, (dt_full, dt_hyp, math.inf)
-        u_new = self.step(u, dt, c_h)
+        u_new = self.step(u, dt, c_h, t)
         _, prim = self.cons_to_prim(u_new)
         return u_new, self.estimate_timestep(prim)
 
@@ -456,25 +519,79 @@ class HydroPackage:
     # ------------------------------------------------------------------- dt
     def estimate_timestep(self, prim):
         """Hyperbolic CFL timestep (``EstimateTimestep``,
-        ``src/hydro/hydro.cpp:914-976``), the cooling dt and the max_dt
-        cap.  Returns ``(dt_full, dt_hyp, dt_diff)`` as floats; dt_diff is
-        inf (no diffusion in this port yet)."""
+        ``src/hydro/hydro.cpp:914-976``), the diffusive dt (the strict
+        minimum for unsplit, the ``rkl2_max_dt_ratio`` cap for rkl2), the
+        cooling dt and the max_dt cap.  Returns ``(dt_full, dt_hyp,
+        dt_diff)`` as floats, every minimum read from the device in one
+        read."""
         cfg = self.cfg
         w = prim[self.mesh.interior_slices]
-        mins = torch.min(stage.raw_cfl_dt(
-            w, self.mesh, cfg, self.eos, self._active_dirs)).reshape(1)
-        dt_cool = math.inf if self.cooling is None \
-            else self.cooling.estimate_timestep(prim, self.mesh)
-        if torch.is_tensor(dt_cool):
-            # both minima in one read of the host
-            mins = torch.cat([mins, dt_cool.to(mins.dtype).reshape(1)])
-        mins = mins.tolist()
-        dt_hyp = cfg.cfl * mins[0]
+        mins = {"hyp": torch.min(stage.raw_cfl_dt(
+            w, self.mesh, cfg, self.eos, self._active_dirs))}
+        dc = self.diffusion
+        if dc.any_enabled and dc.integrator != "none":
+            mins["diff"] = estimate_diff_dt(dc, prim, self.mesh, cfg.cfl)
+        if self.cooling is not None:
+            mins["cool"] = self.cooling.estimate_timestep(prim, self.mesh)
+        # the device minima (the diffusive and cooling dt may be floats) in
+        # one read of the host
+        lazy = {k: v for k, v in mins.items() if torch.is_tensor(v)}
+        mins.update(zip(lazy, torch.stack(
+            [v.to(mins["hyp"].dtype).reshape(()) for v in lazy.values()]
+        ).tolist()))
+        dt_diff = mins.get("diff", math.inf)
+        dt_cool = mins.get("cool", math.inf)
+        dt_hyp = cfg.cfl * mins["hyp"]
         dt = dt_hyp if cfg.calc_dt_hyp else math.inf
-        dt = min(dt, mins[1] if torch.is_tensor(dt_cool) else dt_cool)
+        if dc.any_enabled and dc.integrator == "unsplit":
+            dt = min(dt, dt_diff)
+        elif (dc.any_enabled and dc.integrator == "rkl2"
+              and dc.rkl2_max_dt_ratio > 0.0):
+            # cap dt so that dt_hyp / dt_diff <= the ratio; without the
+            # hyperbolic dt the reference's dt_hyp stays huge, so the cap
+            # always binds (hydro.cpp:948-957 + :344-362)
+            dt_hyp_eff = dt_hyp if cfg.calc_dt_hyp else math.inf
+            if dt_hyp_eff / dt_diff > dc.rkl2_max_dt_ratio:
+                dt = min(dt, dc.rkl2_max_dt_ratio * dt_diff)
+        dt = min(dt, dt_cool)
         if cfg.max_dt > 0.0:
             dt = min(dt, cfg.max_dt)
-        return dt, dt_hyp, math.inf
+        return dt, dt_hyp, dt_diff
+
+    # ------------------------------------------------------------------ RKL2
+    def _diff_divergence(self, u):
+        """-div(F_diff) from the ghost-filled cons ``u`` (the RKL2 operator
+        M: ResetFluxes + CalcDiffFluxes + FluxDivergence,
+        ``hydro_driver.cpp:225-260``)."""
+        _, prim = self.cons_to_prim(u)
+        return self._diff_negdiv(prim)
+
+    def _rkl2_first(self, u, tau, s_rkl):
+        """Y1 = Y0 + mu_tilde_1 tau M(Y0) (``RKL2StepFirst``,
+        ``hydro_driver.cpp:93-126``).  Returns (Y1 ghost-filled, MY0)."""
+        s = float(s_rkl)
+        mu_tilde_1 = 4.0 / 3.0 / (s * s + s - 2.0)
+        MY0 = self._diff_divergence(u)
+        self.rkl2_stages += 1
+        return self.apply_boundaries(u + mu_tilde_1 * tau * MY0), MY0
+
+    def _rkl2_other(self, Yjm1, Yjm2, Y0, MY0, coeffs, tau):
+        """One RKL2 recursion stage (``RKL2StepOther``,
+        ``hydro_driver.cpp:128-167``)."""
+        mu_j, nu_j, mu_tilde_j, gamma_tilde_j = coeffs
+        MYjm1 = self._diff_divergence(Yjm1)
+        self.rkl2_stages += 1
+        return self.apply_boundaries(
+            mu_j * Yjm1 + nu_j * Yjm2 + (1.0 - mu_j - nu_j) * Y0
+            + mu_tilde_j * tau * MYjm1 + gamma_tilde_j * tau * MY0)
+
+    def sts_half_step(self, u, tau, dt_diff: float):
+        """RKL2 super-time-step over ``tau`` (one half of the Strang wrap;
+        ``AddSTSTasks``, ``hydro_driver.cpp:170-344``): s stages, s from
+        tau / dt_diff on the host, as the reference computes it when it
+        builds the task list."""
+        return rkl2_super_step(u, tau, dt_diff, self._rkl2_first,
+                               self._rkl2_other)
 
     # ------------------------------------------------------------------ misc
     def c_h_from_dt_hyp(self, dt_hyp):
@@ -483,3 +600,38 @@ class HydroPackage:
         if self.cfg.fluid != GLMMHD:
             return 0.0
         return self.cfg.cfl * self.mesh.min_dx / dt_hyp
+
+
+def rkl2_stage_count(tau, dt_diff):
+    """The RKL2 stage count s for a super-step of ``tau`` (odd;
+    ``hydro_driver.cpp:186-190``)."""
+    s_rkl = int(0.5 * (math.sqrt(9.0 + 16.0 * tau / dt_diff) - 1.0)) + 1
+    return s_rkl + 1 if s_rkl % 2 == 0 else s_rkl
+
+
+def rkl2_super_step(u, tau, dt_diff, first, other):
+    """The RKL2 recursion over ``tau`` (Meyer, Balsara & Aslam 2014) with
+    the stage functions ``first(u, tau, s) -> (Y1, MY0)`` and
+    ``other(Yjm1, Yjm2, Y0, MY0, coeffs, tau) -> Yj``, on a uniform
+    state or a ``{level: u}`` one alike."""
+    s_rkl = rkl2_stage_count(tau, dt_diff)
+    Y0 = u
+    Yjm1, MY0 = first(u, tau, s_rkl)
+    Yjm2 = Y0
+    s = float(s_rkl)
+    w1 = 4.0 / (s * s + s - 2.0)
+    b_jm1 = b_jm2 = 1.0 / 3.0
+    for jj in range(2, s_rkl + 1):
+        j = float(jj)
+        b_j = (j * j + j - 2.0) / (2.0 * j * (j + 1.0))
+        mu_j = (2.0 * j - 1.0) / j * b_j / b_jm1
+        nu_j = -(j - 1.0) / j * b_j / b_jm2
+        mu_tilde_j = mu_j * w1
+        gamma_tilde_j = -(1.0 - b_jm1) * mu_tilde_j
+        Yj = other(Yjm1, Yjm2, Y0, MY0,
+                   (mu_j, nu_j, mu_tilde_j, gamma_tilde_j), tau)
+        Yjm2 = Yjm1
+        Yjm1 = Yj
+        b_jm2 = b_jm1
+        b_jm1 = b_j
+    return Yjm1

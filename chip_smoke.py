@@ -75,7 +75,22 @@ Phases (each one fails the run if it fails):
    its share of the cycle; path G adaptive, base 64x192x64 with 16^3
    blocks and numlevel 2, Townsend cooling, the pgen's scalar refinement
    check, on the stage rung (#7) and the negdiv rung (#6/#2), 10 warm-up
-   + 20 timed cycles, with the leaves per cycle and the remeshes;
+   + 20 timed cycles, with the leaves per cycle and the remeshes; the
+   diffusion and split-source paths (``tests/torch_decks.py``'s decks, f32,
+   12 cycles with 2 warm-up, each profiled right after its run): path H,
+   the GLM-MHD linear wave with conduction, viscosity and Ohmic
+   resistivity of ``tests/test_diffusion_linwave3d.py`` at 384x192x192 in
+   one ghost-free block, unsplit and RKL2 (``rkl2_max_dt_ratio = 200``),
+   each on the sweep and the stage rung, with dt_hyp / dt_diff, the RKL2
+   stages per cycle (and the count the code reckons), the diffusion's
+   time and share and the launches per cycle, and the stage kernel with
+   ``emit_prim`` at its inputs against plain (f32 and f64); path I,
+   driven turbulence (GLM-MHD HLLD + PLM, 30 modes from
+   ``make_random_modes``) at 256^3 on both rungs, with the forcing's time,
+   share and host reads per cycle; path I', the same turbulence on a
+   static refined mesh (base 128^3, 16^3 blocks, the octant at level 1)
+   through the ``_smr`` hook on the stage-faces (#7) and the negdiv-faces
+   (#6/#2) rung, with the leaves and the forcing's share;
 5. whole steps in f64 for 5 cycles, once through the kernels and once
    with their plain versions forced, state and every dt compared: the
    main deck at 32^3 on each rung, the vortex at 64^2, Sod at 256,
@@ -89,7 +104,14 @@ Phases (each one fails the run if it fails):
    blast_3d_adaptive.in`` on both rungs and the 2-D adaptive blast at
    256^2, ``derefine_count = 1``): leaf tables equal, state and every step
    to the tolerance, a refinement and a derefinement in each, mass drift
-   1e-13; then the face kernels against plain at paths A, B, C, D and D''s
+   1e-13; the diffusion and source decks (H unsplit and RKL2 at 64x32x32
+   on both rungs, the refined diffusive wave unsplit and RKL2, I at 64^3
+   on both rungs,
+   I' at base 32^3 on both rungs, each run from its own ``ParameterInput``
+   so both draw the same randoms, and rand_blast at 128^3 with FOFC in a
+   window in which blast 1 fires): state and every dt, the same RKL2
+   stage counts and rescues, mass across levels 1e-13; then the face
+   kernels against plain at paths A, B, C, D and D''s
    own level arrays (D and D' after their last remesh), f32 as they run
    and the same arrays in f64 (state and every face slab, per variable);
 6. timings at the main paths' inputs (256^3 f32, and 2048^2 f32 for the
@@ -111,9 +133,10 @@ Phases (each one fails the run if it fails):
    correction and the dt package told apart by profiler ranges), and of 3
    cycles of adaptive path D (the step, the fill, the tag dispatch and the
    remesh, with its host ms), of 3 cycles of path G' on each rung (the
-   cooling's kernels apart) and of path G (the cooling apart), device
-   time by kernel and the device's idle
-   share.
+   cooling's kernels apart) and of path G (the cooling apart), and of 3
+   cycles of each path H, I and I' run (the diffusion, the forcing and
+   the refined fill apart by profiler ranges), device time by kernel and
+   the device's idle share.
 
 The last lines are the kernels' JSON line, the card line and
 ``{"ok": true, "device": {...}}``.
@@ -683,6 +706,48 @@ def read_counts():
 def read_face_counts():
     return (PORT.stage.stage_faces_cuda.launches,
             PORT.sweep.negdiv_faces_cuda.launches)
+
+
+def all_launches():
+    """Every launch counter of the port's kernels, summed."""
+    return sum(read_counts() + read_face_counts()) \
+        + PORT.sweep.negdiv_scalars_cuda.launches \
+        + PORT.stage.stage_scalars_cuda.launches
+
+
+PORT_KERNEL = re.compile(r"negdiv_sweep_kernel|fused_stage_kernel|"
+                         r"scalars_kernel")
+
+
+class TraceLost(Exception):
+    """The profiler's trace lacks kernels that the profiled run launched."""
+
+
+def check_trace(kernels, launched):
+    """Raise ``TraceLost`` unless the trace's ``kernels`` hold each of the
+    ``launched`` launches of the port's kernels in the profiled run (the
+    profiler can drop device events, and a breakdown without them would
+    give the other kernels a larger share)."""
+    seen = sum(bool(PORT_KERNEL.search(e["name"])) for e in kernels)
+    if seen != launched:
+        raise TraceLost(f"the trace holds {seen} of the {launched} kernels "
+                        "the port launched in the profiled cycles")
+
+
+def checked_profile(fn):
+    """Run the profile phase ``fn``; where its trace lost kernels, run it
+    once more, and where that trace loses kernels too, the breakdown is
+    not measured (None)."""
+    def run(*a, **k):
+        for attempt in (1, 2):
+            try:
+                return fn(*a, **k)
+            except TraceLost as e:
+                log(f"  {e}: events were lost"
+                    + ("; profiling again" if attempt == 1 else
+                       "; this breakdown is not measured"))
+        return None
+    return run
 
 
 def smooth_glm_prim(mesh, seed, dtype):
@@ -2333,13 +2398,15 @@ def phase_stage_timings(sim, launches, reps):
     }
 
 
-def phase_case_timings(runs, reps):
-    """A timing row per new case at its path's own inputs (the state each
-    path E or F run ended with, f32): the deck's call of the sweep kernel
-    (one per stage: 3 launches) or, on the stage rung, of the stage kernel
-    (one launch), against plain (f32 tolerance), kernel and plain per
-    call, the bound from this call's bytes (prim read once, -div(F) or
-    u_new written once) and the operations its data need, per launch."""
+def phase_case_timings(runs, reps, f64=False):
+    """A timing row per case at its path's own inputs (the state the path's
+    run ended with, f32): the deck's call of the sweep kernel (one per
+    stage: a launch per direction) or, on the stage rung, of the stage
+    kernel (one launch), against plain (f32 tolerance), kernel and plain
+    per call, the bound from this call's bytes (prim read once, -div(F) or
+    u_new written once) and the operations its data need, per launch.
+    With ``f64`` the same inputs in f64 are held against plain too (f64
+    tolerance)."""
     sweep, stage = PORT.sweep, PORT.stage
     rows = {}
     for name, run in runs.items():
@@ -2349,14 +2416,13 @@ def phase_case_timings(runs, reps):
         dt, dt_hyp = sim._estimate()
         c_h = sim.pkg.c_h_from_dt_hyp(dt_hyp)
         if run["rung"] == "stage":
-            u = sim.u
-            x, n_launch = u, 1
+            x, n_launch = sim.u, 1
 
-            def kern():
+            def kern(u=x):
                 return stage.stage_cuda(u, u, 0.0, 1.0, dt, c_h, mesh, cfg,
                                         eos, recon)
 
-            def plain():
+            def plain(u=x):
                 return stage.stage_plain(u, u, 0.0, 1.0, dt, c_h, mesh, cfg,
                                          eos, recon)
             route = "#3 fused_stage"
@@ -2364,22 +2430,28 @@ def phase_case_timings(runs, reps):
             _, x = sim.pkg.cons_to_prim(sim.u)
             n_launch = len(sweep.active_dirs(mesh))
 
-            def kern():
-                return sweep.negdiv_cuda(x, c_h, mesh, cfg, eos, recon)
+            def kern(p=x):
+                return sweep.negdiv_cuda(p, c_h, mesh, cfg, eos, recon)
 
-            def plain():
-                return sweep.negdiv_plain(x, c_h, mesh, cfg, eos, recon)
+            def plain(p=x):
+                return sweep.negdiv_plain(p, c_h, mesh, cfg, eos, recon)
             route = "#1 negdiv_sweep"
-        got, ref = kern(), plain()
-        torch.cuda.synchronize()
-        abs_err = (got - ref).abs().max().item()
-        rel = max_rel_err(got, ref)
-        finite = bool(torch.isfinite(got).all())
-        del got, ref
-        torch.cuda.empty_cache()
-        if not (rel <= F32_TOL and finite):
-            raise AssertionError(f"{route} disagrees with plain at the inputs "
-                                 f"of {name}: {rel:.3e}")
+        errs = {}
+        for dtype, tol in TOLS if f64 else TOLS[:1]:
+            xd = x.to(dtype)
+            got, ref = kern(xd), plain(xd)
+            torch.cuda.synchronize()
+            errs[dtype] = rel = max_rel_err(got, ref)
+            finite = bool(torch.isfinite(got).all())
+            if dtype == x.dtype:
+                abs_err = (got - ref).abs().max().item()
+            del got, ref, xd
+            torch.cuda.empty_cache()
+            if not (rel <= tol and finite):
+                raise AssertionError(f"{route} disagrees with plain at the "
+                                     f"inputs of {name} ({dtype}): "
+                                     f"{rel:.3e}")
+        rel = errs[x.dtype]
         ms = cuda_ms(kern, reps)
         plain_ms = cuda_ms(plain, 2)
         torch.cuda.empty_cache()
@@ -2391,7 +2463,8 @@ def phase_case_timings(runs, reps):
         rows[name] = dict(
             route=route, ms=ms / n_launch, call_ms=ms,
             plain_ms=plain_ms, launches_per_call=n_launch,
-            max_abs_err=abs_err, max_rel_err=rel, ops_per_cell=ops / cells,
+            max_abs_err=abs_err, max_rel_err=rel,
+            max_rel_err_f64=errs.get(torch.float64), ops_per_cell=ops / cells,
             div_sqrt_per_cell=slow / cells, launches_on_path=run["launches"],
             cycles=run["cycles"], zone_cycles_per_s=run["zcps"], **b)
         if "rescues" in run:
@@ -2403,18 +2476,19 @@ def phase_case_timings(runs, reps):
             f"({b['bound_by']}; {ops / cells:.1f} operations per cell, "
             f"{slow / cells:.1f} divisions and roots); "
             f"{100 * b['share_of_bound']:.2f} % of the bound; max abs err "
-            f"{abs_err:.3e}; {run['launches']} launches on the path")
+            f"{abs_err:.3e}, max rel err " + ", ".join(
+                f"{v:.3e} ({str(k)[6:]})" for k, v in errs.items())
+            + f"; {run['launches']} launches on the path")
     return rows
 
 
+@checked_profile
 def phase_profile(sim, ncycles, what):
     """Where one cycle's device time goes: a torch.profiler trace of
     ``ncycles`` steps, kernels grouped by name, and the share of the window
     in which no kernel ran."""
     log(f"== phase 7: device-time breakdown of {ncycles} cycles of {what} ==")
-    from torch.profiler import ProfilerActivity, profile
-
-    from torch.profiler import record_function
+    from torch.profiler import ProfilerActivity, profile, record_function
 
     dt, dt_hyp = sim._estimate()
     c_h = sim.pkg.c_h_from_dt_hyp(dt_hyp)
@@ -2429,6 +2503,7 @@ def phase_profile(sim, ncycles, what):
                 return apply(*a, **k)
         cooling.apply = ranged
     torch.cuda.synchronize()
+    n0 = all_launches()
     try:
         with profile(activities=[ProfilerActivity.CPU,
                                  ProfilerActivity.CUDA]) as prof:
@@ -2446,6 +2521,7 @@ def phase_profile(sim, ncycles, what):
     if not kernels:
         log("  the profiler recorded no device kernels: not measured")
         return None
+    check_trace(kernels, all_launches() - n0)
     recons = RECON_NAMES
     ranges = [e for e in events if e.get("cat") == "user_annotation"
               and e.get("name") == "cooling"]
@@ -2583,6 +2659,7 @@ def phase_smr_timings(sim, kind, launches, reps, name, replaces, what):
     }
 
 
+@checked_profile
 def phase_smr_profile(sim, ncycles, what):
     """Where a refined-mesh cycle's time goes: a torch.profiler trace of
     ``ncycles`` cycles (dt package, step), the port's kernels by name, and
@@ -2605,6 +2682,7 @@ def phase_smr_profile(sim, ncycles, what):
 
     for obj, attr, label in wrapped:
         setattr(obj, attr, wrap(getattr(obj, attr), label))
+    n0 = all_launches()
     try:
         torch.cuda.synchronize()
         with profile(activities=[ProfilerActivity.CPU,
@@ -2624,6 +2702,7 @@ def phase_smr_profile(sim, ncycles, what):
     if not kernels:
         log("  the profiler recorded no device kernels: not measured")
         return None
+    check_trace(kernels, all_launches() - n0)
     spans = [e for e in events if e.get("cat") == "gpu_user_annotation"
              and e.get("name", "").startswith("smr.")]
     host = {}
@@ -2675,6 +2754,7 @@ def phase_smr_profile(sim, ncycles, what):
             "window_ms_per_cycle": window / ncycles, "idle_share": idle}
 
 
+@checked_profile
 def phase_amr_profile(sim, ncycles, what):
     """Where an adaptive cycle's time goes: a torch.profiler trace of
     ``ncycles`` cycles of the run loop (remesh check, step, tags and dt
@@ -2703,6 +2783,7 @@ def phase_amr_profile(sim, ncycles, what):
     drv = sim.driver
     n_log = len(drv.remesh_log)
     sim.quiet = True
+    n0 = all_launches()
     try:
         torch.cuda.synchronize()
         with profile(activities=[ProfilerActivity.CPU,
@@ -2722,6 +2803,7 @@ def phase_amr_profile(sim, ncycles, what):
     if not kernels:
         log("  the profiler recorded no device kernels: not measured")
         return None
+    check_trace(kernels, all_launches() - n0)
     # each kernel goes to the ranges open on the host when it was launched
     # (the launch's correlation id ties the two)
     ranges = [e for e in events if e.get("cat") == "user_annotation"
@@ -3393,6 +3475,592 @@ def phase_scalar_timings(sim, launches, reps):
     return entries
 
 
+# ------------------------------------ diffusion and split sources
+# The decks are tests/torch_decks.py's (PORT.decks): the diffusive linear
+# wave of tests/test_diffusion_linwave3d.py (path H), the turbulence deck
+# with 30 modes from make_random_modes (paths I and I'), the rand_blast
+# deck.  Path H's size keeps the deck's 2:1:1 aspect.
+PATH_H_SIZE = (384, 192, 192)
+TURB_MODES = 30
+
+
+def timed_deck(deck, warmup):
+    """``deck`` with ``perf_cycle_offset = warmup`` in its time block and
+    its ``.hst`` output at dt = 0.03 (the interval of the reference suite's
+    diffusive-wave deck; the timed cycles write none, where the tests'
+    decks write a row, ~15 reductions and host reads, every cycle)."""
+    return deck.replace("ncycle_out = 0", "ncycle_out = 0\nperf_cycle_offset "
+                        f"= {warmup}").replace("file_type = hst",
+                                               "file_type = hst\ndt = 0.03")
+
+
+@contextlib.contextmanager
+def host_reads(counter):
+    """Count the tensor reads to the host (``item``, ``tolist``, ``cpu``,
+    ``numpy``, ``float``, ``int``, ``bool``) made inside the block into
+    ``counter['reads']``."""
+    names = ("item", "tolist", "cpu", "numpy", "__float__", "__int__",
+             "__bool__")
+    saved = {n: getattr(torch.Tensor, n) for n in names}
+
+    def counting(fn):
+        def call(self, *a, **k):
+            if self.is_cuda:
+                counter["reads"] += 1
+            return fn(self, *a, **k)
+        return call
+
+    for n in names:
+        setattr(torch.Tensor, n, counting(saved[n]))
+    try:
+        yield counter
+    finally:
+        for n, fn in saved.items():
+            setattr(torch.Tensor, n, fn)
+
+
+def wrap_calls(ranges, make):
+    """Replace each ``obj.attr`` of ``ranges`` (``(obj, attr, label)``) by
+    ``make(fn, label)``; -> the function that undoes every wrap."""
+    undo = []
+    for obj, attr, label in ranges:
+        inner = getattr(obj, attr)
+        own = attr in vars(obj)
+        setattr(obj, attr, make(inner, label))
+        undo.append((lambda o=obj, a=attr, f=inner: setattr(o, a, f)) if own
+                    else (lambda o=obj, a=attr: delattr(o, a)))
+    return lambda: [fn() for fn in reversed(undo)]
+
+
+def run_more(sim, ncycles):
+    """``ncycles`` more cycles of ``sim.run()``, its output dropped."""
+    sim.nlim = sim.ncycle + ncycles
+    quiet = sim.quiet
+    sim.quiet = True
+    try:
+        with contextlib.redirect_stdout(io.StringIO()):
+            sim.run()
+    finally:
+        sim.quiet = quiet
+
+
+def phase_host_reads(sim, ncycles, what, ranges):
+    """Host reads over ``ncycles`` more cycles of ``sim.run()``: those of
+    the whole run (its opening dt estimate and closing output included) per
+    cycle, and per call those made inside each ``(obj, attr, label)`` of
+    ``ranges`` (a nested range counts in each), with the calls per cycle.
+    A run of its own after the timed one: the count hooks the tensor
+    methods that read the host, and nothing is timed here.  -> ``({"run":
+    reads per cycle, label: reads per call}, {label: calls per cycle})``."""
+    total = {"reads": 0}
+    inside = {label: {"reads": 0, "calls": 0} for _, _, label in ranges}
+
+    def counting(fn, label):
+        def call(*a, **k):
+            n0 = total["reads"]
+            try:
+                return fn(*a, **k)
+            finally:
+                inside[label]["reads"] += total["reads"] - n0
+                inside[label]["calls"] += 1
+        return call
+
+    undo = wrap_calls(ranges, counting)
+    try:
+        with host_reads(total):
+            run_more(sim, ncycles)
+    finally:
+        undo()
+    out = {"run": total["reads"] / ncycles}
+    out.update({label: v["reads"] / max(v["calls"], 1)
+                for label, v in inside.items()})
+    calls = {label: v["calls"] / ncycles for label, v in inside.items()}
+    log(f"  host reads of {what} over {ncycles} more cycles (counted, not "
+        f"timed): the run's per cycle {out['run']:.2f}; per call " + ", ".join(
+            f"{k} {v:.2f}" for k, v in out.items() if k != "run")
+        + "; calls per cycle " + ", ".join(
+            f"{k} {v:.2f}" for k, v in calls.items()))
+    return out, calls
+
+
+def loop_ranges(sim):
+    """The parts of a uniform cycle whose host reads are counted: the
+    fused step (which returns the next dt), or the split cycle and the dt
+    estimate after it; and the outputs."""
+    return [(sim.pkg, "step_with_dt", "step"), (sim, "_cycle", "cycle"),
+            (sim, "_estimate", "dt estimate"),
+            (sim, "_do_outputs", "outputs")]
+
+
+def cycle_reads(reads, calls, what):
+    """The reads of one uniform cycle from ``phase_host_reads``'s counts:
+    the fused step's, or the split cycle's and its dt estimate's (the run's
+    opening estimate and its outputs are not the cycle's)."""
+    split = calls["cycle"] > 0
+    n = reads["step"] * calls["step"] + reads["cycle"] * calls["cycle"] \
+        + (reads["dt estimate"] if split else 0.0)
+    log(f"  host reads per cycle of {what}: {n:.2f} ("
+        + (f"the cycle {reads['cycle']:.2f}, the dt estimate "
+           f"{reads['dt estimate']:.2f})" if split
+           else f"the fused step {reads['step']:.2f})"))
+    return n
+
+
+def phase_diffusion_path(integrator, rung, nx, ncycles, warmup):
+    """Path H: the GLM-MHD linear wave with conduction, viscosity and Ohmic
+    resistivity (HLLD + PLM + VL2) at ``nx`` in one merged ghost-free block,
+    f32, on the sweep or the stage rung, unsplit or RKL2.  The timed run
+    carries no meter; the RKL2 stages are the package's own count."""
+    log(f"== phase 4: path H ({integrator} diffusion, {nx[0]}x{nx[1]}x"
+        f"{nx[2]} ghost-free, {rung} rung, f32, {warmup} warm-up + "
+        f"{ncycles - warmup} timed cycles) ==")
+    t0 = time.time()
+    sim = make_sim(timed_deck(PORT.decks.linwave3d_deck(
+        nx=nx, integrator=integrator, nlim=ncycles, precision="single"),
+        warmup), rung)
+    if sim.mesh.nghost != 0 or sim.mesh.nblocks != 1:
+        raise AssertionError("path H must run one ghost-free block")
+    dt, dt_hyp = sim._estimate()
+    ratio = dt_hyp / sim.dt_diff
+    # the stage count the code takes for the first super-step
+    s_half = PORT.rkl2_stage_count(0.5 * dt, sim.dt_diff) \
+        if sim.pkg.sts else None
+    log(f"  set-up {time.time() - t0:.2f} s: dt_hyp {dt_hyp:.6e}, dt_diff "
+        f"{sim.dt_diff:.6e}, dt_hyp / dt_diff {ratio:.4f}, dt {dt:.6e}; "
+        f"RKL2 stages per half step reckoned from them: {s_half}")
+    pkg = sim.pkg
+    stages0 = pkg.rkl2_stages
+    n_sweep, n_stage, zcps = run_sim(sim)
+    stages = pkg.rkl2_stages - stages0
+    want = tuple(k * ncycles for k in RUNG_LAUNCHES[rung])
+    finite = bool(torch.isfinite(sim.u).all())
+    log(f"  launches: sweep {n_sweep}, stage {n_stage} (expected {want}); "
+        f"RKL2 stages {stages / ncycles:.2f} per cycle; "
+        f"zone-cycles/wallsecond {zcps}")
+    if (n_sweep, n_stage) != want or zcps is None or not finite \
+            or (stages > 0) != pkg.sts:
+        raise AssertionError(f"path H ({integrator}, {rung}): launches "
+                             f"{(n_sweep, n_stage)}, stages {stages}, "
+                             f"finite {finite}")
+    return sim, dict(zone_cycles_per_s=zcps, launches=n_sweep + n_stage,
+                     launches_per_cycle=(n_sweep + n_stage) / ncycles,
+                     dt_hyp_over_dt_diff=ratio,
+                     rkl2_stages_per_cycle=stages / ncycles,
+                     rkl2_stages_per_half_step_reckoned=s_half,
+                     cycles=ncycles)
+
+
+def diffusion_ranges(sim):
+    """Path H's profiler range: the RKL2 half step, or the unsplit
+    diffusion's -div(F_diff)."""
+    pkg = sim.pkg
+    return [(pkg, "sts_half_step" if pkg.sts else "_diff_negdiv",
+             "diffusion")]
+
+
+def forcing_ranges(src, ou):
+    """The forcing's profiler ranges: the whole source call ``src`` and,
+    inside it, the ``FewModesFT`` ``ou``'s host draws and transform (the
+    rest of the forcing is its reductions and kicks)."""
+    return [(*src, "forcing"), (ou, "update_var_hat", "forcing.draws"),
+            (ou, "inverse_transform", "forcing.transform")]
+
+
+def phase_turbulence_path(rung, n, ncycles, warmup):
+    """Path I: driven GLM-MHD turbulence (HLLD + PLM + VL2, 30 modes) at
+    ``n``^3 in one ghost-free block, f32.  The timed run carries no meter
+    (the forcing's share is phase 7's, its host reads a counted run's)."""
+    log(f"== phase 4: path I (turbulence {n}^3, {TURB_MODES} modes, "
+        f"ghost-free, {rung} rung, f32, {warmup} warm-up + "
+        f"{ncycles - warmup} timed cycles) ==")
+    t0 = time.time()
+    sim = make_sim(timed_deck(PORT.decks.turbulence_deck(
+        n=n, nlim=ncycles, num_modes=TURB_MODES, precision="single"),
+        warmup), rung)
+    if sim.mesh.nghost != 0 or sim.src_first_order is None:
+        raise AssertionError("path I must run ghost-free with its driving")
+    log(f"  set-up {time.time() - t0:.2f} s: block {sim.mesh.block_shape}, "
+        f"dtype {sim.dtype}")
+    n_sweep, n_stage, zcps = run_sim(sim)
+    want = tuple(k * ncycles for k in RUNG_LAUNCHES[rung])
+    finite = bool(torch.isfinite(sim.u).all())
+    log(f"  launches: sweep {n_sweep}, stage {n_stage} (expected {want}); "
+        f"zone-cycles/wallsecond {zcps}")
+    if (n_sweep, n_stage) != want or zcps is None or not finite:
+        raise AssertionError(f"path I ({rung}): launches "
+                             f"{(n_sweep, n_stage)}, finite {finite}")
+    return sim, dict(zone_cycles_per_s=zcps, launches=n_sweep + n_stage,
+                     launches_per_cycle=(n_sweep + n_stage) / ncycles,
+                     cycles=ncycles)
+
+
+def phase_turbulence_smr_path(rung, n, ncycles, warmup):
+    """Path I': the turbulence deck on a static refined mesh, base ``n``^3
+    with 16^3 blocks and the octant x, y, z < 0.5 at level 1, through the
+    turbulence's ``_smr`` hook, on the stage-faces (#7) or the negdiv-faces
+    (#6/#2) rung, f32; the timed run carries no meter."""
+    log(f"== phase 4: path I' (turbulence, base {n}^3, 16^3 blocks, octant "
+        f"at level 1, {rung} rung, f32, {warmup} warm-up + "
+        f"{ncycles - warmup} timed cycles) ==")
+    t0 = time.time()
+    sim = make_smr_sim(timed_deck(PORT.decks.turbulence_deck(
+        n=n, mb=16, nlim=warmup, num_modes=TURB_MODES, precision="single",
+        refinement="static"), 0), rung)
+    st = sim._stepper_now()
+    if st.problem_source_first_order is None or not sim._split_loop():
+        raise AssertionError("path I' must run the split loop with its "
+                             "driving")
+    leaves = leaves_of(sim)
+    log(f"  set-up {time.time() - t0:.2f} s: leaves {leaves}")
+    m0 = sim.total_mass()
+    (n_stage_f, n_negdiv_f, n_sweep, n_stage), zcps = run_smr(
+        sim, ncycles, warmup)
+    finite = all(bool(torch.isfinite(v).all()) for v in sim.state.values())
+    drift = abs(sim.total_mass() - m0) / m0
+    per_cycle = {"stage": (2 * len(leaves), 0),
+                 "negdiv": (0, 6 * len(leaves))}[rung]
+    want = tuple(k * ncycles for k in per_cycle)
+    log(f"  launches: stage-faces {n_stage_f}, negdiv-faces {n_negdiv_f} "
+        f"(expected {want}); mass drift {drift:.3e} (f32); "
+        f"zone-cycles/wallsecond {zcps}")
+    if (n_stage_f, n_negdiv_f) != want or (n_sweep, n_stage) != (0, 0) \
+            or zcps is None or not finite or not drift <= 1e-5:
+        raise AssertionError(f"path I' ({rung}): launches "
+                             f"{(n_stage_f, n_negdiv_f)}, finite {finite}, "
+                             f"drift {drift}")
+    return sim, dict(zone_cycles_per_s=zcps, leaves=leaves,
+                     launches=n_stage_f + n_negdiv_f,
+                     launches_per_cycle=(n_stage_f + n_negdiv_f) / ncycles,
+                     cycles=ncycles)
+
+
+@checked_profile
+def phase_split_profile(sim, ncycles, what, ranges):
+    """Where a cycle of a deck with diffusion or split sources goes: a
+    torch.profiler trace of ``ncycles`` more cycles of ``sim.run()`` with a
+    profiler range around each ``(obj, attr, label)`` of ``ranges``; the
+    port's kernels, the plain kernels launched inside each range (a kernel
+    counts in the innermost range open at its launch), the rest, each
+    top-level range's share of the device time with its nested ones, host
+    ms per range and the device's idle share."""
+    log(f"== phase 7: device-time breakdown of {ncycles} cycles of {what} ==")
+    from torch.profiler import ProfilerActivity, profile, record_function
+
+    def ranged(fn, label):
+        def call(*a, **k):
+            with record_function(label):
+                return fn(*a, **k)
+        return call
+
+    undo = wrap_calls(ranges, ranged)
+    n0 = all_launches()
+    try:
+        torch.cuda.synchronize()
+        with profile(activities=[ProfilerActivity.CPU,
+                                 ProfilerActivity.CUDA]) as prof:
+            run_more(sim, ncycles)
+            torch.cuda.synchronize()
+    finally:
+        undo()
+    trace = ROOT / "build" / "chip_smoke" / "trace_split.json"
+    trace.parent.mkdir(parents=True, exist_ok=True)
+    prof.export_chrome_trace(str(trace))
+    events = json.loads(trace.read_text())["traceEvents"]
+    kernels = [e for e in events if e.get("cat") == "kernel"]
+    if not kernels:
+        log("  the profiler recorded no device kernels: not measured")
+        return None
+    check_trace(kernels, all_launches() - n0)
+    labels = {label for _, _, label in ranges}
+    spans = [e for e in events if e.get("cat") == "user_annotation"
+             and e.get("name") in labels]
+    host = {}
+    for e in spans:
+        host[e["name"]] = host.get(e["name"], 0.0) + e["dur"] / 1e3
+    launched = {e["args"]["correlation"]: e["ts"] for e in events
+                if e.get("cat") in ("cuda_runtime", "cuda_driver")
+                and "correlation" in e.get("args", {})}
+    groups, count = {}, {}
+    top = {}
+    for e in kernels:
+        ts = launched.get(e.get("args", {}).get("correlation"))
+        inside = [a for a in spans if ts is not None
+                  and a["ts"] <= ts <= a["ts"] + a["dur"]]
+        if PORT_KERNEL.search(e["name"]):
+            key = "kernels of the port"
+        elif inside:
+            # the innermost range
+            key = min(inside, key=lambda a: a["dur"])["name"] \
+                + " (plain PyTorch)"
+        else:
+            key = "other kernels (plain PyTorch)"
+        for name in {a["name"].split(".")[0] for a in inside}:
+            top[name] = top.get(name, 0.0) + e["dur"] / 1e3
+        groups[key] = groups.get(key, 0.0) + e["dur"] / 1e3
+        count[key] = count.get(key, 0) + 1
+    busy = sum(e["dur"] for e in kernels) / 1e3
+    t0 = min(e["ts"] for e in kernels)
+    t1 = max(e["ts"] + e["dur"] for e in kernels)
+    window = (t1 - t0) / 1e3
+    for key in sorted(groups, key=groups.get, reverse=True):
+        log(f"  {key:40s} {groups[key] / ncycles:9.4f} ms/cycle "
+            f"({100 * groups[key] / busy:5.1f} % of device time, "
+            f"{count[key] / ncycles:.0f} kernels/cycle)")
+    for name, ms in sorted(top.items()):
+        log(f"  {name} with its nested ranges: {ms / ncycles:.4f} ms/cycle "
+            f"of device time ({100 * ms / busy:.1f} % of device time, "
+            f"{100 * ms / window:.1f} % of the window)")
+    for name, ms in sorted(host.items()):
+        log(f"  host time in {name}: {ms / ncycles:.4f} ms/cycle")
+    idle = max(0.0, 1.0 - busy / window)
+    log(f"  device busy {busy / ncycles:.4f} ms/cycle over a "
+        f"{window / ncycles:.4f} ms/cycle window: idle share {idle:.3f}")
+    return {"ms_per_cycle": {k: v / ncycles for k, v in groups.items()},
+            "kernels_per_cycle": {k: v / ncycles for k, v in count.items()},
+            "host_ms_per_cycle": {k: v / ncycles for k, v in host.items()},
+            "share_of_device_time": {k: v / busy for k, v in top.items()},
+            "share_of_window": {k: v / window for k, v in top.items()},
+            "busy_ms_per_cycle": busy / ncycles,
+            "window_ms_per_cycle": window / ncycles, "idle_share": idle}
+
+
+def phase_stage_prim_at_path_h(sim):
+    """The stage kernel with ``emit_prim`` (the unsplit diffusion's prim) at
+    path H's own state against its plain version, f32 as the path runs and
+    the same state in f64."""
+    log("== phase 3: the stage kernel with emit_prim at path H's inputs ==")
+    stage = PORT.stage
+    recon = sim.cfg.reconstruction
+    c_h = sim.pkg.c_h_from_dt_hyp(sim._estimate()[1])
+    out = {}
+    for dtype, tol in TOLS:
+        u = sim.u.to(dtype)
+        args = (u, u, 0.5, 0.5, 1e-3, c_h, sim.mesh, sim.cfg, sim.eos,
+                recon)
+        got = stage.stage_cuda(*args, emit_prim=True)
+        torch.cuda.synchronize()
+        ref = stage.stage_plain(*args, emit_prim=True)
+        err = max(max_rel_err(got[0], ref[0]), max_rel_err(got[1], ref[1]))
+        name = str(dtype)[6:]
+        log(f"  GLM-MHD HLLD {recon} +prim {name} at {tuple(u.shape)}: max "
+            f"rel err {err:.3e} (tol {tol:.0e})")
+        if not err <= tol:
+            raise AssertionError(f"stage +prim at path H's inputs ({name}) "
+                                 f"disagrees with plain: {err}")
+        out[name] = err
+        del got, ref, u
+        torch.cuda.empty_cache()
+    return out
+
+
+def phase_source_paths(zcps):
+    """Paths H (both integrators, both rungs), I (both rungs) and I' (both
+    rungs): each timed run carries no meter; after it, its kernels against
+    plain at the run's final state (f32 and the same arrays in f64), phase
+    7's breakdown and a counted run of the host reads.  Adds each path's
+    zone-cycles/s to ``zcps``; -> ``(path_h, path_i, path_i2, the stage
+    kernel with emit_prim at path H's state)``."""
+    path_h, path_i, path_i2 = {}, {}, {}
+    stage_prim_h = None
+    for integ in ("unsplit", "rkl2"):
+        for rung in ("sweep", "stage"):
+            sim, num = phase_diffusion_path(integ, rung, PATH_H_SIZE,
+                                            ncycles=12, warmup=2)
+            name = f"path H ({integ} diffusion, {rung} rung)"
+            if (integ, rung) == ("unsplit", "stage"):
+                # the stage as this run calls it: with emit_prim
+                stage_prim_h = phase_stage_prim_at_path_h(sim)
+            else:
+                log(f"== phase 6: the kernel against plain at the final "
+                    f"state of {name} ==")
+                num["kernel_vs_plain"] = phase_case_timings({name: {
+                    "sim": sim, "rung": rung, "launches": num["launches"],
+                    "cycles": num["cycles"],
+                    "zcps": num["zone_cycles_per_s"]}}, 10, f64=True)[name]
+            ranges = diffusion_ranges(sim)
+            num["profile"] = phase_split_profile(sim, 3, name, ranges)
+            num["host_reads"], calls = phase_host_reads(
+                sim, 2, name, ranges + loop_ranges(sim))
+            num["host_reads_per_cycle"] = cycle_reads(num["host_reads"],
+                                                      calls, name)
+            if calls["diffusion"] != 2:
+                raise AssertionError(f"{name}: the diffusion ran {calls} "
+                                     "times per cycle (2 stages or 2 half "
+                                     "steps)")
+            path_h[integ, rung] = num
+            zcps[f"path_H {integ} {rung}"] = num["zone_cycles_per_s"]
+            del sim, ranges
+            torch.cuda.empty_cache()
+    for rung in ("sweep", "stage"):
+        sim, num = phase_turbulence_path(rung, n=256, ncycles=12, warmup=2)
+        name = f"path I (turbulence 256^3, {rung} rung)"
+        log(f"== phase 6: the kernel against plain at the final state of "
+            f"{name} ==")
+        num["kernel_vs_plain"] = phase_case_timings({name: {
+            "sim": sim, "rung": rung, "launches": num["launches"],
+            "cycles": num["cycles"],
+            "zcps": num["zone_cycles_per_s"]}}, 10, f64=True)[name]
+        ranges = forcing_ranges((sim, "src_first_order"),
+                                sim.pgen.forcing_driver(sim.pin, sim.mesh))
+        num["profile"] = phase_split_profile(sim, 3, name, ranges)
+        num["host_reads"], calls = phase_host_reads(
+            sim, 2, name, ranges + loop_ranges(sim))
+        num["host_reads_per_cycle"] = cycle_reads(num["host_reads"], calls,
+                                                  name)
+        if calls["forcing"] != 1:
+            raise AssertionError(f"{name}: the forcing ran {calls} times "
+                                 "per cycle")
+        path_i[rung] = num
+        zcps[f"path_I {rung}"] = num["zone_cycles_per_s"]
+        del sim, ranges
+        torch.cuda.empty_cache()
+    for rung in ("stage", "negdiv"):
+        sim, num = phase_turbulence_smr_path(rung, n=128, ncycles=12,
+                                             warmup=2)
+        kind, kname, line = {
+            "stage": ("stage-faces", "fused_stage_faces", 641),
+            "negdiv": ("negdiv-faces", "negdiv_sweep_faces", 525)}[rung]
+        phase_smr_kernels_vs_plain(sim, "I'", kind)
+        row = phase_smr_timings(
+            sim, kind, num["launches"], 10, kname,
+            f"athenapk_tpu/solver/pallas_sweep.py:{line}",
+            f"path I' ({rung} rung)")
+        num["kernel_vs_plain"] = {k: row[k] for k in (
+            "ms", "plain_ms", "bound_ms", "share_of_bound", "bound_by",
+            "max_abs_err", "unit", "per_call")}
+        st = sim._stepper_now()
+        ranges = forcing_ranges(
+            (st, "problem_source_first_order"),
+            sim.pgen.forcing_driver_smr(sim.pin, sim._smesh_now())._ou) \
+            + [(st.state_mgr, "fill_ghosts", "smr.fill")]
+        name = f"path I' ({rung} rung)"
+        num["profile"] = phase_split_profile(sim, 3, name, ranges)
+        num["host_reads"], calls = phase_host_reads(sim, 2, name, ranges)
+        num["host_reads_per_cycle"] = num["host_reads"]["run"]
+        if calls["forcing"] != 1:
+            raise AssertionError(f"{name}: the forcing ran {calls} times "
+                                 "per cycle")
+        path_i2[rung] = num
+        zcps[f"path_I' {rung}"] = num["zone_cycles_per_s"]
+        del sim, st, ranges
+        torch.cuda.empty_cache()
+    return path_h, path_i, path_i2, stage_prim_h
+
+
+def source_whole_step_cases():
+    """(label, deck, refined, rung) of phase 5's new decks, f64, 5 cycles."""
+    d = PORT.decks
+    region = (0.0, 1.5, 0.0, 1.5, 0.0, 1.5)
+    cases = []
+    for integ in ("unsplit", "rkl2"):
+        for rung in ("sweep", "stage"):
+            cases.append((f"H-{integ} 64x32x32, {rung} rung",
+                          d.linwave3d_deck(nx=(64, 32, 32), integrator=integ),
+                          False, rung))
+        cases.append((f"refined diffusion ({integ}), 64x32x32 base, "
+                      "stage rung", d.linwave3d_deck(
+                          nx=(64, 32, 32), mb=(16, 16, 16), integrator=integ,
+                          refinement="static", region=region), True, "stage"))
+    cases.append(("refined diffusion (unsplit), negdiv rung",
+                  d.linwave3d_deck(nx=(64, 32, 32), mb=(16, 16, 16),
+                                   refinement="static", region=region),
+                  True, "negdiv"))
+    for rung in ("sweep", "stage"):
+        cases.append((f"I 64^3, {rung} rung", d.turbulence_deck(
+            n=64, num_modes=TURB_MODES), False, rung))
+    for rung in ("stage", "negdiv"):
+        cases.append((f"I' base 32^3, {rung} rung", d.turbulence_deck(
+            n=32, mb=16, num_modes=TURB_MODES, refinement="static"), True,
+            rung))
+    cases.append(("rand_blast 128^3, FOFC (blast 1 fires)",
+                  d.rand_blast_deck(n=128, nlim=5, tlim=0.01, fofc="true"),
+                  False, "sweep"))
+    return cases
+
+
+def phase_source_whole_steps():
+    """Phase 5's diffusion and source decks: 5 f64 cycles through the
+    kernels and with every kernel's plain version forced; state and every
+    dt to STEP_TOL, the same RKL2 stage counts (and FOFC rescues), mass
+    across levels to 1e-13 on refined meshes.  Each run builds its own
+    ``ParameterInput``, so the turbulence runs draw the same randoms."""
+    log("== phase 5: the diffusion and source decks, kernels against plain "
+        "over whole steps (f64, 5 cycles) ==")
+    sweep, stage = PORT.sweep, PORT.stage
+    names = ("fused_negdiv", "fused_negdiv_faces")
+    snames = ("fused_stage", "fused_stage_faces")
+    plain = {"fused_negdiv": sweep.negdiv_plain,
+             "fused_negdiv_faces": sweep.negdiv_faces_plain,
+             "fused_stage": stage.stage_plain,
+             "fused_stage_faces": stage.stage_faces_plain}
+    worst = {}
+    for label, deck, refined, rung in source_whole_step_cases():
+        runs = {}
+        for name in ("kernel", "plain"):
+            outdir = ROOT / "build" / "chip_smoke" / f"s8_{name}"
+            outdir.mkdir(parents=True, exist_ok=True)
+            for old in outdir.glob("*.hst"):
+                old.unlink()
+            saved = {n: getattr(sweep, n) for n in names}
+            saved.update({n: getattr(stage, n) for n in snames})
+            cwd = os.getcwd()
+            os.chdir(outdir)
+            try:
+                sim = make_smr_sim(deck, rung) if refined \
+                    else make_sim(deck, rung)
+                sim.quiet = True
+                m0 = sim.total_mass() if refined else None
+                if name == "plain":
+                    for n in names:
+                        setattr(sweep, n, plain[n])
+                    for n in snames:
+                        setattr(stage, n, plain[n])
+                reset_counts()
+                with contextlib.redirect_stdout(io.StringIO()):
+                    sim.run()
+                counts = read_counts() + read_face_counts()
+            finally:
+                for n in names:
+                    setattr(sweep, n, saved[n])
+                for n in snames:
+                    setattr(stage, n, saved[n])
+                os.chdir(cwd)
+            if (sum(counts) == 0) != (name == "plain"):
+                raise AssertionError(f"{label}: {name} run launched {counts}")
+            if refined:
+                st = sim._stepper_now()
+                state = {lev: v.cpu().numpy() for lev, v in sim.state.items()}
+                extra = (st.rkl2_stages, st.fofc_rescues)
+                drift = abs(sim.total_mass() - m0) / m0
+            else:
+                state = {0: sim.u.cpu().numpy()}
+                extra = (sim.pkg.rkl2_stages, sim.pkg.fofc_rescues)
+                drift = 0.0
+            runs[name] = (state, np.loadtxt(next(outdir.glob("*.hst"))),
+                          extra, drift, sum(counts), sim.ncycle)
+            if "rand_blast" in label and not sim.t > 0.00125:
+                raise AssertionError(f"{label}: t = {sim.t}, the window "
+                                     "holds no blast")
+        (uk, hk, ek, dk, nk, ck), (up, hp, ep, dp, _, cp) = \
+            runs["kernel"], runs["plain"]
+        err_u = max(float(np.abs(uk[lev] - up[lev]).max()
+                          / np.abs(up[lev]).max()) for lev in up)
+        err_dt = float(np.abs(hk[:, 1] - hp[:, 1]).max()
+                       / np.abs(hp[:, 1]).max())
+        worst[label] = dict(state=err_u, dt=err_dt, launches=nk,
+                            rkl2_stages=ek[0], rescues=ek[1],
+                            mass_drift=dk)
+        log(f"  {label:48s} state {err_u:.3e}, dt {err_dt:.3e} (tol "
+            f"{STEP_TOL:.0e}); launches {nk}; RKL2 stages {ek[0]} / "
+            f"{ep[0]}, rescues {ek[1]} / {ep[1]} (kernels / plain); mass "
+            f"drift {dk:.3e}")
+        if not (err_u <= STEP_TOL and err_dt <= STEP_TOL and ek == ep
+                and hk.shape == hp.shape and ck == cp == 5
+                and dk <= 1e-13):
+            raise AssertionError(f"{label}: kernel and plain steps disagree")
+    return worst
+
+
 def entry_route(entry):
     """The phase-3 route label prefix of a kernel line entry."""
     return {"negdiv_sweep": "#1", "fused_stage": "#3", "negdiv_sweep_2d": "#4",
@@ -3416,11 +4084,16 @@ def load_port():
                                                   prim_to_cons)
     from athenapk_tpu_torch.recon import schemes
     from athenapk_tpu_torch.solver import stage, sweep
-    from athenapk_tpu_torch.solver.hydro_pkg import HydroConfig
+    from athenapk_tpu_torch.solver.hydro_pkg import (HydroConfig,
+                                                     rkl2_stage_count)
     from athenapk_tpu_torch.srcterms import TabularCooling
     from athenapk_tpu_torch.srcterms.tabular_cooling import PASS_COUNTS
     from athenapk_tpu_torch.utils import exact_riemann
+    # the decks shared with the CPU tests (numpy only)
+    sys.path.insert(0, str(ROOT / "tests"))
+    import torch_decks
     PORT = types.SimpleNamespace(TabularCooling=TabularCooling,
+        decks=torch_decks, rkl2_stage_count=rkl2_stage_count,
         PASS_COUNTS=PASS_COUNTS,
         ParameterInput=ParameterInput, Mesh=Mesh, Simulation=Simulation,
         EOS=EOS, cons_to_prim=cons_to_prim, prim_to_cons=prim_to_cons,
@@ -3494,6 +4167,8 @@ def main(argv=None):
                                              warmup=10)
         zcps[f"path_G {rung}"] = cloud_a[rung][1]["zone_cycles_per_s"]
     cooling_passes = phase_cooling_passes(n=128, ncycles=2)
+    path_h, path_i, path_i2, stage_prim_h = phase_source_paths(zcps)
+    source_steps = phase_source_whole_steps()
     phase_whole_steps(args.seed)
     smr_drift = phase_smr_whole_steps(args.seed)
     amr_2d_launches = phase_amr_whole_steps(args.seed)
@@ -3633,6 +4308,28 @@ def main(argv=None):
         fofc_r["launches"]
     nd3_entry["launches_per_cycle"]["path F refined (FOFC blast)"] = \
         fofc_r["launches"] / fofc_r["cycles"]
+    # paths H, I and I': each kernel's launches from the run of the path
+    for (integ, rung), num in path_h.items():
+        key = f"path H ({integ} diffusion), {rung} rung"
+        entry = stage_entry if rung == "stage" else sweep_entry
+        entry["launches_by_path"][key] = num["launches"]
+        cycles[key] = num["cycles"]
+        entry.setdefault("path_H", {})[f"{integ}, {rung} rung"] = num
+    stage_entry["path_H_stage_prim_max_rel_err"] = stage_prim_h
+    for rung, num in path_i.items():
+        key = f"path I (turbulence 256^3), {rung} rung"
+        entry = stage_entry if rung == "stage" else sweep_entry
+        entry["launches_by_path"][key] = num["launches"]
+        cycles[key] = num["cycles"]
+        entry.setdefault("path_I", {})[f"{rung} rung"] = num
+    for rung, num in path_i2.items():
+        key = f"path I' (refined turbulence), {rung} rung"
+        entry = faces_entry if rung == "stage" else nd3_entry
+        entry["launches_by_path"][key] = num["launches"]
+        entry["launches_per_cycle"][key] = num["launches_per_cycle"]
+        entry["zone_cycles_per_s"][key] = num["zone_cycles_per_s"]
+        entry["path_I_prime"] = num
+    sweep_entry["source_decks_whole_steps_f64"] = source_steps
 
     scalar_rows = phase_scalar_timings(cloud_u["sweep"][0], {
         "negdiv_scalars": cloud_u["sweep"][1]["scalar_launches"],

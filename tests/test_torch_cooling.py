@@ -3,8 +3,8 @@
 Twins of the three tests of ``tests/test_cooling.py`` (the integrators
 against the exact cooling ODE, the cooling dt, the table's self-test),
 run through the port's ``Simulation``.  That file's deck uses the
-``diffusion`` problem with ``riemann = none``, which the port does not
-have; here a ported problem (``sod``) runs HLLE + DC on a uniform state at
+``diffusion`` problem with ``riemann = none``, which the port did not have
+when these twins were written; here a ported problem (``sod``) runs HLLE + DC on a uniform state at
 rest, loaded with ``load_state`` (its flux divergence is exactly 0), with
 ``calc_dt_hyp = false``.  Then ``TabularCooling.apply`` with each
 integrator and ``estimate_timestep`` against the JAX package's on random

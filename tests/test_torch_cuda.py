@@ -1083,3 +1083,114 @@ def test_adaptive_decks_on_card_match_cpu(card, case, tmp_path,
         assert np.abs(a - b).max() <= 1e-10 * np.abs(a).max()
     assert abs(got.t - ref.t) <= 1e-10 * ref.t
     assert abs(got.total_mass() - m0["cuda"]) <= 1e-13 * m0["cuda"]
+
+
+# ------------------------------------------- diffusion and split sources
+# The decks of chip_smoke.py's paths H, I and I' at small sizes, f64: 5
+# cycles on the card against the CPU.  The hyperbolic stages launch the
+# kernels whatever the deck's diffusion or sources; the diffusion, the
+# RKL2 stages and the forcing are plain PyTorch on the card.
+from torch_decks import (linwave3d_deck, rand_blast_deck,  # noqa: E402
+                         turbulence_deck)
+
+SOURCE_RUNS = {
+    "H-unsplit": linwave3d_deck(nx=(32, 16, 16), integrator="unsplit"),
+    "H-rkl2": linwave3d_deck(nx=(32, 16, 16), integrator="rkl2"),
+    "I": turbulence_deck(n=32, num_modes=30),
+    "rand_blast": rand_blast_deck(n=64, nlim=5, tlim=0.01, fofc="true"),
+}
+SOURCE_RUNGS = [(case, rung) for case in sorted(SOURCE_RUNS)
+                for rung in (("sweep",) if case == "rand_blast"
+                             else ("sweep", "stage"))]
+
+
+@pytest.mark.parametrize("case,rung", SOURCE_RUNGS,
+                         ids=[f"{c}-{r}" for c, r in SOURCE_RUNGS])
+def test_source_decks_on_card_match_cpu(card, case, rung, tmp_path,
+                                        monkeypatch):
+    """Diffusion (unsplit, RKL2), turbulence and rand_blast decks: 5 f64
+    cycles on the card against the CPU, state and every dt to 1e-10; the
+    kernels launched on every stage, the same RKL2 stage counts."""
+    monkeypatch.delenv("ATHENAPK_PALLAS_HYBRID", raising=False)
+    if rung == "stage":
+        monkeypatch.setenv("ATHENAPK_PALLAS_STAGE", "1")
+    else:
+        monkeypatch.delenv("ATHENAPK_PALLAS_STAGE", raising=False)
+    text = SOURCE_RUNS[case]
+    ref, href = _run_deck(text, "cpu", tmp_path / "cpu")
+    before = stage.stage_cuda.launches + sweep.negdiv_cuda.launches
+    sim, hst = _run_deck(text, "cuda", tmp_path / "card")
+    launched = stage.stage_cuda.launches + sweep.negdiv_cuda.launches \
+        - before
+    assert sim.u.is_cuda and sim.ncycle == ref.ncycle == 5
+    assert launched == 5 * (2 if rung == "stage" else 6)
+    assert sim.pkg.rkl2_stages == ref.pkg.rkl2_stages
+    a, b = ref.u.numpy(), sim.u.cpu().numpy()
+    assert np.isfinite(b).all()
+    assert np.abs(a - b).max() <= 1e-10 * np.abs(a).max()
+    np.testing.assert_allclose(hst[:, :2], href[:, :2], rtol=1e-10)
+
+
+REFINED_SOURCE_RUNS = {
+    "H-unsplit": linwave3d_deck(nx=(32, 16, 16), mb=(8, 8, 8),
+                                integrator="unsplit", refinement="static",
+                                region=(0.0, 1.5, 0.0, 1.5, 0.0, 1.5)),
+    "H-rkl2": linwave3d_deck(nx=(32, 16, 16), mb=(8, 8, 8),
+                             integrator="rkl2", refinement="static",
+                             region=(0.0, 1.5, 0.0, 1.5, 0.0, 1.5)),
+    "I-prime": turbulence_deck(n=16, mb=8, num_modes=30,
+                               refinement="static"),
+}
+
+
+@pytest.mark.parametrize("rung", ["stage", "negdiv"])
+@pytest.mark.parametrize("case", sorted(REFINED_SOURCE_RUNS))
+def test_refined_source_decks_on_card_match_cpu(card, case, rung, tmp_path,
+                                                monkeypatch):
+    """The refined diffusion and turbulence decks: 5 f64 cycles on the
+    card against the CPU on both rungs, state to 1e-10, the face kernels
+    launched, the mass across levels to 1e-13."""
+    monkeypatch.setenv("ATHENAPK_PALLAS_STAGE",
+                       "1" if rung == "stage" else "0")
+    text = REFINED_SOURCE_RUNS[case]
+    sims, counts, m0 = {}, {}, {}
+    with contextlib.chdir(tmp_path), \
+            contextlib.redirect_stdout(io.StringIO()):
+        for dev in ("cpu", "cuda"):
+            sims[dev] = SmrSimulation(ParameterInput.from_string(text),
+                                      quiet=True, device=dev)
+            m0[dev] = sims[dev].total_mass()
+            before = (stage.stage_faces_cuda.launches
+                      + sweep.negdiv_faces_cuda.launches)
+            sims[dev].run()
+            counts[dev] = (stage.stage_faces_cuda.launches
+                           + sweep.negdiv_faces_cuda.launches - before)
+    ref, got = sims["cpu"], sims["cuda"]
+    nlev = len(ref.state)
+    assert counts["cpu"] == 0
+    assert counts["cuda"] == 5 * nlev * (2 if rung == "stage" else 6)
+    assert got.ncycle == ref.ncycle == 5
+    assert got.stepper.rkl2_stages == ref.stepper.rkl2_stages
+    for lev in ref.state:
+        a, b = ref.state[lev].numpy(), got.state[lev].cpu().numpy()
+        assert np.isfinite(b).all()
+        assert np.abs(a - b).max() <= 1e-10 * np.abs(a).max()
+    assert abs(got.total_mass() - m0["cuda"]) <= 1e-13 * m0["cuda"]
+
+
+@pytest.mark.parametrize("dtype,tol", [(torch.float64, 1e-10),
+                                       (torch.float32, 1e-4)])
+def test_stage_kernel_with_prim_at_the_diffusive_wave(card, dtype, tol):
+    """The stage kernel's instantiation of path H (GLM-MHD HLLD + PLM,
+    ghost-free, with the stage-start prim the unsplit diffusion reads)
+    against its plain version at the diffusive wave's own state."""
+    sim = Simulation(ParameterInput.from_string(linwave3d_deck(
+        nx=(32, 16, 16))), quiet=True, device="cuda")
+    u = sim.u.to(dtype)
+    args = (u, u, 0.5, 0.5, 1e-3, C_H, sim.mesh, sim.cfg, sim.eos, "plm")
+    got = stage.stage_cuda(*args, emit_prim=True)
+    ref = stage.stage_plain(*args, emit_prim=True)
+    for g, r in zip(got, ref):
+        r = r.double().cpu().numpy()
+        assert np.abs(g.double().cpu().numpy() - r).max() \
+            <= tol * np.abs(r).max()

@@ -519,3 +519,250 @@ def write_cooling_table(path, alpha=0.5, lam0=1e-23, t_ref=1e6):
         for a, b in zip(log_t, log_l):
             fh.write(f"{a} {b}\n")
     return str(path)
+
+
+# ------------------------------------------------------ diffusion, sources
+# The GLM-MHD linear wave with viscosity, conduction and Ohmic resistivity
+# of ``tests/test_diffusion_linwave3d.py:20-76`` (nu = 0.01, kappa = eta =
+# 0.02; the domain 3 x 1.5 x 1.5, all periodic), HLLD + PLM + VL2, with
+# the diffusion's integrator and the rkl2 dt ratio of ``tests/
+# test_diffusion.py:71`` as parameters; the .hst every cycle.
+LINWAVE3D_DIFF = """
+<job>
+problem_id = linear_wave_mhd
+
+<problem/linear_wave>
+compute_error = false
+dump_max_v2 = true
+amp = 1.0e-4
+wave_flag = 2
+vflow = 0.0
+
+<parthenon/mesh>
+nghost = 2
+merge_blocks = {merge}
+refinement = {refinement}
+numlevel = 2
+nx1 = {nx1}
+x1min = 0.0
+x1max = 3.0
+nx2 = {nx2}
+x2min = 0.0
+x2max = 1.5
+nx3 = {nx3}
+x3min = 0.0
+x3max = 1.5
+
+<parthenon/meshblock>
+nx1 = {mb1}
+nx2 = {mb2}
+nx3 = {mb3}
+
+<parthenon/time>
+integrator = vl2
+cfl = 0.3
+tlim = 3.0
+nlim = {nlim}
+ncycle_out = 0
+
+<hydro>
+fluid = glmmhd
+eos = adiabatic
+riemann = hlld
+reconstruction = plm
+gamma = 1.666666666666667
+precision = {precision}
+
+<diffusion>
+integrator = {integrator}
+conduction = isotropic
+conduction_coeff = fixed
+thermal_diff_coeff_code = 0.02
+viscosity = isotropic
+viscosity_coeff = fixed
+mom_diff_coeff_code = 0.01
+resistivity = ohmic
+resistivity_coeff = fixed
+ohm_diff_coeff_code = 0.02
+rkl2_max_dt_ratio = {ratio}
+
+<parthenon/output2>
+file_type = hst
+"""
+
+
+def linwave3d_deck(nx=(16, 8, 8), integrator="unsplit", nlim=5, mb=None,
+                   precision="double", merge="true", refinement="none",
+                   ratio=200.0, region=None):
+    """The diffusive linear wave at ``nx`` cells (one block unless ``mb``);
+    ``region``: a static level-1 region ``(x1min, x1max, x2min, x2max,
+    x3min, x3max)``."""
+    mb = mb or nx
+    deck = LINWAVE3D_DIFF.format(
+        nx1=nx[0], nx2=nx[1], nx3=nx[2], mb1=mb[0], mb2=mb[1], mb3=mb[2],
+        nlim=nlim, integrator=integrator, precision=precision, merge=merge,
+        refinement=refinement, ratio=ratio)
+    return deck + static_region(region)
+
+
+def static_region(region):
+    """A ``<parthenon/static_refinement0>`` block at level 1 (or "")."""
+    if region is None:
+        return ""
+    keys = ("x1min", "x1max", "x2min", "x2max", "x3min", "x3max")
+    return "\n<parthenon/static_refinement0>\n" + "".join(
+        f"{k} = {v}\n" for k, v in zip(keys, region)) + "level = 1\n"
+
+
+# Driven MHD turbulence (the ``turbulence`` problem; the reference's own
+# ``turbulence.in`` is not in the repository): GLM-MHD HLLD + PLM + VL2 in
+# the unit box, b0 = 0.01 along x (b_config 0), rho0 = p0 = 1, kpeak 2,
+# corr_time 1, sol_weight 1, accel_rms 0.5; the modes of the ``<modes>``
+# block from ``make_random_modes(num_modes, kpeak, rseed)``.
+TURBULENCE = """
+<job>
+problem_id = turbulence
+
+<problem/turbulence>
+rho0 = 1.0
+p0 = 1.0
+b0 = 0.01
+b_config = 0
+kpeak = 2.0
+corr_time = 1.0
+rseed = {rseed}
+sol_weight = 1.0
+accel_rms = 0.5
+num_modes = {num_modes}
+
+<parthenon/mesh>
+nghost = 2
+merge_blocks = {merge}
+refinement = {refinement}
+numlevel = 2
+nx1 = {n}
+x1min = 0.0
+x1max = 1.0
+nx2 = {n}
+x2min = 0.0
+x2max = 1.0
+nx3 = {n}
+x3min = 0.0
+x3max = 1.0
+
+<parthenon/meshblock>
+nx1 = {mb}
+nx2 = {mb}
+nx3 = {mb}
+
+<parthenon/time>
+integrator = vl2
+cfl = 0.3
+tlim = 10.0
+nlim = {nlim}
+ncycle_out = 0
+
+<hydro>
+fluid = {fluid}
+eos = adiabatic
+riemann = {riemann}
+reconstruction = plm
+gamma = 1.666666666666667
+precision = {precision}
+
+<parthenon/output0>
+file_type = hst
+"""
+
+# the level-1 octant of the refined turbulence and rand_blast decks
+# (``tests/test_smr_split_sources.py:106-170``)
+OCTANT = (0.0, 0.5, 0.0, 0.5, 0.0, 0.5)
+
+
+def modes_block(k_vec):
+    """The ``<modes>`` block of a ``[3, M]`` mode array."""
+    lines = ["", "<modes>"]
+    for i in range(np.shape(k_vec)[1]):
+        for j in range(3):
+            lines.append(f"k_{i + 1}_{j} = {int(k_vec[j][i])}")
+    return "\n".join(lines) + "\n"
+
+
+def turbulence_deck(n=16, mb=None, nlim=5, num_modes=30, mode_seed=20190729,
+                    rseed=20190729, precision="double", merge="true",
+                    refinement="none", fluid="glmmhd", riemann="hlld"):
+    """The turbulence deck at ``n``^3 (one block unless ``mb``); on a
+    refined mesh (``refinement = static``) the octant ``OCTANT`` at level
+    1.  The modes come from the port's ``make_random_modes`` (numpy, the
+    same draws as the JAX package's)."""
+    from athenapk_tpu_torch.utils.few_modes_ft import make_random_modes
+    deck = TURBULENCE.format(
+        n=n, mb=mb or n, nlim=nlim, num_modes=num_modes, rseed=rseed,
+        precision=precision, merge=merge, refinement=refinement,
+        fluid=fluid, riemann=riemann)
+    deck += modes_block(make_random_modes(num_modes, 2.0, mode_seed))
+    return deck + static_region(OCTANT if refinement == "static" else None)
+
+
+# Repeated random blasts (``rand_blast``): GLM-MHD HLLE + PLM + VL2 in the
+# 0.2-wide box of ``tests/test_smr_split_sources.py:14-60``; blast 1 fires
+# in the cycle that crosses t = 0.00125 (its pressure is 45,000 times the
+# ambient 0.3, so the card's decks set first_order_flux_correct).
+RAND_BLAST = """
+<job>
+problem_id = rand_blast
+
+<problem/rand_blast>
+rho0 = 1.0
+p0 = 0.3
+Bx0 = 0.056117
+
+<parthenon/mesh>
+nghost = 2
+merge_blocks = {merge}
+refinement = {refinement}
+numlevel = 2
+nx1 = {n}
+x1min = -0.1
+x1max = 0.1
+nx2 = {n}
+x2min = -0.1
+x2max = 0.1
+nx3 = {n}
+x3min = -0.1
+x3max = 0.1
+
+<parthenon/meshblock>
+nx1 = {mb}
+nx2 = {mb}
+nx3 = {mb}
+
+<parthenon/time>
+integrator = vl2
+cfl = 0.3
+tlim = {tlim}
+nlim = {nlim}
+ncycle_out = 0
+
+<hydro>
+fluid = glmmhd
+eos = adiabatic
+reconstruction = plm
+riemann = hlle
+gamma = 1.666666666666667
+precision = {precision}
+first_order_flux_correct = {fofc}
+
+<parthenon/output0>
+file_type = hst
+"""
+
+
+def rand_blast_deck(n=32, mb=None, nlim=5, tlim=0.002, precision="double",
+                    merge="true", refinement="none", fofc="false"):
+    """The rand_blast deck at ``n``^3; refined: the octant at level 1."""
+    deck = RAND_BLAST.format(n=n, mb=mb or n, nlim=nlim, tlim=tlim,
+                             precision=precision, merge=merge,
+                             refinement=refinement, fofc=fofc)
+    return deck + static_region(
+        (-0.1, 0.1, 0.0, 0.1, 0.0, 0.1) if refinement == "static" else None)
