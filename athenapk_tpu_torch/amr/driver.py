@@ -52,9 +52,25 @@ before the cycle, the half super-step, the Strang source, the step, the
 Strang source, the first-order source, the half super-step, each source
 followed by a ghost fill.  Every other deck keeps the pipelined loop.
 
+Outputs and restart, as the JAX driver has them
+(``athenapk_tpu/amr/driver.py:345-395, 486-530``): mixed-level ``.phdf``
+dumps named ``{problem}.out{id}.{count:05d}.phdf`` (no underscore, unlike
+the uniform ``out_{id}``) with the tracer swarm where ``swarms = tracers``,
+and ``.rhdf`` checkpoints ``{problem}.out_{id}.{count:05d}.rhdf`` (the
+trigger advances before the write).  ``SmrSimulation(pin,
+restart=payload)`` rebuilds the mesh from the payload's leaf table and
+resumes bit for bit (the derefinement counters of an adaptive run
+included); ``driver.run_from_restart`` sends a payload with ``levels``
+here.
+
+Tracers (``tracers.smr_tracers.SmrTracers``) run on static and adaptive
+meshes: a tracer deck always takes the non-pipelined loop, where each
+cycle advects and samples them with the prim of the cycle's final state;
+a remesh that changes the leaf table re-bins them (``adopt``).
+
 The state lives on ``cuda`` unless the caller asks for the CPU; asking for
 CUDA where there is none raises.  Not ported (``NotImplementedError``):
-restart, hdf5 and rst outputs, tracers, and the problem ``cluster``.
+the problem ``cluster``.
 """
 
 from __future__ import annotations
@@ -73,6 +89,7 @@ from ..outputs.history import HistoryOutput
 from ..pgen import get_pgen
 from ..refinement.criteria import RefinementConfig
 from ..solver.hydro_pkg import HydroConfig
+from ..tracers.smr_tracers import SmrTracers, compact_swarm_smr
 from .remesh import AmrHydro
 from .smr import SmrMesh, smr_regions_from_deck
 from .smr_hydro import SmrHydro
@@ -179,9 +196,10 @@ class SmrSimulation:
     """Time loop on a static or adaptive refined mesh."""
 
     def __init__(self, pin: ParameterInput, quiet: bool = False,
-                 device="cuda"):
-        from ..driver import (DTYPES, check_unported, make_cooling,
-                              make_diffusion, resolve_device)
+                 device="cuda", restart: Optional[dict] = None):
+        from ..driver import (DTYPES, check_h5py, make_cooling,
+                              make_diffusion, resolve_device,
+                              swarm_variables)
 
         self.pin = pin
         self.quiet = quiet
@@ -196,14 +214,20 @@ class SmrSimulation:
         if mode not in ("static", "adaptive"):
             raise ValueError(f"SmrSimulation: refinement={mode}")
         self.adaptive = mode == "adaptive"
-        check_unported(pin)
+        check_h5py(pin)
 
         base = Mesh.from_parameter_input(pin)
         regions = smr_regions_from_deck(pin)
         numlevel = pin.get_or_add_integer("parthenon/mesh", "numlevel", 1)
         max_level = max(numlevel - 1, max((r[-1] for r in regions),
                                           default=0))
-        self.smesh = SmrMesh(base, regions, max_level=max_level)
+        if restart is None:
+            self.smesh = SmrMesh(base, regions, max_level=max_level)
+        else:
+            ll = np.asarray(restart["logical_locations"])
+            self.smesh = SmrMesh.from_leaf_table(
+                base, restart["levels"], ll[:, 0], ll[:, 1], ll[:, 2],
+                max_level=max_level)
         self.cfg = HydroConfig.from_parameter_input(pin)
         check_reflecting_mhd(base, self.cfg.fluid)
         self.eos = EOS.from_parameter_input(pin)
@@ -253,8 +277,9 @@ class SmrSimulation:
                 diffusion=self.diffusion, problem_source_unsplit=built[0],
                 problem_source_first_order=built[1],
                 problem_source_strang=built[2])
-        self.state = self._generate_state()
-        if self.adaptive:
+        if restart is None:
+            self.state = self._generate_state()
+        if self.adaptive and restart is None:
             # Parthenon's Mesh::Initialize loop: tag, remesh, then
             # REGENERATE the problem on the new topology until the grid
             # settles -- initial data is evaluated at each leaf's own
@@ -280,13 +305,43 @@ class SmrSimulation:
         self.tm_dt = None
 
         self._hst = None
+        self._hdf5_outs = []   # {id, dt, variables, sp, swarm_vars, next,
+        self._rst_outs = []    # count} / {id, dt, next, count}
         for blk in pin.output_blocks():
-            if pin.get_string(blk, "file_type") == "hst":
-                oid = pin.get_or_add_string(blk, "id",
-                                            blk.rsplit("output", 1)[-1])
+            ftype = pin.get_string(blk, "file_type")
+            oid = pin.get_or_add_string(blk, "id",
+                                        blk.rsplit("output", 1)[-1])
+            dt_out = pin.get_or_add_real(blk, "dt", -1.0)
+            if ftype == "hst":
                 self._hst = HistoryOutput(
                     f"{self.problem_id}.out{oid}.hst", self.cfg.fluid,
-                    pin.get_or_add_real(blk, "dt", -1.0))
+                    dt_out)
+            elif ftype == "hdf5":
+                self._hdf5_outs.append({
+                    "id": oid, "dt": dt_out,
+                    "variables": pin.get_or_add_string(blk, "variables",
+                                                       "cons"),
+                    "sp": pin.get_or_add_bool(blk,
+                                              "single_precision_output",
+                                              False),
+                    "swarm_vars": swarm_variables(pin, blk),
+                    "next": 0.0, "count": 0})
+            elif ftype == "rst":
+                self._rst_outs.append({"id": oid, "dt": dt_out,
+                                       "next": 0.0, "count": 0})
+
+        # tracers (per-level buffers); on adaptive meshes every remesh
+        # that changes the leaf table re-bins them (adopt)
+        self.tracers = SmrTracers(pin, self._smesh_now(), self.cfg,
+                                  device=self.device)
+        self.tracer_state = None
+        if restart is not None:
+            self.restore(restart)
+        if self.tracers.enabled and self.tracer_state is None:
+            self.tracer_state = self.tracers.seed()
+            if self.tracer_state is not None:
+                self.tracer_state = self.tracers.fill(self.tracer_state,
+                                                      self._prims())
 
     def _source_factories(self):
         """``factory(smesh)`` of the unsplit source, the first-order and
@@ -311,6 +366,40 @@ class SmrSimulation:
                 split("problem_source_strang"))
 
     # ----------------------------------------------------------- state I/O
+    def restore(self, payload):
+        """Resume from a restart payload (``outputs.restart``; see
+        ``driver.load_payload``) on this simulation's leaf table: the
+        ghost-inclusive state (no refill), the clock, the 2x-cap seed, the
+        forcing, the derefinement counters, the tracers and the output
+        triggers (hdf5 outputs, rst outputs, then the ``.hst`` one); the
+        ``.hst`` file is appended to.  Returns ``self``."""
+        from ..driver import tracers_to_device
+
+        self.load_state(payload["state"], payload["t"], payload["ncycle"],
+                        dt=payload.get("dt"),
+                        forcing=payload.get("few_modes_ft"))
+        if self.adaptive and payload.get("deref_counts") is not None:
+            self.driver._deref_counts = dict(payload["deref_counts"])
+        tr = payload.get("tracers")
+        if self.tracers.enabled and tr is not None:
+            self.tracer_state = {
+                "levels": {int(lev): tracers_to_device(st, self.device)
+                           for lev, st in tr["levels"].items()},
+                "n_lost": torch.as_tensor(np.asarray(tr["n_lost"]),
+                                          dtype=torch.int32,
+                                          device=self.device)}
+        trig = payload.get("triggers")
+        if trig is not None:
+            for out, (nt, cnt) in zip(self._hdf5_outs + self._rst_outs,
+                                      trig[:-1]):
+                out["next"] = float(nt)
+                out["count"] = int(cnt)
+            if self._hst is not None:
+                self._hst.next_time = float(trig[-1][0])
+        if self._hst is not None:
+            self._hst._wrote_header = True
+        return self
+
     def load_state(self, state, t: float, ncycle: int,
                    dt: Optional[float] = None, forcing=None):
         """Replace the state with ``{level: array}`` (ghosts included, in
@@ -366,11 +455,18 @@ class SmrSimulation:
 
     def _split_loop(self):
         """Does the run take the JAX driver's non-pipelined branch (RKL2, a
-        split source or a pgen dt constraint)?"""
+        split source, a pgen dt constraint or tracers)?"""
         st = self._stepper_now()
         return (st.sts or st.problem_source_first_order is not None
                 or st.problem_source_strang is not None
-                or self._pe_factory is not None)
+                or self._pe_factory is not None
+                or self.tracer_state is not None)
+
+    def _prims(self):
+        """``{level: prim}`` of the state (ghosts included)."""
+        return {lev: cons_to_prim(self.eos, u, self.cfg.fluid,
+                                  self.cfg.nscalars)[1]
+                for lev, u in self.state.items()}
 
     def _c_h(self, dt):
         if self.cfg.fluid != "glmmhd":
@@ -381,13 +477,54 @@ class SmrSimulation:
     def _write_hst(self, dt):
         if self._hst is None or not self._hst.due(self.t):
             return
-        groups = []
-        for lev in sorted(self.state):
-            u = self.state[lev]
-            _, w = cons_to_prim(self.eos, u, self.cfg.fluid,
-                                self.cfg.nscalars)
-            groups.append((u, w, self._stepper_now().level_mesh[lev]))
-        self._hst.write_groups(self.t, dt, groups)
+        prims = self._prims()
+        level_mesh = self._stepper_now().level_mesh
+        self._hst.write_groups(self.t, dt, [
+            (self.state[lev], prims[lev], level_mesh[lev])
+            for lev in sorted(self.state)])
+
+    def _write_rst(self, force=False):
+        from ..outputs.restart import write_restart_smr
+        for out in self._rst_outs:
+            if not force and (out["dt"] < 0.0 or self.t < out["next"]):
+                continue
+            fname = (f"{self.problem_id}.out_{out['id']}."
+                     f"{out['count']:05d}.rhdf")
+            # the trigger advances before the write: the checkpoint holds
+            # the state after it, so a resume continues at count+1
+            out["count"] += 1
+            out["next"] = self.t + max(out["dt"], 0.0)
+            write_restart_smr(fname, self)
+
+    def _write_hdf5(self, dt, force=False):
+        """The due hdf5 outputs (``dt < 0``: the final dump only)."""
+        from ..outputs.hdf5 import write_phdf_smr
+        for out in self._hdf5_outs:
+            if not force and (out["dt"] < 0.0 or self.t < out["next"]):
+                continue
+            if out["dt"] > 0.0:
+                while out["next"] <= self.t:
+                    out["next"] += out["dt"]
+            want_prim = "prim" in out["variables"]
+            want_cons = "cons" in out["variables"] or not want_prim
+            prims = None
+            if want_prim:
+                prims = {lev: w.cpu().numpy()
+                         for lev, w in self._prims().items()}
+            swarms = None
+            if out["swarm_vars"] and self.tracer_state is not None:
+                swarms = {name: compact_swarm_smr(self.tracer_state, vs)
+                          for name, vs in out["swarm_vars"].items()}
+            fname = (f"{self.problem_id}.out{out['id']}."
+                     f"{out['count']:05d}.phdf")
+            out["count"] += 1
+            write_phdf_smr(
+                fname, self._smesh_now(), self.cfg.fluid, self.t, dt,
+                self.ncycle, state={lev: u.cpu().numpy() for lev, u in
+                                    self.state.items()}
+                if want_cons else None,
+                prim_state=prims, single_precision=out["sp"],
+                swarms=swarms)
 
     def _dt_pack(self):
         """The next cycle's ``[dt_raw, dt_eff, c_h]`` on the device, not
@@ -428,6 +565,7 @@ class SmrSimulation:
         zones_per_block = b.mbnx1 * b.mbnx2 * b.mbnx3
         t0 = time.time()
         self._write_hst(0.0)
+        self._write_hdf5(0.0)
         if self._split_loop():
             zone_cycles, n_remesh = self._run_split(zones_per_block)
         else:
@@ -441,11 +579,13 @@ class SmrSimulation:
         if not self.quiet and zone_cycles:
             print(f"zone-cycles/wallsecond = {zone_cycles / wall:.6e}",
                   flush=True)
+        self._write_hdf5(0.0, force=True)
+        self._write_rst(force=True)
         return self
 
     def _end_cycle(self, dt, zones_per_block):
         """The cycle's output: the ``cycle=`` line, the mesh structure,
-        the ``.hst`` row."""
+        the ``.hst`` row, the due dumps and checkpoints."""
         if not self.quiet and self.ncycle_out > 0 \
                 and self.ncycle % self.ncycle_out == 0:
             nlv = {lev: v.shape[0] for lev, v in self.state.items()}
@@ -455,6 +595,8 @@ class SmrSimulation:
                 and self.ncycle % abs(self.ncycle_out_mesh) == 0:
             self._print_mesh(zones_per_block)
         self._write_hst(dt)
+        self._write_hdf5(dt)
+        self._write_rst()
 
     def _run_split(self, zones_per_block):
         """The JAX driver's non-pipelined cycle: remesh check, the dt (one
@@ -471,6 +613,13 @@ class SmrSimulation:
                     n_remesh += 1
                     if not self.quiet and self.ncycle_out_mesh < 0:
                         self._print_mesh(zones_per_block)
+                    if self.tracer_state is not None:
+                        # re-bin the tracers onto the new leaf table
+                        self.tracers = SmrTracers(
+                            self.pin, self.driver.smesh, self.cfg,
+                            device=self.device)
+                        self.tracer_state = self.tracers.adopt(
+                            self.tracer_state)
             st = self._stepper_now()
             if st.sts:
                 dt_j, dt_diff = st.estimate_dt_with_diff(self.state)
@@ -506,6 +655,11 @@ class SmrSimulation:
                 self.state = st.fill_ghosts(src_fo(self.state, dt, self.t))
             if st.sts:
                 self.state = st.sts_half_step(self.state, 0.5 * dt, vals[1])
+            if self.tracer_state is not None:
+                # advect with the last-filled velocities, then resample
+                prims = self._prims()
+                self.tracer_state = self.tracers.fill(self.tracers.advect(
+                    self.tracer_state, prims, dt), prims)
             self.t += dt
             self.ncycle += 1
             zone_cycles += zones_per_block * sum(

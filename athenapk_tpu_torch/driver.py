@@ -37,17 +37,41 @@ runs ``step`` and then a separate estimate (the JAX package's
 non-pipelined branch, ``:360-420``); every other deck runs the fused
 ``step_with_dt``.  The hyperbolic stages take the kernels either way.
 
-Not ported yet (``NotImplementedError``): hdf5 and rst outputs, tracers,
-restart (``-r``), profiler traces (``-t``), multi-device runs and the
-problem ``cluster``.  On a CUDA device the kernels take every method of
-the decks (six reconstructions; Euler LLF, HLLE, HLLC; GLM-MHD LLF, HLLE,
-HLLD) with any number of passive scalars.
+Outputs (``<parthenon/output*>``): ``hst``; ``hdf5`` (``.phdf`` dumps
+named ``{problem}.out_{id}.{count:05d}.phdf``, with ``swarms = tracers`` the
+compacted tracer swarm beside the fields) and ``rst`` (``.rhdf``
+checkpoints; the trigger advances before the write, so a resume continues
+at count+1).  Both need ``h5py``: a deck with such a block raises an
+ImportError naming it when the ``Simulation`` is built where h5py is
+missing (the chip machine has none).  ``Simulation(pin,
+restart=payload)`` resumes from ``outputs.restart``'s payload (in the
+checkpoint's own block layout, so the resume is bit for bit); a resumed
+run appends to its ``.hst`` file.  ``load_payload`` carries a payload into
+a built simulation through the same ``restore``.
+
+Tracers (``<tracers>``, ``tracers.Tracers``) are seeded with the state,
+and every cycle, on either branch, are advected (Heun) and sampled with the
+prim of the cycle's final state, before the problem's
+``problem_fill_tracers`` hook (turbulence's lookback vectors and
+``correlations.csv``).
+
+CLI: ``-i deck.in``, ``-r file.rhdf`` (resume; overrides apply to the
+stored deck), ``-t TRACE_DIR`` (the run inside ``torch.profiler.profile``,
+CPU and on the card CUDA activity, exported as a Chrome trace to
+``TRACE_DIR/trace.json``; ``solver.hydro_pkg`` names its phases with
+``record_function``), ``--device cpu``.
+
+Not ported yet: multi-device runs and the problem ``cluster``
+(``NotImplementedError``).  On a CUDA device the kernels take every method
+of the decks (six reconstructions; Euler LLF, HLLE, HLLC; GLM-MHD LLF,
+HLLE, HLLD) with any number of passive scalars.
 """
 
 from __future__ import annotations
 
 import dataclasses
 import math
+import os
 import sys
 import time
 from typing import Optional
@@ -75,18 +99,36 @@ def resolve_device(device) -> torch.device:
     return dev
 
 
-def check_unported(pin) -> None:
-    """Raise NotImplementedError for deck features this port lacks, on
-    uniform and refined meshes alike."""
-    if pin.get_or_add_bool("tracers", "enabled", False):
-        raise NotImplementedError("tracers are not ported to "
-                                  "athenapk_tpu_torch yet")
-    for blk in pin.output_blocks():
-        ftype = pin.get_string(blk, "file_type")
-        if ftype in ("hdf5", "rst"):
-            raise NotImplementedError(
-                f"<{blk}> file_type = {ftype}: {ftype} output is not ported "
-                "to athenapk_tpu_torch yet (hst is)")
+def check_h5py(pin) -> None:
+    """Import h5py now (an ImportError naming it) if the deck has an hdf5
+    or rst output block, rather than at the run's first dump."""
+    if any(pin.get_string(blk, "file_type") in ("hdf5", "rst")
+           for blk in pin.output_blocks()):
+        from .outputs.hdf5 import require_h5py
+        require_h5py()
+
+
+def swarm_variables(pin, blk):
+    """``{swarm: [variable]}`` of an hdf5 output block's ``swarms``
+    (``swarms = tracers``, ``tracers_variables = id, x, y, z, rho``; the
+    reference's ``docs/input.md:353-366``)."""
+    out = {}
+    for sname in pin.get_or_add_string(blk, "swarms", "").split():
+        sname = sname.strip(",")
+        if not sname:
+            continue
+        if sname != "tracers":
+            raise ValueError(f"unknown swarm '{sname}' in {blk}")
+        raw = pin.get_or_add_string(blk, f"{sname}_variables", "id, x, y, z")
+        out[sname] = [v.strip() for v in raw.replace(",", " ").split()]
+    return out
+
+
+def tracers_to_device(tracers, device):
+    """A payload's tracer arrays (numpy, or any array) as tensors on
+    ``device``, dtypes kept."""
+    return {k: torch.as_tensor(np.array(v), device=device)
+            for k, v in tracers.items()}
 
 
 def _units_and_mu(pin):
@@ -130,25 +172,22 @@ def make_diffusion(pin):
 
 def load_payload(sim, payload):
     """Continue another run's state in ``sim`` (a ``Simulation`` or an
-    ``amr.driver.SmrSimulation``): ``payload`` is the JAX package's driver
-    state as numpy arrays and a dict, with the keys of its restart payload
-    (``cons`` on a uniform mesh, ``state`` as ``{level: array}`` on a
-    refined one; ``t``, ``ncycle``, ``dt``, and where they apply
-    ``dt_diff`` and ``few_modes_ft`` = ``(var_hat, bit_generator
-    state)``).  Returns ``sim``."""
-    kw = dict(t=payload["t"], ncycle=payload["ncycle"],
-              dt=payload.get("dt"), forcing=payload.get("few_modes_ft"))
-    if "state" in payload:
-        return sim.load_state(payload["state"], **kw)
-    return sim.load_state(payload["cons"], dt_diff=payload.get("dt_diff"),
-                          **kw)
+    ``amr.driver.SmrSimulation``): ``sim.restore(payload)``, the way in of
+    ``Simulation(pin, restart=payload)``.  ``payload`` has the keys of a
+    restart payload (``outputs.restart``; the JAX package's
+    ``read_restart``), numpy arrays or any arrays: ``cons`` on a uniform
+    mesh, ``state`` as ``{level: array}`` on a refined one; ``t``,
+    ``ncycle``, and where they apply ``dt``, ``dt_diff``, ``triggers``,
+    ``tracers``, ``few_modes_ft`` = ``(var_hat, bit_generator state)`` and
+    ``deref_counts``.  Returns ``sim``."""
+    return sim.restore(payload)
 
 
 class Simulation:
     """Owns mesh, package, state and the time loop."""
 
     def __init__(self, pin: ParameterInput, quiet: bool = False,
-                 device="cuda"):
+                 device="cuda", restart: Optional[dict] = None):
         self.pin = pin
         self.quiet = quiet
         self.device = resolve_device(device)
@@ -165,7 +204,7 @@ class Simulation:
                 f"refinement = {mode}: the uniform Simulation does not run "
                 "refined meshes; SmrSimulation does (run_from_file and the "
                 "CLI route the deck to it)")
-        check_unported(pin)
+        check_h5py(pin)
 
         self.mesh = Mesh.from_parameter_input(pin)
         self.cfg = HydroConfig.from_parameter_input(pin)
@@ -176,7 +215,7 @@ class Simulation:
         init_hook = getattr(self.pgen, "init_user_mesh_data", None)
         if init_hook is not None:
             init_hook(pin)
-        self.mesh = self._merge_blocks(pin, self.mesh)
+        self.mesh = self._merge_blocks(pin, self.mesh, restart)
         diffusion = make_diffusion(pin)
         cooling = make_cooling(pin)
         if cooling is not None and pin.has("cooling", "test_filename"):
@@ -218,31 +257,82 @@ class Simulation:
             t, "perf_cycle_offset", 0)
         self.ncycle_out = pin.get_or_add_integer(t, "ncycle_out", 1)
 
-        u = torch.as_tensor(self.pgen.problem_generator(
-            pin, self.mesh, self.cfg, self.eos), dtype=self.dtype,
-            device=self.device)
-        self.u = self.pkg.apply_boundaries(u)
         self.t = 0.0
         self.ncycle = 0
+        self.is_restart = False
         self._prev_dt = 0.0   # dt before a loaded state (2x growth cap)
         self._loaded_dt_diff = None   # dt_diff of a loaded state
         self.dt_diff = math.inf   # the last estimate's diffusive dt
         self.tm_dt = None     # set by run
+        if restart is None:
+            u = torch.as_tensor(self.pgen.problem_generator(
+                pin, self.mesh, self.cfg, self.eos), dtype=self.dtype,
+                device=self.device)
+            self.u = self.pkg.apply_boundaries(u)
+
+        # tracers; the problem may add per-particle fields
+        # (ProblemInitTracerData) and a per-cycle fill hook
+        from .tracers import Tracers
+        extra = getattr(self.pgen, "tracer_extra_fields", None)
+        self.tracers = Tracers(pin, self.mesh, self.cfg,
+                               extra_fields=extra(pin) if extra else None,
+                               device=self.device)
+        self._fill_tracers_hook = getattr(self.pgen, "problem_fill_tracers",
+                                          None)
+        self.tracer_state = None
 
         self.outputs = []
         for blk in pin.output_blocks():
-            if pin.get_string(blk, "file_type") != "hst":
-                continue
+            ftype = pin.get_string(blk, "file_type")
             dt_out = pin.get_or_add_real(blk, "dt", -1.0)
             oid = pin.get_or_add_string(blk, "id", blk.rsplit("output", 1)[-1])
-            hook = getattr(self.pgen, "history_columns", None)
-            extra_cols = (hook(pin, self.mesh, self.cfg, self.eos)
-                          if hook is not None else ())
-            self.outputs.append(HistoryOutput(
-                f"{self.problem_id}.out{oid}.hst", self.cfg.fluid, dt_out,
-                extra_columns=extra_cols))
+            if ftype == "hst":
+                hook = getattr(self.pgen, "history_columns", None)
+                extra_cols = (hook(pin, self.mesh, self.cfg, self.eos)
+                              if hook is not None else ())
+                self.outputs.append(HistoryOutput(
+                    f"{self.problem_id}.out{oid}.hst", self.cfg.fluid, dt_out,
+                    extra_columns=extra_cols))
+            elif ftype == "hdf5":
+                self.outputs.append(_Hdf5Output(
+                    self, oid, pin.get_or_add_string(blk, "variables",
+                                                     "cons"), dt_out,
+                    pin.get_or_add_bool(blk, "single_precision_output",
+                                        False), swarm_variables(pin, blk)))
+            elif ftype == "rst":
+                self.outputs.append(_RestartOutput(self, oid, dt_out))
+        if restart is not None:
+            self.restore(restart)
+        if self.tracers.enabled and self.tracer_state is None:
+            self.tracer_state = self.tracers.seed(
+                user_hook=getattr(self.pgen, "seed_initial_tracers", None))
+            if self.tracer_state is not None:
+                _, w0 = self.pkg.cons_to_prim(self.u)
+                self.tracer_state = self.tracers.fill(self.tracer_state, w0)
 
     # ----------------------------------------------------------- state I/O
+    def restore(self, payload):
+        """Resume from a restart payload (``outputs.restart``; see
+        ``load_payload``): the state, the clock, the 2x-cap seed, the
+        forcing, the tracers and the output triggers.  A resumed run
+        appends to its ``.hst`` file and does not refill the problem's
+        tracer fields at its start.  Returns ``self``."""
+        self.load_state(payload["cons"], payload["t"], payload["ncycle"],
+                        dt=payload.get("dt"), dt_diff=payload.get("dt_diff"),
+                        forcing=payload.get("few_modes_ft"))
+        if self.tracers.enabled and payload.get("tracers") is not None:
+            self.tracer_state = tracers_to_device(payload["tracers"],
+                                                  self.device)
+        if payload.get("triggers") is not None:
+            for out, (nt, cnt) in zip(self.outputs, payload["triggers"]):
+                out.next_time = float(nt)
+                out.count = int(cnt)
+        for out in self.outputs:
+            if isinstance(out, HistoryOutput):
+                out._wrote_header = True
+        self.is_restart = True
+        return self
+
     def load_state(self, cons: np.ndarray, t: float, ncycle: int,
                    dt: Optional[float] = None,
                    dt_diff: Optional[float] = None, forcing=None):
@@ -271,7 +361,7 @@ class Simulation:
 
     # ----------------------------------------------------------- block merge
     @staticmethod
-    def _merge_blocks(pin, mesh):
+    def _merge_blocks(pin, mesh, restart=None):
         """A uniform mesh on one device solves as ONE mesh-spanning block,
         ghost-free when every boundary is periodic and the problem has no
         boundary hook (cyclic rolls are the boundary; no ghost storage and
@@ -279,7 +369,9 @@ class Simulation:
 
         ``parthenon/mesh/merge_blocks = auto|true|false``: ``auto`` merges
         when the run has one device, and this port runs one device per
-        process, so ``auto`` merges."""
+        process, so ``auto`` merges.  A ``restart`` payload written in
+        another layout resumes in its own (bit-exact resume wins over
+        speed)."""
         mode = pin.get_or_add_string("parthenon/mesh", "merge_blocks",
                                      "auto")
         if mode not in ("auto", "true", "false"):
@@ -302,6 +394,13 @@ class Simulation:
             "register_boundary_conditions", None) is not None
         if bcs == {"periodic"} and not has_bc_hook and merged.nghost > 0:
             merged = dataclasses.replace(merged, nghost=0)
+        if restart is not None and merged is not mesh:
+            shp = np.shape(restart["cons"])
+            want = (1, shp[1]) + (
+                merged.nx3 + 2 * merged.ng3, merged.nx2 + 2 * merged.ng2,
+                merged.nx1 + 2 * merged.ng1)
+            if tuple(shp) != want:
+                return mesh
         return merged
 
     # ------------------------------------------------------------------ steps
@@ -354,6 +453,14 @@ class Simulation:
             out.write(self.t, self.tm_dt if self.tm_dt is not None else 0.0,
                       u, w, self.mesh)
 
+    def _move_tracers(self, dt_eff):
+        """Advect the tracers over the cycle and sample them, with the prim
+        of the cycle's final state (the JAX package's order on both of its
+        branches)."""
+        _, w = self.pkg.cons_to_prim(self.u)
+        self.tracer_state = self.tracers.fill(
+            self.tracers.advect(self.tracer_state, w, dt_eff), w)
+
     # ------------------------------------------------------------------- run
     def run(self):
         dt, dt_hyp = self._estimate()
@@ -365,6 +472,14 @@ class Simulation:
             dt = min(2.0 * self._prev_dt, dt)
             self._prev_dt = 0.0
         self.tm_dt = dt
+        if self.tracer_state is not None \
+                and self._fill_tracers_hook is not None \
+                and not self.is_restart:
+            # the problem's tracer fields right after seeding (the
+            # reference calls ProblemFillTracers then, tracers.cpp:184-186)
+            self.tracer_state = self._fill_tracers_hook(
+                self.pin, self.mesh, self.cfg, self.tracer_state,
+                self.ncycle, self.t, dt)
         self._do_outputs()
 
         zones = self.mesh.nx1 * self.mesh.nx2 * self.mesh.nx3
@@ -383,8 +498,15 @@ class Simulation:
             else:
                 self.u, (dt_new, dt_hyp, self.dt_diff) = \
                     self.pkg.step_with_dt(self.u, dt_eff, c_h, self.t)
+            if self.tracer_state is not None:
+                self._move_tracers(dt_eff)
             self.t += dt_eff
             self.ncycle += 1
+            if self.tracer_state is not None \
+                    and self._fill_tracers_hook is not None:
+                self.tracer_state = self._fill_tracers_hook(
+                    self.pin, self.mesh, self.cfg, self.tracer_state,
+                    self.ncycle, self.t, dt_eff)
             if perf_start is not None:
                 perf_cycles += 1
             self.tm_dt = dt_eff
@@ -417,6 +539,70 @@ class Simulation:
         return u.cpu().numpy()
 
 
+class _Hdf5Output:
+    """An hdf5 output block: ``.phdf`` dumps of ``cons`` and/or ``prim``
+    (and the tracer swarm), every ``dt`` (negative: the final dump only)."""
+
+    def __init__(self, sim, oid, variables, dt, single_precision,
+                 swarm_vars):
+        self.sim = sim
+        self.oid = oid
+        self.variables = variables
+        self.dt = dt
+        self.single_precision = single_precision
+        self.swarm_vars = swarm_vars
+        self.next_time = 0.0
+        self.count = 0
+
+    def due(self, t):
+        return self.dt >= 0.0 and t >= self.next_time
+
+    def write(self, t, dt, u, w, mesh):
+        from .outputs.hdf5 import write_phdf
+        sim = self.sim
+        fname = f"{sim.problem_id}.out_{self.oid}.{self.count:05d}.phdf"
+        kw = {}
+        if "cons" in self.variables:
+            kw["cons"] = u.cpu().numpy()
+        if "prim" in self.variables:
+            kw["prim"] = w.cpu().numpy()
+        if self.swarm_vars and sim.tracer_state is not None:
+            from .tracers import compact_swarm
+            kw["swarms"] = {name: compact_swarm(sim.tracer_state, vs)
+                            for name, vs in self.swarm_vars.items()}
+        # NCycle holds the dump's count, as in the JAX package
+        write_phdf(fname, mesh, sim.cfg.fluid, t, dt, self.count,
+                   single_precision=self.single_precision, **kw)
+        self.count += 1
+        while self.dt > 0.0 and self.next_time <= t:
+            self.next_time += self.dt
+
+
+class _RestartOutput:
+    """An rst output block: ``.rhdf`` checkpoints every ``dt``."""
+
+    def __init__(self, sim, oid, dt):
+        self.sim = sim
+        self.oid = oid
+        self.dt = dt
+        self.next_time = 0.0
+        self.count = 0
+
+    def due(self, t):
+        return self.dt >= 0.0 and t >= self.next_time
+
+    def write(self, t, dt, u, w, mesh):
+        from .outputs.restart import write_restart
+        fname = (f"{self.sim.problem_id}.out_{self.oid}."
+                 f"{self.count:05d}.rhdf")
+        # the trigger advances BEFORE the write, so the checkpoint holds
+        # the state after it: a resume continues at count+1
+        self.count += 1
+        while self.dt > 0.0 and self.next_time <= t:
+            self.next_time += self.dt
+        write_restart(fname, self.sim)
+
+
 def run_from_file(path: str, overrides=None, quiet=False, device="cuda"):
     pin = ParameterInput.from_file(path, overrides)
     mode = pin.get_or_add_string("parthenon/mesh", "refinement", "none")
@@ -430,30 +616,76 @@ def run_from_file(path: str, overrides=None, quiet=False, device="cuda"):
     return Simulation(pin, quiet=quiet, device=device).run()
 
 
+def run_from_restart(path: str, overrides=None, quiet=False,
+                     device="cuda"):
+    """Resume the checkpoint ``path`` (either package's ``.rhdf``) with
+    ``overrides`` applied to its stored deck; a refined-mesh checkpoint
+    (its payload has ``levels``) resumes in ``SmrSimulation``."""
+    from .outputs.restart import read_restart
+    pin, payload = read_restart(path)
+    if overrides:
+        pin.apply_overrides(overrides)
+    if "levels" in payload:
+        from .amr.driver import SmrSimulation
+        return SmrSimulation(pin, quiet=quiet, device=device,
+                             restart=payload).run()
+    return Simulation(pin, quiet=quiet, device=device,
+                      restart=payload).run()
+
+
+def write_restart_file(sim, fname):
+    """Write ``sim``'s checkpoint (uniform or refined) to ``fname``."""
+    from .outputs import restart
+    if hasattr(sim, "_smesh_now"):
+        restart.write_restart_smr(fname, sim)
+    else:
+        restart.write_restart(fname, sim)
+
+
+def traced(trace_dir, fn, device):
+    """``fn()`` inside ``torch.profiler.profile`` (CPU activity, and CUDA
+    activity on a CUDA device), its Chrome trace exported to
+    ``trace_dir/trace.json``; -> ``fn()``'s result."""
+    from torch.profiler import ProfilerActivity, profile
+    acts = [ProfilerActivity.CPU]
+    if torch.device(device).type == "cuda":
+        acts.append(ProfilerActivity.CUDA)
+    os.makedirs(trace_dir, exist_ok=True)
+    with profile(activities=acts) as prof:
+        out = fn()
+    prof.export_chrome_trace(os.path.join(trace_dir, "trace.json"))
+    return out
+
+
 def main(argv=None):
-    """CLI: python -m athenapk_tpu_torch.driver -i deck.in [--device cpu]
-    [block/key=value ...]"""
+    """CLI: python -m athenapk_tpu_torch.driver -i deck.in [ovr...]
+            python -m athenapk_tpu_torch.driver -r file.rhdf [ovr...]
+       Options: --device cuda|cpu; -t TRACE_DIR (a torch.profiler trace of
+       the run in TRACE_DIR/trace.json)."""
     argv = list(argv if argv is not None else sys.argv[1:])
-    device = "cuda"
-    if "--device" in argv:
-        i = argv.index("--device")
-        device = argv[i + 1]
-        argv = argv[:i] + argv[i + 2:]
-    if "-r" in argv:
-        raise NotImplementedError("restart (-r) is not ported to "
-                                  "athenapk_tpu_torch yet")
-    if "-t" in argv:
-        raise NotImplementedError("profiler traces (-t) are not ported to "
-                                  "athenapk_tpu_torch yet")
-    if "-i" not in argv:
+    opts = {}
+    for flag in ("--device", "-t"):
+        if flag in argv:
+            i = argv.index(flag)
+            opts[flag] = argv[i + 1]
+            argv = argv[:i] + argv[i + 2:]
+    device = opts.get("--device", "cuda")
+
+    def _run():
+        for flag, run in (("-r", run_from_restart), ("-i", run_from_file)):
+            if flag in argv:
+                i = argv.index(flag)
+                overrides = [a for a in argv[:i] + argv[i + 2:] if "=" in a]
+                run(argv[i + 1], overrides, device=device)
+                return 0
         print("usage: python -m athenapk_tpu_torch.driver -i input.in "
-              "[--device cuda|cpu] [block/key=value ...]")
+              "[block/key=value ...]  (or -r file.rhdf) [-t trace_dir] "
+              "[--device cuda|cpu]")
         return 1
-    i = argv.index("-i")
-    path = argv[i + 1]
-    overrides = [a for a in argv[:i] + argv[i + 2:] if "=" in a]
-    run_from_file(path, overrides, device=device)
-    return 0
+
+    if "-t" in opts:
+        return traced(opts["-t"], _run, device)
+    return _run()
 
 
 if __name__ == "__main__":

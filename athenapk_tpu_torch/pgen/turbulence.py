@@ -22,8 +22,12 @@ The forcing driver is cached per ``ParameterInput`` (``forcing_driver``,
 stream; on a remesh the refined driver keeps its spectrum and RNG and only
 rebinds its phase tables.  ``load_state``'s ``forcing`` sets its state.
 
-Not ported: the tracer hooks (``tracer_extra_fields``,
-``problem_fill_tracers``); a deck with ``<tracers>`` is refused.
+Tracers (``tracer_extra_fields``, ``problem_fill_tracers``, the
+reference's ``ProblemInitTracerData`` and ``ProblemFillTracers``): every
+tracer carries lookback vectors of s = log(rho) and its rate; after each
+cycle they shift on the device and the mean correlations over the active
+tracers are appended to ``correlations.csv``, one host read per cycle for
+the whole row.
 """
 
 from __future__ import annotations
@@ -235,6 +239,74 @@ def problem_source_first_order_smr(pin, smesh, cfg, eos):
         return out
 
     return driving
+
+
+N_LOOKBACK = 12
+
+
+def tracer_extra_fields(pin):
+    """Per-tracer lookback vectors s = log(rho) and sdot
+    (``ProblemInitTracerData``, ``turbulence.cpp:200-219``)."""
+    return {"s": (N_LOOKBACK,), "sdot": (N_LOOKBACK,)}
+
+
+def problem_fill_tracers(pin, mesh, cfg, state, ncycle, time, dt):
+    """Shift the tracers' lookback entries and append the row of mean
+    correlations to ``correlations.csv`` (``ProblemFillTracers``,
+    ``turbulence.cpp:513-650``).
+
+    Lookback slot ``idx`` (1..L-1) inherits slot ``idx-1`` every
+    ``2^(idx-1)`` cycles, so the vector spans 1..2^(L-2) cycles of
+    history; slot 0 is the current cycle.  The correlations are means over
+    the active tracers of s[0]*s[idx] and sdot[0]*sdot[idx].  Everything
+    stays on the state's device; the row comes to the host in one read."""
+    L = N_LOOKBACK
+    state = dict(state)
+    dev = state["active"].device
+    if "t_lookback" not in state:
+        state["t_lookback"] = torch.zeros(L, dtype=torch.float64, device=dev)
+    mask_np = np.zeros(L, bool)
+    for idx in range(1, L):
+        if ncycle % (1 << (idx - 1)) == 0:
+            mask_np[idx] = True
+    mask = torch.as_tensor(mask_np, device=dev)
+
+    def shift(a):
+        return torch.where(mask, torch.cat([a[..., :1], a[..., :-1]], -1), a)
+
+    tlb = shift(state["t_lookback"])
+    tlb[0] = time
+    state["t_lookback"] = tlb
+    s = shift(state["s"])
+    sdot = shift(state["sdot"])
+    act = state["active"]
+    s0 = torch.where(act, torch.log(torch.clamp(state["rho"], min=1e-30)),
+                     0.0)
+    inv_dt = 1.0 / dt if dt > 0.0 else 0.0
+    sdot0 = torch.where(act, (s0 - s[..., 1]) * inv_dt, 0.0)
+    s[..., 0] = s0
+    sdot[..., 0] = sdot0
+    state["s"], state["sdot"] = s, sdot
+
+    n_act = torch.clamp(act.sum(), min=1)
+    aw = act[..., None]
+    corr_s = torch.where(aw, s[..., :1] * s, 0.0).sum(dim=(0, 1)) / n_act
+    corr_sdot = torch.where(aw, sdot[..., :1] * sdot, 0.0).sum(
+        dim=(0, 1)) / n_act
+    row_vals = torch.cat([torch.stack([s0.sum() / n_act,
+                                       sdot0.sum() / n_act]),
+                          corr_s, corr_sdot, tlb]).tolist()
+
+    with open("correlations.csv", "w" if ncycle == 0 else "a") as fh:
+        if ncycle == 0:
+            cols = ["cycle", "time", "s", "sdot"]
+            for var in ("corr_s", "corr_sdot", "t_lookback"):
+                cols += [f"{var}[{i}]" for i in range(L)]
+            fh.write("# " + ", ".join(cols) + "\n")
+        row = [str(ncycle), repr(float(time))]
+        row += [repr(float(v)) for v in row_vals]
+        fh.write(",".join(row) + "\n")
+    return state
 
 
 def history_columns(pin, mesh, cfg, eos):

@@ -60,6 +60,14 @@ estimate reaches the host in one read.
 ``problem_source_unsplit(u, prim, mesh, beta_dt, t)`` acts after cooling
 in every stage, with the stage-start prim (``emit_prim`` on the stage
 rung).
+
+Profiler ranges (``torch.profiler.record_function``) carry the names of
+the JAX package's ``jax.named_scope`` sites, so a trace (``driver -t``)
+splits a stage alike: ``fused_stage`` (the whole-stage call),
+``fused_lane_sweep`` (the sweep kernel's -div(F) and the update),
+``calculate_fluxes`` and ``flux_divergence_update`` (the null solver's
+stage), ``first_order_flux_correct``, ``dedner_source``,
+``tabular_cooling``, ``problem_source`` and ``boundary_fill``.
 """
 
 from __future__ import annotations
@@ -70,6 +78,7 @@ import os
 from typing import Callable, Optional
 
 import torch
+from torch.profiler import record_function
 
 from ..core.boundaries import check_reflecting_mhd, make_boundary_fn
 from ..core.indices import (IDN, IPS, IB1, IB2, IB3, IM1, IM2, IM3, IEN,
@@ -315,9 +324,10 @@ class HydroPackage:
         boundary fill stay outside.  Returns ``u_new``, or ``(u_new,
         raw_dt)`` with ``emit_dt``."""
         emit_prim = self._stage_needs_prim()
-        out = stage.fused_stage(u0, u1, gam0, gam1, beta_dt, c_h, self.mesh,
-                                self.cfg, self.eos, recon, emit_dt=emit_dt,
-                                emit_prim=emit_prim)
+        with record_function("fused_stage"):
+            out = stage.fused_stage(u0, u1, gam0, gam1, beta_dt, c_h,
+                                    self.mesh, self.cfg, self.eos, recon,
+                                    emit_dt=emit_dt, emit_prim=emit_prim)
         rest = list(out) if emit_dt or emit_prim else [out]
         u_new = rest.pop(0)
         raw_dt = rest.pop(0) if emit_dt else None
@@ -332,13 +342,17 @@ class HydroPackage:
         problem source and the boundary fill, in the JAX package's order
         (the plain Dedner source needs no prim)."""
         if self.cfg.fluid == GLMMHD:
-            u_new = self._dedner_source(u_new, prim, beta_dt, c_h)
+            with record_function("dedner_source"):
+                u_new = self._dedner_source(u_new, prim, beta_dt, c_h)
         if self.cooling is not None:
-            u_new = self.cooling.apply(u_new, beta_dt, self.cfg.fluid)
+            with record_function("tabular_cooling"):
+                u_new = self.cooling.apply(u_new, beta_dt, self.cfg.fluid)
         if self.problem_source_unsplit is not None:
-            u_new = self.problem_source_unsplit(u_new, prim, self.mesh,
-                                                beta_dt, t)
-        return self.apply_boundaries(u_new)
+            with record_function("problem_source"):
+                u_new = self.problem_source_unsplit(u_new, prim, self.mesh,
+                                                    beta_dt, t)
+        with record_function("boundary_fill"):
+            return self.apply_boundaries(u_new)
 
     # ----------------------------------------------------------------- fluxes
     def _compute_fluxes(self, prim, c_h, recon: str):
@@ -428,24 +442,30 @@ class HydroPackage:
         ``MakeTaskCollection``, ``src/hydro/hydro_driver.cpp:499-577``).
         The null solver launches no kernel."""
         if self.cfg.riemann == "none":
-            negdiv = self._diff_negdiv(prim) if self._unsplit_diff \
-                else torch.zeros_like(prim)
+            with record_function("calculate_fluxes"):
+                negdiv = self._diff_negdiv(prim) if self._unsplit_diff \
+                    else torch.zeros_like(prim)
+            with record_function("flux_divergence_update"):
+                u_new = gam0 * u0 + gam1 * u1 + beta_dt * negdiv
         else:
-            negdiv = sweep.fused_negdiv(prim, c_h, self.mesh, self.cfg,
-                                        self.eos, recon)
-            if self._unsplit_diff:
-                negdiv += self._diff_negdiv(prim)
-        u_new = gam0 * u0 + gam1 * u1 + beta_dt * negdiv
-        if self.cfg.first_order_flux_correct \
-                and bool(self._fofc_bad_cells(u_new).any()):
-            # the JAX package's lax.cond: a stage with a bad candidate cell
-            # is recomputed through the plain fluxes and the 4-pass rescue
-            self.fofc_rescues += 1
-            fluxes = self._first_order_flux_correct(
-                u0, u1, prim, self._compute_fluxes(prim, c_h, recon), gam0,
-                gam1, beta_dt, c_h)
-            u_new = gam0 * u0 + gam1 * u1 \
-                - beta_dt * self._flux_divergence(fluxes)
+            with record_function("fused_lane_sweep"):
+                negdiv = sweep.fused_negdiv(prim, c_h, self.mesh, self.cfg,
+                                            self.eos, recon)
+                if self._unsplit_diff:
+                    negdiv += self._diff_negdiv(prim)
+                u_new = gam0 * u0 + gam1 * u1 + beta_dt * negdiv
+        if self.cfg.first_order_flux_correct:
+            with record_function("first_order_flux_correct"):
+                if bool(self._fofc_bad_cells(u_new).any()):
+                    # the JAX package's lax.cond: a stage with a bad
+                    # candidate cell is recomputed through the plain fluxes
+                    # and the 4-pass rescue
+                    self.fofc_rescues += 1
+                    fluxes = self._first_order_flux_correct(
+                        u0, u1, prim, self._compute_fluxes(prim, c_h, recon),
+                        gam0, gam1, beta_dt, c_h)
+                    u_new = gam0 * u0 + gam1 * u1 \
+                        - beta_dt * self._flux_divergence(fluxes)
         return self._stage_epilogue(u_new, prim, beta_dt, c_h, t)
 
     def step(self, u, dt, c_h, t=0.0, emit_dt: bool = False):

@@ -138,6 +138,25 @@ Phases (each one fails the run if it fails):
    the refined fill apart by profiler ranges), device time by kernel and
    the device's idle share.
 
+Tracers and the restart (each in the phase its kind belongs to): path J,
+path I's turbulence at 256^3 with 0.125 tracers per cell (2,097,152 in
+4,194,304 slots) and its ``.hst`` output, on the sweep and the stage rung;
+path J', path I''s refined turbulence (960 leaves) with the same density
+on the stage-faces and the negdiv-faces rung; for each, zone-cycles/s, the
+tracers active and lost, the kernels against plain at the final state
+(f32 and f64), phase 7's breakdown with the tracers' ranges (their device
+ms per cycle and share) and the host reads of a counted run (J': and the
+tracers that change level); adaptive tracers (phase 5): path D''s deck at
+64^3 with tracers, f64, through the kernels and the plain versions side by
+side (tables, positions, the population conserved, ids unique); the
+restart on the card (phase 5): path J's deck at 128^3, path I''s refined
+deck and the adaptive deck, f32 and f64, two continuous runs and a run
+resumed from ``restart_payload`` at half way, all equal bit for bit (the
+card has no h5py, so the ``.rhdf`` file layer is the CPU tests'); ``-t``
+(phase 7): ``driver.main(["-t", DIR, "-i", deck])`` on the main deck at
+64^3, its trace holding every launch the counters saw and the stage's
+named ranges.
+
 The last lines are the kernels' JSON line, the card line and
 ``{"ok": true, "device": {...}}``.
 """
@@ -661,9 +680,10 @@ def card_line():
 PORT = None   # the port's modules, set by main()
 
 
-def make_sim(deck, rung="sweep"):
-    """``Simulation`` of ``deck`` on the card; the rung is read from the
-    environment when the package is built."""
+def make_sim(deck, rung="sweep", restart=None):
+    """``Simulation`` of ``deck`` on the card (resumed from the payload
+    ``restart``, if given); the rung is read from the environment when the
+    package is built."""
     for name in RUNGS.values():
         if name:
             os.environ.pop(name, None)
@@ -671,21 +691,22 @@ def make_sim(deck, rung="sweep"):
         os.environ[RUNGS[rung]] = "1"
     try:
         return PORT.Simulation(PORT.ParameterInput.from_string(deck),
-                               quiet=True)
+                               quiet=True, restart=restart)
     finally:
         if RUNGS[rung]:
             del os.environ[RUNGS[rung]]
 
 
-def make_smr_sim(deck, rung):
-    """``SmrSimulation`` of ``deck`` on the card; ``rung`` "negdiv" sets
-    ``ATHENAPK_PALLAS_STAGE=0`` while the stepper is built."""
+def make_smr_sim(deck, rung, restart=None):
+    """``SmrSimulation`` of ``deck`` on the card (resumed from ``restart``,
+    if given); ``rung`` "negdiv" sets ``ATHENAPK_PALLAS_STAGE=0`` while the
+    stepper is built."""
     os.environ.pop("ATHENAPK_PALLAS_STAGE", None)
     if rung == "negdiv":
         os.environ["ATHENAPK_PALLAS_STAGE"] = "0"
     try:
         return PORT.SmrSimulation(PORT.ParameterInput.from_string(deck),
-                                  quiet=False)
+                                  quiet=False, restart=restart)
     finally:
         os.environ.pop("ATHENAPK_PALLAS_STAGE", None)
 
@@ -3820,6 +3841,7 @@ def phase_split_profile(sim, ncycles, what, ranges):
             "host_ms_per_cycle": {k: v / ncycles for k, v in host.items()},
             "share_of_device_time": {k: v / busy for k, v in top.items()},
             "share_of_window": {k: v / window for k, v in top.items()},
+            "range_ms_per_cycle": {k: v / ncycles for k, v in top.items()},
             "busy_ms_per_cycle": busy / ncycles,
             "window_ms_per_cycle": window / ncycles, "idle_share": idle}
 
@@ -4061,6 +4083,515 @@ def phase_source_whole_steps():
     return worst
 
 
+# ------------------------------------------------- tracers and the restart
+# tracers per cell on paths J and J' (the reference's turb_with_tracers.in
+# is not in the repository: this density is the port's own choice)
+TRACER_DENSITY = 0.125
+OUT = ROOT / "build" / "chip_smoke"
+
+
+@contextlib.contextmanager
+def in_dir(path):
+    """The block with ``path`` (made) as the working directory: the runs
+    write their ``.hst`` rows and ``correlations.csv`` there."""
+    path.mkdir(parents=True, exist_ok=True)
+    cwd = os.getcwd()
+    os.chdir(path)
+    try:
+        yield path
+    finally:
+        os.chdir(cwd)
+
+
+def with_tracers(deck, seed=0, capacity_factor=2.0):
+    """``deck`` with ``TRACER_DENSITY`` tracers per cell.  An adaptive deck
+    takes ``capacity_factor = 16``: a leaf's buffer is sized at seeding,
+    and a derefined parent receives its eight children's tracers (seeded
+    at eight times the coarse density), which would overflow the default
+    headroom and count as lost."""
+    return deck + PORT.decks.tracer_block(TRACER_DENSITY, seed=seed,
+                                          capacity_factor=capacity_factor)
+
+
+def tracer_levels(sim):
+    """``{level: {field: tensor}}`` of ``sim``'s tracers (a uniform mesh's
+    buffers as level 0)."""
+    ts = sim.tracer_state
+    return ts["levels"] if "levels" in ts else {0: ts}
+
+
+def tracer_census(sim):
+    """``(active, lost, slots)`` of ``sim``'s tracers, in one read."""
+    levels = tracer_levels(sim)
+    act = sum(st["active"].sum() for st in levels.values())
+    active, lost = torch.stack(
+        [act, sim.tracer_state["n_lost"].long()]).tolist()
+    return active, lost, sum(st["active"].numel() for st in levels.values())
+
+
+def tracer_ranges(sim):
+    """Phase 7's tracer ranges: the advection (Heun, the boundaries, the
+    migration), the sampling and, on a uniform mesh, turbulence's lookback
+    and correlation row."""
+    out = [(sim.tracers, "advect", "tracers.advect"),
+           (sim.tracers, "fill", "tracers.fill")]
+    if getattr(sim, "_fill_tracers_hook", None) is not None:
+        out.append((sim, "_fill_tracers_hook", "turbulence.fill_tracers"))
+    return out
+
+
+def tracer_share(profile):
+    """(tracer device ms per cycle, share of the device time) from a
+    ``phase_split_profile`` breakdown (None where not measured)."""
+    if profile is None:
+        return None, None
+    names = ("tracers", "turbulence")
+    ms = sum(profile["range_ms_per_cycle"].get(k, 0.0) for k in names)
+    return ms, sum(profile["share_of_device_time"].get(k, 0.0)
+                   for k in names)
+
+
+def tracer_finite(sim):
+    return all(bool(torch.isfinite(st[c]).all())
+               for st in tracer_levels(sim).values()
+               for c in ("x", "y", "z", "rho"))
+
+
+def phase_tracer_path(rung, n, ncycles, warmup):
+    """Path J: path I's turbulence (GLM-MHD HLLD + PLM + VL2, 30 modes) at
+    ``n``^3 in one ghost-free block, f32, with ``TRACER_DENSITY`` tracers
+    per cell (random_per_block) and its ``.hst`` output; the timed run
+    carries no meter."""
+    log(f"== phase 4: path J (turbulence {n}^3 + {TRACER_DENSITY} tracers "
+        f"per cell, ghost-free, {rung} rung, f32, {warmup} warm-up + "
+        f"{ncycles - warmup} timed cycles) ==")
+    t0 = time.time()
+    sim = make_sim(timed_deck(with_tracers(PORT.decks.turbulence_deck(
+        n=n, nlim=ncycles, num_modes=TURB_MODES, precision="single")),
+        warmup), rung)
+    if sim.mesh.nghost != 0 or sim.tracer_state is None:
+        raise AssertionError("path J must run ghost-free with tracers")
+    seeded, _, slots = tracer_census(sim)
+    log(f"  set-up {time.time() - t0:.2f} s: block {sim.mesh.block_shape}, "
+        f"dtype {sim.dtype}; {seeded} tracers in {slots} slots")
+    n_sweep, n_stage, zcps = run_sim(sim)
+    active, lost, _ = tracer_census(sim)
+    want = tuple(k * ncycles for k in RUNG_LAUNCHES[rung])
+    finite = bool(torch.isfinite(sim.u).all()) and tracer_finite(sim)
+    log(f"  launches: sweep {n_sweep}, stage {n_stage} (expected {want}); "
+        f"tracers active {active}, lost {lost} (seeded {seeded}); "
+        f"zone-cycles/wallsecond {zcps}")
+    if (n_sweep, n_stage) != want or zcps is None or not finite \
+            or active + lost != seeded:
+        raise AssertionError(f"path J ({rung}): launches "
+                             f"{(n_sweep, n_stage)}, finite {finite}, "
+                             f"tracers {active} + {lost} of {seeded}")
+    return sim, dict(zone_cycles_per_s=zcps, launches=n_sweep + n_stage,
+                     launches_per_cycle=(n_sweep + n_stage) / ncycles,
+                     cycles=ncycles, tracers_seeded=seeded,
+                     tracer_slots=slots, tracers_active=active,
+                     tracers_lost=lost)
+
+
+def level_of_ids(sim):
+    """The level each active tracer id sits on (-1: none), on the card."""
+    levels = tracer_levels(sim)
+    n = 1 + int(max(st["id"].max() for st in levels.values()))
+    out = torch.full((n,), -1, dtype=torch.long,
+                     device=levels[min(levels)]["id"].device)
+    for lev, st in levels.items():
+        out[st["id"][st["active"]].long()] = lev
+    return out
+
+
+def phase_tracer_smr_path(rung, n, ncycles, warmup):
+    """Path J': path I' refined turbulence (base ``n``^3, 16^3 blocks,
+    the octant at level 1) with ``TRACER_DENSITY`` tracers per cell, on the
+    stage-faces (#7) or the negdiv-faces (#6/#2) rung, f32; the timed run
+    carries no meter.  The tracers that change level are counted over two
+    more cycles after it (ids per level before and after a cycle)."""
+    log(f"== phase 4: path J' (refined turbulence, base {n}^3, 16^3 blocks, "
+        f"octant at level 1, + {TRACER_DENSITY} tracers per cell, {rung} "
+        f"rung, f32, {warmup} warm-up + {ncycles - warmup} timed cycles) ==")
+    t0 = time.time()
+    sim = make_smr_sim(timed_deck(with_tracers(PORT.decks.turbulence_deck(
+        n=n, mb=16, nlim=warmup, num_modes=TURB_MODES, precision="single",
+        refinement="static")), 0), rung)
+    if sim.tracer_state is None or not sim._split_loop():
+        raise AssertionError("path J' must run the split loop with tracers")
+    leaves = leaves_of(sim)
+    seeded, _, slots = tracer_census(sim)
+    log(f"  set-up {time.time() - t0:.2f} s: leaves {leaves}; {seeded} "
+        f"tracers in {slots} slots")
+    (n_stage_f, n_negdiv_f, n_sweep, n_stage), zcps = run_smr(
+        sim, ncycles, warmup)
+    active, lost, _ = tracer_census(sim)
+    finite = all(bool(torch.isfinite(v).all()) for v in sim.state.values()) \
+        and tracer_finite(sim)
+    per_cycle = {"stage": (2 * len(leaves), 0),
+                 "negdiv": (0, 6 * len(leaves))}[rung]
+    want = tuple(k * ncycles for k in per_cycle)
+    crossed = []
+    for _ in range(2):
+        before = level_of_ids(sim)
+        run_more(sim, 1)
+        after = level_of_ids(sim)
+        crossed.append(int(((before >= 0) & (after >= 0)
+                            & (before != after)).sum()))
+    log(f"  launches: stage-faces {n_stage_f}, negdiv-faces {n_negdiv_f} "
+        f"(expected {want}); tracers active {active}, lost {lost} (seeded "
+        f"{seeded}); tracers changing level in the 2 cycles after the run "
+        f"{crossed}; zone-cycles/wallsecond {zcps}")
+    if (n_stage_f, n_negdiv_f) != want or (n_sweep, n_stage) != (0, 0) \
+            or zcps is None or not finite or active + lost != seeded:
+        raise AssertionError(f"path J' ({rung}): launches "
+                             f"{(n_stage_f, n_negdiv_f)}, finite {finite}, "
+                             f"tracers {active} + {lost} of {seeded}")
+    return sim, dict(zone_cycles_per_s=zcps, leaves=leaves,
+                     launches=n_stage_f + n_negdiv_f,
+                     launches_per_cycle=(n_stage_f + n_negdiv_f) / ncycles,
+                     cycles=ncycles, tracers_seeded=seeded,
+                     tracer_slots=slots, tracers_active=active,
+                     tracers_lost=lost,
+                     tracers_changing_level_per_cycle=crossed)
+
+
+def phase_tracer_paths(zcps):
+    """Paths J (both rungs) and J' (both refined rungs): each timed run,
+    then its kernels against plain at the run's final state (f32 and the
+    same arrays in f64), phase 7's breakdown with the tracers' ranges and
+    a counted run of the host reads.  Adds each path's zone-cycles/s to
+    ``zcps``; -> ``(path_j, path_j2)``."""
+    path_j, path_j2 = {}, {}
+    for rung in ("sweep", "stage"):
+        with in_dir(OUT / f"J_{rung}"):
+            sim, num = phase_tracer_path(rung, n=256, ncycles=12, warmup=2)
+            name = f"path J (turbulence 256^3 + tracers, {rung} rung)"
+            log(f"== phase 6: the kernel against plain at the final state "
+                f"of {name} ==")
+            num["kernel_vs_plain"] = phase_case_timings({name: {
+                "sim": sim, "rung": rung, "launches": num["launches"],
+                "cycles": num["cycles"],
+                "zcps": num["zone_cycles_per_s"]}}, 10, f64=True)[name]
+            ranges = tracer_ranges(sim)
+            num["profile"] = phase_split_profile(sim, 3, name, ranges)
+            num["host_reads"], calls = phase_host_reads(
+                sim, 2, name, ranges + loop_ranges(sim))
+            # the cycle's reads and the correlation row's (the fill hook
+            # runs once per cycle, and once more at each run's start)
+            row = num["host_reads"]["turbulence.fill_tracers"]
+            num["host_reads_per_cycle"] = cycle_reads(
+                num["host_reads"], calls, name) + row
+            log(f"  host reads per cycle of {name} with the correlation "
+                f"row's ({row:.2f}): {num['host_reads_per_cycle']:.2f}")
+        num["tracer_ms_per_cycle"], num["tracer_share"] = tracer_share(
+            num["profile"])
+        log(f"  {name}: tracers' device ms per cycle "
+            f"{num['tracer_ms_per_cycle']}, share of the device time "
+            f"{num['tracer_share']}")
+        if calls["tracers.advect"] != 1 or calls["tracers.fill"] != 1:
+            raise AssertionError(f"{name}: the tracers ran {calls} times "
+                                 "per cycle")
+        path_j[rung] = num
+        zcps[f"path_J {rung}"] = num["zone_cycles_per_s"]
+        del sim, ranges
+        torch.cuda.empty_cache()
+    for rung in ("stage", "negdiv"):
+        with in_dir(OUT / f"J2_{rung}"):
+            sim, num = phase_tracer_smr_path(rung, n=128, ncycles=12,
+                                             warmup=2)
+            kind, kname, line = {
+                "stage": ("stage-faces", "fused_stage_faces", 641),
+                "negdiv": ("negdiv-faces", "negdiv_sweep_faces", 525)}[rung]
+            phase_smr_kernels_vs_plain(sim, "J'", kind)
+            row = phase_smr_timings(
+                sim, kind, num["launches"], 10, kname,
+                f"athenapk_tpu/solver/pallas_sweep.py:{line}",
+                f"path J' ({rung} rung)")
+            num["kernel_vs_plain"] = {k: row[k] for k in (
+                "ms", "plain_ms", "bound_ms", "share_of_bound", "bound_by",
+                "max_abs_err", "unit", "per_call")}
+            name = f"path J' ({rung} rung)"
+            ranges = tracer_ranges(sim)
+            num["profile"] = phase_split_profile(sim, 3, name, ranges)
+            num["host_reads"], calls = phase_host_reads(sim, 2, name,
+                                                        ranges)
+        num["host_reads_per_cycle"] = num["host_reads"]["run"]
+        num["tracer_ms_per_cycle"], num["tracer_share"] = tracer_share(
+            num["profile"])
+        log(f"  {name}: tracers' device ms per cycle "
+            f"{num['tracer_ms_per_cycle']}, share of the device time "
+            f"{num['tracer_share']}")
+        if calls["tracers.advect"] != 1 or calls["tracers.fill"] != 1:
+            raise AssertionError(f"{name}: the tracers ran {calls} times "
+                                 "per cycle")
+        path_j2[rung] = num
+        zcps[f"path_J' {rung}"] = num["zone_cycles_per_s"]
+        del sim, ranges
+        torch.cuda.empty_cache()
+    return path_j, path_j2
+
+
+def phase_amr_tracers(seed, ncycles=5):
+    """Adaptive tracers in f64: adaptive path D' deck (64^3, 16^3 blocks,
+    ``derefine_count = 1`` so that the leaf table changes) with
+    ``TRACER_DENSITY`` tracers per cell on the negdiv rung, through the
+    kernels and with the plain versions forced, side by side from the same
+    noised state.  After every cycle: the leaf tables equal, active + lost
+    tracers equal to the seeded count, the active ids unique, the two
+    runs' tracer ids and activity identical and positions within 1e-10,
+    the state within STEP_TOL; and no tracer lost (a periodic box, and the
+    buffers' headroom of ``with_tracers``)."""
+    log(f"== phase 5: adaptive tracers, kernels against plain (adaptive "
+        f"path D' deck at 64^3 + {TRACER_DENSITY} tracers per cell, "
+        f"derefine_count = 1, f64, {ncycles} cycles) ==")
+    stage, sweep = PORT.stage, PORT.sweep
+    deck = with_tracers(ADAPTIVE_3D_DECK.format(
+        n=64, mb=16, ncycles=ncycles, precision="double").replace(
+        "refinement = adaptive", "refinement = adaptive\nderefine_count = 1"),
+        seed, capacity_factor=16.0)
+    out = OUT / "amr_tracers"
+    with in_dir(out):
+        sims = {name: make_smr_sim(deck, "negdiv")
+                for name in ("kernel", "plain")}
+    start = symmetry_noise(sims["kernel"].state, seed)
+    for sim in sims.values():
+        sim.quiet = True
+        sim.load_state(start, 0.0, 0)
+    seeded = tracer_census(sims["kernel"])[0]
+    tables, err_x, err_u, launches = set(), 0.0, 0.0, 0
+    for k in range(1, ncycles + 1):
+        for name, sim in sims.items():
+            dispatch = sweep.fused_negdiv_faces
+            try:
+                if name == "plain":
+                    sweep.fused_negdiv_faces = sweep.negdiv_faces_plain
+                sim.nlim = k
+                reset_counts()
+                with in_dir(out):
+                    sim.run()
+                n_launch = sum(read_face_counts())
+            finally:
+                sweep.fused_negdiv_faces = dispatch
+            if (n_launch == 0) != (name == "plain"):
+                raise AssertionError(f"adaptive tracers: the {name} run "
+                                     f"launched {n_launch}")
+            launches += n_launch
+        kern, plain = sims["kernel"], sims["plain"]
+        if any(not np.array_equal(a, b)
+               for a, b in zip(table_of(kern), table_of(plain))):
+            raise AssertionError(f"adaptive tracers: leaf tables differ "
+                                 f"after cycle {k}")
+        tables.add(tuple(table_of(kern)[0].tolist()))
+        for lev, u in plain.state.items():
+            err_u = max(err_u, (kern.state[lev] - u).abs().max().item()
+                        / u.abs().max().item())
+        for lev, st in tracer_levels(plain).items():
+            mine = tracer_levels(kern)[lev]
+            if not (torch.equal(mine["id"], st["id"])
+                    and torch.equal(mine["active"], st["active"])):
+                raise AssertionError(f"adaptive tracers: ids or activity "
+                                     f"differ at level {lev}, cycle {k}")
+            err_x = max([err_x] + [(mine[c] - st[c]).abs().max().item()
+                                   for c in "xyz"])
+        for sim in sims.values():
+            active, lost, _ = tracer_census(sim)
+            ids = torch.cat([st["id"][st["active"]]
+                             for st in tracer_levels(sim).values()])
+            if active + lost != seeded or ids.unique().numel() != active:
+                raise AssertionError(f"adaptive tracers, cycle {k}: "
+                                     f"{active} active + {lost} lost of "
+                                     f"{seeded}, ids unique "
+                                     f"{ids.unique().numel()}")
+    active, lost, slots = tracer_census(sims["kernel"])
+    log(f"  {len(tables)} leaf tables over {ncycles} cycles (remeshes "
+        f"{kern.perf_remeshes} in the last call), leaves at the end "
+        f"{leaves_of(kern)}; tracers active {active} + lost {lost} = seeded "
+        f"{seeded} every cycle, ids unique; positions max abs err {err_x:.3e} "
+        f"(tol 1e-10), state max rel err {err_u:.3e} (tol {STEP_TOL:.0e}); "
+        f"{launches} negdiv-faces launches")
+    if not (len(tables) >= 2 and err_x <= 1e-10 and err_u <= STEP_TOL
+            and lost == 0):
+        raise AssertionError("adaptive tracers: no remesh, or the kernel and "
+                             "plain runs disagree")
+    del sims
+    torch.cuda.empty_cache()
+    return dict(tables=len(tables), seeded=seeded, active=active, lost=lost,
+                slots=slots, position_max_abs_err=err_x,
+                state_max_rel_err=err_u, launches=launches, cycles=ncycles)
+
+
+def run_recorded(sim, nlim):
+    """Run ``sim`` to cycle ``nlim``; -> the dt of each cycle it ran."""
+    dts = []
+    attr = "_end_cycle" if hasattr(sim, "_smesh_now") else "_move_tracers"
+    inner = getattr(sim, attr)
+
+    def record(dt, *a):
+        dts.append(dt)
+        return inner(dt, *a)
+
+    setattr(sim, attr, record)
+    sim.nlim = nlim
+    try:
+        with contextlib.redirect_stdout(io.StringIO()):
+            sim.run()
+    finally:
+        delattr(sim, attr)
+    return dts
+
+
+def run_differences(a, dts_a, b, dts_b):
+    """What differs, bit for bit, between two runs: state, tracers, time,
+    the dt sequence (and the leaf table on a refined mesh)."""
+    out = []
+    if hasattr(a, "_smesh_now"):
+        if any(not np.array_equal(x, y)
+               for x, y in zip(table_of(a), table_of(b))):
+            return ["leaf table"]
+        if any(not torch.equal(u, b.state[lev])
+               for lev, u in a.state.items()):
+            out.append("state")
+    elif not torch.equal(a.u, b.u):
+        out.append("state")
+    la, lb = tracer_levels(a), tracer_levels(b)
+    if sorted(la) != sorted(lb) or any(
+            not torch.equal(v, lb[lev][k])
+            for lev, st in la.items() for k, v in st.items()) \
+            or not torch.equal(a.tracer_state["n_lost"],
+                               b.tracer_state["n_lost"]):
+        out.append("tracers")
+    if a.t != b.t or a.ncycle != b.ncycle:
+        out.append("t")
+    if dts_a != dts_b:
+        out.append("dt sequence")
+    return out
+
+
+def phase_restart_on_card():
+    """The restart on the card, f32 and f64, for path J's deck at 128^3
+    (sweep rung), path I' refined deck with tracers (base 128^3, stage
+    rung) and adaptive path D' deck with tracers (64^3, derefine_count =
+    1, negdiv rung): two continuous runs of N cycles must be equal bit for
+    bit (else the card is not deterministic there, and the phase fails);
+    then N/2 cycles, ``restart_payload``, a new simulation from it and N/2
+    more must equal the continuous run bit for bit: state, tracers, t and
+    every dt."""
+    import importlib.util
+    layer = ("this machine has h5py, but the phase holds the payload "
+             "alone" if importlib.util.find_spec("h5py") else
+             "this machine has no h5py, so the .rhdf file layer does not "
+             "run here")
+    log(f"== phase 5: restart on the card through restart_payload, the "
+        f"dict the .rhdf file layer writes and reads ({layer}) ==")
+    d = PORT.decks
+    cases = [
+        ("path J's deck at 128^3", False, "sweep", 6,
+         lambda p: with_tracers(d.turbulence_deck(
+             n=128, nlim=6, num_modes=TURB_MODES, precision=p))),
+        ("path I' refined deck + tracers", True, "stage", 4,
+         lambda p: with_tracers(d.turbulence_deck(
+             n=128, mb=16, nlim=4, num_modes=TURB_MODES, precision=p,
+             refinement="static"))),
+        ("adaptive path D' deck + tracers", True, "negdiv", 6,
+         lambda p: with_tracers(ADAPTIVE_3D_DECK.format(
+             n=64, mb=16, ncycles=6, precision=p).replace(
+             "refinement = adaptive",
+             "refinement = adaptive\nderefine_count = 1"),
+             capacity_factor=16.0))]
+    out = {}
+    for label, refined, rung, n, make_deck in cases:
+        for prec in ("single", "double"):
+            t0 = time.time()
+            deck = make_deck(prec)
+
+            def make(restart=None):
+                with in_dir(OUT / "restart"):
+                    return (make_smr_sim(deck, rung, restart) if refined
+                            else make_sim(deck, rung, restart))
+
+            def run(sim, nlim):
+                with in_dir(OUT / "restart"):
+                    return run_recorded(sim, nlim)
+
+            a = make()
+            dts_a = run(a, n)
+            b = make()
+            dts_b = run(b, n)
+            diff = run_differences(a, dts_a, b, dts_b)
+            if diff:
+                raise AssertionError(f"restart, {label} ({prec}): two "
+                                     f"continuous runs differ in {diff}: the "
+                                     "card is not deterministic here")
+            del b
+            c = make()
+            dts_c = run(c, n // 2)
+            payload = (PORT.restart_payload_smr if refined
+                       else PORT.restart_payload)(c)
+            del c
+            r = make(payload)
+            dts_r = dts_c + run(r, n)
+            diff = run_differences(a, dts_a, r, dts_r)
+            census = tracer_census(a)
+            extra = (f", leaves {leaves_of(a)}, remeshes in the resumed "
+                     f"part {r.perf_remeshes}" if refined else "")
+            log(f"  {label} ({prec}): {n} cycles, resumed after {n // 2}: "
+                + ("bit for bit equal (state, tracers, t, every dt)"
+                   if not diff else f"DIFFERS in {diff}")
+                + f"; tracers active {census[0]}, lost {census[1]}{extra}; "
+                f"{time.time() - t0:.1f} s")
+            if diff:
+                raise AssertionError(f"restart, {label} ({prec}): the resume "
+                                     f"differs from the continuous run in "
+                                     f"{diff}")
+            out[f"{label} ({prec})"] = dict(cycles=n, resumed_after=n // 2,
+                                            bitwise=True)
+            del a, r
+            torch.cuda.empty_cache()
+    return out
+
+
+def phase_trace_cli():
+    """``-t``: ``driver.main(["-t", DIR, "-i", deck])`` on the main deck at
+    64^3 (f32, 3 cycles, sweep rung); the Chrome trace in DIR must hold
+    every launch of the port's kernels that the launch counters saw in
+    that run and the stage's named ranges."""
+    log("== phase 7: the CLI's -t (the main deck at 64^3, f32, 3 cycles) ==")
+    d = OUT / "trace_cli"
+    for attempt in (1, 2):
+        with in_dir(d):
+            (d / "wave.in").write_text(BENCH_DECK.format(
+                n=64, ncycles=3, warmup=0, precision="single"))
+            n0 = all_launches()
+            with contextlib.redirect_stdout(io.StringIO()):
+                rc = PORT.driver.main(["-t", "trace", "-i", "wave.in"])
+            launched = all_launches() - n0
+        events = json.loads((d / "trace" / "trace.json").read_text())[
+            "traceEvents"]
+        kernels = [e for e in events if e.get("cat") == "kernel"]
+        try:
+            check_trace(kernels, launched)
+            break
+        except TraceLost as e:
+            # the profiler can drop device events (phase 7): one more try,
+            # then the phase fails
+            log(f"  {e}" + ("; tracing again" if attempt == 1 else ""))
+            if attempt == 2:
+                raise AssertionError(f"-t: {e}") from e
+    ranges = {e.get("name") for e in events
+              if e.get("cat") == "user_annotation"}
+    need = {"fused_lane_sweep", "dedner_source", "boundary_fill"}
+    log(f"  exit {rc}; {launched} launches of the port's kernels, all in the "
+        f"trace; {len(kernels)} kernels in all; the ranges "
+        f"{sorted(need & ranges)} found ({sorted(need - ranges)} missing)")
+    if rc != 0 or launched != 3 * RUNG_LAUNCHES["sweep"][0] \
+            or not need <= ranges:
+        raise AssertionError(f"-t: exit {rc}, {launched} launches, ranges "
+                             f"{sorted(ranges)[:20]}")
+    return dict(launches=launched, kernels_in_trace=len(kernels),
+                ranges=sorted(need))
+
+
 def entry_route(entry):
     """The phase-3 route label prefix of a kernel line entry."""
     return {"negdiv_sweep": "#1", "fused_stage": "#3", "negdiv_sweep_2d": "#4",
@@ -4079,7 +4610,10 @@ def load_port():
     from athenapk_tpu_torch.config.parameter_input import ParameterInput
     from athenapk_tpu_torch.core import amr_forest
     from athenapk_tpu_torch.core.mesh import Mesh
+    from athenapk_tpu_torch import driver
     from athenapk_tpu_torch.driver import Simulation
+    from athenapk_tpu_torch.outputs.restart import (restart_payload,
+                                                    restart_payload_smr)
     from athenapk_tpu_torch.eos.adiabatic import (EOS, cons_to_prim,
                                                   prim_to_cons)
     from athenapk_tpu_torch.recon import schemes
@@ -4100,7 +4634,9 @@ def load_port():
         stage=stage, sweep=sweep, HydroConfig=HydroConfig,
         exact_riemann=exact_riemann, SmrSimulation=SmrSimulation,
         amr_forest=amr_forest, AmrHydro=AmrHydro, SmrHydro=SmrHydro,
-        SmrState=SmrState, schemes=schemes)
+        SmrState=SmrState, schemes=schemes, driver=driver,
+        restart_payload=restart_payload,
+        restart_payload_smr=restart_payload_smr)
 
 
 def main(argv=None):
@@ -4168,7 +4704,11 @@ def main(argv=None):
         zcps[f"path_G {rung}"] = cloud_a[rung][1]["zone_cycles_per_s"]
     cooling_passes = phase_cooling_passes(n=128, ncycles=2)
     path_h, path_i, path_i2, stage_prim_h = phase_source_paths(zcps)
+    path_j, path_j2 = phase_tracer_paths(zcps)
     source_steps = phase_source_whole_steps()
+    amr_tracers = phase_amr_tracers(args.seed)
+    restarts = phase_restart_on_card()
+    trace_cli = phase_trace_cli()
     phase_whole_steps(args.seed)
     smr_drift = phase_smr_whole_steps(args.seed)
     amr_2d_launches = phase_amr_whole_steps(args.seed)
@@ -4329,6 +4869,23 @@ def main(argv=None):
         entry["launches_per_cycle"][key] = num["launches_per_cycle"]
         entry["zone_cycles_per_s"][key] = num["zone_cycles_per_s"]
         entry["path_I_prime"] = num
+    # paths J and J' (tracers): each kernel's launches from the path's run
+    for rung, num in path_j.items():
+        key = f"path J (turbulence 256^3 + tracers), {rung} rung"
+        entry = stage_entry if rung == "stage" else sweep_entry
+        entry["launches_by_path"][key] = num["launches"]
+        cycles[key] = num["cycles"]
+        entry.setdefault("path_J", {})[f"{rung} rung"] = num
+    for rung, num in path_j2.items():
+        key = f"path J' (refined turbulence + tracers), {rung} rung"
+        entry = faces_entry if rung == "stage" else nd3_entry
+        entry["launches_by_path"][key] = num["launches"]
+        entry["launches_per_cycle"][key] = num["launches_per_cycle"]
+        entry["zone_cycles_per_s"][key] = num["zone_cycles_per_s"]
+        entry["path_J_prime"] = num
+    nd3_entry["adaptive_tracers_f64"] = amr_tracers
+    sweep_entry["restart_on_card"] = restarts
+    sweep_entry["trace_cli"] = trace_cli
     sweep_entry["source_decks_whole_steps_f64"] = source_steps
 
     scalar_rows = phase_scalar_timings(cloud_u["sweep"][0], {

@@ -239,7 +239,8 @@ def test_check_interval_limits_remesh_cadence():
 def test_unported_features_raise_on_adaptive_decks(override, match, tmp_path,
                                                    monkeypatch):
     """The features the port lacks raise; those ported since (diffusion,
-    ``rand_blast``: ``RUN_NOW``) run the deck."""
+    ``rand_blast``, hdf5 and rst outputs, tracers: ``RUN_NOW``) run the
+    deck."""
     monkeypatch.chdir(tmp_path)
     if match in RUN_NOW:
         sim = SmrSimulation(ParameterInput.from_file(DECK, [override]
@@ -261,4 +262,8 @@ RUN_NOW = {"diffusion": ["diffusion/conduction_coeff=fixed",
                          "diffusion/mom_diff_coeff_code=0.01",
                          "parthenon/time/nlim=2"],
            "rand_blast": ["hydro/fluid=glmmhd", "hydro/riemann=hlle",
-                          "parthenon/time/nlim=2"]}
+                          "parthenon/time/nlim=2"],
+           "hdf5": ["parthenon/time/nlim=2"], "rst": ["parthenon/time/nlim=2"],
+           "tracers": ["tracers/initial_seed_method=random_per_block",
+                       "tracers/initial_num_tracers_per_cell=0.01",
+                       "parthenon/time/nlim=2"]}

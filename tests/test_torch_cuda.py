@@ -1194,3 +1194,83 @@ def test_stage_kernel_with_prim_at_the_diffusive_wave(card, dtype, tol):
         r = r.double().cpu().numpy()
         assert np.abs(g.double().cpu().numpy() - r).max() \
             <= tol * np.abs(r).max()
+
+
+# -------------------------------------------------- tracers and the restart
+from athenapk_tpu_torch.outputs.restart import (  # noqa: E402
+    restart_payload, restart_payload_smr)
+from torch_decks import ADVECT_TRACERS, tracer_block  # noqa: E402
+
+
+def _tracers_close(got, want, tol):
+    """Tracer dicts (``{name: tensor}``): integer and boolean entries
+    identical, floats within ``tol`` of the largest value or of 1."""
+    for k, v in want.items():
+        g, v = got[k].cpu(), v.cpu()
+        if v.is_floating_point():
+            scale = max(v.abs().max().item(), 1.0)
+            assert (g - v).abs().max().item() <= tol * scale, k
+        else:
+            assert torch.equal(g, v), k
+
+
+@pytest.mark.parametrize("merge", ["false", "true"])
+def test_tracers_on_card_match_cpu(card, merge, tmp_path, monkeypatch):
+    """Advection and sampling on the card (with the migration between 8
+    blocks, or the cyclic wrap of the merged block) against the CPU, f64:
+    the same ids in the same slots."""
+    monkeypatch.chdir(tmp_path)
+    text = ADVECT_TRACERS.format(merge=merge, nlim=6, precision="double")
+    sims = {dev: Simulation(ParameterInput.from_string(text), quiet=True,
+                            device=dev).run() for dev in ("cuda", "cpu")}
+    got, want = sims["cuda"].tracer_state, sims["cpu"].tracer_state
+    assert got["x"].is_cuda and got["x"].dtype == torch.float64
+    assert int(want["active"].sum()) > 0
+    _tracers_close(got, want, 1e-10)
+
+
+@pytest.mark.parametrize("precision,tol", [("double", 1e-10),
+                                           ("single", 1e-4)])
+def test_restart_payload_round_trip_on_card(card, precision, tol, tmp_path,
+                                            monkeypatch):
+    """Turbulence with tracers on the card: 2 cycles, the payload, a new
+    ``Simulation`` from it and 2 more equal 4 straight cycles bit for bit;
+    the same payload resumed on the CPU agrees with the card's run."""
+    monkeypatch.chdir(tmp_path)
+
+    def make(nlim, device="cuda", restart=None):
+        return Simulation(ParameterInput.from_string(
+            turbulence_deck(n=16, mb=8, nlim=nlim, num_modes=4,
+                            precision=precision, merge="false")
+            + tracer_block(0.05, seed=3)), quiet=True, device=device,
+            restart=restart)
+
+    full = make(4).run()
+    payload = restart_payload(make(2).run())
+    rest = make(4, restart=payload).run()
+    assert torch.equal(full.u, rest.u) and full.t == rest.t
+    _tracers_close(rest.tracer_state, full.tracer_state, 0.0)
+    cpu = make(4, device="cpu", restart=payload).run()
+    a, b = cpu.u.double().numpy(), full.u.double().cpu().numpy()
+    assert np.abs(a - b).max() <= tol * np.abs(a).max()
+
+
+def test_refined_restart_payload_round_trip_on_card(card, tmp_path,
+                                                    monkeypatch):
+    """The refined turbulence with tracers on the card: the payload's
+    resume equals the straight run bit for bit."""
+    monkeypatch.chdir(tmp_path)
+
+    def make(nlim, restart=None):
+        return SmrSimulation(ParameterInput.from_string(
+            turbulence_deck(n=16, mb=8, nlim=nlim, num_modes=4,
+                            refinement="static")
+            + tracer_block(0.05, seed=3)), quiet=True, device="cuda",
+            restart=restart)
+
+    full = make(4).run()
+    rest = make(4, restart=restart_payload_smr(make(2).run())).run()
+    for lev, u in full.state.items():
+        assert torch.equal(u, rest.state[lev])
+    for lev, st in full.tracer_state["levels"].items():
+        _tracers_close(rest.tracer_state["levels"][lev], st, 0.0)

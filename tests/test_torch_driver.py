@@ -220,7 +220,8 @@ def test_cuda_requested_without_a_card_raises():
 ])
 def test_unported_features_raise(override, match, tmp_path):
     """The features the port lacks raise; those ported since (``riemann =
-    none``, diffusion, ``rand_blast``: ``RUN_NOW``) run the deck."""
+    none``, diffusion, ``rand_blast``, hdf5 and rst outputs, tracers:
+    ``RUN_NOW``) run the deck."""
     overrides = override if isinstance(override, list) else [override]
     if match in RUN_NOW:
         sim = TSim(TPin.from_string(_deck(merge="true", mb=16),
@@ -240,14 +241,39 @@ RUN_NOW = {"none": [],
                          "diffusion/thermal_diff_coeff_code=0.01",
                          "diffusion/viscosity_coeff=fixed",
                          "diffusion/mom_diff_coeff_code=0.01"],
-           "rand_blast": []}
+           "rand_blast": [], "hdf5": [], "rst": [],
+           "tracers": ["tracers/initial_seed_method=random_per_block",
+                       "tracers/initial_num_tracers_per_cell=0.01"]}
 
 
-@pytest.mark.parametrize("argv,match", [(["-r", "x.rhdf"], "restart"),
-                                        (["-t", "trace", "-i", "x"], "-t")])
-def test_cli_unported_options_raise(argv, match):
-    with pytest.raises(NotImplementedError, match=match):
-        tdriver.main(argv)
+@pytest.mark.parametrize("flag", ["-r", "-t"])
+def test_cli_unported_options_raise(flag, tmp_path, monkeypatch, capsys):
+    """``-r`` and ``-t``, refused before, run through ``main()`` on the
+    CPU: a checkpoint written by ``-i`` resumes with an override, and a
+    traced run writes a Chrome trace holding the stage's named ranges."""
+    deck = tmp_path / "lw.in"
+    deck.write_text(_deck(merge="true", mb=8, nx1=8, nx2=8, nlim=2)
+                    + "\n<parthenon/output2>\nfile_type = rst\ndt = -1\n")
+    monkeypatch.chdir(tmp_path)
+    if flag == "-r":
+        assert tdriver.main(["-i", str(deck), "--device", "cpu"]) == 0
+        ckpt = "linear_wave_mhd.out_2.00000.rhdf"
+        assert os.path.exists(ckpt)
+        capsys.readouterr()
+        assert tdriver.main(["-r", ckpt, "--device", "cpu",
+                             "parthenon/time/nlim=4",
+                             "parthenon/time/ncycle_out=1"]) == 0
+        out = capsys.readouterr().out
+        assert "cycle=3 " in out and "cycle=4 " in out
+        assert "cycle=2 " not in out
+        return
+    assert tdriver.main(["-t", "trace", "-i", str(deck), "--device",
+                         "cpu"]) == 0
+    import json
+    events = json.loads((tmp_path / "trace" / "trace.json").read_text())[
+        "traceEvents"]
+    names = {e.get("name") for e in events}
+    assert {"fused_lane_sweep", "dedner_source", "boundary_fill"} <= names
 
 
 def test_cli_runs_a_deck_on_the_cpu(tmp_path, monkeypatch, capsys):

@@ -56,12 +56,15 @@ def test_no_jax_imports(path):
     "core/amr_forest.py", "refinement/prolong_restrict.py", "amr/smr.py",
     "amr/smr_hydro.py", "amr/driver.py", "refinement/criteria.py",
     "amr/remesh.py", "diffusion/diffusion.py", "utils/few_modes_ft.py",
-    "pgen/turbulence.py", "pgen/rand_blast.py", "pgen/diffusion.py"])
+    "pgen/turbulence.py", "pgen/rand_blast.py", "pgen/diffusion.py",
+    "outputs/hdf5.py", "outputs/restart.py", "tracers/tracers.py",
+    "tracers/smr_tracers.py"])
 def test_refined_mesh_modules_are_checked(module):
     """The refined-mesh slices' modules (static and adaptive), the forest
-    binding among them, and the diffusion and forcing modules (which
-    replace numpy-only or jax modules of the JAX package with copies of
-    their own) are among the sources checked above."""
+    binding among them, the diffusion and forcing modules, and the output,
+    restart and tracer modules (which replace numpy-only or jax modules of
+    the JAX package with copies of their own) are among the sources
+    checked above."""
     assert ROOT / "athenapk_tpu_torch" / module in SOURCES
 
 

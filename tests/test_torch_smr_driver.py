@@ -175,7 +175,8 @@ def test_cli_runs_a_refined_deck_on_the_cpu(tmp_path, monkeypatch, capsys):
 def test_unported_refined_features_raise(override, match, tmp_path,
                                          monkeypatch):
     """The features the port lacks raise; those ported since (diffusion,
-    ``rand_blast``: ``RUN_NOW``) run the deck."""
+    ``rand_blast``, hdf5 and rst outputs, tracers: ``RUN_NOW``) run the
+    deck."""
     monkeypatch.chdir(tmp_path)
     if match in RUN_NOW:
         sim = SmrSimulation(ParameterInput.from_file(DECK, OVERRIDES + [override]
@@ -197,7 +198,11 @@ RUN_NOW = {"diffusion": ["diffusion/conduction_coeff=fixed",
                          "diffusion/mom_diff_coeff_code=0.01",
                          "parthenon/time/nlim=2"],
            "rand_blast": ["hydro/fluid=glmmhd", "hydro/riemann=hlle",
-                          "parthenon/time/nlim=2"]}
+                          "parthenon/time/nlim=2"],
+           "hdf5": ["parthenon/time/nlim=2"], "rst": ["parthenon/time/nlim=2"],
+           "tracers": ["tracers/initial_seed_method=random_per_block",
+                       "tracers/initial_num_tracers_per_cell=0.01",
+                       "parthenon/time/nlim=2"]}
 
 
 def test_cli_runs_a_refined_fofc_deck_on_the_cpu(tmp_path, monkeypatch):

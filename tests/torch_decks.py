@@ -766,3 +766,64 @@ def rand_blast_deck(n=32, mb=None, nlim=5, tlim=0.002, precision="double",
                              refinement=refinement, fofc=fofc)
     return deck + static_region(
         (-0.1, 0.1, 0.0, 0.1, 0.0, 0.1) if refinement == "static" else None)
+
+
+def tracer_block(per_cell, seed=0, capacity_factor=2.0):
+    """A ``<tracers>`` block: ``random_per_block`` seeding at ``per_cell``
+    tracers per cell from ``seed``."""
+    return ("\n<tracers>\nenabled = true\n"
+            "initial_seed_method = random_per_block\n"
+            f"initial_num_tracers_per_cell = {per_cell}\n"
+            f"initial_rng_seed = {seed}\n"
+            f"capacity_factor = {capacity_factor}\n")
+
+
+# Uniform advection with tracers (``tests/test_tracers.py``'s deck): rho =
+# p = 1 moving at (1, 0.5, 0.25) through the periodic unit box, Euler HLLC +
+# PLM + RK2, 8^3 blocks of a 16^3 mesh.
+ADVECT_TRACERS = """
+<job>
+problem_id = advection
+
+<problem/advection>
+vx = 1.0
+vy = 0.5
+vz = 0.25
+rho_ratio = 0.0
+rho_radius = 0.0
+rho0 = 1.0
+p0 = 1.0
+
+<parthenon/mesh>
+nghost = 2
+merge_blocks = {merge}
+nx1 = 16
+x1min = 0.0
+x1max = 1.0
+nx2 = 16
+x2min = 0.0
+x2max = 1.0
+nx3 = 16
+x3min = 0.0
+x3max = 1.0
+
+<parthenon/meshblock>
+nx1 = 8
+nx2 = 8
+nx3 = 8
+
+<parthenon/time>
+integrator = rk2
+cfl = 0.4
+tlim = 1.0
+nlim = {nlim}
+ncycle_out = 0
+
+<hydro>
+fluid = euler
+eos = adiabatic
+riemann = hllc
+reconstruction = plm
+gamma = 1.666666666666667
+precision = {precision}
+""" + tracer_block(0.05, seed=42)
