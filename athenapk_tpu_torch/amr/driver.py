@@ -30,7 +30,9 @@ negative value also prints on every remesh) and ``zone-cycles/wallsecond``
 (zones summed over each cycle's leaves).
 
 The problem's hooks, as the JAX driver wires them
-(``athenapk_tpu/amr/driver.py:179-197``): ``register_boundary_conditions_smr``
+(``athenapk_tpu/amr/driver.py:179-197, 401-412``): ``problem_generator_smr``
+builds the whole initial state where the problem has one (the cluster),
+``register_boundary_conditions_smr``
 gives the ghost fill its boundary conditions, ``check_refinement_block``
 tags blocks beside the criterion (adaptive meshes, combined by ``max``);
 tabular cooling is built as the uniform driver builds it
@@ -69,8 +71,9 @@ cycle advects and samples them with the prim of the cycle's final state;
 a remesh that changes the leaf table re-bins them (``adopt``).
 
 The state lives on ``cuda`` unless the caller asks for the CPU; asking for
-CUDA where there is none raises.  Not ported (``NotImplementedError``):
-the problem ``cluster``.
+CUDA where there is none raises.  Every problem of the JAX package runs,
+the galaxy cluster included (``pgen.cluster``; its reference decks all use
+static refinement).
 """
 
 from __future__ import annotations
@@ -437,10 +440,22 @@ class SmrSimulation:
 
     def _generate_state(self):
         """The problem generator's state on the current topology, its
-        ghosts filled."""
-        return self._stepper_now().fill_ghosts(init_state_from_pgen(
-            self._smesh_now(), self.pgen, self.pin, self.cfg, self.eos,
-            self.dtype, self.device))
+        ghosts filled: the problem's ``problem_generator_smr`` where it has
+        one (the cluster's, which integrates its HSE profile once and
+        normalises its perturbations over all levels; it returns host
+        arrays per level), else the uniform generator leaf by leaf (the
+        JAX package's ``_generate_state``)."""
+        sm = self._smesh_now()
+        gen_smr = getattr(self.pgen, "problem_generator_smr", None)
+        if gen_smr is not None:
+            state = {lev: torch.as_tensor(u, dtype=self.dtype,
+                                          device=self.device)
+                     for lev, u in gen_smr(self.pin, sm, self.cfg,
+                                           self.eos).items()}
+        else:
+            state = init_state_from_pgen(sm, self.pgen, self.pin, self.cfg,
+                                         self.eos, self.dtype, self.device)
+        return self._stepper_now().fill_ghosts(state)
 
     def _problem_dt(self):
         """The pgen's dt constraint on the current mesh (inf without one),

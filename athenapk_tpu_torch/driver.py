@@ -61,10 +61,13 @@ CPU and on the card CUDA activity, exported as a Chrome trace to
 ``TRACE_DIR/trace.json``; ``solver.hydro_pkg`` names its phases with
 ``record_function``), ``--device cpu``.
 
-Not ported yet: multi-device runs and the problem ``cluster``
-(``NotImplementedError``).  On a CUDA device the kernels take every method
-of the decks (six reconstructions; Euler LLF, HLLE, HLLC; GLM-MHD LLF,
-HLLE, HLLD) with any number of passive scalars.
+Every problem of the JAX package runs, the galaxy cluster included
+(``pgen.cluster``: its unsplit source joins every stage, its stellar
+feedback and clips are the first-order split source, its accretion dt the
+pgen's dt constraint).  Not ported yet: multi-device runs.  On a CUDA
+device the kernels take every method of the decks (six reconstructions;
+Euler LLF, HLLE, HLLC; GLM-MHD LLF, HLLE, HLLD) with any number of passive
+scalars.
 """
 
 from __future__ import annotations
@@ -363,9 +366,10 @@ class Simulation:
     @staticmethod
     def _merge_blocks(pin, mesh, restart=None):
         """A uniform mesh on one device solves as ONE mesh-spanning block,
-        ghost-free when every boundary is periodic and the problem has no
-        boundary hook (cyclic rolls are the boundary; no ghost storage and
-        no fill pass).
+        ghost-free when every boundary is periodic, the problem has no
+        boundary hook and its initial state needs no ghosts
+        (``needs_ghosts_at_init``; cyclic rolls are the boundary; no ghost
+        storage and no fill pass).
 
         ``parthenon/mesh/merge_blocks = auto|true|false``: ``auto`` merges
         when the run has one device, and this port runs one device per
@@ -389,10 +393,16 @@ class Simulation:
             bcs |= {merged.ix2_bc, merged.ox2_bc}
         if merged.nx3 > 1:
             bcs |= {merged.ix3_bc, merged.ox3_bc}
-        has_bc_hook = getattr(
-            get_pgen(pin.get_string("job", "problem_id")),
-            "register_boundary_conditions", None) is not None
-        if bcs == {"periodic"} and not has_bc_hook and merged.nghost > 0:
+        pgen = get_pgen(pin.get_string("job", "problem_id"))
+        has_bc_hook = getattr(pgen, "register_boundary_conditions",
+                              None) is not None
+        # unlike the JAX package (athenapk_tpu/driver.py:296), a problem
+        # whose initial state needs ghosts keeps them (the cluster's
+        # init_perturb/sigma_b)
+        ghosts_hook = getattr(pgen, "needs_ghosts_at_init", None)
+        keep = ghosts_hook is not None and ghosts_hook(pin)
+        if bcs == {"periodic"} and not has_bc_hook and not keep \
+                and merged.nghost > 0:
             merged = dataclasses.replace(merged, nghost=0)
         if restart is not None and merged is not mesh:
             shp = np.shape(restart["cons"])
@@ -409,12 +419,12 @@ class Simulation:
             torch.cuda.synchronize(self.device)
 
     def _estimate(self):
-        """``(dt, dt_hyp)`` of the state, with the pgen's dt constraint;
-        keeps the diffusive dt in ``dt_diff``."""
+        """``(dt, dt_hyp)`` of the state, with the pgen's dt constraint (a
+        float or a 0-d tensor, read with the package's minima); keeps the
+        diffusive dt in ``dt_diff``."""
         _, prim = self.pkg.cons_to_prim(self.u)
-        dt, dt_hyp, self.dt_diff = self.pkg.estimate_timestep(prim)
-        if self._pe_fn is not None:
-            dt = min(dt, float(self._pe_fn(prim, self.t)))
+        cap = math.inf if self._pe_fn is None else self._pe_fn(prim, self.t)
+        dt, dt_hyp, self.dt_diff = self.pkg.estimate_timestep(prim, cap)
         return dt, dt_hyp
 
     def _split_cycle(self):

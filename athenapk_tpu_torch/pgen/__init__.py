@@ -8,10 +8,12 @@ optional hooks (``init_user_mesh_data``, ``history_columns``,
 refined-mesh form, ``check_refinement_block``, the source terms
 ``problem_source_unsplit``, ``problem_source_first_order`` and
 ``problem_source_strang`` with their ``_smr`` forms, and
-``estimate_timestep_factory`` / ``estimate_timestep``).  Only the ported
-problems are listed; ``cluster`` raises ``NotImplementedError``.  Decks
-with passive scalars (``advection``, ``cloud``) run on the CPU and on the
-card's kernels alike.
+``estimate_timestep_factory`` / ``estimate_timestep``, and on refined
+meshes ``estimate_timestep_smr``; ``problem_generator_smr``, which builds
+the whole refined state at once; ``needs_ghosts_at_init``, which keeps the
+ghosts of a merged all-periodic mesh).  Every problem of the JAX package
+is ported; decks with passive scalars (``advection``, ``cloud``,
+``cluster``) run on the CPU and on the card's kernels alike.
 """
 
 from importlib import import_module
@@ -31,17 +33,11 @@ _PGEN_MODULES = {
     "diffusion": "athenapk_tpu_torch.pgen.diffusion",
     "rand_blast": "athenapk_tpu_torch.pgen.rand_blast",
     "turbulence": "athenapk_tpu_torch.pgen.turbulence",
+    "cluster": "athenapk_tpu_torch.pgen.cluster",
 }
-
-# problem generators of the JAX package that this port does not have yet
-_NOT_PORTED = ("cluster",)
 
 
 def get_pgen(problem_id: str):
-    if problem_id in _NOT_PORTED:
-        raise NotImplementedError(
-            f"problem_id '{problem_id}' is not ported to athenapk_tpu_torch "
-            f"yet (ported: {', '.join(_PGEN_MODULES)})")
     if problem_id not in _PGEN_MODULES:
         raise ValueError(f"unknown problem_id '{problem_id}'")
     return import_module(_PGEN_MODULES[problem_id])

@@ -537,17 +537,18 @@ class HydroPackage:
         return u, t, dt, dt_hyp, taken
 
     # ------------------------------------------------------------------- dt
-    def estimate_timestep(self, prim):
+    def estimate_timestep(self, prim, dt_cap=math.inf):
         """Hyperbolic CFL timestep (``EstimateTimestep``,
         ``src/hydro/hydro.cpp:914-976``), the diffusive dt (the strict
         minimum for unsplit, the ``rkl2_max_dt_ratio`` cap for rkl2), the
-        cooling dt and the max_dt cap.  Returns ``(dt_full, dt_hyp,
+        cooling dt, the max_dt cap and ``dt_cap`` (the problem's dt
+        constraint, a float or a 0-d tensor).  Returns ``(dt_full, dt_hyp,
         dt_diff)`` as floats, every minimum read from the device in one
         read."""
         cfg = self.cfg
         w = prim[self.mesh.interior_slices]
         mins = {"hyp": torch.min(stage.raw_cfl_dt(
-            w, self.mesh, cfg, self.eos, self._active_dirs))}
+            w, self.mesh, cfg, self.eos, self._active_dirs)), "cap": dt_cap}
         dc = self.diffusion
         if dc.any_enabled and dc.integrator != "none":
             mins["diff"] = estimate_diff_dt(dc, prim, self.mesh, cfg.cfl)
@@ -576,7 +577,7 @@ class HydroPackage:
         dt = min(dt, dt_cool)
         if cfg.max_dt > 0.0:
             dt = min(dt, cfg.max_dt)
-        return dt, dt_hyp, dt_diff
+        return min(dt, mins["cap"]), dt_hyp, dt_diff
 
     # ------------------------------------------------------------------ RKL2
     def _diff_divergence(self, u):

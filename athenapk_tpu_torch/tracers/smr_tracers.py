@@ -30,11 +30,14 @@ from .tracers import (F64, I32, sampled_components, trilinear,
 
 
 class SmrTracers:
-    def __init__(self, pin, smesh, cfg, device="cpu"):
+    def __init__(self, pin, smesh, cfg, device="cuda"):
+        from ..driver import resolve_device
+
         self.enabled = pin.get_or_add_bool("tracers", "enabled", False)
         self.smesh = smesh
         self.mhd = cfg.fluid == GLMMHD
-        self.device = torch.device(device)
+        # on the card unless the caller asks for the CPU
+        self.device = resolve_device(device)
         if not self.enabled:
             return
         base = smesh.base

@@ -138,11 +138,14 @@ def sampled_components(mhd):
 
 
 class Tracers:
-    def __init__(self, pin, mesh, cfg, extra_fields=None, device="cpu"):
+    def __init__(self, pin, mesh, cfg, extra_fields=None, device="cuda"):
+        from ..driver import resolve_device
+
         self.enabled = pin.get_or_add_bool("tracers", "enabled", False)
         self.mesh = mesh
         self.mhd = cfg.fluid == GLMMHD
-        self.device = torch.device(device)
+        # on the card unless the caller asks for the CPU
+        self.device = resolve_device(device)
         if not self.enabled:
             return
         if mesh.nx3 == 1:

@@ -70,7 +70,7 @@ Phases (each one fails the run if it fails):
    mass across levels; the cloud-crushing paths (``CLOUD_DECK``: GLM-MHD
    HLLD + PLM + VL2, one passive scalar, tabular cooling, the inflow
    boundary, f32): path G' on a uniform mesh at 128x384x128 in one
-   ghosted block with rk12 cooling, on the sweep and the stage rung (12
+   ghosted block with rk12 cooling, on the sweep and the stage rung (7
    cycles, 2 warm-up), with the cooling loop's host reads per cycle and
    its share of the cycle; path G adaptive, base 64x192x64 with 16^3
    blocks and numlevel 2, Townsend cooling, the pgen's scalar refinement
@@ -132,7 +132,7 @@ Phases (each one fails the run if it fails):
    fill, the flux
    correction and the dt package told apart by profiler ranges), and of 3
    cycles of adaptive path D (the step, the fill, the tag dispatch and the
-   remesh, with its host ms), of 3 cycles of path G' on each rung (the
+   remesh, with its host ms), of 1 cycle of path G' on each rung (the
    cooling's kernels apart) and of path G (the cooling apart), and of 3
    cycles of each path H, I and I' run (the diffusion, the forcing and
    the refined fill apart by profiler ranges), device time by kernel and
@@ -157,6 +157,30 @@ card has no h5py, so the ``.rhdf`` file layer is the CPU tests'); ``-t``
 64^3, its trace holding every launch the counters saw and the stage's
 named ranges.
 
+The cluster (``tests/torch_decks.py:cluster_deck``: GLM-MHD HLLD + PLM +
+VL2, the AGN tracer as one passive scalar, NFW + Hernquist + SMBH
+gravity, the ACCEPT HSE atmosphere over +-0.1 Mpc with outflow
+boundaries, few-modes velocity and magnetic perturbations, AGN feedback
+at a fixed 1e-3 split between the thermal dump, the precessing kinetic
+jet and the tower, COLD_GAS triggering, SN Ia, stellar feedback and the
+clips), each for 12 cycles (2 warm-up) with the launches counted (phase
+4): path K on a static refined mesh (base 128^3 in 32^3 blocks, +-0.025
+at level 1, +-0.0125 at level 2: 176 leaves, 5,767,168 cells), f64 with
+Townsend cooling, on the stage-faces (#7) and the negdiv-faces (#6/#2)
+rung; path K' at 256^3 in one ghosted block, f64 with cooling, on the
+sweep (#1) and the stage (#3, ``emit_prim``) rung; path K'' as K' in f32
+without cooling and stellar feedback (both outside the f32 range in these
+units), stage rung.  For each: the launches of each fluid kernel and of
+its scalar kernel against the count expected, the kernels against plain
+at the final state (f32 and f64; phases 3 and 6), phase 7's breakdown
+with the unsplit and the split source as ranges, the host reads of a
+counted run (no more than 1 per cycle) and, on K and K', the mass and
+energy the AGN feedback injects over 2 counted cycles against its
+analytic rates (1e-3); phase 5 runs the cluster deck 5 f64 cycles through
+the kernels and the plain versions (32^3 on both uniform rungs, base
+16^3 with a level-1 octant on both refined rungs).  Phase headers carry
+the seconds since the start.
+
 The last lines are the kernels' JSON line, the card line and
 ``{"ok": true, "device": {...}}``.
 """
@@ -165,6 +189,7 @@ import argparse
 import contextlib
 import io
 import json
+import math
 import os
 import re
 import subprocess
@@ -666,7 +691,14 @@ RUNG_LAUNCHES = {"sweep": (6, 0), "stage": (0, 2), "hybrid": (3, 1)}
 SOD_L1_TOL = 1.0e-3   # 1024 cells; 6.9e-4 with HLLC + PLM + VL2 (64: 7.6e-3)
 
 
+T0 = time.time()
+
+
 def log(*a):
+    """Print; a phase's header line (``== ...``) with the seconds since
+    the script started, so that a run shows where its time went."""
+    if a and str(a[0]).startswith("== "):
+        a = a + (f"[{time.time() - T0:.1f} s]",)
     print(*a, flush=True)
 
 
@@ -2480,7 +2512,8 @@ def phase_case_timings(runs, reps, f64=False):
         torch.cuda.empty_cache()
         cells = x.numel() // x.shape[1]
         nbytes = 2 * x.numel() * x.element_size()
-        b = bound_of(nbytes / n_launch, ops / n_launch, ms / n_launch)
+        b = bound_of(nbytes / n_launch, ops / n_launch, ms / n_launch,
+                     f64=x.dtype == torch.float64)
         rows[name] = dict(
             route=route, ms=ms / n_launch, call_ms=ms,
             plain_ms=plain_ms, launches_per_call=n_launch,
@@ -2638,7 +2671,8 @@ def phase_smr_timings(sim, kind, launches, reps, name, replaces, what):
                                                "stage-faces" else args[2]))
         nbytes = ((n_in + 1) * u.numel() + faces) * u.element_size()
         cells = u.numel() // u.shape[1]
-        b = bound_of(nbytes, ops, ms)
+        f64 = u.dtype == torch.float64
+        b = bound_of(nbytes, ops, ms, f64=f64)
         per_call[label] = dict(ms=ms, plain_ms=plain_ms, launches=n_launch,
                                bytes=nbytes, state_tensors_read=n_in,
                                ops=ops, ops_per_cell=ops / cells,
@@ -2654,7 +2688,8 @@ def phase_smr_timings(sim, kind, launches, reps, name, replaces, what):
     mix = lambda k: sum(r[k] for r in per_call.values()) / n  # noqa: E731
     dc_and = "a DC and " if sim.cfg.integrator == "vl2" else ""
     t_b = sum(r["bytes"] for r in per_call.values()) / HBM_BYTES_PER_S
-    t_o = sum(r["ops"] for r in per_call.values()) / FP32_OPS_PER_S
+    t_o = sum(r["ops"] for r in per_call.values()) / (
+        FP64_OPS_PER_S if f64 else FP32_OPS_PER_S)
     return {
         "name": name,
         "route": "cuda",
@@ -2675,7 +2710,7 @@ def phase_smr_timings(sim, kind, launches, reps, name, replaces, what):
                         "face fluxes",
         "unit": f"per launch, averaged over the calls of one cycle of {what} "
                 f"(per level {dc_and}a {sim.cfg.reconstruction.upper()} "
-                f"call), f32",
+                f"call), {'f64' if f64 else 'f32'}",
         "per_call": per_call,
     }
 
@@ -3846,11 +3881,11 @@ def phase_split_profile(sim, ncycles, what, ranges):
             "window_ms_per_cycle": window / ncycles, "idle_share": idle}
 
 
-def phase_stage_prim_at_path_h(sim):
-    """The stage kernel with ``emit_prim`` (the unsplit diffusion's prim) at
-    path H's own state against its plain version, f32 as the path runs and
-    the same state in f64."""
-    log("== phase 3: the stage kernel with emit_prim at path H's inputs ==")
+def phase_stage_prim_at_path_h(sim, what="path H"):
+    """The stage kernel with ``emit_prim`` (the prim of the unsplit
+    diffusion, or of the problem's unsplit source) at ``what``'s own state
+    against its plain version, in f32 and f64."""
+    log(f"== phase 3: the stage kernel with emit_prim at {what}'s inputs ==")
     stage = PORT.stage
     recon = sim.cfg.reconstruction
     c_h = sim.pkg.c_h_from_dt_hyp(sim._estimate()[1])
@@ -3867,7 +3902,7 @@ def phase_stage_prim_at_path_h(sim):
         log(f"  GLM-MHD HLLD {recon} +prim {name} at {tuple(u.shape)}: max "
             f"rel err {err:.3e} (tol {tol:.0e})")
         if not err <= tol:
-            raise AssertionError(f"stage +prim at path H's inputs ({name}) "
+            raise AssertionError(f"stage +prim at {what}'s inputs ({name}) "
                                  f"disagrees with plain: {err}")
         out[name] = err
         del got, ref, u
@@ -4000,14 +4035,18 @@ def source_whole_step_cases():
     return cases
 
 
-def phase_source_whole_steps():
-    """Phase 5's diffusion and source decks: 5 f64 cycles through the
+def phase_source_whole_steps(cases=None, what="the diffusion and source "
+                             "decks"):
+    """Phase 5's diffusion and source decks (or ``cases``, as
+    ``source_whole_step_cases`` gives them): 5 f64 cycles through the
     kernels and with every kernel's plain version forced; state and every
     dt to STEP_TOL, the same RKL2 stage counts (and FOFC rescues), mass
-    across levels to 1e-13 on refined meshes.  Each run builds its own
-    ``ParameterInput``, so the turbulence runs draw the same randoms."""
-    log("== phase 5: the diffusion and source decks, kernels against plain "
-        "over whole steps (f64, 5 cycles) ==")
+    across levels to 1e-13 on refined meshes (where the problem injects
+    mass, the kernel run's change of mass to STEP_TOL of the plain run's).
+    Each run builds its own ``ParameterInput``, so the turbulence runs draw
+    the same randoms."""
+    log(f"== phase 5: {what}, kernels against plain over whole steps (f64, "
+        "5 cycles) ==")
     sweep, stage = PORT.sweep, PORT.stage
     names = ("fused_negdiv", "fused_negdiv_faces")
     snames = ("fused_stage", "fused_stage_faces")
@@ -4016,7 +4055,7 @@ def phase_source_whole_steps():
              "fused_stage": stage.stage_plain,
              "fused_stage_faces": stage.stage_faces_plain}
     worst = {}
-    for label, deck, refined, rung in source_whole_step_cases():
+    for label, deck, refined, rung in cases or source_whole_step_cases():
         runs = {}
         for name in ("kernel", "plain"):
             outdir = ROOT / "build" / "chip_smoke" / f"s8_{name}"
@@ -4076,9 +4115,11 @@ def phase_source_whole_steps():
             f"{STEP_TOL:.0e}); launches {nk}; RKL2 stages {ek[0]} / "
             f"{ep[0]}, rescues {ek[1]} / {ep[1]} (kernels / plain); mass "
             f"drift {dk:.3e}")
+        injects = "problem_id = cluster" in deck
+        drift_ok = (abs(dk - dp) <= STEP_TOL * dp) if injects \
+            else dk <= 1e-13
         if not (err_u <= STEP_TOL and err_dt <= STEP_TOL and ek == ep
-                and hk.shape == hp.shape and ck == cp == 5
-                and dk <= 1e-13):
+                and hk.shape == hp.shape and ck == cp == 5 and drift_ok):
             raise AssertionError(f"{label}: kernel and plain steps disagree")
     return worst
 
@@ -4592,6 +4633,320 @@ def phase_trace_cli():
                 ranges=sorted(need))
 
 
+# ------------------------------------------------------------ the cluster
+# Paths K, K' and K'': tests/torch_decks.py's cluster_deck (GLM-MHD HLLD +
+# PLM + VL2, one passive scalar, NFW + Hernquist + SMBH gravity, the ACCEPT
+# HSE atmosphere over +-0.1 Mpc with outflow boundaries, few-modes velocity
+# and magnetic perturbations, AGN feedback at a fixed 1e-3 (thermal,
+# kinetic with its tracer, the tower) with COLD_GAS triggering, SN Ia,
+# stellar feedback, the clips).  K: static refinement, base 128^3 in 32^3
+# blocks, +-0.025 at level 1 and +-0.0125 at level 2, f64 with Townsend
+# cooling; K': the same physics at 256^3 in one ghosted block; K'': K'
+# in f32 without cooling and stellar feedback (both are outside the f32
+# range in these units: the cooling overflows, the stellar feedback's
+# number density refuses f32).
+CLUSTER_K_REGIONS = [(0.025, 1), (0.0125, 2)]
+
+
+def cluster_table():
+    """The cluster's cooling table (1e4-1e10 K) under ``build/``."""
+    OUT.mkdir(parents=True, exist_ok=True)
+    return PORT.decks.write_cluster_table(OUT / "cluster.cool")
+
+
+def cluster_deck(path, n, nlim):
+    """Path ``path``'s cluster deck at base ``n``^3 (K: refined, 32^3
+    blocks; K' f64 with cooling; K'' f32 without cooling and stellar
+    feedback), ``nlim`` cycles."""
+    d = PORT.decks
+    if path == "K''":
+        return d.cluster_deck(n=n, nlim=nlim, precision="single",
+                              stellar=False)
+    kw = dict(mb=32, refinement="static", regions=CLUSTER_K_REGIONS) \
+        if path == "K" else {}
+    return d.cluster_deck(n=n, nlim=nlim, table=cluster_table(), **kw)
+
+
+def cluster_ranges(sim):
+    """Phase 7's cluster ranges: the unsplit source of every stage and
+    the split source (stellar feedback and the clips) of every cycle."""
+    st = sim._stepper_now() if hasattr(sim, "_stepper_now") else None
+    if st is None:
+        return [(sim.pkg, "problem_source_unsplit", "cluster_unsplit"),
+                (sim, "src_first_order", "cluster_split")]
+    return [(st, "problem_source_unsplit", "cluster_unsplit"),
+            (st, "problem_source_first_order", "cluster_split")]
+
+
+def phase_cluster_uniform(path, rung, n, ncycles, warmup):
+    """Path K' (f64, cooling) or K'' (f32) at ``n``^3 in one ghosted
+    block on the sweep or the stage rung; the timed run carries no
+    meter."""
+    f32 = path == "K''"
+    log(f"== phase 4: path {path} (cluster {n}^3, one ghosted block, "
+        f"{rung} rung, {'f32, no cooling' if f32 else 'f64, cooling'}, "
+        f"{warmup} warm-up + {ncycles - warmup} timed cycles) ==")
+    t0 = time.time()
+    sim = make_sim(timed_deck(cluster_deck(path, n, ncycles), warmup), rung)
+    if sim.mesh.nblocks != 1 or sim.mesh.nghost != 2 \
+            or not sim._split_cycle() or sim.cfg.nscalars != 1:
+        raise AssertionError(f"path {path} must run one ghosted block with "
+                             "its split source and the AGN tracer")
+    cells = sim.mesh.nx1 * sim.mesh.nx2 * sim.mesh.nx3
+    log(f"  set-up {time.time() - t0:.2f} s (the HSE profile, the "
+        f"perturbations): {cells} cells, dtype {sim.u.dtype}, cooling "
+        f"{sim.pkg.cooling is not None}")
+    n_sweep, n_stage, zcps = run_sim(sim)
+    n_ns = PORT.sweep.negdiv_scalars_cuda.launches
+    n_ss = PORT.stage.stage_scalars_cuda.launches
+    per = RUNG_LAUNCHES[rung]
+    want = (per[0] * ncycles, per[1] * ncycles, per[0] * ncycles,
+            per[1] * ncycles)
+    got = (n_sweep, n_stage, n_ns, n_ss)
+    finite = bool(torch.isfinite(sim.u).all())
+    log(f"  launches: sweep {n_sweep}, stage {n_stage}, negdiv_scalars "
+        f"{n_ns}, stage_scalars {n_ss} (expected {want}); zone-cycles/"
+        f"wallsecond {zcps}; finite {finite}")
+    if got != want or zcps is None or not finite:
+        raise AssertionError(f"path {path} ({rung}): launches {got}, "
+                             f"finite {finite}")
+    return sim, dict(zone_cycles_per_s=zcps, cells=cells,
+                     launches=n_sweep + n_stage,
+                     scalar_launches=n_ns + n_ss,
+                     launches_per_cycle=(n_sweep + n_stage) / ncycles,
+                     cycles=ncycles)
+
+
+def phase_cluster_refined(rung, n, ncycles, warmup):
+    """Path K: the cluster deck on a static refined mesh (base ``n``^3 in
+    32^3 blocks, two nested regions), f64 with cooling, on the stage-faces
+    (#7) or the negdiv-faces (#6/#2) rung; the timed run carries no
+    meter."""
+    log(f"== phase 4: path K (cluster, base {n}^3, 32^3 blocks, levels 1 "
+        f"and 2 at +-0.025 and +-0.0125, {rung} rung, f64, cooling, "
+        f"{warmup} warm-up + {ncycles - warmup} timed cycles) ==")
+    t0 = time.time()
+    sim = make_smr_sim(timed_deck(cluster_deck("K", n, warmup), 0), rung)
+    if not sim._split_loop() or sim.cfg.nscalars != 1:
+        raise AssertionError("path K must run the split loop with the AGN "
+                             "tracer")
+    leaves = leaves_of(sim)
+    cells = sum(leaves.values()) * 32 ** 3
+    log(f"  set-up {time.time() - t0:.2f} s (one HSE profile at the finest "
+        f"dx, the perturbations over all levels): leaves {leaves} "
+        f"({sum(leaves.values())} leaves, {cells} cells)")
+    (n_sf, n_nf, n_sweep, n_stage), zcps = run_smr(sim, ncycles, warmup)
+    n_ns = PORT.sweep.negdiv_scalars_cuda.launches
+    n_ss = PORT.stage.stage_scalars_cuda.launches
+    nlev = len(leaves)
+    per = {"stage": (2 * nlev, 0), "negdiv": (0, 6 * nlev)}[rung]
+    want = (per[0] * ncycles, per[1] * ncycles, 0, 0,
+            per[1] * ncycles, per[0] * ncycles)
+    got = (n_sf, n_nf, n_sweep, n_stage, n_ns, n_ss)
+    finite = all(bool(torch.isfinite(v).all()) for v in sim.state.values())
+    log(f"  launches: stage-faces {n_sf}, negdiv-faces {n_nf}, sweep "
+        f"{n_sweep}, stage {n_stage}, negdiv_scalars {n_ns}, stage_scalars "
+        f"{n_ss} (expected {want}); zone-cycles/wallsecond {zcps}; finite "
+        f"{finite}")
+    if got != want or zcps is None or not finite:
+        raise AssertionError(f"path K ({rung}): launches {got}, finite "
+                             f"{finite}")
+    return sim, dict(zone_cycles_per_s=zcps, leaves=leaves, cells=cells,
+                     launches=n_sf + n_nf, scalar_launches=n_ns + n_ss,
+                     launches_per_cycle=(n_sf + n_nf) / ncycles,
+                     cycles=ncycles)
+
+
+def phase_cluster_injection(sim, ncycles, what):
+    """The mass and energy the AGN feedback injects over ``ncycles`` more
+    cycles (a counted run, not timed), against the analytic rates: every
+    call of ``apply_groups`` sums, over interior cells and levels, the
+    change of mass and energy it made and the deck's rates times the
+    stage's ``beta_dt`` (power = fixed_power + efficiency c^2 Mdot and the
+    mass rate, Mdot the triggering's from the same prim, each channel's
+    share weighted by its region's discrete volume over the analytic one,
+    the tower's energy exactly its share, the accreted gas's mass and
+    energy removed); all summed on the device and read once.  -> ``{mass,
+    energy: {injected, analytic, rel_diff}}``."""
+    log(f"== phase 4: the AGN feedback's injection over {ncycles} cycles of "
+        f"{what} against its rates ==")
+    from athenapk_tpu_torch.core.indices import IDN as D, IEN as E
+    pkg = sim.pgen.register_defaults(sim.pin)   # the sources' objects
+    fb, trig, tw = pkg.agn_feedback, pkg.agn_triggering, pkg.magnetic_tower
+    if trig.mode != "COLD_GAS" or fb.triggering is not trig:
+        raise AssertionError(f"{what}: the check reckons COLD_GAS's removal")
+    c2 = pkg.units.speed_of_light() ** 2
+    acc = []
+
+    def totals(groups):
+        m = sum(torch.sum(g["u"][:, D] * g["valid"]) * g["vol"]
+                for g in groups)
+        e = sum(torch.sum(g["u"][:, E] * g["valid"]) * g["vol"]
+                for g in groups)
+        return m, e
+
+    def analytic(groups, beta_dt, t):
+        parts = [trig.accretion_partials(g["prim"], g["r"], g["vol"],
+                                         g["valid"]) for g in groups]
+        mdot = trig.rate_from_partials({k: sum(p[k] for p in parts)
+                                        for k in parts[0]})
+        power = fb.fixed_power + fb.efficiency * c2 * mdot
+        m_rate = mdot * (1 - fb.efficiency) + fb.fixed_power / (
+            fb.efficiency * c2)
+        v_th = v_kin = gauss = m_rm = e_rm = 0.0
+        for g in groups:
+            ok, vol = g["valid"], g["vol"]
+            v_th = v_th + torch.sum((g["r"] ** 2 <= fb.thermal_radius ** 2)
+                                    & ok) * vol
+            rj, _, _, h = fb.jet_coords.sim_to_jet(g["x"], g["y"], g["z"], t)
+            jet = ((rj < fb.kinetic_jet_radius)
+                   & (h.abs() >= fb.kinetic_jet_offset)
+                   & (h.abs() <= fb.kinetic_jet_offset
+                      + fb.kinetic_jet_thickness) & ok)
+            v_kin = v_kin + torch.sum(jet) * vol
+            r2 = rj ** 2 + h ** 2
+            gauss = gauss + torch.sum(torch.exp(-r2 / tw.l_mass_scale ** 2)
+                                      * ok) * vol
+            temp = trig.mbar_over_kb * g["prim"][:, 4] / g["prim"][:, D]
+            cold = (g["r"] < trig.accretion_radius) & ok \
+                & (temp <= trig.cold_temp_thresh)
+            frac = beta_dt / trig.cold_t_acc
+            m_rm = m_rm + torch.sum(g["u"][:, D] * cold) * vol * frac
+            e_rm = e_rm + torch.sum(g["u"][:, E] * cold) * vol * frac
+        v_th = v_th / (4.0 / 3.0 * math.pi * fb.thermal_radius ** 3)
+        v_kin = v_kin / (2 * math.pi * fb.kinetic_jet_thickness
+                         * fb.kinetic_jet_radius ** 2)
+        gauss = gauss / (math.pi ** 1.5 * tw.l_mass_scale ** 3)
+        dm = beta_dt * m_rate * (fb.thermal_mass_fraction * v_th
+                                 + fb.kinetic_mass_fraction * v_kin
+                                 + fb.magnetic_mass_fraction * gauss) - m_rm
+        de = beta_dt * power * (fb.thermal_fraction * v_th
+                                + fb.kinetic_fraction * v_kin
+                                + fb.magnetic_fraction) - e_rm
+        return dm, de
+
+    def metered(fn, label):
+        def call(groups, beta_dt, t, mhd):
+            want = analytic(groups, beta_dt, t)
+            before = totals(groups)
+            out = fn(groups, beta_dt, t, mhd)
+            after = totals(groups)
+            acc.append(torch.stack([after[0] - before[0], want[0],
+                                    after[1] - before[1], want[1]]))
+            return out
+        return call
+
+    undo = wrap_calls([(fb, "apply_groups", "agn")], metered)
+    try:
+        run_more(sim, ncycles)
+    finally:
+        undo()
+    tot = torch.stack(acc).sum(dim=0).tolist()
+    out = {}
+    for name, (got, want) in (("mass", tot[:2]), ("energy", tot[2:])):
+        out[name] = dict(injected=got, analytic=want,
+                         rel_diff=abs(got - want) / abs(want))
+        log(f"  {name} injected by the AGN feedback over {len(acc)} calls: "
+            f"{got:.10e}, analytic {want:.10e} (rel diff "
+            f"{out[name]['rel_diff']:.3e})")
+        if not out[name]["rel_diff"] <= 1e-3:
+            raise AssertionError(f"{what}: the AGN feedback injected {name} "
+                                 f"{got} against {want}")
+    return out
+
+
+def phase_cluster_paths(zcps):
+    """Paths K (both refined rungs), K' (both uniform rungs) and K'' (the
+    stage rung): each timed run, then its kernels against plain at the
+    run's final state (f32 and f64), phase 7's breakdown with the cluster's
+    source ranges, a counted run of the host reads (no more than 1 per
+    cycle, path I''s) and one of the AGN injection.  Adds each path's
+    zone-cycles/s to ``zcps``; -> ``{(path, rung): numbers}``."""
+    out = {}
+    runs = [("K", "stage"), ("K", "negdiv"), ("K'", "sweep"),
+            ("K'", "stage"), ("K''", "stage")]
+    for path, rung in runs:
+        name = f"path {path} ({rung} rung)"
+        folder = {"K": "K", "K'": "K1", "K''": "K2"}[path]
+        with in_dir(OUT / f"cluster_{folder}_{rung}"):
+            if path == "K":
+                sim, num = phase_cluster_refined(rung, n=128, ncycles=12,
+                                                 warmup=2)
+                kind, kname, line = {
+                    "stage": ("stage-faces", "fused_stage_faces", 641),
+                    "negdiv": ("negdiv-faces", "negdiv_sweep_faces",
+                               525)}[rung]
+                phase_smr_kernels_vs_plain(sim, "K", kind)
+                row = phase_smr_timings(
+                    sim, kind, num["launches"], 10, kname,
+                    f"athenapk_tpu/solver/pallas_sweep.py:{line}", name)
+                num["kernel_vs_plain"] = {k: row[k] for k in (
+                    "ms", "plain_ms", "bound_ms", "share_of_bound",
+                    "bound_by", "max_abs_err", "unit", "per_call")}
+            else:
+                sim, num = phase_cluster_uniform(path, rung, n=256,
+                                                 ncycles=12, warmup=2)
+                log(f"== phase 6: the kernel against plain at the final "
+                    f"state of {name} ==")
+                num["kernel_vs_plain"] = phase_case_timings({name: {
+                    "sim": sim, "rung": rung, "launches": num["launches"],
+                    "cycles": num["cycles"],
+                    "zcps": num["zone_cycles_per_s"]}}, 10, f64=True)[name]
+                if rung == "stage":
+                    # as the path calls it: with the stage-start prim
+                    num["stage_prim_max_rel_err"] = \
+                        phase_stage_prim_at_path_h(sim, name)
+            ranges = cluster_ranges(sim)
+            num["profile"] = phase_split_profile(sim, 3, name, ranges)
+            if path == "K":
+                num["host_reads"], calls = phase_host_reads(sim, 2, name,
+                                                            ranges)
+                num["host_reads_per_cycle"] = num["host_reads"]["run"]
+            else:
+                num["host_reads"], calls = phase_host_reads(
+                    sim, 2, name, ranges + loop_ranges(sim))
+                num["host_reads_per_cycle"] = cycle_reads(
+                    num["host_reads"], calls, name)
+            if calls["cluster_unsplit"] != 2 or calls["cluster_split"] != 1 \
+                    or num["host_reads_per_cycle"] > 1.0:
+                raise AssertionError(
+                    f"{name}: sources per cycle {calls}, host reads per "
+                    f"cycle {num['host_reads_per_cycle']} (path I': 1.00)")
+            if path != "K''":
+                num["injection"] = phase_cluster_injection(sim, 2, name)
+            prof = num["profile"]
+            for label in ("cluster_unsplit", "cluster_split"):
+                ms = share = None
+                if prof is not None:
+                    ms = prof["range_ms_per_cycle"].get(label, 0.0)
+                    share = prof["share_of_device_time"].get(label, 0.0)
+                num[f"{label}_ms_per_cycle"] = ms
+                num[f"{label}_share"] = share
+                log(f"  {name}: {label} {ms} device ms per cycle, share of "
+                    f"the device time {share}")
+        out[path, rung] = num
+        zcps[f"path_{path} {rung}"] = num["zone_cycles_per_s"]
+        del sim, ranges
+        torch.cuda.empty_cache()
+    return out
+
+
+def cluster_whole_step_cases():
+    """(label, deck, refined, rung) of phase 5's cluster decks, f64 with
+    cooling, 5 cycles: 32^3 over +-0.02 Mpc uniform on both rungs, and
+    base 16^3 in 8^3 blocks with the octant at level 1 on both refined
+    rungs."""
+    d, hst, table = PORT.decks, PORT.decks.HST_BLOCK, cluster_table()
+    octant = [(0.0, 0.02, 0.0, 0.02, 0.0, 0.02, 1)]
+    cases = [(f"cluster 32^3, {rung} rung", d.cluster_deck(
+        n=32, half=0.02, table=table) + hst, False, rung)
+        for rung in ("sweep", "stage")]
+    cases += [(f"cluster base 16^3 + octant, {rung} rung", d.cluster_deck(
+        n=16, mb=8, half=0.02, table=table, refinement="static",
+        regions=octant) + hst, True, rung) for rung in ("stage", "negdiv")]
+    return cases
+
+
 def entry_route(entry):
     """The phase-3 route label prefix of a kernel line entry."""
     return {"negdiv_sweep": "#1", "fused_stage": "#3", "negdiv_sweep_2d": "#4",
@@ -4695,7 +5050,8 @@ def main(argv=None):
     # 0 just before the path's run)
     cloud_u, cloud_a = {}, {}
     for rung in ("sweep", "stage"):
-        cloud_u[rung] = phase_cloud_uniform(rung, n=128, ncycles=12,
+        # 7 cycles, not the other paths' 12: rk12's cycles take ~1 s each
+        cloud_u[rung] = phase_cloud_uniform(rung, n=128, ncycles=7,
                                             warmup=2)
         zcps[f"path_G' {rung}"] = cloud_u[rung][1]["zone_cycles_per_s"]
     for rung in ("stage", "negdiv"):
@@ -4705,6 +5061,9 @@ def main(argv=None):
     cooling_passes = phase_cooling_passes(n=128, ncycles=2)
     path_h, path_i, path_i2, stage_prim_h = phase_source_paths(zcps)
     path_j, path_j2 = phase_tracer_paths(zcps)
+    path_k = phase_cluster_paths(zcps)
+    cluster_steps = phase_source_whole_steps(cluster_whole_step_cases(),
+                                             "the cluster decks")
     source_steps = phase_source_whole_steps()
     amr_tracers = phase_amr_tracers(args.seed)
     restarts = phase_restart_on_card()
@@ -4904,11 +5263,29 @@ def main(argv=None):
     scalar_entries[1]["launches_by_path"] = {
         "path G' stage rung": cloud_u["stage"][1]["scalar_launches"],
         "path G stage rung": cloud_a["stage"][1]["scalar_launches"]}
+    # paths K, K' and K'' (the cluster): each kernel's launches from the
+    # run of the path (its counts set to 0 just before, read just after)
+    for (path, rung), num in path_k.items():
+        key = f"path {path} (cluster), {rung} rung"
+        if path == "K":
+            entry = faces_entry if rung == "stage" else nd3_entry
+            entry["launches_per_cycle"][key] = num["launches_per_cycle"]
+            entry["zone_cycles_per_s"][key] = num["zone_cycles_per_s"]
+        else:
+            entry = stage_entry if rung == "stage" else sweep_entry
+            cycles[key] = num["cycles"]
+        entry["launches_by_path"][key] = num["launches"]
+        entry.setdefault("path_K", {})[f"{path}, {rung} rung"] = num
+        scalar_entries[1 if rung == "stage" else 0]["launches_by_path"][
+            key] = num["scalar_launches"]
+    sweep_entry["cluster_decks_whole_steps_f64"] = cluster_steps
     scalar_entries[0]["path_G_prime"] = {r: v[1] for r, v in cloud_u.items()}
     scalar_entries[0]["path_G_prime_cooling_passes"] = cooling_passes
     scalar_entries[1]["path_G"] = {r: v[1] for r, v in cloud_a.items()}
+    # one cycle: an rk12 cycle (~1.5 s, hundreds of cooling passes) takes
+    # ~8 s under the profiler
     scalar_entries[0]["path_G_prime_profile"] = {
-        r: phase_profile(cloud_u[r][0], 3, f"path G' ({r} rung)")
+        r: phase_profile(cloud_u[r][0], 1, f"path G' ({r} rung)")
         for r in cloud_u}
     scalar_entries[1]["path_G_profile"] = phase_amr_profile(
         cloud_a["stage"][0], 3, "path G (stage rung)")

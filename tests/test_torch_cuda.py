@@ -1274,3 +1274,131 @@ def test_refined_restart_payload_round_trip_on_card(card, tmp_path,
         assert torch.equal(u, rest.state[lev])
     for lev, st in full.tracer_state["levels"].items():
         _tracers_close(rest.tracer_state["levels"][lev], st, 0.0)
+
+
+# ------------------------------------------------------------ the cluster
+# The cluster deck of chip_smoke.py's paths K, K' and K'' at a small size
+# (``torch_decks.cluster_deck``: GLM-MHD HLLD + PLM + VL2, one scalar, the
+# whole AGN subsystem), f64 with Townsend cooling and f32 without cooling
+# and stellar feedback (whose number density is outside f32).  Its sources
+# are plain PyTorch on the card; the hyperbolic stages launch the kernels
+# (the +scalars instantiations and a scalar kernel after each).
+from athenapk_tpu_torch.pgen.cluster import pgen as cluster_pgen  # noqa: E402
+from torch_decks import cluster_deck, write_cluster_table  # noqa: E402
+
+CLUSTER_PRECISIONS = {"double": 1e-10, "single": 1e-4}
+
+
+def _cluster_text(tmp_path, precision, **kw):
+    f64 = precision == "double"
+    return cluster_deck(half=0.02, precision=precision, stellar=f64,
+                        table=(write_cluster_table(tmp_path / "c.cool")
+                               if f64 else None), **kw)
+
+
+def test_cluster_sources_on_card_match_cpu(card, tmp_path):
+    """The cluster's unsplit source (gravity, AGN feedback, the tower, SN
+    Ia), its split source (stellar feedback, the clips) and the accretion
+    dt on the card against the CPU at the deck's initial state, f64, on a
+    uniform and a refined mesh: 1e-12 of each variable's largest value."""
+    text = _cluster_text(tmp_path, "double", n=16, nlim=0)
+    sim = Simulation(ParameterInput.from_string(text), quiet=True,
+                     device="cpu")
+    _, w = sim.pkg.cons_to_prim(sim.u)
+    src = cluster_pgen.problem_source_unsplit(sim.pin, sim.mesh, sim.cfg,
+                                              sim.eos)
+    split = cluster_pgen.problem_source_first_order(sim.pin, sim.mesh,
+                                                    sim.cfg, sim.eos)
+    outs = {}
+    for dev in ("cpu", "cuda"):
+        u, p = sim.u.to(dev), w.to(dev)
+        a = src(u, p, sim.mesh, 2e-4, 0.01)
+        outs[dev] = (a, split(a, 2e-4, 0.01))
+    for got, want in zip(outs["cuda"], outs["cpu"]):
+        assert got.is_cuda
+        for v in range(want.shape[1]):
+            scale = want[:, v].abs().max().item()
+            assert (got[:, v].cpu() - want[:, v]).abs().max().item() \
+                <= 1e-12 * max(scale, 1e-300), v
+    smr = SmrSimulation(ParameterInput.from_string(_cluster_text(
+        tmp_path, "double", n=16, mb=8, nlim=0, refinement="static",
+        regions=[(0.0, 0.02, 0.0, 0.02, 0.0, 0.02, 1)])), quiet=True,
+        device="cpu")
+    src_smr = cluster_pgen.problem_source_unsplit_smr(
+        smr.pin, smr.smesh, smr.cfg, smr.eos)
+    prims = smr._prims()
+    res = {dev: src_smr({k: v.to(dev) for k, v in smr.state.items()},
+                        {k: v.to(dev) for k, v in prims.items()}, 2e-4, 0.01)
+           for dev in ("cpu", "cuda")}
+    for lev, want in res["cpu"].items():
+        got = res["cuda"][lev].cpu()
+        assert (got - want).abs().max().item() \
+            <= 1e-12 * want.abs().max().item()
+
+
+@pytest.mark.parametrize("precision", sorted(CLUSTER_PRECISIONS))
+@pytest.mark.parametrize("rung", ["sweep", "stage"])
+def test_cluster_deck_on_card_matches_cpu(card, rung, precision, tmp_path,
+                                          monkeypatch):
+    """3 cycles of the cluster deck (32^3 in one ghosted block) on the
+    card against the CPU on both uniform rungs: the +scalars fluid kernel
+    and one scalar kernel per launch, the state to 1e-10 (f64) or 1e-4
+    (f32) of each variable's largest value."""
+    monkeypatch.delenv("ATHENAPK_PALLAS_HYBRID", raising=False)
+    monkeypatch.setenv("ATHENAPK_PALLAS_STAGE",
+                       "1" if rung == "stage" else "0")
+    monkeypatch.chdir(tmp_path)
+    text = _cluster_text(tmp_path, precision, n=32, nlim=3)
+    kern, skern = ((stage.stage_cuda, stage.stage_scalars_cuda)
+                   if rung == "stage"
+                   else (sweep.negdiv_cuda, sweep.negdiv_scalars_cuda))
+    sims, counts = {}, {}
+    for dev in ("cpu", "cuda"):
+        n0 = (kern.launches, skern.launches)
+        sims[dev] = Simulation(ParameterInput.from_string(text), quiet=True,
+                               device=dev).run()
+        counts[dev] = (kern.launches - n0[0], skern.launches - n0[1])
+    per = 2 if rung == "stage" else 6
+    assert counts == {"cpu": (0, 0), "cuda": (3 * per, 3 * per)}
+    ref, got = sims["cpu"].u, sims["cuda"].u.cpu()
+    assert bool(torch.isfinite(got).all())
+    tol = CLUSTER_PRECISIONS[precision]
+    for v in range(ref.shape[1]):
+        scale = ref[:, v].abs().max().item()
+        assert (got[:, v] - ref[:, v]).abs().max().item() <= tol * scale, v
+    assert abs(sims["cuda"].t - sims["cpu"].t) <= tol * sims["cpu"].t
+
+
+@pytest.mark.parametrize("precision", sorted(CLUSTER_PRECISIONS))
+@pytest.mark.parametrize("rung", ["stage", "negdiv"])
+def test_refined_cluster_deck_on_card_matches_cpu(card, rung, precision,
+                                                  tmp_path, monkeypatch):
+    """3 cycles of the cluster deck on a static refined mesh (base 16^3 in
+    8^3 blocks, the octant at level 1) on the card against the CPU on both
+    refined rungs: the face kernels and one scalar kernel per launch, the
+    state to 1e-10 (f64) or 1e-4 (f32)."""
+    monkeypatch.setenv("ATHENAPK_PALLAS_STAGE",
+                       "1" if rung == "stage" else "0")
+    monkeypatch.chdir(tmp_path)
+    text = _cluster_text(tmp_path, precision, n=16, mb=8, nlim=3,
+                         refinement="static",
+                         regions=[(0.0, 0.02, 0.0, 0.02, 0.0, 0.02, 1)])
+    kern, skern = ((stage.stage_faces_cuda, stage.stage_scalars_cuda)
+                   if rung == "stage"
+                   else (sweep.negdiv_faces_cuda, sweep.negdiv_scalars_cuda))
+    sims, counts = {}, {}
+    for dev in ("cpu", "cuda"):
+        n0 = (kern.launches, skern.launches)
+        sims[dev] = SmrSimulation(ParameterInput.from_string(text),
+                                  quiet=True, device=dev).run()
+        counts[dev] = (kern.launches - n0[0], skern.launches - n0[1])
+    per = 2 * 2 if rung == "stage" else 2 * 6       # two levels
+    assert counts == {"cpu": (0, 0), "cuda": (3 * per, 3 * per)}
+    tol = CLUSTER_PRECISIONS[precision]
+    for lev, ref in sims["cpu"].state.items():
+        got = sims["cuda"].state[lev].cpu()
+        assert bool(torch.isfinite(got).all())
+        for v in range(ref.shape[1]):
+            scale = ref[:, v].abs().max().item()
+            assert (got[:, v] - ref[:, v]).abs().max().item() \
+                <= tol * scale, (lev, v)

@@ -64,8 +64,8 @@ def test_registry_lists_the_ported_problems():
     assert callable(get_pgen("diffusion").problem_generator)
     assert callable(get_pgen("rand_blast").problem_source_first_order)
     assert callable(get_pgen("turbulence").problem_source_first_order_smr)
-    with pytest.raises(NotImplementedError, match="cluster"):
-        get_pgen("cluster")
+    # the cluster, the last problem ported
+    assert callable(get_pgen("cluster").problem_generator_smr)
     with pytest.raises(ValueError):
         get_pgen("no_such_problem")
 

@@ -393,12 +393,13 @@ def test_adopt_preserves_particles_across_topology_change():
                       integrator="rk2")
     r1 = (0.0, 0.45, 0.0, 0.45, 0.0, 0.45, 1)
     r2 = (0.55, 1.0, 0.55, 1.0, 0.55, 1.0, 1)
-    st = SmrTracers(pin, SmrMesh(base, [r1]), cfg).seed()
+    st = SmrTracers(pin, SmrMesh(base, [r1]), cfg, device="cpu").seed()
     for s in st["levels"].values():
         s["rho"] = torch.where(s["active"], 1.0 + 0.001 * s["id"], 0.0)
     names = ["id", "x", "y", "z", "rho"]
     before = compact_swarm_smr(st, names)
-    st2 = SmrTracers(pin, SmrMesh(base, [r1, r2]), cfg).adopt(st)
+    st2 = SmrTracers(pin, SmrMesh(base, [r1, r2]), cfg,
+                     device="cpu").adopt(st)
     after = compact_swarm_smr(st2, names)
     ob, oa = np.argsort(before["id"]), np.argsort(after["id"])
     for k in names:
@@ -442,3 +443,27 @@ def test_merged_tracers_match_blocked():
     for k in ("x", "y", "z", "rho", "vel_x"):
         np.testing.assert_allclose(sa[k], sb[k], rtol=0, atol=1e-13,
                                    err_msg=k)
+
+
+@pytest.mark.parametrize("kind", ["Tracers", "SmrTracers"])
+def test_tracers_default_to_the_card(kind, monkeypatch):
+    """Without a device both tracer classes ask for the card, as every
+    other entry point of the port does: where there is none that raises
+    rather than quietly running on the CPU."""
+    from athenapk_tpu_torch.tracers.tracers import Tracers
+
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    base = Mesh(nx1=16, nx2=16, nx3=16, mbnx1=8, mbnx2=8, mbnx3=8,
+                x1min=0, x1max=1, x2min=0, x2max=1, x3min=0, x3max=1,
+                nghost=2)
+    pin = ParameterInput.from_string(
+        "<tracers>\nenabled = true\ninitial_seed_method = random_per_block"
+        "\ninitial_num_tracers_per_cell = 0.02\n")
+    cfg = HydroConfig(fluid="euler", riemann="hllc", reconstruction="plm")
+    make = {"Tracers": lambda **kw: Tracers(pin, base, cfg, **kw),
+            "SmrTracers": lambda **kw: SmrTracers(
+                pin, SmrMesh(base, [(0.0, 0.5, 0.0, 0.5, 0.0, 0.5, 1)]),
+                cfg, **kw)}[kind]
+    with pytest.raises(RuntimeError, match="no CUDA device is available"):
+        make()
+    assert make(device="cpu").device == torch.device("cpu")

@@ -507,12 +507,14 @@ def cloud_deck(table, refinement="none", nx=(16, 32, 16), mb=8, numlevel=2,
                         precision=precision, merge=merge)
 
 
-def write_cooling_table(path, alpha=0.5, lam0=1e-23, t_ref=1e6):
+def write_cooling_table(path, alpha=0.5, lam0=1e-23, t_ref=1e6,
+                        log_t_range=(4.0, 8.0)):
     """A two-column cooling table (log10 T, log10 Lambda), Lambda =
-    lam0 (T / t_ref)^alpha from 1e4 to 1e8 K (``tests/test_cooling.py``'s
-    power law)."""
+    lam0 (T / t_ref)^alpha over ``log_t_range`` (10 rows per decade; by
+    default 1e4 to 1e8 K, ``tests/test_cooling.py``'s power law)."""
     import math
-    log_t = np.linspace(4.0, 8.0, 41)
+    lo, hi = log_t_range
+    log_t = np.linspace(lo, hi, int(round(10 * (hi - lo))) + 1)
     log_l = math.log10(lam0) + alpha * (log_t - math.log10(t_ref))
     with open(path, "w") as fh:
         fh.write("# logT logLambda\n")
@@ -827,3 +829,199 @@ reconstruction = plm
 gamma = 1.666666666666667
 precision = {precision}
 """ + tracer_block(0.05, seed=42)
+
+
+# ------------------------------------------------------------ the cluster
+# The galaxy-cluster deck with every source on (the reference's
+# ``inputs/cluster/cluster.in`` is not in the repository; this deck is the
+# port's own): GLM-MHD HLLD + PLM + VL2 with one passive scalar (the AGN
+# jet tracer) and Townsend cooling on ``write_cooling_table``'s power law
+# over 1e4-1e10 K, in the code units, gravity (NFW + Hernquist BCG +
+# SMBH), entropy and hydrostatic-equilibrium blocks of
+# ``tests/test_cluster.py`` (Mpc, 1e14 Msun, ~1 Gyr; a box of +-0.1 Mpc
+# with outflow boundaries).  On top: few-modes velocity and magnetic
+# perturbations; AGN feedback at fixed_power 1e-3 (~6e43 erg/s) split in
+# thirds between the thermal dump (4 kpc), the kinetic jet (2 kpc radius,
+# 2 kpc thick, 1 kpc off the plane, precessing) with its tracer and the
+# Li et al. tower (l_scale 2 kpc, with its Gaussian mass); COLD_GAS
+# triggering below 3.5e7 K inside 2 kpc; SN Ia on the BCG profile;
+# stellar feedback in the 2-4 kpc shell; the clips inside 20 kpc.
+CLUSTER = """
+<job>
+problem_id = cluster
+
+<parthenon/mesh>
+refinement = {refinement}
+nghost = 2
+nx1 = {n}
+x1min = {lo}
+x1max = {hi}
+nx2 = {n}
+x2min = {lo}
+x2max = {hi}
+nx3 = {n}
+x3min = {lo}
+x3max = {hi}
+ix1_bc = {bc}
+ox1_bc = {bc}
+ix2_bc = {bc}
+ox2_bc = {bc}
+ix3_bc = {bc}
+ox3_bc = {bc}
+
+<parthenon/meshblock>
+nx1 = {mb}
+nx2 = {mb}
+nx3 = {mb}
+
+<parthenon/time>
+integrator = vl2
+cfl = 0.3
+tlim = 1.0
+nlim = {nlim}
+ncycle_out = 0
+
+<hydro>
+fluid = glmmhd
+eos = adiabatic
+riemann = hlld
+reconstruction = plm
+gamma = 1.6666666666666667
+He_mass_fraction = 0.25
+nscalars = 1
+precision = {precision}
+
+<units>
+code_length_cgs = 3.085677580962325e+24
+code_mass_cgs = 1.98841586e+47
+code_time_cgs = 3.15576e+16
+
+<problem/cluster>
+hubble_parameter = 0.0715898515654728
+
+<problem/cluster/gravity>
+include_nfw_g = true
+which_bcg_g = HERNQUIST
+include_smbh_g = true
+g_smoothing_radius = 0.0
+
+<problem/cluster/entropy_profile>
+k_0 = 8.851337676479303e-121
+k_100 = 1.3277006514718954e-119
+r_k = 0.1
+alpha_k = 1.1
+
+<problem/cluster/hydrostatic_equilibrium>
+r_fix = 2.0
+rho_fix = 0.01477557589278723
+r_sampling = 4.0
+
+<problem/cluster/init_perturb>
+sigma_v = 0.1
+k_peak_v = 2.0
+num_modes_v = 10
+sol_weight_v = 1.0
+rseed_v = 3
+sigma_b = {sigma_b}
+k_peak_b = 4.0
+num_modes_b = 10
+rseed_b = 4
+
+<problem/cluster/precessing_jet>
+jet_theta = 0.15
+jet_phi_dot = 628.3
+jet_phi0 = 0.2
+
+<problem/cluster/agn_feedback>
+fixed_power = 1.0e-3
+efficiency = 1.0e-3
+thermal_fraction = 0.333
+kinetic_fraction = 0.333
+magnetic_fraction = 0.333
+thermal_radius = 0.004
+kinetic_jet_radius = 0.002
+kinetic_jet_thickness = 0.002
+kinetic_jet_offset = 0.001
+enable_tracer = true
+
+<problem/cluster/magnetic_tower>
+potential_type = li
+li_alpha = 20.0
+l_scale = 0.002
+l_mass_scale = 0.002
+
+<problem/cluster/agn_triggering>
+triggering_mode = COLD_GAS
+accretion_radius = 0.002
+cold_temp_thresh = 3.5e7
+cold_t_acc = 0.1
+
+<problem/cluster/snia_feedback>
+power_per_bcg_mass = 1.0e-3
+mass_rate_per_bcg_mass = 1.0e-2
+
+<problem/cluster/stellar_feedback>
+stellar_radius = 0.004
+exclusion_radius = 0.002
+efficiency = 1.0e-5
+number_density_threshold = 6.5e72
+temperature_threshold = 3.7e7
+
+<problem/cluster/clips>
+clip_r = 0.02
+dfloor = 1.0e-2
+vceil = 30.0
+vAceil = 30.0
+Tceil = 5.0e9
+
+<problem/cluster/reductions>
+cold_temp_threshold = 3.5e7
+agn_tracer_thresh = 0.01
+"""
+
+CLUSTER_COOLING = """
+<cooling>
+enable_cooling = tabular
+table_filename = {table}
+lambda_units_cgs = 1.0
+integrator = townsend
+cfl = 0.1
+"""
+
+
+def cluster_deck(n=32, mb=None, nlim=5, table=None, refinement="none",
+                 regions=(), precision="double", bc="outflow", sigma_b=0.5,
+                 stellar=True, half=0.1):
+    """The cluster deck at ``n``^3 cells over the box +-``half`` Mpc
+    (blocks of ``mb``^3, one block by default), with Townsend cooling on
+    the table ``table`` (no cooling without one); ``regions``: static
+    refinement regions ``(half-width, level)`` centred on the origin;
+    ``stellar=False`` drops the stellar feedback (its number density,
+    ~1e73 per Mpc^3 in these units, is outside the f32 range: it refuses a
+    single-precision state).  The tests' small meshes take a small box
+    (+-0.02 at 32^3 is 1.25 kpc cells), so that the kpc-sized AGN regions
+    hold cells."""
+    deck = CLUSTER.format(n=n, mb=mb or n, nlim=nlim, refinement=refinement,
+                          precision=precision, bc=bc, sigma_b=sigma_b,
+                          lo=-half, hi=half)
+    if table is not None:
+        deck += CLUSTER_COOLING.format(table=table)
+    if not stellar:
+        start = deck.index("<problem/cluster/stellar_feedback>")
+        end = deck.index("<problem/cluster/clips>")
+        deck = deck[:start] + deck[end:]
+    for i, region in enumerate(regions):
+        bounds = region[:-1] if len(region) == 7 else (
+            -region[0], region[0]) * 3
+        deck += f"\n<parthenon/static_refinement{i}>\n" + "".join(
+            f"{k}min = {bounds[2 * j]}\n{k}max = {bounds[2 * j + 1]}\n"
+            for j, k in enumerate(("x1", "x2", "x3"))) \
+            + f"level = {region[-1]}\n"
+    return deck
+
+
+def write_cluster_table(path):
+    """The cluster deck's cooling table: the power law of
+    ``write_cooling_table`` over 1e4-1e10 K (the AGN heats gas beyond the
+    default 1e8 K)."""
+    return write_cooling_table(path, log_t_range=(4.0, 10.0))
