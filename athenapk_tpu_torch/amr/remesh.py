@@ -27,15 +27,23 @@ flux-correction plans are built in Python loops over leaves, so a blast
 that revisits a topology pays for its plans once.  Nothing is compiled per
 topology.
 
-``AmrHydro`` passes ``cooling`` and ``custom_bcs`` on to every stepper,
-and combines the pgen's per-block refinement check (``problem_check(prim,
-base) -> [nblocks] tags``) with the criterion's tags by ``max``, in the
-same enqueued tag tensors (the JAX package's ``_tag_fn``).
+``AmrHydro`` passes ``cooling``, ``custom_bcs`` and ``diffusion`` on to
+every stepper, builds each leaf table's problem sources from the
+factories, and combines the pgen's per-block refinement check
+(``problem_check(prim, base) -> [nblocks] tags``) with the criterion's tags
+by ``max``, in the same enqueued tag tensors (the JAX package's
+``_tag_fn``).
 
-Not ported: the sharded placements (``_PaddedStepper``, ``_FlatStepper``,
-``AmrHydro._place``, ``device_leaf_counts``), which belong to multi-device
-runs, and the hooks the JAX ``AmrHydro`` takes for diffusion and problem
-sources (``SmrSimulation`` refuses the decks that need them).
+Over ranks (``rmesh``, a ``parallel.mesh_sharding.RankMesh``): the
+placements of the JAX package's sharded ``AmrHydro`` (``_FlatStepper``,
+``_PaddedStepper``, ``_place``, ``exact_state``, ``device_leaf_counts``)
+become explicit ownership (``amr/sharded.py``): ``layout="flat"`` deals all
+levels' leaves in id order, exact to one leaf, ``"padded"`` chunks each
+level.  Each rank holds its leaves' rows and steps them with a
+``ShardedSmrHydro``; the tags are gathered (small vectors) so every rank
+updates its forest alike, and ``transfer_sharded`` moves each new leaf's
+rows from its old owner, which copies, prolongs or restricts them.  The
+problem's source hooks reduce over leaves and are refused over ranks.
 """
 
 from __future__ import annotations
@@ -50,6 +58,8 @@ from ..core.amr_forest import COPY, PROLONG, RESTRICT
 from ..eos.adiabatic import cons_to_prim
 from ..refinement.criteria import check_refinement
 from ..refinement.prolong_restrict import prolongate_minmod, restrict_average
+from .sharded import (OWNERS, ShardedSmrHydro, gather, own_ids, place,
+                      transfer_sharded)
 from .smr import SmrMesh, SmrState
 from .smr_hydro import SmrHydro
 
@@ -188,8 +198,9 @@ def remesh(smesh: SmrMesh, state, tags, custom_bcs=None):
 
 
 class AmrHydro:
-    """Adaptive-mesh hydro on one device: step plus periodic retag and
-    remesh, with one ``SmrHydro`` cached per leaf table.
+    """Adaptive-mesh hydro on one device or over ranks (``rmesh``,
+    ``layout``): step plus periodic retag and remesh, with one ``SmrHydro``
+    (over ranks ``ShardedSmrHydro``) cached per leaf table.
 
     ``remesh_log`` keeps, per remesh, whether the leaf table changed, whether
     its topology was new, and the host milliseconds of the forest update,
@@ -207,9 +218,22 @@ class AmrHydro:
                  cooling=None, custom_bcs=None, problem_check=None,
                  diffusion=None, problem_source_factory=None,
                  problem_first_order_factory=None,
-                 problem_strang_factory=None):
+                 problem_strang_factory=None, rmesh=None, layout="flat"):
         from ..driver import resolve_device
 
+        if layout not in OWNERS:
+            raise ValueError(f"unknown AMR layout {layout!r}")
+        if rmesh is not None and (problem_source_factory is not None
+                                  or problem_first_order_factory is not None
+                                  or problem_strang_factory is not None):
+            raise ValueError("problem source hooks reduce over leaves and "
+                             "are not sharded")
+        # ranks over the leaves (parallel.mesh_sharding.RankMesh) and their
+        # ownership: "flat" (exact to one leaf) or "padded" (per level)
+        self.rmesh = rmesh
+        self.layout = layout
+        self._owner = (OWNERS[layout](smesh, rmesh.world)
+                       if rmesh is not None else None)
         self.smesh = smesh
         self.cfg = cfg
         self.eos = eos
@@ -248,14 +272,22 @@ class AmrHydro:
             def build(factory):
                 return factory(self.smesh) if factory is not None else None
 
-            st = SmrHydro(
-                self.smesh, self.cfg, self.eos, device=self.device,
-                stage_rung=self._stage_rung, cooling=self.cooling,
-                custom_bcs=self.custom_bcs, diffusion=self.diffusion,
-                problem_source_unsplit=build(self.problem_source_factory),
-                problem_source_first_order=build(
-                    self.problem_first_order_factory),
-                problem_source_strang=build(self.problem_strang_factory))
+            if self.rmesh is not None:
+                st = ShardedSmrHydro(
+                    self.smesh, self.cfg, self.eos, self._owner, self.rmesh,
+                    device=self.device, stage_rung=self._stage_rung,
+                    cooling=self.cooling, custom_bcs=self.custom_bcs,
+                    diffusion=self.diffusion)
+            else:
+                st = SmrHydro(
+                    self.smesh, self.cfg, self.eos, device=self.device,
+                    stage_rung=self._stage_rung, cooling=self.cooling,
+                    custom_bcs=self.custom_bcs, diffusion=self.diffusion,
+                    problem_source_unsplit=build(
+                        self.problem_source_factory),
+                    problem_source_first_order=build(
+                        self.problem_first_order_factory),
+                    problem_source_strang=build(self.problem_strang_factory))
             self._steppers[sig] = st
         return st
 
@@ -271,7 +303,11 @@ class AmrHydro:
     def dispatch_tags(self, state):
         """The per-level tags, enqueued on the device and NOT read: ->
         ``[(leaf_ids, int32 tensor)]``.  The driver reads them together
-        with the next cycle's dt."""
+        with the next cycle's dt.  Sharded: the rank's own leaves."""
+        if self.rmesh is not None:
+            own = own_ids(self.smesh, self._owner, self.rmesh.rank)
+            return [(own[lev], self._level_tags(u))
+                    for lev, u in state.items()]
         state = self.exact_state(state)
         return [(ids, self._level_tags(state[lev]))
                 for lev, ids in self.smesh.level_ids.items()]
@@ -279,10 +315,18 @@ class AmrHydro:
     def assemble_tags(self, parts, flat=None):
         """Global tag array of ``dispatch_tags``' parts.  ``flat``: their
         values already on the host, concatenated in order; otherwise they
-        are read here, in one read."""
+        are read here, in one read.  Sharded: every rank's small tag
+        vector is gathered, so every rank holds the same global array."""
         if flat is None:
             flat = torch.cat([t for _, t in parts]).cpu().numpy()
         tags = np.zeros(self.smesh.levels.size, np.int32)
+        if self.rmesh is not None:
+            ids = np.concatenate([i for i, _ in parts]).astype(np.int64)
+            for i, v in zip(self.rmesh.all_gather(torch.as_tensor(ids)),
+                            self.rmesh.all_gather(torch.as_tensor(
+                                np.asarray(flat, np.int32)))):
+                tags[i.cpu().numpy()] = v.cpu().numpy()
+            return tags
         o = 0
         for ids, _ in parts:
             tags[ids] = flat[o:o + ids.size]
@@ -320,8 +364,16 @@ class AmrHydro:
             return state, False
         old_sig = self._signature()
         log = {}
-        self.smesh, new_state = transfer(sm, self.exact_state(state), tags,
-                                         log)
+        if self.rmesh is not None:
+            t0 = time.perf_counter()
+            self.smesh, self._owner, new_state = transfer_sharded(
+                sm, state, tags, self._owner,
+                lambda m: OWNERS[self.layout](m, self.rmesh.world),
+                self.rmesh)
+            log["transfer_ms"] = 1e3 * (time.perf_counter() - t0)
+        else:
+            self.smesh, new_state = transfer(sm, self.exact_state(state),
+                                             tags, log)
         sig = self._signature()
         log["changed"] = sig != old_sig
         log["new_topology"] = sig not in self._steppers
@@ -335,7 +387,9 @@ class AmrHydro:
         return state, log["changed"]
 
     def advance(self, state, ncycles, c_h=0.0):
-        """``ncycles`` of (maybe_remesh -> dt -> step)."""
+        """``ncycles`` of (maybe_remesh -> dt -> step); a sharded run takes
+        a whole state or the rank's rows and returns the rank's rows."""
+        state = self._place(state)
         for n in range(ncycles):
             if n % self.check_interval == 0:
                 state, _ = self.maybe_remesh(state)
@@ -343,9 +397,41 @@ class AmrHydro:
             state = self._stepper.step(state, dt, c_h)
         return state
 
+    # ------------------------------------------------ sharded placement
+    def _place(self, state):
+        """The rank's rows: a whole ``{level: [n_leaves, ...]}`` state is
+        split by the ownership; the rank's rows come back as they are
+        (idempotent).  One device: the state itself."""
+        if self.rmesh is None:
+            return state
+        own = own_ids(self.smesh, self._owner, self.rmesh.rank)
+        mine = {lev for lev, ids in own.items() if ids.size}
+        if set(state) == mine and all(state[lev].shape[0] == own[lev].size
+                                      for lev in mine):
+            return state
+        for lev, ids in self.smesh.level_ids.items():
+            if lev not in state or state[lev].shape[0] != ids.size:
+                raise ValueError(f"level {lev}: neither the rank's rows nor "
+                                 "the whole level")
+        return place(state, self.smesh, self._owner, self.rmesh.rank)
+
+    def device_leaf_counts(self, state):
+        """``{rank: real leaves}`` from the rows each rank holds (one
+        device: ``{device: leaves}``)."""
+        n = sum(v.shape[0] for v in state.values())
+        if self.rmesh is None:
+            return {str(self.device): n}
+        got = self.rmesh.all_gather(torch.tensor([n]))
+        return {r: int(v[0]) for r, v in enumerate(got)}
+
     def exact_state(self, state):
         """``{level: [n_leaves_level, ...]}``.  One device holds no slot
-        padding, so this checks the counts and returns the state."""
+        padding, so this checks the counts and returns the state; sharded,
+        it gathers every rank's rows (tests, outputs; the step never
+        does)."""
+        if self.rmesh is not None:
+            return gather(self._place(state), self.smesh, self._owner,
+                          self.rmesh)
         for lev, ids in self.smesh.level_ids.items():
             if state[lev].shape[0] != ids.size:
                 raise ValueError(f"level {lev}: {state[lev].shape[0]} blocks "

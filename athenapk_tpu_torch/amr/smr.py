@@ -297,6 +297,8 @@ class SmrState:
             raise ValueError("SMR requires nghost <= meshblock/2 (the "
                              "restricted fine slab must cover the ghosts)")
         self._plans = {lev: self._build_plan(lev) for lev in smesh.level_ids}
+        # leaf id -> (level, row of the level tensor)
+        self.loc_of = self._locations()
         self._batch = self._build_batches()
 
     def _obit(self, oc):
@@ -308,13 +310,21 @@ class SmrState:
         """An int64 index tensor on the state's device."""
         return torch.as_tensor(np.asarray(a, np.int64), device=self.device)
 
+    def _locations(self):
+        """``{leaf id: (level, row)}``: every leaf's row in its level
+        tensor."""
+        return {int(gid): (lev, li)
+                for lev, ids in self.smesh.level_ids.items()
+                for li, gid in enumerate(ids)}
+
+    def level_rows(self, lev):
+        """Rows of a level tensor that the plans index."""
+        return len(self.smesh.level_ids.get(lev, ()))
+
     def _build_batches(self):
         """Group the plan's ops into one gather and one write per (level,
         face[, octant]) instead of one per block."""
-        loc_of = {}
-        for lev, ids in self.smesh.level_ids.items():
-            for li, gid in enumerate(ids):
-                loc_of[gid] = (lev, li)
+        loc_of = self.loc_of
         batch = {}
         for lev, plan in self._plans.items():
             same = {f: ([], []) for f in range(self.nfaces)}
@@ -349,8 +359,7 @@ class SmrState:
             # the octant groups of each face in one gather: sources offset
             # by the group's position in the concatenated parent strips
             cat = {}
-            nbp = (len(self.smesh.level_ids[lev - 1]) if lev - 1 in
-                   self.smesh.level_ids else 0)
+            nbp = self.level_rows(lev - 1)
             for (face, _), (d, s) in coarse.items():
                 ds, ss = cat.setdefault(face, ([], []))
                 ss.append(np.asarray(s) + len(ds) * nbp)
@@ -361,13 +370,18 @@ class SmrState:
         return batch
 
     # ---------------------------------------------------------------- plans
-    def _build_plan(self, lev):
-        """For each block of this level and each face, the provenance of its
-        ghosts: ('same', leaf) | ('coarse', (leaf, octant)) | ('fine',
-        [(octant, leaf), ...]) | ('phys', None)."""
+    def _plan_ids(self, lev):
+        """The leaves whose ghosts this state fills, in row order."""
+        return self.smesh.level_ids[lev]
+
+    def _build_plan(self, lev, ids=None):
+        """For each block of this level (``ids``, default ``_plan_ids``) and
+        each face, the provenance of its ghosts: ('same', leaf) | ('coarse',
+        (leaf, octant)) | ('fine', [(octant, leaf), ...]) | ('phys',
+        None)."""
         sm = self.smesh
         ops = []  # (block_local_idx, face, kind, payload)
-        ids = sm.level_ids[lev]
+        ids = self._plan_ids(lev) if ids is None else ids
         offsets = [(-1, 0, 0), (1, 0, 0), (0, -1, 0), (0, 1, 0),
                    (0, 0, -1), (0, 0, 1)][:self.nfaces]
         for loc_i, gid in enumerate(ids):
@@ -417,20 +431,27 @@ class SmrState:
         """``{level: [nb, nvar, NZ, NY, NX]}`` -> the same tensors with their
         ghosts filled (in place; the dict is returned)."""
         out = dict(state)
+        for step in self.fill_steps():
+            self._fill_axis(out, *step)
+        return out
+
+    def fill_steps(self):
+        """The fill's steps in order, ``(level, axis, ext_axes,
+        phys_only)``: every read of a step precedes its writes."""
         act_axes = [ax for ax in (3, 2, 1) if self.act[ax]]
         levs = sorted(self.smesh.level_ids)
+        steps = []
         for lev in levs[1:]:                          # pass A
             for ax in act_axes:
-                self._fill_axis(out, lev, ax, ())
+                steps.append((lev, ax, (), False))
         for lev in levs:                              # pass B
             for i, ax in enumerate(act_axes):
-                self._fill_axis(out, lev, ax, tuple(act_axes[:i]))
+                steps.append((lev, ax, tuple(act_axes[:i]), False))
         for lev in levs:                              # pass C: phys last
             for ax in act_axes:
-                self._fill_axis(out, lev, ax,
-                                tuple(a for a in act_axes if a != ax),
-                                phys_only=True)
-        return out
+                steps.append((lev, ax, tuple(a for a in act_axes if a != ax),
+                              True))
+        return steps
 
     def _fill_axis(self, out, lev, axis, ext_axes, phys_only=False):
         """Assemble the lo/hi ghost slabs of ``axis`` from the current level

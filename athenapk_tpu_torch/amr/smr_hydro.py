@@ -109,8 +109,7 @@ class SmrHydro:
         self.problem_source_unsplit = problem_source_unsplit
         self.problem_source_first_order = problem_source_first_order
         self.problem_source_strang = problem_source_strang
-        self.state_mgr = SmrState(smesh, cfg.nvar, self.device,
-                                  custom_bcs=custom_bcs)
+        self.state_mgr = self._make_state_mgr(custom_bcs)
         self.level_mesh = {lev: smesh.level_mesh(lev)
                            for lev in smesh.level_ids}
         self._dirs = tuple(active_dirs(b))
@@ -128,10 +127,7 @@ class SmrHydro:
         # flux-correction batches: one restricted write per (level, face)
         # group of coarse-fine sites (the face-touching fine kids in octant
         # order, from the ghost-fill plans)
-        loc_of = {}
-        for lev, ids in smesh.level_ids.items():
-            for li, gid in enumerate(ids):
-                loc_of[gid] = (lev, li)
+        loc_of = self.state_mgr.loc_of
         fc = {}
         for lev in smesh.level_ids:
             for (li, face, kind, payload) in self.state_mgr._plans[lev]:
@@ -145,6 +141,11 @@ class SmrHydro:
         ix = self.state_mgr.index
         self._fc_batch = {key: (ix(d), ix(np.ravel(k)), len(d), ocs)
                           for key, (d, k, ocs) in fc.items()}
+
+    def _make_state_mgr(self, custom_bcs):
+        """The ghost fill's plans (``amr.sharded`` fills a rank's rows)."""
+        return SmrState(self.smesh, self.cfg.nvar, self.device,
+                        custom_bcs=custom_bcs)
 
     # ------------------------------------------------ coarse-fine correction
     def _restrict_transverse(self, ff, tdims):
@@ -429,6 +430,7 @@ class SmrHydro:
                 estimate_diff_dt(self.diffusion, w, self.level_mesh[lev],
                                  self.cfg.cfl),
                 dtype=dt_hyp.dtype, device=dt_hyp.device))
+        dt_diff = self._global_min(dt_diff)
         if not self.sts:
             return torch.minimum(dt_hyp, dt_diff), dt_diff
         ratio = self.diffusion.rkl2_max_dt_ratio
@@ -456,7 +458,12 @@ class SmrHydro:
                 dt = torch.minimum(dt, torch.as_tensor(
                     self.cooling.estimate_timestep(w, self.level_mesh[lev]),
                     dtype=dt.dtype, device=dt.device))
-        return dt
+        return self._global_min(dt)
+
+    def _global_min(self, t):
+        """The minimum of a 0-d tensor over every leaf's owner: the tensor
+        itself on one device (``amr.sharded`` reduces over ranks)."""
+        return t
 
     def dt_pack(self, state, tm_dt, t, tlim):
         """``[dt_raw, dt_eff, c_h]`` on the device, in the state's dtype:

@@ -81,6 +81,7 @@ from typing import Optional
 
 import numpy as np
 import torch
+import torch.distributed as dist
 
 from .config.parameter_input import ParameterInput
 from .core.mesh import Mesh
@@ -372,8 +373,10 @@ class Simulation:
         storage and no fill pass).
 
         ``parthenon/mesh/merge_blocks = auto|true|false``: ``auto`` merges
-        when the run has one device, and this port runs one device per
-        process, so ``auto`` merges.  A ``restart`` payload written in
+        unless ``torch.distributed`` is initialised with more than one
+        rank (a sharded run splits the block axis, which needs the
+        decomposition; the JAX package's ``athenapk_tpu/driver.py:280``
+        asks for one visible device).  A ``restart`` payload written in
         another layout resumes in its own (bit-exact resume wins over
         speed)."""
         mode = pin.get_or_add_string("parthenon/mesh", "merge_blocks",
@@ -383,6 +386,9 @@ class Simulation:
                 f"parthenon/mesh/merge_blocks must be auto|true|false, "
                 f"got '{mode}'")
         if mode == "false":
+            return mesh
+        if mode == "auto" and dist.is_available() and dist.is_initialized() \
+                and dist.get_world_size() > 1:
             return mesh
         merged = mesh
         if mesh.nblocks > 1:

@@ -537,14 +537,16 @@ class HydroPackage:
         return u, t, dt, dt_hyp, taken
 
     # ------------------------------------------------------------------- dt
-    def estimate_timestep(self, prim, dt_cap=math.inf):
+    def estimate_timestep(self, prim, dt_cap=math.inf, reduce_min=None):
         """Hyperbolic CFL timestep (``EstimateTimestep``,
         ``src/hydro/hydro.cpp:914-976``), the diffusive dt (the strict
         minimum for unsplit, the ``rkl2_max_dt_ratio`` cap for rkl2), the
         cooling dt, the max_dt cap and ``dt_cap`` (the problem's dt
         constraint, a float or a 0-d tensor).  Returns ``(dt_full, dt_hyp,
         dt_diff)`` as floats, every minimum read from the device in one
-        read."""
+        read.  ``reduce_min`` (a sharded run's minimum over ranks) maps the
+        float64 vector of the raw minima to theirs before they combine, so
+        every rank gets the one-rank dt."""
         cfg = self.cfg
         w = prim[self.mesh.interior_slices]
         mins = {"hyp": torch.min(stage.raw_cfl_dt(
@@ -560,6 +562,11 @@ class HydroPackage:
         mins.update(zip(lazy, torch.stack(
             [v.to(mins["hyp"].dtype).reshape(()) for v in lazy.values()]
         ).tolist()))
+        if reduce_min is not None:
+            keys = sorted(mins)
+            mins.update(zip(keys, reduce_min(torch.tensor(
+                [float(mins[k]) for k in keys], dtype=torch.float64)
+            ).tolist()))
         dt_diff = mins.get("diff", math.inf)
         dt_cool = mins.get("cool", math.inf)
         dt_hyp = cfg.cfl * mins["hyp"]

@@ -227,13 +227,15 @@ class Tracers:
         return state
 
     # ---------------------------------------------------------------- interp
-    def _interp(self, prim, comps, x, y, z):
+    def _interp(self, prim, comps, x, y, z, origins=None):
         """Block-local trilinear interpolation among cell centres of each
         prim component in ``comps``: row ``b`` of ``x, y, z`` reads block
         ``b``'s ghost-inclusive array (its ghosts are filled, so a stencil
-        across the block edge sees the neighbour's copy).  -> a list."""
+        across the block edge sees the neighbour's copy).  ``origins``: the
+        (x, y, z) block origins of ``prim``'s rows when they are not the
+        whole mesh (a rank's blocks).  -> a list."""
         mesh = self.mesh
-        bx0, by0, bz0 = self._origins
+        bx0, by0, bz0 = self._origins if origins is None else origins
         fx = (x - bx0[:, None]) / mesh.dx1 + (mesh.ng1 - 0.5)
         fy = (y - by0[:, None]) / mesh.dx2 + (mesh.ng2 - 0.5)
         fz = (z - bz0[:, None]) / mesh.dx3 + (mesh.ng3 - 0.5)
@@ -294,10 +296,13 @@ class Tracers:
         return out
 
     # ---------------------------------------------------------------- advect
-    def advect(self, state, prim, dt):
+    def advect(self, state, prim, dt, origins=None, migrate=None):
         """Heun: the predictor uses the stored (last-filled) velocity, the
         corrector samples at the predicted position; then the domain
-        boundaries and the migration."""
+        boundaries and the migration.  ``origins`` and ``migrate`` (the
+        JAX package's ``_advect_impl`` hooks) let a rank advect its own
+        blocks' pools and route them between ranks
+        (``tracers.sharded``)."""
         if state is None:
             return None
         x, y, z = state["x"], state["y"], state["z"]
@@ -305,16 +310,17 @@ class Tracers:
         y_s = y + dt * state["vel_y"]
         z_s = z + dt * state["vel_z"]
         vx_s, vy_s, vz_s = self._interp(prim, (IV1, IV2, IV3), x_s, y_s,
-                                        z_s)
+                                        z_s, origins)
         state = dict(state)
         state["x"] = x + dt * 0.5 * (state["vel_x"] + vx_s)
         state["y"] = y + dt * 0.5 * (state["vel_y"] + vy_s)
         state["z"] = z + dt * 0.5 * (state["vel_z"] + vz_s)
-        return self._migrate(self._apply_domain_bcs(state))
+        return (migrate or self._migrate)(self._apply_domain_bcs(state))
 
     # ------------------------------------------------------------------ fill
-    def fill(self, state, prim):
-        """Sample the fields at the particles (0 where inactive)."""
+    def fill(self, state, prim, origins=None):
+        """Sample the fields at the particles (0 where inactive);
+        ``origins`` as ``advect``'s."""
         if state is None:
             return None
         state = dict(state)
@@ -322,7 +328,7 @@ class Tracers:
         act = state["active"]
         comps = sampled_components(self.mhd)
         for name, v in zip(comps, self._interp(prim, comps.values(), x, y,
-                                                z)):
+                                                z, origins)):
             state[name] = torch.where(act, v, 0.0)
         return state
 

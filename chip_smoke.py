@@ -181,6 +181,28 @@ the kernels and the plain versions (32^3 on both uniform rungs, base
 16^3 with a level-1 octant on both refined rungs).  Phase headers carry
 the seconds since the start.
 
+Multi-rank runs (phase 4, ``phase_multirank``): ranks are
+``torch.multiprocessing`` spawn processes on the one card over gloo, their
+messages staged through pinned host buffers.  M1, the main deck at 256^3
+f32 in ghosted 256x256x64 blocks (``merge_blocks = false``, nghost 3) over
+2 z-slab ranks, 5 cycles on the sweep (#1) and on the stage (#3) rung; M2,
+the main deck at 128^3 f64 with outflow z over a 2x2 (z, y) rank grid, 2
+cycles; M3, the sharded tracers of ``tests/test_sharding.py:190`` at 128^3
+(0.125 per cell, 32^3 blocks) over 2 ranks, 10 steps, and a case in which
+each rank sends its whole pool (more than a block layer's capacity) at
+once; M4, path A's refined deck (#7) over 2 ranks (flat layout, 3 cycles)
+and path D''s adaptive deck at 64^3 (#6/#2, ``derefine_count = 1``, 6
+cycles through remeshes that change the leaves) with
+``device_leaf_counts``.  Each is held bit for bit against its one-rank run
+in this process (state, every dt, leaf tables, tracer pools and
+``n_lost``), each rank's launches against the count expected and its bytes
+per fill against its plan (the refined fill's also against the face slabs
+the other ranks read and an all-gather of its rows); then M1's step with
+nccl at world size 1, bit for bit with the plain step and its launches
+counted.  The phase prints each path's seconds, the
+bytes each rank sends per fill and zone-cycles/s labelled "N ranks sharing
+one H100, not a scaling figure".
+
 The last lines are the kernels' JSON line, the card line and
 ``{"ok": true, "device": {...}}``.
 """
@@ -192,8 +214,10 @@ import json
 import math
 import os
 import re
+import shutil
 import subprocess
 import sys
+import tempfile
 import threading
 import time
 import types
@@ -729,7 +753,7 @@ def make_sim(deck, rung="sweep", restart=None):
             del os.environ[RUNGS[rung]]
 
 
-def make_smr_sim(deck, rung, restart=None):
+def make_smr_sim(deck, rung, restart=None, quiet=False):
     """``SmrSimulation`` of ``deck`` on the card (resumed from ``restart``,
     if given); ``rung`` "negdiv" sets ``ATHENAPK_PALLAS_STAGE=0`` while the
     stepper is built."""
@@ -738,7 +762,7 @@ def make_smr_sim(deck, rung, restart=None):
         os.environ["ATHENAPK_PALLAS_STAGE"] = "0"
     try:
         return PORT.SmrSimulation(PORT.ParameterInput.from_string(deck),
-                                  quiet=False, restart=restart)
+                                  quiet=quiet, restart=restart)
     finally:
         os.environ.pop("ATHENAPK_PALLAS_STAGE", None)
 
@@ -4947,6 +4971,470 @@ def cluster_whole_step_cases():
     return cases
 
 
+# ----------------------------------------------------- multi-rank on one card
+# The main deck with ghosted z-slabs (merge_blocks = false): nghost 3 for
+# PPM, meshblocks (n, n / ny, n / nz); M2 adds outflow in z (the edge
+# ranks' boundaries).
+MR_PATHS = {"M1": (256, 1, 4, "single", 5, False),
+            "M2": (128, 2, 2, "double", 2, True)}
+MR_TRACERS = {
+    # test_sharding.py:190's setup at 128^3: vz carries the tracers across
+    # the slab boundary
+    "M3": dict(shape=(128, 128, 128), mb=32, per_cell=TRACER_DENSITY,
+               vel=(0.30, 0.15, 0.45), seed=7, steps=10, dt=0.2),
+    # every tracer carried half the domain in one step: each rank sends its
+    # whole pool, more than layer * cap at once (the JAX routing's :105)
+    "M3 overflow": dict(shape=(128, 128, 128), mb=32, per_cell=TRACER_DENSITY,
+                        vel=(0.0, 0.0, 2.5), seed=5, steps=3, dt=0.2,
+                        capacity_factor=1.0),
+}
+MR_LABEL = "ranks sharing one H100, not a scaling figure"
+MR_SMR_N = 128    # path A's base (120 leaves of 32^3)
+MR_AMR_CYCLES = 6
+
+
+def mr_deck(path):
+    n, ny, nz, precision, ncycles, outflow = MR_PATHS[path]
+    deck = BENCH_DECK.format(n=n, ncycles=ncycles, warmup=0,
+                             precision=precision)
+    deck = deck.replace("nghost = 0", "nghost = 3\nmerge_blocks = false"
+                        + ("\nix3_bc = outflow\nox3_bc = outflow"
+                           if outflow else ""))
+    return deck.replace(f"<parthenon/meshblock>\nnx1 = {n}\nnx2 = {n}\n"
+                        f"nx3 = {n}", f"<parthenon/meshblock>\nnx1 = {n}\n"
+                        f"nx2 = {n // ny}\nnx3 = {n // nz}")
+
+
+def mr_cycles(step, dt_fn, pkg, u, ncycles):
+    """``ncycles`` of (step at the dt, the next dt): the protocol of every
+    multi-rank uniform run and of its one-rank reference.  -> (u, [(dt,
+    dt_hyp)])."""
+    dt, dt_hyp, _ = dt_fn(u)
+    dts = []
+    for _ in range(ncycles):
+        u = step(u, dt, pkg.c_h_from_dt_hyp(dt_hyp))
+        dt, dt_hyp, _ = dt_fn(u)
+        dts.append((dt, dt_hyp))
+    return u, dts
+
+
+def mr_one_rank_uniform(path, rung):
+    """The one-rank blocked run of a multi-rank uniform path."""
+    sim = make_sim(mr_deck(path), rung)
+    pkg = sim.pkg
+
+    def dt_fn(u):
+        return pkg.estimate_timestep(pkg.cons_to_prim(u)[1])
+
+    return mr_cycles(pkg.step, dt_fn, pkg, sim.u, MR_PATHS[path][4])
+
+
+def mr_amr_ref(amr, state, ncycles):
+    """``AmrHydro.advance``'s loop, with the face-kernel launches that the
+    leaves held should make (per stage, one stage-faces launch per level
+    or one negdiv-faces launch per level and direction)."""
+    want = 0
+    per_level = 2 if amr._stepper._stage_rung else 6
+    state = amr._place(state)
+    for n in range(ncycles):
+        if n % amr.check_interval == 0:
+            state, _ = amr.maybe_remesh(state)
+        dt = float(amr._stepper.estimate_dt(state))
+        state = amr._stepper.step(state, dt, 0.0)
+        want += per_level * len(state)
+    return state, want
+
+
+def mr_amr_build(case, rmesh):
+    """The adaptive deck's ``SmrSimulation`` (initial refinement done), and
+    an ``AmrHydro`` over ``rmesh`` (None: one rank) with its settings."""
+    # derefine_count = 1: the blast's leaves refine and derefine within a
+    # few cycles, so the run holds remeshes that change the leaves
+    sim = make_smr_sim(ADAPTIVE_3D_DECK.format(
+        n=case["n"], mb=16, ncycles=case["ncycles"], precision="single")
+        .replace("numlevel = 2", "numlevel = 2\nderefine_count = 1"),
+        case["rung"], quiet=True)
+    d = sim.driver
+    if case["rung"] == "negdiv":
+        os.environ["ATHENAPK_PALLAS_STAGE"] = "0"
+    try:
+        amr = PORT.AmrHydro(d.smesh, sim.cfg, sim.eos, d.refine_cfg,
+                            check_interval=d.check_interval,
+                            derefine_count=d.derefine_count,
+                            rmesh=rmesh, layout="flat")
+    finally:
+        os.environ.pop("ATHENAPK_PALLAS_STAGE", None)
+    return amr, sim.state
+
+
+def mr_fill_numbers(rmesh, stepper, state):
+    """The bytes this rank sends in one ghost fill of (a copy of)
+    ``state``, its schedule's bytes, and the bounds of
+    ``parallel.dryrun.fill_send_bounds`` (face slabs, all-gather)."""
+    from athenapk_tpu_torch.parallel.dryrun import fill_send_bounds
+
+    sent0 = rmesh.sent_bytes
+    stepper.fill_ghosts({k: v.clone() for k, v in state.items()})
+    mgr = stepper.state_mgr
+    size = next(iter(state.values())).element_size()
+    slabs, gathered = fill_send_bounds(mgr)
+    return {"bytes_per_fill": rmesh.sent_bytes - sent0,
+            "plan_bytes_per_fill": mgr.fill_values_sent * size,
+            "face_slab_bytes": slabs * size,
+            "all_gather_bytes": gathered * size}
+
+
+def mr_rank(rmesh, out_dir, cases):
+    """One rank of the multi-rank phase: each case of ``cases`` (uniform
+    paths, tracers, the refined placement) with this rank's launches,
+    seconds and bytes per fill; writes ``rank{r}.json`` and the rank's (or
+    rank 0's gathered) results."""
+    from athenapk_tpu_torch.amr.sharded import (ShardedSmrHydro,
+                                                flat_owners, gather, place)
+    from athenapk_tpu_torch.parallel import halo, mesh_sharding as ms
+    from athenapk_tpu_torch.parallel.dryrun import tracer_setup
+    from athenapk_tpu_torch.tracers.sharded import (make_sharded_tracer_ops,
+                                                    shard_pool)
+
+    load_port()
+    res = {}
+    r = rmesh.rank
+
+    def timed(fn):
+        torch.cuda.synchronize()
+        reset_counts()
+        sent0 = rmesh.sent_bytes
+        t0 = time.perf_counter()
+        out = fn()
+        torch.cuda.synchronize()
+        return out, {"seconds": time.perf_counter() - t0,
+                     "launches": list(read_counts() + read_face_counts()),
+                     "sent_bytes": rmesh.sent_bytes - sent0}
+
+    for case in cases:
+        name, kind = case["name"], case["kind"]
+        if kind == "uniform":
+            sim = make_sim(mr_deck(case["path"]), case["rung"])
+            pkg, mesh = sim.pkg, sim.mesh
+            ncycles = MR_PATHS[case["path"]][4]
+            if case.get("grid"):
+                gm = halo.make_device_mesh_2d(rmesh, case["grid"])
+                stepper = halo.make_sharded_step_grid(pkg, gm)
+                local = halo.shard_grid(halo.to_grid(sim.u, mesh), mesh, gm)
+                wanted = sum(halo.halo_bytes(local.shape, mesh, d,
+                                             local.element_size())
+                             for d in (2, 3))
+            else:
+                gm = rmesh
+                stepper = halo.make_sharded_step(pkg, rmesh)
+                local = ms.shard_state(sim.u, mesh, rmesh)
+                wanted = halo.halo_bytes(
+                    (mesh.nb3 // rmesh.world, mesh.nb2, mesh.nb1)
+                    + tuple(local.shape[1:]), mesh, 3, local.element_size())
+            del sim
+            sent0 = gm.sent_bytes
+            (local, dts), num = timed(lambda: mr_cycles(
+                stepper.step, stepper.dt, pkg, local, ncycles))
+            num["bytes_per_fill"] = (gm.sent_bytes - sent0) / (2 * ncycles)
+            num["halo_bytes_per_fill"] = wanted
+            num["dts"] = dts
+            num["cells"] = mesh.nx1 * mesh.nx2 * mesh.nx3
+            num["cycles"] = ncycles
+            np.save(os.path.join(out_dir, f"{name}.r{r}.npy"),
+                    local.cpu().numpy())
+        elif kind == "tracers":
+            spec = MR_TRACERS[case["path"]]
+            kw = {k: spec[k] for k in ("shape", "mb", "per_cell", "vel",
+                                       "seed")}
+            kw["capacity_factor"] = spec.get("capacity_factor", 2.0)
+            tr, st, prim = tracer_setup("cuda", **kw)
+            nb = tr.mesh.nblocks
+            per = nb // rmesh.world
+            p_loc = prim[r * per:(r + 1) * per]
+            advect, fill = make_sharded_tracer_ops(tr, rmesh)
+            pool = shard_pool(st, rmesh, nb)
+
+            def run_tracers(pool=pool):
+                for _ in range(spec["steps"]):
+                    pool = fill(advect(pool, p_loc, spec["dt"]), p_loc)
+                return pool
+
+            pool, num = timed(run_tracers)
+            num["cells"] = nb * tr.mesh.mbnx1 * tr.mesh.mbnx2 * tr.mesh.mbnx3
+            num["cycles"] = spec["steps"]
+            num["layer_cap"] = tr.mesh.nb1 * tr.mesh.nb2 * tr.cap
+            num["pool_active"] = int(st["active"][r * per:(r + 1) * per]
+                                     .sum())
+            np.savez(os.path.join(out_dir, f"{name}.r{r}.npz"),
+                     **{k: v.cpu().numpy() for k, v in pool.items()})
+        elif kind == "smr":
+            sim = make_smr_sim(smr_deck("A", n=MR_SMR_N, ncycles=3,
+                                        precision="single"), "stage",
+                               quiet=True)
+            sm = sim.smesh
+            owner = flat_owners(sm, rmesh.world)
+            sh = ShardedSmrHydro(sm, sim.cfg, sim.eos, owner, rmesh,
+                                 device=sim.device, stage_rung=True)
+            local = place(sim.state, sm, owner, r)
+            del sim
+
+            def run_smr(local=local):
+                want = 0
+                for _ in range(3):
+                    dt = float(sh.estimate_dt(local))
+                    local = sh.step(local, dt, 0.0)
+                    want += 2 * len(local)
+                return local, want
+
+            (local, want), num = timed(run_smr)
+            num["want_face_launches"] = want
+            num["cells"] = int(sm.levels.size) * int(np.prod(
+                (sm.base.mbnx1, sm.base.mbnx2, sm.base.mbnx3)))
+            num["cycles"] = 3
+            num["leaves"] = {str(k): int(v.shape[0]) for k, v in
+                             local.items()}
+            num.update(mr_fill_numbers(rmesh, sh, local))
+            whole = gather(local, sm, owner, rmesh)
+            if r == 0:
+                np.savez(os.path.join(out_dir, f"{name}.npz"),
+                         **{str(k): v.cpu().numpy() for k, v in
+                            whole.items()})
+        elif kind == "amr":
+            amr, state = mr_amr_build(case, rmesh)
+            (state, want), num = timed(lambda: mr_amr_ref(
+                amr, state, case["ncycles"]))
+            num["want_face_launches"] = want
+            num["device_leaf_counts"] = amr.device_leaf_counts(state)
+            num["remeshes"] = len(amr.remesh_log)
+            num["changed"] = sum(e["changed"] for e in amr.remesh_log)
+            num["cycles"] = case["ncycles"]
+            num["cells"] = int(amr.smesh.levels.size) * 16 ** 3
+            num.update(mr_fill_numbers(rmesh, amr._stepper, state))
+            whole = amr.exact_state(state)
+            if r == 0:
+                np.savez(os.path.join(out_dir, f"{name}.npz"),
+                         levels=amr.smesh.levels, lx1=amr.smesh.lx1,
+                         lx2=amr.smesh.lx2, lx3=amr.smesh.lx3,
+                         **{str(k): v.cpu().numpy() for k, v in
+                            whole.items()})
+        res[name] = num
+    with open(os.path.join(out_dir, f"rank{r}.json"), "w") as f:
+        json.dump(res, f)
+
+
+MR_CASES_2 = [
+    {"name": "M1 sweep", "kind": "uniform", "path": "M1", "rung": "sweep"},
+    {"name": "M1 stage", "kind": "uniform", "path": "M1", "rung": "stage"},
+    {"name": "M3", "kind": "tracers", "path": "M3"},
+    {"name": "M3 overflow", "kind": "tracers", "path": "M3 overflow"},
+    {"name": "M4 A", "kind": "smr"},
+    {"name": "M4 D'", "kind": "amr", "n": 64, "rung": "negdiv",
+     "ncycles": MR_AMR_CYCLES},
+]
+MR_CASES_4 = [{"name": "M2", "kind": "uniform", "path": "M2",
+               "rung": "sweep", "grid": (2, 2)}]
+
+
+def mr_ranks(out, world):
+    with open(os.path.join(out, f"rank{0}.json")) as f:
+        keys = list(json.load(f))
+    per = []
+    for r in range(world):
+        with open(os.path.join(out, f"rank{r}.json")) as f:
+            per.append(json.load(f))
+    return {k: [p[k] for p in per] for k in keys}
+
+
+def mr_equal(what, got, want):
+    got = torch.as_tensor(got).cpu()
+    if not torch.equal(got, want.cpu()):
+        diff = (got.double() - want.cpu().double()).abs()
+        raise AssertionError(f"{what}: differs from the one-rank run "
+                             f"(max |diff| {diff.max().item():.3e})")
+
+
+def phase_multirank():
+    """Slice 11: the multi-rank paths, ranks spawned on the one card (gloo,
+    messages staged through pinned host buffers), each against its
+    one-rank run in this process bit for bit; then M1's step with nccl at
+    world size 1.  -> {path: numbers} with each rank's launches."""
+    from athenapk_tpu_torch.parallel.dryrun import run_ranks, tracer_setup
+    from athenapk_tpu_torch.parallel import halo, mesh_sharding as ms
+
+    log("== phase 4: multi-rank paths on one card (M1-M4, NCCL at world "
+        "size 1) ==")
+    t_phase = time.time()
+    out = tempfile.mkdtemp(dir=str(OUT.parent) if OUT.parent.exists()
+                           else None)
+    results = {}
+    for world, cases in ((2, MR_CASES_2), (4, MR_CASES_4)):
+        t0 = time.time()
+        run_ranks(mr_rank, world, (out, cases), device="cuda", timeout=600)
+        log(f"  {world} ranks: {time.time() - t0:.1f} s (spawn included)")
+        results.update(mr_ranks(out, world))
+
+    nums = {}
+    for case in MR_CASES_2 + MR_CASES_4:
+        name, kind = case["name"], case["kind"]
+        per = results[name]
+        world = len(per)
+        secs = max(p["seconds"] for p in per)
+        zcps = per[0]["cells"] * per[0]["cycles"] / secs
+        entry = {"ranks": world, "seconds": secs,
+                 "zone_cycles_per_s": zcps, "rate_label":
+                 f"{world} {MR_LABEL}",
+                 "launches_per_rank": [p["launches"] for p in per]}
+        if kind == "uniform":
+            ref, dts = mr_one_rank_uniform(case["path"], case["rung"])
+            for r, p in enumerate(per):
+                if [tuple(x) for x in p["dts"]] != dts:
+                    raise AssertionError(f"{name}: rank {r} dts {p['dts']} "
+                                         f"!= one-rank {dts}")
+                got = np.load(os.path.join(out, f"{name}.r{r}.npy"))
+                if case.get("grid"):
+                    gm = ms.RankMesh(r, world, case["grid"], ("z", "y"),
+                                     torch.device("cuda"), "gloo")
+                    mesh = PORT.Mesh.from_parameter_input(
+                        PORT.ParameterInput.from_string(mr_deck(
+                            case["path"])))
+                    sz, sy = halo.grid_sharding(mesh, gm)
+                    want = halo.to_grid(ref, mesh)[sz, sy]
+                else:
+                    n = ref.shape[0] // world
+                    want = ref[r * n:(r + 1) * n]
+                mr_equal(f"{name} rank {r}", got, want)
+                if p["bytes_per_fill"] != p["halo_bytes_per_fill"]:
+                    raise AssertionError(
+                        f"{name}: rank {r} sent {p['bytes_per_fill']} bytes "
+                        f"per fill, the halo is {p['halo_bytes_per_fill']}")
+            rung_counts = RUNG_LAUNCHES[case["rung"]]
+            want_l = [k * MR_PATHS[case["path"]][4] for k in rung_counts]
+            for r, p in enumerate(per):
+                if p["launches"][:2] != want_l:
+                    raise AssertionError(f"{name}: rank {r} launches "
+                                         f"{p['launches'][:2]} != {want_l}")
+            entry.update(dts=dts, bytes_per_fill=[p["bytes_per_fill"]
+                                                  for p in per],
+                         state_bytes=int(ref.numel() * ref.element_size()))
+            del ref
+        elif kind == "tracers":
+            spec = MR_TRACERS[case["path"]]
+            kw = {k: spec[k] for k in ("shape", "mb", "per_cell", "vel",
+                                       "seed")}
+            kw["capacity_factor"] = spec.get("capacity_factor", 2.0)
+            tr, st, prim = tracer_setup("cuda", **kw)
+            for _ in range(spec["steps"]):
+                st = tr.fill(tr.advect(st, prim, spec["dt"]), prim)
+            per_b = tr.mesh.nblocks // world
+            for r in range(world):
+                got = np.load(os.path.join(out, f"{name}.r{r}.npz"))
+                for k, v in st.items():
+                    want = v if v.dim() < 2 else v[r * per_b:(r + 1) * per_b]
+                    mr_equal(f"{name} rank {r} {k}", got[k], want)
+            n0 = int(tracer_setup("cuda", **kw)[1]["active"].sum())
+            entry.update(active=int(st["active"].sum()), seeded=n0,
+                         n_lost=int(st["n_lost"]),
+                         layer_cap=per[0]["layer_cap"],
+                         leavers_per_rank=[p["pool_active"] for p in per])
+            if case["path"] == "M3 overflow":
+                if int(st["n_lost"]) != 0 or entry["active"] != n0 \
+                        or min(entry["leavers_per_rank"]) <= \
+                        entry["layer_cap"]:
+                    raise AssertionError(f"{name}: {entry}")
+        else:
+            if kind == "smr":
+                sim = make_smr_sim(smr_deck("A", n=MR_SMR_N, ncycles=3,
+                                            precision="single"), "stage",
+                                   quiet=True)
+                st = sim.state
+                for _ in range(3):
+                    dt = float(sim.stepper.estimate_dt(st))
+                    st = sim.stepper.step(st, dt, 0.0)
+                table = sim.smesh
+            else:
+                amr, state = mr_amr_build(case, None)
+                st, _ = mr_amr_ref(amr, state, case["ncycles"])
+                table = amr.smesh
+                entry.update(device_leaf_counts=per[0][
+                    "device_leaf_counts"], remeshes=per[0]["remeshes"],
+                    tables_changed=per[0]["changed"])
+                log(f"  {name}: device_leaf_counts "
+                    f"{per[0]['device_leaf_counts']}, {per[0]['remeshes']} "
+                    f"remeshes ({per[0]['changed']} changed the leaves)")
+                if per[0]["changed"] < 1:
+                    raise AssertionError(f"{name}: no remesh changed the "
+                                         "leaves")
+            got = np.load(os.path.join(out, f"{name}.npz"))
+            if kind == "amr":
+                for k in ("levels", "lx1", "lx2", "lx3"):
+                    if not np.array_equal(got[k], getattr(table, k)):
+                        raise AssertionError(f"{name}: leaf table differs")
+            for lev, v in st.items():
+                mr_equal(f"{name} level {lev}", got[str(lev)], v)
+            face = 0 if kind == "smr" else 1
+            for r, p in enumerate(per):
+                if p["launches"][2 + face] != p["want_face_launches"]:
+                    raise AssertionError(
+                        f"{name}: rank {r} face launches {p['launches']} != "
+                        f"{p['want_face_launches']}")
+                if not (p["bytes_per_fill"] == p["plan_bytes_per_fill"]
+                        and 0 < p["bytes_per_fill"] <= p["face_slab_bytes"]
+                        and p["bytes_per_fill"] < p["all_gather_bytes"]):
+                    raise AssertionError(
+                        f"{name}: rank {r} sent {p['bytes_per_fill']} bytes "
+                        f"per fill; its schedule {p['plan_bytes_per_fill']}, "
+                        f"the face slabs {p['face_slab_bytes']}, an "
+                        f"all-gather {p['all_gather_bytes']}")
+            entry.update(bytes_per_fill=[p["bytes_per_fill"] for p in per],
+                         face_slab_bytes=[p["face_slab_bytes"] for p in per],
+                         all_gather_bytes=[p["all_gather_bytes"]
+                                           for p in per],
+                         state_bytes=int(sum(v.numel() * v.element_size()
+                                             for v in st.values())))
+        log(f"  {name}: {world} ranks, bit for bit with one rank; "
+            f"{secs:.3f} s; launches per rank {entry['launches_per_rank']}; "
+            f"{zcps:.6e} zone-cycles/s ({world} {MR_LABEL})"
+            + (f"; bytes sent per fill per rank {entry['bytes_per_fill']} "
+               f"(= the plan's; the state: {entry['state_bytes']})"
+               if "bytes_per_fill" in entry else "")
+            + (f"; face-slab bound {entry['face_slab_bytes']}, all-gather "
+               f"{entry['all_gather_bytes']}"
+               if "face_slab_bytes" in entry else ""))
+        nums[name] = entry
+    shutil.rmtree(out, ignore_errors=True)
+
+    # nccl at world size 1: M1's step on the sweep rung, bit for bit
+    ref, dts = mr_one_rank_uniform("M1", "sweep")
+    sim = make_sim(mr_deck("M1"), "sweep")
+    with tempfile.TemporaryDirectory() as tmp:
+        rm = ms.init_rank_mesh(0, 1, "file://" + os.path.join(tmp, "r"),
+                               "cuda")
+        try:
+            if rm.backend != "nccl":
+                raise AssertionError(f"world size 1 chose {rm.backend}")
+            stepper = halo.make_sharded_step(sim.pkg, rm)
+            torch.cuda.synchronize()
+            reset_counts()
+            got, got_dts = mr_cycles(stepper.step, stepper.dt, sim.pkg,
+                                     sim.u, MR_PATHS["M1"][4])
+            launches = list(read_counts())
+        finally:
+            torch.distributed.destroy_process_group()
+    mr_equal("M1 nccl world 1", got, ref)
+    if got_dts != dts:
+        raise AssertionError(f"nccl dts {got_dts} != {dts}")
+    want_l = [k * MR_PATHS["M1"][4] for k in RUNG_LAUNCHES["sweep"]]
+    if launches != want_l:
+        raise AssertionError(f"nccl launches {launches} != {want_l}")
+    nums["M1 nccl"] = {"ranks": 1, "backend": "nccl", "launches":
+                       launches, "dts": dts}
+    log(f"  M1 with nccl at world size 1: bit for bit with the plain "
+        f"step (state and {len(dts)} dts), launches {launches}")
+    del sim, ref, got
+    log(f"  multi-rank phase: {time.time() - t_phase:.1f} s")
+    return nums
+
+
 def entry_route(entry):
     """The phase-3 route label prefix of a kernel line entry."""
     return {"negdiv_sweep": "#1", "fused_stage": "#3", "negdiv_sweep_2d": "#4",
@@ -5068,6 +5556,7 @@ def main(argv=None):
     amr_tracers = phase_amr_tracers(args.seed)
     restarts = phase_restart_on_card()
     trace_cli = phase_trace_cli()
+    multirank = phase_multirank()
     phase_whole_steps(args.seed)
     smr_drift = phase_smr_whole_steps(args.seed)
     amr_2d_launches = phase_amr_whole_steps(args.seed)
@@ -5279,6 +5768,31 @@ def main(argv=None):
         scalar_entries[1 if rung == "stage" else 0]["launches_by_path"][
             key] = num["scalar_launches"]
     sweep_entry["cluster_decks_whole_steps_f64"] = cluster_steps
+    # the multi-rank paths: each rank's launches from its own run (its
+    # counts set to 0 just before, read just after), summed over the ranks
+    # (entry, launch counter, whether the entry's per-cycle counts come
+    # from ``cycles``)
+    route = {"M1 sweep": (sweep_entry, 0, True), "M2": (sweep_entry, 0, True),
+             "M1 stage": (stage_entry, 1, True),
+             "M4 A": (faces_entry, 2, False), "M4 D'": (nd3_entry, 3, False)}
+    for name, num in multirank.items():
+        if name == "M1 nccl":
+            key = "M1 sweep rung, nccl at world size 1"
+            sweep_entry["launches_by_path"][key] = num["launches"][0]
+            cycles[key] = len(num["dts"])
+            continue
+        if name not in route:
+            continue
+        entry, k, by_cycles = route[name]
+        key = f"{name} ({num['ranks']} ranks on one card)"
+        n = sum(per[k] for per in num["launches_per_rank"])
+        entry["launches_by_path"][key] = n
+        if by_cycles:
+            cycles[key] = MR_PATHS[name.split()[0]][4]
+        else:
+            entry["launches_per_cycle"][key] = n / (3 if name == "M4 A" else
+                                                    MR_AMR_CYCLES)
+    sweep_entry["multi_rank"] = multirank
     scalar_entries[0]["path_G_prime"] = {r: v[1] for r, v in cloud_u.items()}
     scalar_entries[0]["path_G_prime_cooling_passes"] = cooling_passes
     scalar_entries[1]["path_G"] = {r: v[1] for r, v in cloud_a.items()}

@@ -1,7 +1,8 @@
 """The port stands alone: no module of ``athenapk_tpu_torch`` and not
 ``chip_smoke.py`` imports ``jax``, ``jaxlib`` or ``athenapk_tpu``; nor do the
 card tests and their deck helper, which run where only the port is
-installed.
+installed, nor the rank functions of the multi-rank tests, which run in
+spawned processes that import only the port.
 
 Checked on the sources with ``ast``, because an interpreter may have jax
 in ``sys.modules`` already at start-up, which would make a runtime check
@@ -17,7 +18,7 @@ ROOT = Path(__file__).resolve().parents[1]
 FORBIDDEN = ("jax", "jaxlib", "athenapk_tpu")
 SOURCES = sorted((ROOT / "athenapk_tpu_torch").rglob("*.py")) + [
     ROOT / "chip_smoke.py", ROOT / "tests" / "test_torch_cuda.py",
-    ROOT / "tests" / "torch_decks.py"]
+    ROOT / "tests" / "torch_decks.py", ROOT / "tests" / "torch_dist_workers.py"]
 
 
 def _is_forbidden(module: str) -> bool:
@@ -58,13 +59,15 @@ def test_no_jax_imports(path):
     "amr/remesh.py", "diffusion/diffusion.py", "utils/few_modes_ft.py",
     "pgen/turbulence.py", "pgen/rand_blast.py", "pgen/diffusion.py",
     "outputs/hdf5.py", "outputs/restart.py", "tracers/tracers.py",
-    "tracers/smr_tracers.py"])
+    "tracers/smr_tracers.py", "parallel/__init__.py",
+    "parallel/mesh_sharding.py", "parallel/halo.py", "parallel/dryrun.py",
+    "tracers/sharded.py", "amr/sharded.py"])
 def test_refined_mesh_modules_are_checked(module):
     """The refined-mesh slices' modules (static and adaptive), the forest
-    binding among them, the diffusion and forcing modules, and the output,
+    binding among them, the diffusion and forcing modules, the output,
     restart and tracer modules (which replace numpy-only or jax modules of
-    the JAX package with copies of their own) are among the sources
-    checked above."""
+    the JAX package with copies of their own) and the multi-rank modules
+    are among the sources checked above."""
     assert ROOT / "athenapk_tpu_torch" / module in SOURCES
 
 
