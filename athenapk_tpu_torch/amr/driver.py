@@ -350,7 +350,8 @@ class SmrSimulation:
         """``factory(smesh)`` of the unsplit source, the first-order and
         the Strang split source (each None where the problem has none; the
         JAX driver's ``_split_factory``: an ``_smr`` hook wins over the
-        per-level adapter of the uniform hook)."""
+        per-level adapter of the uniform hook).  The unsplit factory passes
+        keywords on to the hook (``leaves=`` over ranks, the cluster's)."""
         pin, cfg, eos, pgen = self.pin, self.cfg, self.eos, self.pgen
         unsplit = getattr(pgen, "problem_source_unsplit_smr", None)
 
@@ -364,7 +365,7 @@ class SmrSimulation:
             return None
 
         return ((None if unsplit is None
-                 else (lambda sm: unsplit(pin, sm, cfg, eos))),
+                 else (lambda sm, **kw: unsplit(pin, sm, cfg, eos, **kw))),
                 split("problem_source_first_order"),
                 split("problem_source_strang"))
 

@@ -43,7 +43,9 @@ level.  Each rank holds its leaves' rows and steps them with a
 ``ShardedSmrHydro``; the tags are gathered (small vectors) so every rank
 updates its forest alike, and ``transfer_sharded`` moves each new leaf's
 rows from its old owner, which copies, prolongs or restricts them.  The
-problem's source hooks reduce over leaves and are refused over ranks.
+problem's unsplit source runs on the rank's rows, its sums over every
+rank's leaves (``amr/leaf_sums.py``); the split sources are refused over
+ranks, where the JAX package drops them.
 """
 
 from __future__ import annotations
@@ -211,6 +213,9 @@ class AmrHydro:
     JAX package's ``athenapk_tpu/amr/remesh.py:379-450``): the unsplit
     source ``src(state, prims, beta_dt, t)``, and the first-order and
     Strang split sources ``src(state, dt, t)`` that the driver applies.
+    Over ranks the unsplit factory is called as ``factory(smesh,
+    leaves=...)`` with the rank's ``amr.leaf_sums.LeafSums`` (its rows and
+    the sums over every rank's leaves); the split factories are refused.
     """
 
     def __init__(self, smesh: SmrMesh, cfg, eos, refine_cfg,
@@ -223,11 +228,13 @@ class AmrHydro:
 
         if layout not in OWNERS:
             raise ValueError(f"unknown AMR layout {layout!r}")
-        if rmesh is not None and (problem_source_factory is not None
-                                  or problem_first_order_factory is not None
+        if rmesh is not None and (problem_first_order_factory is not None
                                   or problem_strang_factory is not None):
-            raise ValueError("problem source hooks reduce over leaves and "
-                             "are not sharded")
+            raise ValueError(
+                "split problem sources (first-order, Strang) do not run "
+                "over ranks: the JAX package's sharded AmrHydro drops them "
+                "without a word (athenapk_tpu/amr/remesh.py:184-189); the "
+                "port refuses them instead of stepping without them")
         # ranks over the leaves (parallel.mesh_sharding.RankMesh) and their
         # ownership: "flat" (exact to one leaf) or "padded" (per level)
         self.rmesh = rmesh
@@ -277,7 +284,8 @@ class AmrHydro:
                     self.smesh, self.cfg, self.eos, self._owner, self.rmesh,
                     device=self.device, stage_rung=self._stage_rung,
                     cooling=self.cooling, custom_bcs=self.custom_bcs,
-                    diffusion=self.diffusion)
+                    diffusion=self.diffusion,
+                    problem_source_factory=self.problem_source_factory)
             else:
                 st = SmrHydro(
                     self.smesh, self.cfg, self.eos, device=self.device,
@@ -306,8 +314,8 @@ class AmrHydro:
         with the next cycle's dt.  Sharded: the rank's own leaves."""
         if self.rmesh is not None:
             own = own_ids(self.smesh, self._owner, self.rmesh.rank)
-            return [(own[lev], self._level_tags(u))
-                    for lev, u in state.items()]
+            return [(own[lev], self._level_tags(state[lev]))
+                    for lev in self.smesh.level_ids if lev in state]
         state = self.exact_state(state)
         return [(ids, self._level_tags(state[lev]))
                 for lev, ids in self.smesh.level_ids.items()]
@@ -316,17 +324,22 @@ class AmrHydro:
         """Global tag array of ``dispatch_tags``' parts.  ``flat``: their
         values already on the host, concatenated in order; otherwise they
         are read here, in one read.  Sharded: every rank's small tag
-        vector is gathered, so every rank holds the same global array."""
-        if flat is None:
-            flat = torch.cat([t for _, t in parts]).cpu().numpy()
+        vector is gathered (each rank's leaves, in level then id order,
+        are known to all) and read once, so every rank holds the same
+        global array after as many host reads as one rank."""
         tags = np.zeros(self.smesh.levels.size, np.int32)
         if self.rmesh is not None:
-            ids = np.concatenate([i for i, _ in parts]).astype(np.int64)
-            for i, v in zip(self.rmesh.all_gather(torch.as_tensor(ids)),
-                            self.rmesh.all_gather(torch.as_tensor(
-                                np.asarray(flat, np.int32)))):
-                tags[i.cpu().numpy()] = v.cpu().numpy()
+            mine = (torch.cat([t for _, t in parts]) if flat is None
+                    else torch.as_tensor(np.asarray(flat, np.int32)))
+            ids = [np.concatenate(list(own_ids(self.smesh, self._owner,
+                                               r).values()))
+                   for r in range(self.rmesh.world)]
+            got = self.rmesh.all_gather(mine.to(torch.int32),
+                                        sizes=[i.size for i in ids])
+            tags[np.concatenate(ids)] = torch.cat(got).cpu().numpy()
             return tags
+        if flat is None:
+            flat = torch.cat([t for _, t in parts]).cpu().numpy()
         o = 0
         for ids, _ in parts:
             tags[ids] = flat[o:o + ids.size]

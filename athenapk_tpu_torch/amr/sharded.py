@@ -30,7 +30,8 @@ since has written into.  The schedule is fixed per leaf table
 rows would (``parallel.dryrun.fill_send_bounds``).  The coarse-fine flux
 correction receives the fine children's face slabs for the coarse owner
 (``ShardedSmrHydro``), the dt is the minimum over ranks and the mass the
-sum.
+sum.  A problem's unsplit source runs on the rank's rows and sums over
+every rank's leaves through ``leaf_sums.LeafSums``.
 
 A remesh (``transfer_sharded``): every rank applies the same global tags
 to its own copy of the forest; each new leaf's rows are made by the old
@@ -47,6 +48,7 @@ import torch
 
 from ..core.amr_forest import COPY, PROLONG, RESTRICT
 from ..refinement.prolong_restrict import prolongate_minmod, restrict_average
+from .leaf_sums import LeafSums
 from .smr import SmrMesh, SmrState
 from .smr_hydro import SmrHydro
 
@@ -310,20 +312,31 @@ class ShardedSmrHydro(SmrHydro):
     """``SmrHydro`` on one rank's rows: the per-level kernels run on the
     rank's leaves, the fill is ``ShardedSmrState``'s, the flux correction
     receives the remote fine children's face slabs, the dt is reduced with
-    ``all_reduce(MIN)`` and ``total_mass`` with ``all_reduce(SUM)``.  It
-    takes no problem source hooks: they reduce over leaves."""
+    ``all_reduce(MIN)`` and ``total_mass`` with ``all_reduce(SUM)``.
+
+    ``problem_source_factory(smesh, leaves=...)`` builds the unsplit
+    problem source on the rank's rows: ``leaves`` is the rank's
+    ``LeafSums`` (its leaves' ids, and sums over every rank's leaves in
+    global leaf order, one ``all_reduce`` per call).  Split sources are
+    not taken."""
 
     def __init__(self, smesh: SmrMesh, cfg, eos, owner, rmesh,
                  device="cuda", stage_rung=None, cooling=None,
-                 custom_bcs=None, diffusion=None):
+                 custom_bcs=None, diffusion=None,
+                 problem_source_factory=None):
         self.owner = np.asarray(owner)
         self.rmesh = rmesh
         if not (self.owner == rmesh.rank).any():
             raise ValueError(f"rank {rmesh.rank} owns no leaf of the "
                              f"{smesh.levels.size} (fewer leaves than ranks)")
+        src = None
+        if problem_source_factory is not None:
+            src = problem_source_factory(smesh, leaves=LeafSums(
+                smesh, own_ids(smesh, self.owner, rmesh.rank), rmesh))
         super().__init__(smesh, cfg, eos, device=device,
                          stage_rung=stage_rung, cooling=cooling,
-                         custom_bcs=custom_bcs, diffusion=diffusion)
+                         custom_bcs=custom_bcs, diffusion=diffusion,
+                         problem_source_unsplit=src)
         self._slab_sched = self._build_slab_schedule()
 
     def _make_state_mgr(self, custom_bcs):

@@ -23,9 +23,12 @@ geometry) and less than an all-gather of the rank's rows; it prints them
 beside the state's size.  Run::
 
     python -m athenapk_tpu_torch.parallel.dryrun --ranks 8 [--device cpu]
+        [--cards N]
 
-(the default, ``--device cuda``, puts every rank on the card: gloo with
-host staging when the ranks share one; it raises where there is no card).
+(the default, ``--device cuda``, puts rank ``r`` on card ``r % N``, N the
+visible cards or ``--cards``: NCCL with one card per rank, CUDA tensors
+sent directly; gloo with host staging when ranks share a card; it raises
+where there is no card).  Each rank's backend is printed.
 """
 
 from __future__ import annotations
@@ -45,26 +48,29 @@ import torch.multiprocessing as mp
 from .mesh_sharding import init_rank_mesh
 
 
-def _rank_main(rank, world, init_method, fn, device, args):
+def _rank_main(rank, world, init_method, fn, device, args, cards=None):
     if device == "cpu":
         # one thread per rank: N ranks share the host's cores
         torch.set_num_threads(1)
-    rmesh = init_rank_mesh(rank, world, init_method, device)
+    rmesh = init_rank_mesh(rank, world, init_method, device, cards=cards)
     try:
         fn(rmesh, *args)
     finally:
         dist.destroy_process_group()
 
 
-def run_ranks(fn, world, args=(), device="cuda", timeout=900.0):
+def run_ranks(fn, world, args=(), device="cuda", timeout=900.0,
+              cards=None):
     """Run ``fn(rmesh, *args)`` on ``world`` spawned ranks and wait for all
     of them; raises if a rank raises or the run outlasts ``timeout``
     seconds (every rank is then stopped).  ``fn`` must be importable by
-    name (a module-level function)."""
+    name (a module-level function).  ``cards``: how many visible cards the
+    ranks use (``init_rank_mesh``; all by default: NCCL when there are
+    ``world`` of them, gloo when ranks share)."""
     with tempfile.TemporaryDirectory() as tmp:
         init = "file://" + os.path.join(tmp, "rendezvous")
         ctx = mp.start_processes(
-            _rank_main, args=(world, init, fn, device, tuple(args)),
+            _rank_main, args=(world, init, fn, device, tuple(args), cards),
             nprocs=world, join=False, start_method="spawn")
         deadline = time.monotonic() + timeout
         while not ctx.join(timeout=1.0):
@@ -322,7 +328,9 @@ def _tracer_case(rmesh):
 
 
 def _dryrun_rank(rmesh, out_dir):
-    res = {"uniform_z_slabs": _uniform_case(rmesh, None)}
+    res = {"backend": {"backend": rmesh.backend, "device": str(rmesh.device),
+                       "staged": rmesh.staged}}
+    res["uniform_z_slabs"] = _uniform_case(rmesh, None)
     if rmesh.world >= 4 and rmesh.world % 2 == 0:
         res["grid_z_y"] = _uniform_case(rmesh, (rmesh.world // 2, 2))
     res["adaptive_flat"] = _amr_case(rmesh)
@@ -331,11 +339,12 @@ def _dryrun_rank(rmesh, out_dir):
         json.dump(res, f)
 
 
-def dryrun_multichip(n, device="cuda"):
+def dryrun_multichip(n, device="cuda", cards=None):
     """Run every sharded path on ``n`` ranks against the one-rank run; ->
-    ``{rank: {case: numbers}}``.  Raises on any difference."""
+    ``{rank: {case: numbers}}`` (``backend``: each rank's backend, card and
+    staging).  Raises on any difference."""
     with tempfile.TemporaryDirectory() as out:
-        run_ranks(_dryrun_rank, n, (out,), device=device)
+        run_ranks(_dryrun_rank, n, (out,), device=device, cards=cards)
         res = {}
         for r in range(n):
             with open(os.path.join(out, f"rank{r}.json")) as f:
@@ -347,14 +356,19 @@ def main(argv=None):
     ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
     ap.add_argument("--ranks", type=int, default=8)
     ap.add_argument("--device", default="cuda", choices=("cpu", "cuda"))
+    ap.add_argument("--cards", type=int, default=None,
+                    help="visible cards the ranks use (default all: NCCL "
+                    "with one card per rank when there are enough, gloo "
+                    "when ranks share)")
     args = ap.parse_args(argv)
     t0 = time.time()
-    res = dryrun_multichip(args.ranks, args.device)
+    res = dryrun_multichip(args.ranks, args.device, args.cards)
     for case in res[0]:
         print(f"{case}: " + json.dumps({r: res[r][case] for r in res}))
-    print(f"dry run on {args.ranks} ranks ({args.device}): every sharded "
-          f"path equals the one-rank run bit for bit "
-          f"({time.time() - t0:.1f} s)")
+    backends = sorted({res[r]["backend"]["backend"] for r in res})
+    print(f"dry run on {args.ranks} ranks ({args.device}, backend "
+          f"{'/'.join(backends)}): every sharded path equals the one-rank "
+          f"run bit for bit ({time.time() - t0:.1f} s)")
     return 0
 
 

@@ -177,11 +177,28 @@ class ShardedStep:
         return iter((self.step, self.dt))
 
 
+def check_no_problem_source(pkg):
+    """Refuse a package with an unsplit problem source: the uniform hooks
+    close over the whole mesh's coordinates and sum over its blocks, so on
+    a rank's rows they would fail on a shape or make rank-local sums (the
+    JAX package's ``shard_map`` step runs the same closure and fails on
+    the shapes when it traces).  Refined meshes shard the hook
+    (``AmrHydro(rmesh=...)``)."""
+    if getattr(pkg, "problem_source_unsplit", None) is not None:
+        raise ValueError(
+            "a uniform sharded step does not run the problem's unsplit "
+            "source: the hook holds the whole mesh's coordinates and sums "
+            "over all blocks; run the problem on a refined mesh over ranks "
+            "(AmrHydro(rmesh=...)) or on one rank")
+
+
 def make_sharded_step(pkg, rmesh: RankMesh, axis_name: str = "blocks"):
     """``ShardedStep`` over the rows of a z-slab rank grid; unpacks as the
     JAX package's ``(step_fn, dt_fn)``: ``step_fn(u, dt, c_h) -> u'`` and
     ``dt_fn(u) -> (dt, dt_hyp, dt_diff)`` on this rank's
-    ``[nblocks / world, nvar, NZ, NY, NX]`` rows."""
+    ``[nblocks / world, nvar, NZ, NY, NX]`` rows.  A package with an
+    unsplit problem source is refused (``check_no_problem_source``)."""
+    check_no_problem_source(pkg)
     fill = make_sharded_boundary_fn(pkg.mesh, rmesh, axis_name,
                                     getattr(pkg, "custom_bcs", None))
     return ShardedStep(pkg, rmesh, fill, lambda u: u, lambda v, u: v)
@@ -240,7 +257,9 @@ def gather_grid(ug_local, mesh: Mesh, rmesh: RankMesh, names=("z", "y")):
 def make_sharded_step_grid(pkg, rmesh: RankMesh, names=("z", "y")):
     """``ShardedStep`` over a 2-D ``(z, y)`` rank grid, on grid-shaped
     pieces ``[nb3 / ndz, nb2 / ndy, nb1, nvar, NZ, NY, NX]`` (place them
-    with ``to_grid`` and ``shard_grid``).  Either axis may have size 1."""
+    with ``to_grid`` and ``shard_grid``).  Either axis may have size 1.  A
+    package with an unsplit problem source is refused."""
+    check_no_problem_source(pkg)
     mesh = pkg.mesh
     zname, yname = names
     sz, sy = grid_sharding(mesh, rmesh, names)

@@ -120,10 +120,15 @@ class RankMesh:
 
         ``sends``: ``[(peer, tensor, tag)]``; ``recvs``: ``[(peer, shape,
         dtype, tag)]``.  A pair of ranks that exchanges several messages
-        tells them apart by ``tag``.  Returns the received tensors, in the
+        tells them apart by ``tag`` (gloo matches tags; NCCL matches the
+        messages of a pair in the order they are posted, which both sides
+        share).  Empty messages are not posted (NCCL takes none); their
+        receive is an empty tensor.  Returns the received tensors, in the
         order of ``recvs``, on this rank's device."""
         ops, out, staged_recv = [], [], []
         for peer, t, tag in sends:
+            if t.numel() == 0:
+                continue   # the peer posts no receive for it either
             t = t.contiguous()
             if self.staged:
                 buf = self._host(("send", peer, tag), t.shape, t.dtype)
@@ -132,6 +137,11 @@ class RankMesh:
             self.sent_bytes += t.numel() * t.element_size()
             ops.append(dist.P2POp(dist.isend, t, peer, tag=tag))
         for peer, shape, dtype, tag in recvs:
+            if int(np.prod(shape)) == 0:
+                out.append(torch.empty(tuple(shape), dtype=dtype,
+                                       device=self.device))
+                staged_recv.append(False)
+                continue
             if self.staged:
                 buf = self._host(("recv", peer, tag), shape, dtype)
                 staged_recv.append(True)
@@ -155,13 +165,16 @@ class RankMesh:
         dist.all_reduce(w, op=ops[op])
         return w
 
-    def all_gather(self, t):
+    def all_gather(self, t, sizes=None):
         """Every rank's ``t`` (leading sizes may differ), in rank order, on
-        this device."""
-        n = torch.tensor([t.shape[0]], dtype=torch.int64, device=self.device)
-        sizes = [torch.zeros_like(n) for _ in range(self.world)]
-        dist.all_gather(sizes, n)
-        sizes = [int(s) for s in sizes]
+        this device.  ``sizes``: every rank's leading size where the caller
+        knows them; otherwise they are gathered first (one host read)."""
+        if sizes is None:
+            n = torch.tensor([t.shape[0]], dtype=torch.int64,
+                             device=self.device)
+            got = [torch.zeros_like(n) for _ in range(self.world)]
+            dist.all_gather(got, n)
+            sizes = torch.cat(got).tolist()
         pad = torch.zeros((max(sizes),) + tuple(t.shape[1:]), dtype=t.dtype,
                           device=self.device)
         pad[:t.shape[0]] = t
@@ -171,24 +184,38 @@ class RankMesh:
 
 
 def init_rank_mesh(rank, world, init_method, device="cuda", shape=None,
-                   names=("blocks",), quiet=False) -> RankMesh:
+                   names=("blocks",), quiet=False, cards=None) -> RankMesh:
     """Join the process group (``init_method``: e.g. ``file:///tmp/rdv``
     or ``tcp://localhost:PORT``) and return this rank's ``RankMesh``.
 
-    ``device``: ``"cuda"`` (rank ``r`` takes card ``r % device_count``) or
-    ``"cpu"``.  The backend follows ``choose_backend``; rank 0 prints it.
-    A failed init raises."""
+    ``device``: ``"cuda"`` or ``"cpu"``.  On CUDA the ranks use the first
+    ``cards`` visible cards (all by default) and rank ``r`` takes card
+    ``r % cards``, set as the current device before the group forms.  The
+    backend follows ``choose_backend`` over those cards: NCCL with one card
+    per rank, its communicator made at once (every rank joins it here, so
+    a later point-to-point batch of a few ranks finds it), gloo when the
+    ranks share cards.  Rank 0 prints the backend.  A failed init raises."""
     dev = torch.device(device)
     n_cuda = torch.cuda.device_count() if dev.type == "cuda" else 0
     if dev.type == "cuda":
         if n_cuda == 0:
             raise RuntimeError("no CUDA device is available; ask for the "
                                "CPU explicitly (device='cpu')")
+        if cards is not None:
+            if not 1 <= cards <= n_cuda:
+                raise ValueError(f"{cards} cards asked for, {n_cuda} "
+                                 "visible")
+            n_cuda = cards
         dev = torch.device("cuda", rank % n_cuda)
         torch.cuda.set_device(dev)
     backend = choose_backend(dev.type, world, n_cuda)
-    dist.init_process_group(backend, init_method=init_method, rank=rank,
-                            world_size=world)
+    if backend == "nccl":
+        dist.init_process_group(backend, init_method=init_method, rank=rank,
+                                world_size=world, device_id=dev)
+        dist.barrier(device_ids=[dev.index])
+    else:
+        dist.init_process_group(backend, init_method=init_method, rank=rank,
+                                world_size=world)
     shape = tuple(shape) if shape is not None else (world,)
     rm = RankMesh(rank, world, shape, tuple(names), dev, backend)
     if rank == 0 and not quiet:

@@ -30,6 +30,20 @@ def where0(cond, val, like):
                                              device=like.device), 0.0)
 
 
+class _PlainSums:
+    """A uniform mesh's sums: ``torch.sum`` over a group, the groups'
+    partials added in order."""
+
+    partial = staticmethod(torch.sum)
+
+    @staticmethod
+    def total(parts):
+        return {k: sum(p[k] for _, p in parts) for k in parts[0][1]}
+
+
+PLAIN_SUMS = _PlainSums()
+
+
 class AGNFeedback:
     def __init__(self, pin, units, jet_coords, magnetic_tower,
                  mbar_over_kb, gamma, block="problem/cluster/agn_feedback"):
@@ -127,53 +141,61 @@ class AGNFeedback:
                                       or self.triggering is not None
                                       or fixed_field)
 
-    def apply_groups(self, groups, beta_dt, t, mhd):
+    def apply_groups(self, groups, beta_dt, t, mhd, sums=None):
         """AGN feedback over leaf groups (one per refinement level on a
         refined mesh, one on a uniform mesh), each a dict with ``u, prim,
         x, y, z, r, vol, valid`` (``vol`` that group's cell volume,
-        ``valid`` its interior mask or None).  The global reductions (the
-        accretion rate, the tower's energy quadratic, the Bondi region's
-        mass) are volume-weighted sums of per-group partials: the
-        cross-level analog of the reference's MPI_Allreduce
-        (``hydro_driver.cpp:360-449``).  Updates each ``u`` in place;
-        returns them in group order."""
+        ``valid`` its interior mask or None) and, with ``sums``, its
+        ``level``.  The global reductions (the accretion rate, the tower's
+        energy quadratic, the Bondi region's mass) are volume-weighted sums
+        of per-group partials: the cross-level analog of the reference's
+        MPI_Allreduce (``hydro_driver.cpp:360-449``).  ``sums`` takes them
+        (``partial(field)``, ``total([(level, {name: partial})])``): by
+        default ``torch.sum`` per group added across groups; on a refined
+        mesh ``amr.leaf_sums.LeafSums``, per leaf in global leaf order and
+        over ranks, all of a call's partials in one ``total``.  Updates
+        each ``u`` in place; returns them in group order."""
         if not self.active():
             return [g["u"] for g in groups]
+        sums = PLAIN_SUMS if sums is None else sums
         trig = self.triggering
-
-        # the global accretion rate from the groups' partials
-        if trig is not None and trig.mode != "NONE":
-            parts = [trig.accretion_partials(g["prim"], g["r"], g["vol"],
-                                             g["valid"]) for g in groups]
-            totals = {k: sum(p[k] for p in parts) for k in parts[0]}
-            mdot = trig.rate_from_partials(totals)
-        else:
-            mdot = 0.0
-        power, mass_rate = self.power_and_mass_rate(mdot)
-
-        # the tower's scale from the groups' (linear, quad) partials
-        tower_f = None
-        tower_bt = None
-        if mhd and self.magnetic_fraction > 0:
-            tw = self.magnetic_tower
-            tower_bt = [tw.unit_field(g["x"], g["y"], g["z"], t)
-                        for g in groups]
-            m_power = self.magnetic_fraction * power
-            if self.fixed_power > 0 or trig is not None:
-                lq = [tw.tower_partials(g["u"], bt, g["vol"], g["valid"])
-                      for g, bt in zip(groups, tower_bt)]
-                tower_f = tw.scale_from_power(sum(q[0] for q in lq),
-                                              sum(q[1] for q in lq),
-                                              m_power, beta_dt)
-            else:
-                tower_f = tw.fixed_field_rate * beta_dt
-
+        tw = self.magnetic_tower
+        triggered = trig is not None and trig.mode != "NONE"
+        tower = mhd and self.magnetic_fraction > 0
+        scaled = tower and (self.fixed_power > 0 or trig is not None)
         # the Bondi modes' mass removal needs the global region mass
-        region_mass = None
-        if (trig is not None and trig.mode not in ("NONE", "COLD_GAS")
-                and trig.remove_mass):
-            region_mass = sum(trig.region_mass(g["prim"], g["r"], g["vol"],
-                                               g["valid"]) for g in groups)
+        bondi_mass = (trig is not None and trig.mode not in ("NONE",
+                                                             "COLD_GAS")
+                      and trig.remove_mass)
+        tower_bt = ([tw.unit_field(g["x"], g["y"], g["z"], t)
+                     for g in groups] if tower else None)
+
+        # every partial of the call, then their totals at once
+        parts = []
+        for gi, g in enumerate(groups):
+            p = {}
+            if triggered:
+                p.update(trig.accretion_partials(g["prim"], g["r"], g["vol"],
+                                                 g["valid"], sums.partial))
+            if scaled:
+                p["tower_linear"], p["tower_quad"] = tw.tower_partials(
+                    g["u"], tower_bt[gi], g["vol"], g["valid"], sums.partial)
+            if bondi_mass:
+                p["region_mass"] = trig.region_mass(
+                    g["prim"], g["r"], g["vol"], g["valid"], sums.partial)
+            parts.append((g.get("level"), p))
+        totals = sums.total(parts) if parts[0][1] else {}
+
+        mdot = trig.rate_from_partials(totals) if triggered else 0.0
+        power, mass_rate = self.power_and_mass_rate(mdot)
+        tower_f = None
+        if scaled:
+            tower_f = tw.scale_from_power(
+                totals["tower_linear"], totals["tower_quad"],
+                self.magnetic_fraction * power, beta_dt)
+        elif tower:
+            tower_f = tw.fixed_field_rate * beta_dt
+        region_mass = totals.get("region_mass")
 
         for gi, g in enumerate(groups):
             u, r, xb, yb, zb = g["u"], g["r"], g["x"], g["y"], g["z"]

@@ -49,14 +49,15 @@ class AGNTriggering:
         self.mean_molecular_mass = mbar_over_kb * units.k_boltzmann()
 
     # ------------------------------------------------------------------
-    def accretion_partials(self, prim, r, cell_volume, valid=None):
+    def accretion_partials(self, prim, r, cell_volume, valid=None,
+                           partial=torch.sum):
         """One group's partial sums of the accretion reduction (0-d
-        tensors).  ``cell_volume`` is the group's (per-level) cell volume;
-        ``valid`` an optional interior mask excluding ghost zones (a leaf
-        group contributes only its interiors: the volume-weighted
-        cross-level reduction of the reference's MPI_Allreduce).  The
-        partials of several groups are added before
-        ``rate_from_partials``."""
+        tensors, or one per leaf with ``partial=LeafSums.partial``).
+        ``cell_volume`` is the group's (per-level) cell volume; ``valid``
+        an optional interior mask excluding ghost zones (a leaf group
+        contributes only its interiors: the volume-weighted cross-level
+        reduction of the reference's MPI_Allreduce).  The partials of
+        several groups are added before ``rate_from_partials``."""
         inside = r < self.accretion_radius
         if valid is not None:
             inside = inside & valid
@@ -65,15 +66,15 @@ class AGNTriggering:
             temp = self.mbar_over_kb * prim[:, IPR] / rho
             cold = inside & (temp <= self.cold_temp_thresh)
             return {"cold_mass":
-                    torch.sum(torch.where(cold, rho, 0.0)) * cell_volume}
+                    partial(torch.where(cold, rho, 0.0)) * cell_volume}
         # Bondi-like: mass-weighted sums inside the accretion region
         w = torch.where(inside, rho, 0.0) * cell_volume
         v2 = prim[:, IV1] ** 2 + prim[:, IV2] ** 2 + prim[:, IV3] ** 2
         cs = sqrt(self.gamma * prim[:, IPR] / rho)
-        return {"w": torch.sum(w),
-                "w_rho": torch.sum(w * rho),
-                "w_v": torch.sum(w * sqrt(v2)),
-                "w_cs": torch.sum(w * cs)}
+        return {"w": partial(w),
+                "w_rho": partial(w * rho),
+                "w_v": partial(w * sqrt(v2)),
+                "w_cs": partial(w * cs)}
 
     def rate_from_partials(self, p):
         """The accretion rate (0-d tensor) from summed partials."""
@@ -104,12 +105,12 @@ class AGNTriggering:
         return self.rate_from_partials(
             self.accretion_partials(prim, r, cell_volume, valid))
 
-    def region_mass(self, prim, r, cell_volume, valid=None):
+    def region_mass(self, prim, r, cell_volume, valid=None,
+                    partial=torch.sum):
         inside = r < self.accretion_radius
         if valid is not None:
             inside = inside & valid
-        return torch.sum(torch.where(inside, prim[:, IDN], 0.0)) \
-            * cell_volume
+        return partial(torch.where(inside, prim[:, IDN], 0.0)) * cell_volume
 
     def remove_accreted(self, u, prim, r, mdot, beta_dt, region_mass=None):
         """Remove the accreted gas from the triggering region in

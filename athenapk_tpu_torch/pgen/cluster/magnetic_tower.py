@@ -83,16 +83,19 @@ class MagneticTower:
     # The t=0 tower field lives in pgen._init_cons (``initial_field`` is
     # the field amplitude).
 
-    def tower_partials(self, u, bt, cell_volume, valid=None):
+    def tower_partials(self, u, bt, cell_volume, valid=None,
+                       partial=torch.sum):
         """(linear, quadratic) contributions of one leaf group to the
         global magnetic-energy quadratic dME = f*linear + f^2*quad (the
         reference's per-rank reduction, ``hydro_driver.cpp:409-449``).
-        ``valid`` masks out ghost zones; ``cell_volume`` is per group."""
+        ``valid`` masks out ghost zones; ``cell_volume`` is per group;
+        ``partial`` sums a field (one value per leaf with
+        ``LeafSums.partial``)."""
         bx_t, by_t, bz_t = bt
         m = 1.0 if valid is None else valid
-        linear = torch.sum((u[:, IB1] * bx_t + u[:, IB2] * by_t
-                            + u[:, IB3] * bz_t) * m) * cell_volume
-        quad = 0.5 * torch.sum((bx_t ** 2 + by_t ** 2 + bz_t ** 2) * m) \
+        linear = partial((u[:, IB1] * bx_t + u[:, IB2] * by_t
+                          + u[:, IB3] * bz_t) * m) * cell_volume
+        quad = 0.5 * partial((bx_t ** 2 + by_t ** 2 + bz_t ** 2) * m) \
             * cell_volume
         return linear, quad
 

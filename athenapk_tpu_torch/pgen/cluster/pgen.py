@@ -146,11 +146,21 @@ class _Coords:
         return self._on[key]
 
 
-def _level_coords(smesh):
-    """``{level: _Coords}`` of a refined mesh's leaves."""
+def _level_coords(smesh, leaves=None):
+    """``{level: _Coords}`` of a refined mesh's leaves (with ``leaves``, an
+    ``amr.leaf_sums.LeafSums``: of the rows it holds, on the levels where
+    it holds any)."""
     from ...amr.driver import LevelLeafView
-    return {lev: _Coords.of_mesh(LevelLeafView(smesh, lev))
-            for lev in sorted(smesh.level_ids)}
+    out = {}
+    for lev in sorted(smesh.level_ids):
+        c = _Coords.of_mesh(LevelLeafView(smesh, lev))
+        if leaves is not None:
+            if not leaves.ids[lev].size:
+                continue
+            rows = np.searchsorted(smesh.level_ids[lev], leaves.ids[lev])
+            c = _Coords(*(a[rows] for a in c.host))
+        out[lev] = c
+    return out
 
 
 def _init_cons(pin, pkg, cfg, xb, yb, zb, min_dx, profile=None):
@@ -419,22 +429,24 @@ def _apply_init_perturb_smr(pin, smesh, cfg, state):
 
 
 # ------------------------------------------------------------- sources
-def _unsplit_groups(pkg, mhd, groups, beta_dt, t):
+def _unsplit_groups(pkg, mhd, groups, beta_dt, t, sums=None):
     """The unsplit source over leaf groups, in place: gravity, AGN
-    feedback (with the fixed-field tower), SN Ia."""
+    feedback (with the fixed-field tower; ``sums`` its cross-group sums),
+    SN Ia."""
     if pkg.gravity_srcterm:
         for g in groups:
             gravitational_field_source(pkg.gravity, g["u"], g["prim"],
                                        beta_dt, g["x"], g["y"], g["z"],
                                        g["r"])
-    pkg.agn_feedback.apply_groups(groups, beta_dt, t, mhd)
+    pkg.agn_feedback.apply_groups(groups, beta_dt, t, mhd, sums=sums)
     for g in groups:
         pkg.snia_feedback.apply(g["u"], g["prim"], beta_dt, g["r"])
 
 
-def _group(u, prim, coords, vol, valid):
+def _group(u, prim, coords, vol, valid, level=None):
     x, y, z, r = coords.on(u)
-    return dict(u=u, prim=prim, x=x, y=y, z=z, r=r, vol=vol, valid=valid)
+    return dict(u=u, prim=prim, x=x, y=y, z=z, r=r, vol=vol, valid=valid,
+                level=level)
 
 
 def _valid(mesh, like, cache):
@@ -468,14 +480,23 @@ def problem_source_unsplit(pin, mesh, cfg, eos):
     return src
 
 
-def problem_source_unsplit_smr(pin, smesh, cfg, eos):
+def problem_source_unsplit_smr(pin, smesh, cfg, eos, leaves=None):
     """The unsplit source on a refined mesh: per-level coordinates and
     volume-weighted cross-level reductions (the reference reduces across
     ranks and levels, ``hydro_driver.cpp:360-449``).  -> ``src(state,
-    prims, beta_dt, t) -> state`` over the per-level state dict."""
+    prims, beta_dt, t) -> state`` over the per-level state dict.
+
+    ``leaves``: the ``amr.leaf_sums.LeafSums`` of the rows the state holds
+    (a rank's leaves over ranks; every leaf by default).  The sums run per
+    leaf in global leaf order, all of a stage's partials in one total (one
+    collective over ranks), so a rank's rows step as in the one-rank run,
+    bit for bit."""
+    from ...amr.leaf_sums import LeafSums
+
     pkg = _pkg(pin)
     mhd = cfg.fluid == GLMMHD
-    coords = _level_coords(smesh)
+    leaves = LeafSums(smesh) if leaves is None else leaves
+    coords = _level_coords(smesh, leaves)
     masks = {}
 
     def src(state, prims, beta_dt, t):
@@ -485,10 +506,11 @@ def problem_source_unsplit_smr(pin, smesh, cfg, eos):
             d1, d2, d3 = smesh.dx(lev)
             groups.append(_group(out[lev], prims[lev], coords[lev],
                                  d1 * d2 * d3,
-                                 _valid(smesh.base, out[lev], masks)))
-        _unsplit_groups(pkg, mhd, groups, beta_dt, t)
+                                 _valid(smesh.base, out[lev], masks), lev))
+        _unsplit_groups(pkg, mhd, groups, beta_dt, t, sums=leaves)
         return out
 
+    src.leaves = leaves
     return src
 
 

@@ -57,7 +57,7 @@ Phases (each one fails the run if it fails):
    C, the 2-D refined blast at 2048^2 (128^2 blocks, 448 leaves, HLLC),
    8 per cycle; each with its mass across levels; the adaptive paths
    through ``SmrSimulation`` with ``bench.py:run_bench_adaptive``'s
-   protocol (10 warm-up cycles, then a 30-cycle window holding the remesh
+   protocol (10 warm-up cycles, then a 15-cycle window holding the remesh
    checks, the remeshes and any new topology's host work): path D, its
    deck (blast, Euler HLLE + PLM, f32, pressure gradient at 0.1, numlevel
    2) at 128^3 with 16^3 blocks on the whole-stage rung, 2 stage-faces
@@ -70,14 +70,15 @@ Phases (each one fails the run if it fails):
    mass across levels; the cloud-crushing paths (``CLOUD_DECK``: GLM-MHD
    HLLD + PLM + VL2, one passive scalar, tabular cooling, the inflow
    boundary, f32): path G' on a uniform mesh at 128x384x128 in one
-   ghosted block with rk12 cooling, on the sweep and the stage rung (7
+   ghosted block with rk12 cooling, on the sweep and the stage rung (5
    cycles, 2 warm-up), with the cooling loop's host reads per cycle and
    its share of the cycle; path G adaptive, base 64x192x64 with 16^3
    blocks and numlevel 2, Townsend cooling, the pgen's scalar refinement
    check, on the stage rung (#7) and the negdiv rung (#6/#2), 10 warm-up
    + 20 timed cycles, with the leaves per cycle and the remeshes; the
    diffusion and split-source paths (``tests/torch_decks.py``'s decks, f32,
-   12 cycles with 2 warm-up, each profiled right after its run): path H,
+   12 cycles with 2 warm-up (path H 8), each profiled right after its
+   run): path H,
    the GLM-MHD linear wave with conduction, viscosity and Ohmic
    resistivity of ``tests/test_diffusion_linwave3d.py`` at 384x192x192 in
    one ghost-free block, unsplit and RKL2 (``rkl2_max_dt_ratio = 200``),
@@ -163,7 +164,7 @@ gravity, the ACCEPT HSE atmosphere over +-0.1 Mpc with outflow
 boundaries, few-modes velocity and magnetic perturbations, AGN feedback
 at a fixed 1e-3 split between the thermal dump, the precessing kinetic
 jet and the tower, COLD_GAS triggering, SN Ia, stellar feedback and the
-clips), each for 12 cycles (2 warm-up) with the launches counted (phase
+clips), each for 8 cycles (2 warm-up) with the launches counted (phase
 4): path K on a static refined mesh (base 128^3 in 32^3 blocks, +-0.025
 at level 1, +-0.0125 at level 2: 176 leaves, 5,767,168 cells), f64 with
 Townsend cooling, on the stage-faces (#7) and the negdiv-faces (#6/#2)
@@ -193,15 +194,31 @@ each rank sends its whole pool (more than a block layer's capacity) at
 once; M4, path A's refined deck (#7) over 2 ranks (flat layout, 3 cycles)
 and path D''s adaptive deck at 64^3 (#6/#2, ``derefine_count = 1``, 6
 cycles through remeshes that change the leaves) with
-``device_leaf_counts``.  Each is held bit for bit against its one-rank run
+``device_leaf_counts``; M5, path K's cluster deck (176 leaves, f64,
+Townsend cooling) with only its unsplit sources (gravity, AGN feedback with
+COLD_GAS triggering and the tower, SN Ia; stellar feedback and the clips
+are split sources, which refined meshes over ranks refuse) through
+``AmrHydro(rmesh=..., problem_source_factory=...)`` over 2 ranks (flat
+layout) on the stage-faces (#7) and the negdiv-faces (#6/#2) rung, one
+warm-up and 3 timed cycles, then one with the host reads counted and one
+with the AGN injection metered; M5', the adaptive cluster at 64^3 in 16^3
+blocks (``pressure_gradient``) over 2 ranks, 1 + 6 cycles through remeshes
+that change the leaves.  Each is held bit for bit against its one-rank run
 in this process (state, every dt, leaf tables, tracer pools and
 ``n_lost``), each rank's launches against the count expected and its bytes
 per fill against its plan (the refined fill's also against the face slabs
-the other ranks read and an all-gather of its rows); then M1's step with
-nccl at world size 1, bit for bit with the plain step and its launches
-counted.  The phase prints each path's seconds, the
-bytes each rank sends per fill and zone-cycles/s labelled "N ranks sharing
-one H100, not a scaling figure".
+the other ranks read and an all-gather of its rows); M5 and M5' also each
+rank's host reads per cycle against the one-rank run's, one collective of
+the source hook per stage, and (M5) the injection summed over the ranks
+within 1e-3 of its rates; then M1's step with nccl at world size 1, bit
+for bit with the plain step and its launches counted.  Then the same paths
+with one card per rank over NCCL (``phase_multirank_nccl``): every
+two-rank path where two cards are visible, M2 and the four-rank M1 and M5
+where four are, against the same one-rank runs; on one card it prints a
+line saying that it did not run.  A failed rank fails the script.  The
+phase prints each path's seconds, the bytes each rank sends per fill and
+zone-cycles/s labelled "N ranks sharing one H100, not a scaling figure"
+or "N ranks with one H100 each (NCCL)".
 
 The last lines are the kernels' JSON line, the card line and
 ``{"ok": true, "device": {...}}``.
@@ -813,15 +830,15 @@ def check_trace(kernels, launched):
 
 def checked_profile(fn):
     """Run the profile phase ``fn``; where its trace lost kernels, run it
-    once more, and where that trace loses kernels too, the breakdown is
-    not measured (None)."""
-    def run(*a, **k):
-        for attempt in (1, 2):
+    once more (``attempts``, 2 by default), and where that trace loses
+    kernels too, the breakdown is not measured (None)."""
+    def run(*a, attempts=2, **k):
+        for attempt in range(1, attempts + 1):
             try:
                 return fn(*a, **k)
             except TraceLost as e:
                 log(f"  {e}: events were lost"
-                    + ("; profiling again" if attempt == 1 else
+                    + ("; profiling again" if attempt < attempts else
                        "; this breakdown is not measured"))
         return None
     return run
@@ -3946,7 +3963,7 @@ def phase_source_paths(zcps):
     for integ in ("unsplit", "rkl2"):
         for rung in ("sweep", "stage"):
             sim, num = phase_diffusion_path(integ, rung, PATH_H_SIZE,
-                                            ncycles=12, warmup=2)
+                                            ncycles=8, warmup=2)
             name = f"path H ({integ} diffusion, {rung} rung)"
             if (integ, rung) == ("unsplit", "stage"):
                 # the stage as this run calls it: with emit_prim
@@ -3957,7 +3974,7 @@ def phase_source_paths(zcps):
                 num["kernel_vs_plain"] = phase_case_timings({name: {
                     "sim": sim, "rung": rung, "launches": num["launches"],
                     "cycles": num["cycles"],
-                    "zcps": num["zone_cycles_per_s"]}}, 10, f64=True)[name]
+                    "zcps": num["zone_cycles_per_s"]}}, 5, f64=True)[name]
             ranges = diffusion_ranges(sim)
             num["profile"] = phase_split_profile(sim, 3, name, ranges)
             num["host_reads"], calls = phase_host_reads(
@@ -3980,7 +3997,7 @@ def phase_source_paths(zcps):
         num["kernel_vs_plain"] = phase_case_timings({name: {
             "sim": sim, "rung": rung, "launches": num["launches"],
             "cycles": num["cycles"],
-            "zcps": num["zone_cycles_per_s"]}}, 10, f64=True)[name]
+            "zcps": num["zone_cycles_per_s"]}}, 5, f64=True)[name]
         ranges = forcing_ranges((sim, "src_first_order"),
                                 sim.pgen.forcing_driver(sim.pin, sim.mesh))
         num["profile"] = phase_split_profile(sim, 3, name, ranges)
@@ -4337,7 +4354,7 @@ def phase_tracer_paths(zcps):
             num["kernel_vs_plain"] = phase_case_timings({name: {
                 "sim": sim, "rung": rung, "launches": num["launches"],
                 "cycles": num["cycles"],
-                "zcps": num["zone_cycles_per_s"]}}, 10, f64=True)[name]
+                "zcps": num["zone_cycles_per_s"]}}, 5, f64=True)[name]
             ranges = tracer_ranges(sim)
             num["profile"] = phase_split_profile(sim, 3, name, ranges)
             num["host_reads"], calls = phase_host_reads(
@@ -4781,26 +4798,25 @@ def phase_cluster_refined(rung, n, ncycles, warmup):
                      cycles=ncycles)
 
 
-def phase_cluster_injection(sim, ncycles, what):
-    """The mass and energy the AGN feedback injects over ``ncycles`` more
-    cycles (a counted run, not timed), against the analytic rates: every
-    call of ``apply_groups`` sums, over interior cells and levels, the
-    change of mass and energy it made and the deck's rates times the
-    stage's ``beta_dt`` (power = fixed_power + efficiency c^2 Mdot and the
-    mass rate, Mdot the triggering's from the same prim, each channel's
-    share weighted by its region's discrete volume over the analytic one,
-    the tower's energy exactly its share, the accreted gas's mass and
-    energy removed); all summed on the device and read once.  -> ``{mass,
-    energy: {injected, analytic, rel_diff}}``."""
-    log(f"== phase 4: the AGN feedback's injection over {ncycles} cycles of "
-        f"{what} against its rates ==")
+def injection_meter(pkg, acc, whole_terms=True):
+    """A ``wrap_calls`` maker that meters the AGN feedback's
+    ``apply_groups``: every call appends to ``acc`` the change of mass and
+    energy it made, summed over its groups' interior cells, and the deck's
+    rates times the stage's ``beta_dt`` (power = fixed_power + efficiency
+    c^2 Mdot and the mass rate, Mdot the triggering's from the same prim
+    through the call's own sums (over every rank's leaves over ranks),
+    each channel's share weighted by its region's discrete volume over the
+    analytic one, the tower's energy exactly its share, the accreted gas's
+    mass and energy removed): ``[dm, dm analytic, de, de analytic]`` on the
+    device.  Over ranks every term but the tower's share is a sum over
+    cells, so the ranks' entries add up to the whole mesh's;
+    ``whole_terms``: this rank adds the tower's share (one rank does)."""
     from athenapk_tpu_torch.core.indices import IDN as D, IEN as E
-    pkg = sim.pgen.register_defaults(sim.pin)   # the sources' objects
+    from athenapk_tpu_torch.pgen.cluster.agn_feedback import PLAIN_SUMS
     fb, trig, tw = pkg.agn_feedback, pkg.agn_triggering, pkg.magnetic_tower
     if trig.mode != "COLD_GAS" or fb.triggering is not trig:
-        raise AssertionError(f"{what}: the check reckons COLD_GAS's removal")
+        raise AssertionError("the meter reckons COLD_GAS's removal")
     c2 = pkg.units.speed_of_light() ** 2
-    acc = []
 
     def totals(groups):
         m = sum(torch.sum(g["u"][:, D] * g["valid"]) * g["vol"]
@@ -4809,11 +4825,11 @@ def phase_cluster_injection(sim, ncycles, what):
                 for g in groups)
         return m, e
 
-    def analytic(groups, beta_dt, t):
-        parts = [trig.accretion_partials(g["prim"], g["r"], g["vol"],
-                                         g["valid"]) for g in groups]
-        mdot = trig.rate_from_partials({k: sum(p[k] for p in parts)
-                                        for k in parts[0]})
+    def analytic(groups, beta_dt, t, sums):
+        mdot = trig.rate_from_partials(sums.total([
+            (g.get("level"), trig.accretion_partials(
+                g["prim"], g["r"], g["vol"], g["valid"], sums.partial))
+            for g in groups]))
         power = fb.fixed_power + fb.efficiency * c2 * mdot
         m_rate = mdot * (1 - fb.efficiency) + fb.fixed_power / (
             fb.efficiency * c2)
@@ -4846,37 +4862,61 @@ def phase_cluster_injection(sim, ncycles, what):
                                  + fb.magnetic_mass_fraction * gauss) - m_rm
         de = beta_dt * power * (fb.thermal_fraction * v_th
                                 + fb.kinetic_fraction * v_kin
-                                + fb.magnetic_fraction) - e_rm
+                                + (fb.magnetic_fraction if whole_terms
+                                   else 0.0)) - e_rm
         return dm, de
 
     def metered(fn, label):
-        def call(groups, beta_dt, t, mhd):
-            want = analytic(groups, beta_dt, t)
+        def call(groups, beta_dt, t, mhd, sums=None):
+            want = analytic(groups, beta_dt, t,
+                            PLAIN_SUMS if sums is None else sums)
             before = totals(groups)
-            out = fn(groups, beta_dt, t, mhd)
+            out = fn(groups, beta_dt, t, mhd, sums=sums)
             after = totals(groups)
-            acc.append(torch.stack([after[0] - before[0], want[0],
-                                    after[1] - before[1], want[1]]))
+            acc.append(torch.stack([torch.as_tensor(x, dtype=torch.float64,
+                                                    device=after[0].device)
+                                    for x in (after[0] - before[0], want[0],
+                                              after[1] - before[1], want[1])]))
             return out
         return call
 
-    undo = wrap_calls([(fb, "apply_groups", "agn")], metered)
-    try:
-        run_more(sim, ncycles)
-    finally:
-        undo()
-    tot = torch.stack(acc).sum(dim=0).tolist()
+    return metered
+
+
+def injection_check(tot, calls, what):
+    """``{mass, energy: {injected, analytic, rel_diff}}`` of the summed
+    meter ``tot`` (``[dm, dm analytic, de, de analytic]``); raises past
+    1e-3."""
     out = {}
     for name, (got, want) in (("mass", tot[:2]), ("energy", tot[2:])):
         out[name] = dict(injected=got, analytic=want,
                          rel_diff=abs(got - want) / abs(want))
-        log(f"  {name} injected by the AGN feedback over {len(acc)} calls: "
+        log(f"  {name} injected by the AGN feedback over {calls} calls: "
             f"{got:.10e}, analytic {want:.10e} (rel diff "
             f"{out[name]['rel_diff']:.3e})")
         if not out[name]["rel_diff"] <= 1e-3:
             raise AssertionError(f"{what}: the AGN feedback injected {name} "
                                  f"{got} against {want}")
     return out
+
+
+def phase_cluster_injection(sim, ncycles, what):
+    """The mass and energy the AGN feedback injects over ``ncycles`` more
+    cycles (a counted run, not timed), against the analytic rates
+    (``injection_meter``), all summed on the device and read once.  ->
+    ``{mass, energy: {injected, analytic, rel_diff}}``."""
+    log(f"== phase 4: the AGN feedback's injection over {ncycles} cycles of "
+        f"{what} against its rates ==")
+    pkg = sim.pgen.register_defaults(sim.pin)   # the sources' objects
+    acc = []
+    undo = wrap_calls([(pkg.agn_feedback, "apply_groups", "agn")],
+                      injection_meter(pkg, acc))
+    try:
+        run_more(sim, ncycles)
+    finally:
+        undo()
+    return injection_check(torch.stack(acc).sum(dim=0).tolist(), len(acc),
+                           what)
 
 
 def phase_cluster_paths(zcps):
@@ -4894,7 +4934,7 @@ def phase_cluster_paths(zcps):
         folder = {"K": "K", "K'": "K1", "K''": "K2"}[path]
         with in_dir(OUT / f"cluster_{folder}_{rung}"):
             if path == "K":
-                sim, num = phase_cluster_refined(rung, n=128, ncycles=12,
+                sim, num = phase_cluster_refined(rung, n=128, ncycles=8,
                                                  warmup=2)
                 kind, kname, line = {
                     "stage": ("stage-faces", "fused_stage_faces", 641),
@@ -4909,13 +4949,13 @@ def phase_cluster_paths(zcps):
                     "bound_by", "max_abs_err", "unit", "per_call")}
             else:
                 sim, num = phase_cluster_uniform(path, rung, n=256,
-                                                 ncycles=12, warmup=2)
+                                                 ncycles=8, warmup=2)
                 log(f"== phase 6: the kernel against plain at the final "
                     f"state of {name} ==")
                 num["kernel_vs_plain"] = phase_case_timings({name: {
                     "sim": sim, "rung": rung, "launches": num["launches"],
                     "cycles": num["cycles"],
-                    "zcps": num["zone_cycles_per_s"]}}, 10, f64=True)[name]
+                    "zcps": num["zone_cycles_per_s"]}}, 5, f64=True)[name]
                 if rung == "stage":
                     # as the path calls it: with the stage-start prim
                     num["stage_prim_max_rel_err"] = \
@@ -4989,8 +5029,22 @@ MR_TRACERS = {
                         capacity_factor=1.0),
 }
 MR_LABEL = "ranks sharing one H100, not a scaling figure"
+MR_NCCL_LABEL = "ranks with one H100 each (NCCL)"
 MR_SMR_N = 128    # path A's base (120 leaves of 32^3)
 MR_AMR_CYCLES = 6
+# the cluster over ranks: M5 is path K's deck (base 128^3 in 32^3 blocks,
+# levels 1 and 2 at +-0.025 and +-0.0125: 176 leaves, f64, Townsend
+# cooling) with only its unsplit sources (gravity, AGN feedback with
+# COLD_GAS triggering and the tower, SN Ia): stellar feedback and the clips
+# are split sources, which refined meshes over ranks refuse (the JAX
+# package drops them); M5' the adaptive cluster at 64^3 in 16^3 blocks over
+# +-0.08 Mpc (numlevel 2, pressure_gradient 0.08), whose remeshes from the
+# fifth cycle on change the leaves.  Timed cycles, then one cycle with the
+# host reads counted and (M5) one with the AGN injection metered.
+MR_CLUSTER = {"cluster": dict(warmup=1, timed=3, reads=1, metered=1,
+                              remesh=False),
+              "cluster_amr": dict(warmup=1, timed=6, reads=1, metered=0,
+                                  remesh=True)}
 
 
 def mr_deck(path):
@@ -5065,6 +5119,149 @@ def mr_amr_build(case, rmesh):
     finally:
         os.environ.pop("ATHENAPK_PALLAS_STAGE", None)
     return amr, sim.state
+
+
+MR_CLUSTER_SIMS = {}   # M5's deck, built once a process for both rungs
+
+
+def mr_cluster_build(case, rmesh):
+    """M5's (``kind`` "cluster") or M5''s ("cluster_amr") deck: -> (an
+    ``AmrHydro`` over ``rmesh`` (None: one rank) with the deck's cooling and
+    its unsplit source factory, the whole initial state, the cluster's
+    source objects).  M5's simulation (its HSE profile and initial state)
+    is made once and kept for its other rung."""
+    from athenapk_tpu_torch.refinement.criteria import RefinementConfig
+    d = PORT.decks
+    sim = MR_CLUSTER_SIMS.get(case["kind"])
+    if sim is None:
+        if case["kind"] == "cluster":
+            deck = d.cluster_deck(
+                n=128, mb=32, nlim=0, table=cluster_table(),
+                refinement="static", regions=CLUSTER_K_REGIONS,
+                stellar=False).replace("clip_r = 0.02", "clip_r = -1.0")
+        else:
+            deck = d.cluster_adaptive_deck(cluster_table(), n=64, mb=16,
+                                           half=0.08, nlim=0, split=False)
+        sim = make_smr_sim(deck, case["rung"], quiet=True)
+        if case["kind"] == "cluster":
+            MR_CLUSTER_SIMS[case["kind"]] = sim
+    if sim._split_loop() and sim._stepper_now().problem_source_first_order \
+            is not None:
+        raise AssertionError(f"{case['name']}: the deck keeps a split source")
+    drv = sim.driver
+    if case["rung"] == "negdiv":
+        os.environ["ATHENAPK_PALLAS_STAGE"] = "0"
+    try:
+        amr = PORT.AmrHydro(
+            drv.smesh if drv is not None else sim.smesh, sim.cfg, sim.eos,
+            drv.refine_cfg if drv is not None else RefinementConfig(),
+            derefine_count=drv.derefine_count if drv is not None else 1,
+            device=sim.device, cooling=sim.cooling,
+            problem_source_factory=sim._source_factories()[0],
+            rmesh=rmesh, layout="flat")
+    finally:
+        os.environ.pop("ATHENAPK_PALLAS_STAGE", None)
+    return amr, sim.state, sim.pgen.register_defaults(sim.pin)
+
+
+def mr_cluster_cycles(amr, state, ncycles, remesh, t=0.0):
+    """``ncycles`` of (remesh if ``remesh``, the dt (one host read), the
+    step at the time reached with GLM's c_h = cfl * min dx / dt): the
+    protocol of M5 and M5' and of their one-rank runs.  -> (state, t, dts,
+    leaf counts per cycle, the face launches the leaves held should
+    make)."""
+    per_level = 2 if amr._stepper._stage_rung else 6
+    dts, tables, want = [], [], 0
+    for _ in range(ncycles):
+        if remesh:
+            state, _ = amr.maybe_remesh(state)
+        sm = amr.smesh
+        tables.append({str(k): int(v.size) for k, v in sm.level_ids.items()})
+        st = amr._stepper
+        dt = float(st.estimate_dt(state))
+        state = st.step(state, dt, amr.cfg.cfl * sm.min_dx(sm.max_level) / dt,
+                        t)
+        t += dt
+        dts.append(dt)
+        want += per_level * len(state)
+    return state, t, dts, tables, want
+
+
+def mr_cluster_run(amr, state, pkg, case, timed, whole_terms=True):
+    """M5 or M5' on ``amr`` (one rank or over ranks) from the whole
+    ``state``: a warm-up cycle, the timed cycles (``timed(fn)`` ->
+    (result, numbers)), then
+    one cycle with the host reads counted (the run's per cycle and the
+    unsplit hook's per call), then (M5) one with the AGN injection metered
+    (``injection_meter``; ``whole_terms``: this rank adds the whole-mesh
+    term).  -> (final state, numbers)."""
+    spec = MR_CLUSTER[case["kind"]]
+
+    def collectives():
+        return sum(st.problem_source_unsplit.leaves.collectives
+                   for st in amr._steppers.values())
+
+    state, t, dts0, tables0, _ = mr_cluster_cycles(
+        amr, amr._place(state), spec["warmup"], spec["remesh"])
+    c0 = collectives()
+    (state, t, dts, tables, want), num = timed(lambda: mr_cluster_cycles(
+        amr, state, spec["timed"], spec["remesh"], t))
+    num.update(want_face_launches=want, cycles=spec["timed"],
+               collectives=collectives() - c0,
+               leaves_held={str(k): int(v.shape[0]) for k, v in
+                            state.items()})
+    total = {"reads": 0}
+    inside = {"reads": 0, "calls": 0}
+
+    def counting(fn, label):
+        def call(*a, **k):
+            n0 = total["reads"]
+            try:
+                return fn(*a, **k)
+            finally:
+                inside["reads"] += total["reads"] - n0
+                inside["calls"] += 1
+        return call
+
+    dts, tables = list(dts), list(tables)
+    with host_reads(total):
+        for _ in range(spec["reads"]):
+            # the remesh first, so that the hook counted is the one of
+            # the leaves the cycle steps
+            if spec["remesh"]:
+                state, _ = amr.maybe_remesh(state)
+            undo = wrap_calls([(amr._stepper, "problem_source_unsplit",
+                                "cluster_unsplit")], counting)
+            try:
+                state, t, d2, t2, _ = mr_cluster_cycles(amr, state, 1,
+                                                        False, t)
+            finally:
+                undo()
+            dts += d2
+            tables += t2
+    num["host_reads_per_cycle"] = total["reads"] / spec["reads"]
+    num["hook_reads_per_call"] = inside["reads"] / max(inside["calls"], 1)
+    num["hook_calls_per_cycle"] = inside["calls"] / spec["reads"]
+    if spec["metered"]:
+        acc = []
+        undo = wrap_calls([(pkg.agn_feedback, "apply_groups", "agn")],
+                          injection_meter(pkg, acc, whole_terms))
+        try:
+            state, t, d3, t3, _ = mr_cluster_cycles(
+                amr, state, spec["metered"], spec["remesh"], t)
+        finally:
+            undo()
+        dts += d3
+        tables += t3
+        num["injection"] = torch.stack(acc).sum(dim=0).tolist()
+        num["injection_calls"] = len(acc)
+    b = amr.smesh.base
+    block = b.mbnx1 * b.mbnx2 * b.mbnx3
+    num.update(dts=dts0 + dts, tables=tables0 + tables,
+               cells=sum(tables[0].values()) * block,
+               zone_cycles=sum(sum(tb.values())
+                               for tb in tables[:spec["timed"]]) * block)
+    return state, num
 
 
 def mr_fill_numbers(rmesh, stepper, state):
@@ -5217,7 +5414,23 @@ def mr_rank(rmesh, out_dir, cases):
                          lx2=amr.smesh.lx2, lx3=amr.smesh.lx3,
                          **{str(k): v.cpu().numpy() for k, v in
                             whole.items()})
+        elif kind in MR_CLUSTER:
+            amr, state, pkg = mr_cluster_build(case, rmesh)
+            state, num = mr_cluster_run(amr, state, pkg, case, timed,
+                                        whole_terms=r == 0)
+            num.update(mr_fill_numbers(rmesh, amr._stepper, state))
+            whole = amr.exact_state(state)
+            if r == 0:
+                np.savez(os.path.join(out_dir, f"{name}.npz"),
+                         levels=amr.smesh.levels, lx1=amr.smesh.lx1,
+                         lx2=amr.smesh.lx2, lx3=amr.smesh.lx3,
+                         **{str(k): v.cpu().numpy() for k, v in
+                            whole.items()})
+            del amr, state, whole
+        num["backend"] = rmesh.backend
+        num["device"] = str(rmesh.device)
         res[name] = num
+        torch.cuda.empty_cache()
     with open(os.path.join(out_dir, f"rank{r}.json"), "w") as f:
         json.dump(res, f)
 
@@ -5230,9 +5443,17 @@ MR_CASES_2 = [
     {"name": "M4 A", "kind": "smr"},
     {"name": "M4 D'", "kind": "amr", "n": 64, "rung": "negdiv",
      "ncycles": MR_AMR_CYCLES},
+    {"name": "M5 stage", "kind": "cluster", "rung": "stage"},
+    {"name": "M5 negdiv", "kind": "cluster", "rung": "negdiv"},
+    {"name": "M5'", "kind": "cluster_amr", "rung": "stage"},
 ]
 MR_CASES_4 = [{"name": "M2", "kind": "uniform", "path": "M2",
                "rung": "sweep", "grid": (2, 2)}]
+# with one card per rank (NCCL), where that many cards are visible: every
+# two-rank path, then M2 and the four-rank M1 and M5
+MR_NCCL_4 = MR_CASES_4 + [
+    {"name": "M1 sweep", "kind": "uniform", "path": "M1", "rung": "sweep"},
+    {"name": "M5 stage", "kind": "cluster", "rung": "stage"}]
 
 
 def mr_ranks(out, world):
@@ -5253,158 +5474,251 @@ def mr_equal(what, got, want):
                              f"(max |diff| {diff.max().item():.3e})")
 
 
-def phase_multirank():
-    """Slice 11: the multi-rank paths, ranks spawned on the one card (gloo,
-    messages staged through pinned host buffers), each against its
-    one-rank run in this process bit for bit; then M1's step with nccl at
-    world size 1.  -> {path: numbers} with each rank's launches."""
-    from athenapk_tpu_torch.parallel.dryrun import run_ranks, tracer_setup
+def mr_reference(case, refs):
+    """The one-rank run of a multi-rank case in this process, made once and
+    kept in ``refs`` (the shared-card and the NCCL phases compare with the
+    same run)."""
+    name = case["name"]
+    if name in refs:
+        return refs[name]
+    kind = case["kind"]
+    if kind == "uniform":
+        ref = mr_one_rank_uniform(case["path"], case["rung"])
+    elif kind == "smr":
+        sim = make_smr_sim(smr_deck("A", n=MR_SMR_N, ncycles=3,
+                                    precision="single"), "stage", quiet=True)
+        st = sim.state
+        for _ in range(3):
+            dt = float(sim.stepper.estimate_dt(st))
+            st = sim.stepper.step(st, dt, 0.0)
+        ref = (st, sim.smesh)
+    elif kind == "amr":
+        amr, state = mr_amr_build(case, None)
+        st, _ = mr_amr_ref(amr, state, case["ncycles"])
+        ref = (st, amr.smesh)
+    elif kind in MR_CLUSTER:
+        amr, state, pkg = mr_cluster_build(case, None)
+        st, num = mr_cluster_run(amr, state, pkg, case,
+                                 lambda fn: (fn(), {}))
+        ref = (st, amr.smesh, num)
+    else:
+        return None
+    refs[name] = ref
+    return ref
+
+
+def mr_check(case, per, out, world, refs, label):
+    """Hold one multi-rank case's ranks (``per``: each rank's numbers; the
+    states under ``out``) to its one-rank run, bit for bit, with the
+    launches and bytes each rank should have: -> the case's numbers."""
+    from athenapk_tpu_torch.parallel.dryrun import tracer_setup
     from athenapk_tpu_torch.parallel import halo, mesh_sharding as ms
 
-    log("== phase 4: multi-rank paths on one card (M1-M4, NCCL at world "
-        "size 1) ==")
-    t_phase = time.time()
-    out = tempfile.mkdtemp(dir=str(OUT.parent) if OUT.parent.exists()
-                           else None)
-    results = {}
-    for world, cases in ((2, MR_CASES_2), (4, MR_CASES_4)):
-        t0 = time.time()
-        run_ranks(mr_rank, world, (out, cases), device="cuda", timeout=600)
-        log(f"  {world} ranks: {time.time() - t0:.1f} s (spawn included)")
-        results.update(mr_ranks(out, world))
+    name, kind = case["name"], case["kind"]
+    secs = max(p["seconds"] for p in per)
+    zcps = per[0].get("zone_cycles", per[0]["cells"] * per[0]["cycles"]) \
+        / secs
+    backends = sorted({p["backend"] for p in per})
+    entry = {"ranks": world, "seconds": secs, "backend": backends,
+             "devices": [p["device"] for p in per],
+             "zone_cycles_per_s": zcps, "rate_label": f"{world} {label}",
+             "cycles": per[0]["cycles"],
+             "launches_per_rank": [p["launches"] for p in per]}
+    want_backend = "nccl" if label == MR_NCCL_LABEL else "gloo"
+    if backends != [want_backend]:
+        raise AssertionError(f"{name}: backends {backends}, not "
+                             f"{want_backend}")
+    if kind == "uniform":
+        ref, dts = mr_reference(case, refs)
+        for r, p in enumerate(per):
+            if [tuple(x) for x in p["dts"]] != dts:
+                raise AssertionError(f"{name}: rank {r} dts {p['dts']} "
+                                     f"!= one-rank {dts}")
+            got = np.load(os.path.join(out, f"{name}.r{r}.npy"))
+            if case.get("grid"):
+                gm = ms.RankMesh(r, world, case["grid"], ("z", "y"),
+                                 torch.device("cuda"), "gloo")
+                mesh = PORT.Mesh.from_parameter_input(
+                    PORT.ParameterInput.from_string(mr_deck(case["path"])))
+                sz, sy = halo.grid_sharding(mesh, gm)
+                want = halo.to_grid(ref, mesh)[sz, sy]
+            else:
+                n = ref.shape[0] // world
+                want = ref[r * n:(r + 1) * n]
+            mr_equal(f"{name} rank {r}", got, want)
+            if p["bytes_per_fill"] != p["halo_bytes_per_fill"]:
+                raise AssertionError(
+                    f"{name}: rank {r} sent {p['bytes_per_fill']} bytes "
+                    f"per fill, the halo is {p['halo_bytes_per_fill']}")
+        rung_counts = RUNG_LAUNCHES[case["rung"]]
+        want_l = [k * MR_PATHS[case["path"]][4] for k in rung_counts]
+        for r, p in enumerate(per):
+            if p["launches"][:2] != want_l:
+                raise AssertionError(f"{name}: rank {r} launches "
+                                     f"{p['launches'][:2]} != {want_l}")
+        entry.update(dts=dts, bytes_per_fill=[p["bytes_per_fill"]
+                                              for p in per],
+                     halo_bytes_per_fill=per[0]["halo_bytes_per_fill"],
+                     state_bytes=int(ref.numel() * ref.element_size()))
+    elif kind == "tracers":
+        spec = MR_TRACERS[case["path"]]
+        kw = {k: spec[k] for k in ("shape", "mb", "per_cell", "vel",
+                                   "seed")}
+        kw["capacity_factor"] = spec.get("capacity_factor", 2.0)
+        tr, st, prim = tracer_setup("cuda", **kw)
+        for _ in range(spec["steps"]):
+            st = tr.fill(tr.advect(st, prim, spec["dt"]), prim)
+        per_b = tr.mesh.nblocks // world
+        for r in range(world):
+            got = np.load(os.path.join(out, f"{name}.r{r}.npz"))
+            for k, v in st.items():
+                want = v if v.dim() < 2 else v[r * per_b:(r + 1) * per_b]
+                mr_equal(f"{name} rank {r} {k}", got[k], want)
+        n0 = int(tracer_setup("cuda", **kw)[1]["active"].sum())
+        entry.update(active=int(st["active"].sum()), seeded=n0,
+                     n_lost=int(st["n_lost"]),
+                     layer_cap=per[0]["layer_cap"],
+                     leavers_per_rank=[p["pool_active"] for p in per])
+        if case["path"] == "M3 overflow":
+            if int(st["n_lost"]) != 0 or entry["active"] != n0 \
+                    or min(entry["leavers_per_rank"]) <= \
+                    entry["layer_cap"]:
+                raise AssertionError(f"{name}: {entry}")
+    else:
+        ref = mr_reference(case, refs)
+        st, table = ref[0], ref[1]
+        if kind == "amr":
+            entry.update(device_leaf_counts=per[0]["device_leaf_counts"],
+                         remeshes=per[0]["remeshes"],
+                         tables_changed=per[0]["changed"])
+            log(f"  {name}: device_leaf_counts "
+                f"{per[0]['device_leaf_counts']}, {per[0]['remeshes']} "
+                f"remeshes ({per[0]['changed']} changed the leaves)")
+            if per[0]["changed"] < 1:
+                raise AssertionError(f"{name}: no remesh changed the "
+                                     "leaves")
+        if kind in MR_CLUSTER:
+            rnum = ref[2]
+            for r, p in enumerate(per):
+                for k in ("dts", "tables", "host_reads_per_cycle",
+                          "hook_reads_per_call", "hook_calls_per_cycle"):
+                    if p[k] != rnum[k]:
+                        raise AssertionError(
+                            f"{name}: rank {r} {k} {p[k]} != the one-rank "
+                            f"run's {rnum[k]}")
+                if p["collectives"] != 2 * p["cycles"]:
+                    raise AssertionError(
+                        f"{name}: rank {r} made {p['collectives']} "
+                        f"collectives in {p['cycles']} cycles (one a stage)")
+            if kind == "cluster_amr" and len({json.dumps(t, sort_keys=True)
+                                              for t in rnum["tables"]}) < 2:
+                raise AssertionError(f"{name}: no remesh changed the leaves")
+            entry.update(dts=rnum["dts"], tables=rnum["tables"],
+                         leaves_held=[p["leaves_held"] for p in per],
+                         host_reads_per_cycle=[p["host_reads_per_cycle"]
+                                               for p in per],
+                         one_rank_host_reads_per_cycle=rnum[
+                             "host_reads_per_cycle"],
+                         hook_reads_per_call=per[0]["hook_reads_per_call"],
+                         collectives_per_stage=per[0]["collectives"]
+                         / (2 * per[0]["cycles"]))
+            log(f"  {name}: leaves per cycle {rnum['tables']}; host reads "
+                f"per cycle {entry['host_reads_per_cycle']} per rank (one "
+                f"rank {rnum['host_reads_per_cycle']}), the unsplit hook's "
+                f"{entry['hook_reads_per_call']} per call, "
+                f"{rnum['hook_calls_per_cycle']} calls per cycle; "
+                f"collectives per stage {entry['collectives_per_stage']}")
+            if "injection" in rnum:
+                entry["injection_one_rank"] = injection_check(
+                    rnum["injection"], rnum["injection_calls"],
+                    f"{name}, one rank")
+                entry["injection"] = injection_check(
+                    np.sum([p["injection"] for p in per], axis=0).tolist(),
+                    per[0]["injection_calls"], f"{name}, {world} ranks")
+        got = np.load(os.path.join(out, f"{name}.npz"))
+        if kind != "smr":
+            for k in ("levels", "lx1", "lx2", "lx3"):
+                if not np.array_equal(got[k], getattr(table, k)):
+                    raise AssertionError(f"{name}: leaf table differs")
+        for lev, v in st.items():
+            mr_equal(f"{name} level {lev}", got[str(lev)], v)
+        face = 0 if (kind == "smr" or case.get("rung") == "stage") else 1
+        for r, p in enumerate(per):
+            if p["launches"][2 + face] != p["want_face_launches"]:
+                raise AssertionError(
+                    f"{name}: rank {r} face launches {p['launches']} != "
+                    f"{p['want_face_launches']}")
+            if not (p["bytes_per_fill"] == p["plan_bytes_per_fill"]
+                    and 0 < p["bytes_per_fill"] <= p["face_slab_bytes"]
+                    and p["bytes_per_fill"] < p["all_gather_bytes"]):
+                raise AssertionError(
+                    f"{name}: rank {r} sent {p['bytes_per_fill']} bytes "
+                    f"per fill; its schedule {p['plan_bytes_per_fill']}, "
+                    f"the face slabs {p['face_slab_bytes']}, an "
+                    f"all-gather {p['all_gather_bytes']}")
+        entry.update(bytes_per_fill=[p["bytes_per_fill"] for p in per],
+                     plan_bytes_per_fill=[p["plan_bytes_per_fill"]
+                                          for p in per],
+                     face_slab_bytes=[p["face_slab_bytes"] for p in per],
+                     all_gather_bytes=[p["all_gather_bytes"] for p in per],
+                     state_bytes=int(sum(v.numel() * v.element_size()
+                                         for v in st.values())))
+    log(f"  {name}: {world} ranks ({'/'.join(backends)}), bit for bit with "
+        f"one rank; {secs:.3f} s; launches per rank "
+        f"{entry['launches_per_rank']}; {zcps:.6e} zone-cycles/s ({world} "
+        f"{label})"
+        + (f"; bytes sent per fill per rank {entry['bytes_per_fill']} "
+           f"(= the plan's; the state: {entry['state_bytes']})"
+           if "bytes_per_fill" in entry else "")
+        + (f"; face-slab bound {entry['face_slab_bytes']}, all-gather "
+           f"{entry['all_gather_bytes']}"
+           if "face_slab_bytes" in entry else ""))
+    return entry
+
+
+def mr_phase(runs, label, cards, refs):
+    """Spawn the ranks of each ``(world, cases)`` of ``runs`` on the card
+    (``cards``: how many cards they use: 1 shares one over gloo, ``world``
+    puts one rank on each over NCCL) and hold each case to its one-rank
+    run (``mr_check``).  A failed rank fails the phase.  -> ``{(world,
+    name): numbers}``."""
+    from athenapk_tpu_torch.parallel.dryrun import run_ranks
 
     nums = {}
-    for case in MR_CASES_2 + MR_CASES_4:
-        name, kind = case["name"], case["kind"]
-        per = results[name]
-        world = len(per)
-        secs = max(p["seconds"] for p in per)
-        zcps = per[0]["cells"] * per[0]["cycles"] / secs
-        entry = {"ranks": world, "seconds": secs,
-                 "zone_cycles_per_s": zcps, "rate_label":
-                 f"{world} {MR_LABEL}",
-                 "launches_per_rank": [p["launches"] for p in per]}
-        if kind == "uniform":
-            ref, dts = mr_one_rank_uniform(case["path"], case["rung"])
-            for r, p in enumerate(per):
-                if [tuple(x) for x in p["dts"]] != dts:
-                    raise AssertionError(f"{name}: rank {r} dts {p['dts']} "
-                                         f"!= one-rank {dts}")
-                got = np.load(os.path.join(out, f"{name}.r{r}.npy"))
-                if case.get("grid"):
-                    gm = ms.RankMesh(r, world, case["grid"], ("z", "y"),
-                                     torch.device("cuda"), "gloo")
-                    mesh = PORT.Mesh.from_parameter_input(
-                        PORT.ParameterInput.from_string(mr_deck(
-                            case["path"])))
-                    sz, sy = halo.grid_sharding(mesh, gm)
-                    want = halo.to_grid(ref, mesh)[sz, sy]
-                else:
-                    n = ref.shape[0] // world
-                    want = ref[r * n:(r + 1) * n]
-                mr_equal(f"{name} rank {r}", got, want)
-                if p["bytes_per_fill"] != p["halo_bytes_per_fill"]:
-                    raise AssertionError(
-                        f"{name}: rank {r} sent {p['bytes_per_fill']} bytes "
-                        f"per fill, the halo is {p['halo_bytes_per_fill']}")
-            rung_counts = RUNG_LAUNCHES[case["rung"]]
-            want_l = [k * MR_PATHS[case["path"]][4] for k in rung_counts]
-            for r, p in enumerate(per):
-                if p["launches"][:2] != want_l:
-                    raise AssertionError(f"{name}: rank {r} launches "
-                                         f"{p['launches'][:2]} != {want_l}")
-            entry.update(dts=dts, bytes_per_fill=[p["bytes_per_fill"]
-                                                  for p in per],
-                         state_bytes=int(ref.numel() * ref.element_size()))
-            del ref
-        elif kind == "tracers":
-            spec = MR_TRACERS[case["path"]]
-            kw = {k: spec[k] for k in ("shape", "mb", "per_cell", "vel",
-                                       "seed")}
-            kw["capacity_factor"] = spec.get("capacity_factor", 2.0)
-            tr, st, prim = tracer_setup("cuda", **kw)
-            for _ in range(spec["steps"]):
-                st = tr.fill(tr.advect(st, prim, spec["dt"]), prim)
-            per_b = tr.mesh.nblocks // world
-            for r in range(world):
-                got = np.load(os.path.join(out, f"{name}.r{r}.npz"))
-                for k, v in st.items():
-                    want = v if v.dim() < 2 else v[r * per_b:(r + 1) * per_b]
-                    mr_equal(f"{name} rank {r} {k}", got[k], want)
-            n0 = int(tracer_setup("cuda", **kw)[1]["active"].sum())
-            entry.update(active=int(st["active"].sum()), seeded=n0,
-                         n_lost=int(st["n_lost"]),
-                         layer_cap=per[0]["layer_cap"],
-                         leavers_per_rank=[p["pool_active"] for p in per])
-            if case["path"] == "M3 overflow":
-                if int(st["n_lost"]) != 0 or entry["active"] != n0 \
-                        or min(entry["leavers_per_rank"]) <= \
-                        entry["layer_cap"]:
-                    raise AssertionError(f"{name}: {entry}")
-        else:
-            if kind == "smr":
-                sim = make_smr_sim(smr_deck("A", n=MR_SMR_N, ncycles=3,
-                                            precision="single"), "stage",
-                                   quiet=True)
-                st = sim.state
-                for _ in range(3):
-                    dt = float(sim.stepper.estimate_dt(st))
-                    st = sim.stepper.step(st, dt, 0.0)
-                table = sim.smesh
-            else:
-                amr, state = mr_amr_build(case, None)
-                st, _ = mr_amr_ref(amr, state, case["ncycles"])
-                table = amr.smesh
-                entry.update(device_leaf_counts=per[0][
-                    "device_leaf_counts"], remeshes=per[0]["remeshes"],
-                    tables_changed=per[0]["changed"])
-                log(f"  {name}: device_leaf_counts "
-                    f"{per[0]['device_leaf_counts']}, {per[0]['remeshes']} "
-                    f"remeshes ({per[0]['changed']} changed the leaves)")
-                if per[0]["changed"] < 1:
-                    raise AssertionError(f"{name}: no remesh changed the "
-                                         "leaves")
-            got = np.load(os.path.join(out, f"{name}.npz"))
-            if kind == "amr":
-                for k in ("levels", "lx1", "lx2", "lx3"):
-                    if not np.array_equal(got[k], getattr(table, k)):
-                        raise AssertionError(f"{name}: leaf table differs")
-            for lev, v in st.items():
-                mr_equal(f"{name} level {lev}", got[str(lev)], v)
-            face = 0 if kind == "smr" else 1
-            for r, p in enumerate(per):
-                if p["launches"][2 + face] != p["want_face_launches"]:
-                    raise AssertionError(
-                        f"{name}: rank {r} face launches {p['launches']} != "
-                        f"{p['want_face_launches']}")
-                if not (p["bytes_per_fill"] == p["plan_bytes_per_fill"]
-                        and 0 < p["bytes_per_fill"] <= p["face_slab_bytes"]
-                        and p["bytes_per_fill"] < p["all_gather_bytes"]):
-                    raise AssertionError(
-                        f"{name}: rank {r} sent {p['bytes_per_fill']} bytes "
-                        f"per fill; its schedule {p['plan_bytes_per_fill']}, "
-                        f"the face slabs {p['face_slab_bytes']}, an "
-                        f"all-gather {p['all_gather_bytes']}")
-            entry.update(bytes_per_fill=[p["bytes_per_fill"] for p in per],
-                         face_slab_bytes=[p["face_slab_bytes"] for p in per],
-                         all_gather_bytes=[p["all_gather_bytes"]
-                                           for p in per],
-                         state_bytes=int(sum(v.numel() * v.element_size()
-                                             for v in st.values())))
-        log(f"  {name}: {world} ranks, bit for bit with one rank; "
-            f"{secs:.3f} s; launches per rank {entry['launches_per_rank']}; "
-            f"{zcps:.6e} zone-cycles/s ({world} {MR_LABEL})"
-            + (f"; bytes sent per fill per rank {entry['bytes_per_fill']} "
-               f"(= the plan's; the state: {entry['state_bytes']})"
-               if "bytes_per_fill" in entry else "")
-            + (f"; face-slab bound {entry['face_slab_bytes']}, all-gather "
-               f"{entry['all_gather_bytes']}"
-               if "face_slab_bytes" in entry else ""))
-        nums[name] = entry
-    shutil.rmtree(out, ignore_errors=True)
+    for world, cases in runs:
+        out = tempfile.mkdtemp(dir=str(OUT.parent) if OUT.parent.exists()
+                               else None)
+        try:
+            t0 = time.time()
+            run_ranks(mr_rank, world, (out, cases), device="cuda",
+                      timeout=900, cards=cards or world)
+            log(f"  {world} ranks ({label}): {time.time() - t0:.1f} s "
+                f"(spawn included)")
+            results = mr_ranks(out, world)
+            for case in cases:
+                nums[world, case["name"]] = mr_check(
+                    case, results[case["name"]], out, world, refs, label)
+        finally:
+            shutil.rmtree(out, ignore_errors=True)
+    return nums
+
+
+def phase_multirank(refs):
+    """The multi-rank paths with every rank on the one
+    card (gloo, messages staged through pinned host buffers; on a machine
+    with more cards too), each against its one-rank run in this process
+    bit for bit; then M1's step with nccl at world size 1.  -> {path:
+    numbers} with each rank's launches."""
+    from athenapk_tpu_torch.parallel import halo, mesh_sharding as ms
+
+    log("== phase 4: multi-rank paths with the ranks sharing one card "
+        "(M1-M5, NCCL at world size 1) ==")
+    t_phase = time.time()
+    nums = {name: v for (_, name), v in mr_phase(
+        ((2, MR_CASES_2), (4, MR_CASES_4)), MR_LABEL, 1, refs).items()}
 
     # nccl at world size 1: M1's step on the sweep rung, bit for bit
-    ref, dts = mr_one_rank_uniform("M1", "sweep")
+    ref, dts = mr_reference(MR_CASES_2[0], refs)
     sim = make_sim(mr_deck("M1"), "sweep")
     with tempfile.TemporaryDirectory() as tmp:
         rm = ms.init_rank_mesh(0, 1, "file://" + os.path.join(tmp, "r"),
@@ -5430,9 +5744,36 @@ def phase_multirank():
                        launches, "dts": dts}
     log(f"  M1 with nccl at world size 1: bit for bit with the plain "
         f"step (state and {len(dts)} dts), launches {launches}")
-    del sim, ref, got
+    del sim, got
     log(f"  multi-rank phase: {time.time() - t_phase:.1f} s")
     return nums
+
+
+def phase_multirank_nccl(refs):
+    """The multi-rank paths with one card per rank over NCCL (CUDA
+    tensors sent directly, nothing staged), each against the same one-rank
+    run as the shared-card phase, bit for bit: every two-rank path where
+    two cards are visible, M2 and the four-rank M1 and M5 where four are.
+    On a one-card machine it says so and runs nothing (the shared-card
+    phase ran every path).  -> ``{"name (N ranks, nccl)": numbers}``."""
+    n = torch.cuda.device_count()
+    log(f"== phase 4: multi-rank paths with one card per rank over NCCL "
+        f"({n} card(s) visible) ==")
+    if n < 2:
+        log("  not run: one rank per card needs at least 2 cards and this "
+            f"machine shows {n}; the shared-card phase above ran M1-M5")
+        return {}
+    t_phase = time.time()
+    runs = [(2, MR_CASES_2)]
+    if n >= 4:
+        runs.append((4, MR_NCCL_4))
+    else:
+        log(f"  M2 and the four-rank M1 and M5 not run: {n} cards visible, "
+            "they take 4")
+    got = mr_phase(runs, MR_NCCL_LABEL, None, refs)
+    log(f"  NCCL phase: {time.time() - t_phase:.1f} s")
+    return {f"{name} ({world} ranks, nccl)": v
+            for (world, name), v in got.items()}
 
 
 def entry_route(entry):
@@ -5525,7 +5866,7 @@ def main(argv=None):
     amr, amr_face = {}, {}
     for path in AMR_PATHS:
         amr[path], amr_face[path], amr_face[f"{path} numbers"] = \
-            phase_amr_path(path, ncycles=40, warmup=10)
+            phase_amr_path(path, ncycles=25, warmup=10)
         zcps[f"amr_{path}"] = amr_face[f"{path} numbers"][
             "zone_cycles_per_s"]
     perf = phase_perf_matrix(n=256, ncycles=12, warmup=2)
@@ -5538,15 +5879,15 @@ def main(argv=None):
     # 0 just before the path's run)
     cloud_u, cloud_a = {}, {}
     for rung in ("sweep", "stage"):
-        # 7 cycles, not the other paths' 12: rk12's cycles take ~1 s each
-        cloud_u[rung] = phase_cloud_uniform(rung, n=128, ncycles=7,
+        # 5 cycles, not the other paths' 8-12: rk12's cycles take ~1 s each
+        cloud_u[rung] = phase_cloud_uniform(rung, n=128, ncycles=5,
                                             warmup=2)
         zcps[f"path_G' {rung}"] = cloud_u[rung][1]["zone_cycles_per_s"]
     for rung in ("stage", "negdiv"):
         cloud_a[rung] = phase_cloud_adaptive(rung, n=64, ncycles=30,
                                              warmup=10)
         zcps[f"path_G {rung}"] = cloud_a[rung][1]["zone_cycles_per_s"]
-    cooling_passes = phase_cooling_passes(n=128, ncycles=2)
+    cooling_passes = phase_cooling_passes(n=128, ncycles=1)
     path_h, path_i, path_i2, stage_prim_h = phase_source_paths(zcps)
     path_j, path_j2 = phase_tracer_paths(zcps)
     path_k = phase_cluster_paths(zcps)
@@ -5556,7 +5897,11 @@ def main(argv=None):
     amr_tracers = phase_amr_tracers(args.seed)
     restarts = phase_restart_on_card()
     trace_cli = phase_trace_cli()
-    multirank = phase_multirank()
+    mr_refs = {}
+    multirank = phase_multirank(mr_refs)
+    multirank_nccl = phase_multirank_nccl(mr_refs)
+    del mr_refs
+    MR_CLUSTER_SIMS.clear()
     phase_whole_steps(args.seed)
     smr_drift = phase_smr_whole_steps(args.seed)
     amr_2d_launches = phase_amr_whole_steps(args.seed)
@@ -5582,41 +5927,41 @@ def main(argv=None):
     cycles["Orszag-Tang 2048^2"] = ot.ncycle
     cycles["Sod 1024"] = sod_cycles
     sweep_entry = phase_sweep_timings(
-        sim, counts["sweep"][0], 20, "negdiv_sweep",
+        sim, counts["sweep"][0], 10, "negdiv_sweep",
         "athenapk_tpu/solver/pallas_sweep.py:37", "the main deck",
         f64_rows=True)
     sweep_entry["launches_by_path"] = by_path
-    stage_entry = phase_stage_timings(sim, counts["stage"][1], 20)
+    stage_entry = phase_stage_timings(sim, counts["stage"][1], 10)
     stage_entry["launches_by_path"] = {
         "main deck, sweep rung": counts["sweep"][1],
         "main deck, stage rung": counts["stage"][1],
         "main deck, hybrid rung": counts["hybrid"][1]}
     flat_entry = phase_sweep_timings(
-        ot, ot_launches, 20, "negdiv_sweep_2d",
+        ot, ot_launches, 10, "negdiv_sweep_2d",
         "athenapk_tpu/solver/pallas_sweep.py:343", "the Orszag-Tang deck")
     flat_entry["launches_by_path"] = {"Orszag-Tang 2048^2": ot_launches,
                                       "Sod 1024": sod_launches}
 
     faces_a = phase_smr_timings(
-        smr["A"], "stage-faces", smr_counts["A"][0], 20, "fused_stage_faces",
+        smr["A"], "stage-faces", smr_counts["A"][0], 10, "fused_stage_faces",
         "athenapk_tpu/solver/pallas_sweep.py:641", "refined-mesh path A")
     # this slice's main path: the entry's numbers are path D's, path A's
     # stay beside them
     faces_entry = phase_smr_timings(
-        amr["D"], "stage-faces", amr_face["D"], 20, "fused_stage_faces",
+        amr["D"], "stage-faces", amr_face["D"], 10, "fused_stage_faces",
         "athenapk_tpu/solver/pallas_sweep.py:641", "adaptive path D")
     faces_entry["at_path_A"] = {k: faces_a[k] for k in (
         "ms", "plain_ms", "bound_ms", "share_of_bound", "bound_by",
         "max_abs_err", "unit")}
     nd3_entry = phase_smr_timings(
-        smr["B"], "negdiv-faces", smr_counts["B"][1], 20,
+        smr["B"], "negdiv-faces", smr_counts["B"][1], 10,
         "negdiv_sweep_faces", "athenapk_tpu/solver/pallas_sweep.py:418",
         "refined-mesh path B")
     nd3_entry["also_replaces"] = "athenapk_tpu/solver/pallas_sweep.py:81 " \
         "(make_lane_sweep_negdiv_faces, composed by make_fused_negdiv_faces " \
         ":955: the same contract, a TPU layout choice)"
     nd2_entry = phase_smr_timings(
-        smr["C"], "negdiv-faces", smr_counts["C"][1], 20,
+        smr["C"], "negdiv-faces", smr_counts["C"][1], 10,
         "negdiv_sweep_faces_2d", "athenapk_tpu/solver/pallas_sweep.py:457",
         "refined-mesh path C")
     smr_entries = {"A": faces_entry, "B": nd3_entry, "C": nd2_entry}
@@ -5738,7 +6083,7 @@ def main(argv=None):
 
     scalar_rows = phase_scalar_timings(cloud_u["sweep"][0], {
         "negdiv_scalars": cloud_u["sweep"][1]["scalar_launches"],
-        "stage_scalars": cloud_a["stage"][1]["scalar_launches"]}, 20)
+        "stage_scalars": cloud_a["stage"][1]["scalar_launches"]}, 10)
     scalar_entries = [scalar_rows["negdiv_scalars"],
                       scalar_rows["stage_scalars"]]
     for entry in scalar_entries:
@@ -5774,32 +6119,40 @@ def main(argv=None):
     # from ``cycles``)
     route = {"M1 sweep": (sweep_entry, 0, True), "M2": (sweep_entry, 0, True),
              "M1 stage": (stage_entry, 1, True),
-             "M4 A": (faces_entry, 2, False), "M4 D'": (nd3_entry, 3, False)}
-    for name, num in multirank.items():
+             "M4 A": (faces_entry, 2, False), "M4 D'": (nd3_entry, 3, False),
+             "M5 stage": (faces_entry, 2, False),
+             "M5 negdiv": (nd3_entry, 3, False),
+             "M5'": (faces_entry, 2, False)}
+    for name, num in list(multirank.items()) + list(multirank_nccl.items()):
         if name == "M1 nccl":
             key = "M1 sweep rung, nccl at world size 1"
             sweep_entry["launches_by_path"][key] = num["launches"][0]
             cycles[key] = len(num["dts"])
             continue
-        if name not in route:
+        base = name.split(" (")[0]
+        if base not in route:
             continue
-        entry, k, by_cycles = route[name]
-        key = f"{name} ({num['ranks']} ranks on one card)"
+        entry, k, by_cycles = route[base]
+        key = (name if "nccl" in name
+               else f"{name} ({num['ranks']} ranks on one card)")
         n = sum(per[k] for per in num["launches_per_rank"])
         entry["launches_by_path"][key] = n
         if by_cycles:
-            cycles[key] = MR_PATHS[name.split()[0]][4]
+            cycles[key] = num["cycles"]
         else:
-            entry["launches_per_cycle"][key] = n / (3 if name == "M4 A" else
-                                                    MR_AMR_CYCLES)
+            entry["launches_per_cycle"][key] = n / num["cycles"]
+            entry["zone_cycles_per_s"][key] = num["zone_cycles_per_s"]
     sweep_entry["multi_rank"] = multirank
+    sweep_entry["multi_rank_nccl"] = multirank_nccl
     scalar_entries[0]["path_G_prime"] = {r: v[1] for r, v in cloud_u.items()}
     scalar_entries[0]["path_G_prime_cooling_passes"] = cooling_passes
     scalar_entries[1]["path_G"] = {r: v[1] for r, v in cloud_a.items()}
     # one cycle: an rk12 cycle (~1.5 s, hundreds of cooling passes) takes
-    # ~8 s under the profiler
+    # ~8 s under the profiler; one attempt: its trace (hundreds of cooling
+    # passes) loses events on the H100, a second attempt too
     scalar_entries[0]["path_G_prime_profile"] = {
-        r: phase_profile(cloud_u[r][0], 1, f"path G' ({r} rung)")
+        r: phase_profile(cloud_u[r][0], 1, f"path G' ({r} rung)",
+                         attempts=1)
         for r in cloud_u}
     scalar_entries[1]["path_G_profile"] = phase_amr_profile(
         cloud_a["stage"][0], 3, "path G (stage rung)")

@@ -1402,3 +1402,120 @@ def test_refined_cluster_deck_on_card_matches_cpu(card, rung, precision,
             scale = ref[:, v].abs().max().item()
             assert (got[:, v] - ref[:, v]).abs().max().item() \
                 <= tol * scale, (lev, v)
+
+
+# The cluster's variants that ran on the CPU only until now: the Bondi and
+# Booth-Schaye triggering (with the region-mass removal and the accretion
+# dt), the fixed-field tower, the dipole field, the .hst columns and the
+# HSE self-test file; and the sharded cluster hook over two ranks sharing
+# the card.
+def _trigger(text, mode):
+    return text.replace(
+        "triggering_mode = COLD_GAS\naccretion_radius = 0.002",
+        f"triggering_mode = {mode}\naccretion_radius = 0.008\n"
+        "bondi_alpha = 100.0\nbondi_n0 = 6.5e72\nbondi_beta = 2.0\n"
+        "accretion_cfl = 0.25")
+
+
+CLUSTER_VARIANTS = {
+    "boosted_bondi": lambda t: _trigger(t, "BOOSTED_BONDI"),
+    "booth_schaye": lambda t: _trigger(t, "BOOTH_SCHAYE"),
+    "fixed_field_tower": lambda t: t.replace(
+        "fixed_power = 1.0e-3", "fixed_power = 0.0").replace(
+        "triggering_mode = COLD_GAS", "triggering_mode = NONE").replace(
+        "l_mass_scale = 0.002", "l_mass_scale = 0.002\n"
+        "fixed_field_rate = 1.0e-3"),
+    # the dipole is the initial field: the B perturbation wants none
+    "dipole": lambda t: t.replace("sigma_b = 0.5", "sigma_b = 0.0") + """
+<problem/cluster/dipole_b_field>
+init_dipole_b_field = true
+mx = 1e-9
+my = 2e-9
+mz = -3e-9
+""",
+}
+
+
+@pytest.mark.parametrize("variant", sorted(CLUSTER_VARIANTS))
+def test_cluster_variants_on_card_match_cpu(card, variant, tmp_path,
+                                            monkeypatch):
+    """3 cycles of a cluster variant (16^3 in one ghosted block, f64, the
+    ``.hst`` file written every cycle with the cluster's columns) on the
+    card against the CPU: every variable to 1e-10 of its largest value,
+    every ``.hst`` column to 1e-10 relative, and, for the Bondi modes, the
+    accretion dt of the final state."""
+    monkeypatch.delenv("ATHENAPK_PALLAS_STAGE", raising=False)
+    monkeypatch.delenv("ATHENAPK_PALLAS_HYBRID", raising=False)
+    text = CLUSTER_VARIANTS[variant](_cluster_text(
+        tmp_path, "double", n=16, nlim=3)) + HST_BLOCK
+    sims, hst = {}, {}
+    for dev in ("cpu", "cuda"):
+        (tmp_path / dev).mkdir()
+        monkeypatch.chdir(tmp_path / dev)
+        sims[dev] = Simulation(ParameterInput.from_string(text), quiet=True,
+                               device=dev).run()
+        hst[dev] = np.loadtxt(next((tmp_path / dev).glob("*.hst")))
+    ref, got = sims["cpu"].u, sims["cuda"].u
+    assert got.is_cuda and bool(torch.isfinite(got).all())
+    for v in range(ref.shape[1]):
+        scale = ref[:, v].abs().max().item()
+        assert (got[:, v].cpu() - ref[:, v]).abs().max().item() \
+            <= 1e-10 * scale, v
+    assert hst["cpu"].shape == hst["cuda"].shape and hst["cpu"].shape[0] >= 3
+    np.testing.assert_allclose(hst["cuda"], hst["cpu"], rtol=1e-10,
+                               atol=1e-300)
+    if variant == "dipole":
+        assert sims["cpu"].u[:, 7].abs().max().item() > 0
+    if variant in ("boosted_bondi", "booth_schaye"):
+        dts = [float(cluster_pgen.estimate_timestep(
+            s.pin, s.mesh, s.cfg, s.eos, s.pkg.cons_to_prim(s.u)[1], s.t))
+            for s in (sims["cpu"], sims["cuda"])]
+        assert abs(dts[1] - dts[0]) <= 1e-10 * dts[0]
+
+
+def test_hse_self_test_file_on_card(card, tmp_path, monkeypatch):
+    """``test_he_sphere = true`` writes ``test_he_sphere.dat`` when the
+    card run is built, the CPU run's file exactly."""
+    text = _cluster_text(tmp_path, "double", n=16, nlim=1).replace(
+        "r_sampling = 4.0", "r_sampling = 4.0\ntest_he_sphere = true\n"
+        "test_he_sphere_n_r = 400")
+    files = {}
+    for dev in ("cpu", "cuda"):
+        (tmp_path / dev).mkdir()
+        monkeypatch.chdir(tmp_path / dev)
+        Simulation(ParameterInput.from_string(text), quiet=True, device=dev)
+        files[dev] = (tmp_path / dev / "test_he_sphere.dat").read_text()
+    assert files["cuda"] == files["cpu"] and len(files["cpu"]) > 0
+
+
+def test_sharded_cluster_on_card_two_ranks(card, tmp_path, monkeypatch):
+    """The cluster's unsplit source over two ranks sharing the card (gloo;
+    ``tests/test_torch_cluster_sharded.py``'s deck, flat layout, stage-faces
+    rung, 3 cycles) against one rank on the card, bit for bit, with one
+    collective per stage on each rank."""
+    import json
+
+    import torch_dist_workers as w
+    from athenapk_tpu_torch.parallel.dryrun import run_ranks
+
+    monkeypatch.setenv("ATHENAPK_PALLAS_STAGE", "1")
+    deck = cluster_deck(half=0.02, n=16, mb=8, nlim=3, refinement="static",
+                        regions=[(0.0, 0.02, 0.0, 0.02, 0.0, 0.02, 1)],
+                        stellar=False, table=write_cluster_table(
+                            tmp_path / "s.cool")).replace(
+        "clip_r = 0.02", "clip_r = -1.0")
+    sim = w.cluster_sim(deck, "stage", "cuda")
+    sm = sim.smesh
+    np.savez(tmp_path / "c_in.npz", levels=sm.levels, lx1=sm.lx1,
+             lx2=sm.lx2, lx3=sm.lx3,
+             **{f"L{k}": v.cpu().numpy() for k, v in sim.state.items()})
+    run_ranks(w.run_cases, 2, (str(tmp_path), [("cluster_case", (
+        "c", deck, "flat", "stage", 3, False))]), device="cuda", cards=1,
+        timeout=600)
+    amr = w.cluster_amr(sim)
+    ref, dts, _ = w.cluster_cycles(amr, dict(sim.state), 3, False)
+    out = np.load(tmp_path / "c.npz")
+    nums = json.loads((tmp_path / "c.json").read_text())
+    assert nums["dts"] == dts and nums["collectives"] == [6, 6]
+    for lev, v in ref.items():
+        np.testing.assert_array_equal(out[f"L{lev}"], v.cpu().numpy())

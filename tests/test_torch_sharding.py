@@ -441,3 +441,15 @@ def test_shard_state_checks_and_emit_dt_refused():
     step = make_sharded_step(pkg, rm)
     with pytest.raises(ValueError, match="emit_dt"):
         step.step(shard_state(u, pkg.mesh, rm), 1e-3, 1.0, emit_dt=True)
+
+
+def test_sendrecv_skips_empty_messages(tmp_path):
+    """An empty message is not posted on either side (NCCL takes none):
+    its receive is an empty tensor, the full message beside it to the
+    same peer arrives, and only its bytes are counted."""
+    run_ranks(w.run_cases, 2, (str(tmp_path), [
+        ("empty_message_case", ("empty",))]), device="cpu", timeout=300)
+    out = np.load(tmp_path / "empty.npz")
+    assert out["empty"].shape == (0,)
+    np.testing.assert_array_equal(out["full"], np.arange(6) + 10.0)
+    assert int(out["sent"]) == 6 * 8

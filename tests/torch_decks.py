@@ -1025,3 +1025,25 @@ def write_cluster_table(path):
     ``write_cooling_table`` over 1e4-1e10 K (the AGN heats gas beyond the
     default 1e8 K)."""
     return write_cooling_table(path, log_t_range=(4.0, 10.0))
+
+
+def cluster_adaptive_deck(table, n=32, mb=8, half=0.04, nlim=4,
+                          precision="double", split=True):
+    """The cluster deck on an adaptive mesh: base ``n``^3 over +-``half``
+    Mpc in ``mb``^3 blocks, ``numlevel = 2``, ``derefine_count = 1``, the
+    ``pressure_gradient`` criterion at 0.08 (at 32^3 over +-0.04 the
+    initial refinement holds {0: 56, 1: 64} leaves and cycle 4's remesh
+    changes them).  ``split=False`` drops the split sources (stellar
+    feedback and the clips), which refined meshes over ranks refuse."""
+    deck = cluster_deck(n=n, mb=mb, nlim=nlim, table=table,
+                        refinement="adaptive", precision=precision,
+                        stellar=split, half=half)
+    deck = deck.replace("refinement = adaptive", "refinement = adaptive\n"
+                        "numlevel = 2\nderefine_count = 1")
+    if not split:
+        deck = deck.replace("clip_r = 0.02", "clip_r = -1.0")
+    return deck + """
+<refinement>
+type = pressure_gradient
+threshold_pressure_gradient = 0.08
+"""

@@ -275,3 +275,97 @@ def amr_case(rmesh, d, name, kind, layout, ncycles):
               **{str(k): v.numpy() for k, v in got.items()})
         with open(os.path.join(d, f"{name}.json"), "w") as f:
             json.dump(out, f)
+
+
+# ------------------------------------------------ the cluster over ranks
+def cluster_sim(deck, rung, device="cpu"):
+    """The deck's ``SmrSimulation`` on ``device``, on the stage-faces
+    (``rung="stage"``) or the negdiv-faces rung."""
+    from athenapk_tpu_torch.amr.driver import SmrSimulation
+    from athenapk_tpu_torch.config.parameter_input import ParameterInput
+
+    os.environ["ATHENAPK_PALLAS_STAGE"] = "1" if rung == "stage" else "0"
+    return SmrSimulation(ParameterInput.from_string(deck), quiet=True,
+                         device=device)
+
+
+def cluster_amr(sim, rmesh=None, layout="flat"):
+    """An ``AmrHydro`` over ``sim``'s leaves with its settings, cooling and
+    unsplit source factory (no split source), on ``rmesh``'s ranks (None:
+    one rank)."""
+    from athenapk_tpu_torch.amr.remesh import AmrHydro
+    from athenapk_tpu_torch.refinement.criteria import RefinementConfig
+
+    d = sim.driver
+    sm = d.smesh if d is not None else sim.smesh
+    return AmrHydro(sm, sim.cfg, sim.eos,
+                    d.refine_cfg if d is not None else RefinementConfig(),
+                    derefine_count=d.derefine_count if d is not None else 1,
+                    device=sim.device, cooling=sim.cooling,
+                    problem_source_factory=sim._source_factories()[0],
+                    rmesh=rmesh, layout=layout)
+
+
+def cluster_cycles(amr, state, ncycles, remesh):
+    """``ncycles`` of (remesh if ``remesh``, the dt, the step at the time
+    reached, with GLM's c_h = cfl * min dx / dt): -> (the rank's rows, the
+    dts, the leaf counts per level of each cycle)."""
+    state = amr._place(state)
+    t, dts, tables = 0.0, [], []
+    for _ in range(ncycles):
+        if remesh:
+            state, _ = amr.maybe_remesh(state)
+        sm = amr.smesh
+        tables.append({int(k): int(v.size) for k, v in sm.level_ids.items()})
+        st = amr._stepper
+        dt = float(st.estimate_dt(state))
+        c_h = amr.cfg.cfl * sm.min_dx(sm.max_level) / dt
+        state = st.step(state, dt, c_h, t)
+        t += dt
+        dts.append(dt)
+    return state, dts, tables
+
+
+def cluster_case(rmesh, d, name, deck, layout, rung, ncycles, remesh):
+    """``cluster_cycles`` of the deck's cluster over the ranks (on their
+    device) from the initial state ``{name}_in.npz``; rank 0 writes the
+    gathered state, the leaf table, the dts and each rank's collectives of
+    the source hook."""
+    sim = cluster_sim(deck, rung, rmesh.device.type)
+    amr = cluster_amr(sim, rmesh, layout)
+    src = np.load(os.path.join(d, f"{name}_in.npz"))
+    for k in ("levels", "lx1", "lx2", "lx3"):
+        if not np.array_equal(src[k], getattr(amr.smesh, k)):
+            raise AssertionError(f"{name}: the initial leaf table differs")
+    whole = {int(k[1:]): torch.from_numpy(src[k]).to(rmesh.device)
+             for k in src.files if k.startswith("L")}
+    st, dts, tables = cluster_cycles(amr, whole, ncycles, remesh)
+    got = amr.exact_state(st)
+    hooks = sum(s.problem_source_unsplit.leaves.collectives
+                for s in amr._steppers.values())
+    per_rank = [int(v) for v in rmesh.all_gather(torch.tensor([hooks]))]
+    if rmesh.rank == 0:
+        _save(d, name, levels=amr.smesh.levels, lx1=amr.smesh.lx1,
+              lx2=amr.smesh.lx2, lx3=amr.smesh.lx3,
+              **{f"L{k}": v.cpu().numpy() for k, v in got.items()})
+        with open(os.path.join(d, f"{name}.json"), "w") as f:
+            json.dump({"dts": dts, "tables": tables,
+                       "collectives": per_rank,
+                       "changed": sum(e["changed"]
+                                      for e in amr.remesh_log)}, f)
+
+
+def empty_message_case(rmesh, d, name):
+    """``RankMesh.sendrecv`` with an empty message beside a full one to
+    the same peer (both tags): the empty one is not posted, its receive is
+    an empty tensor, the full one arrives; rank 0 writes what it got and
+    the bytes it counted."""
+    peer = 1 - rmesh.rank
+    full = torch.arange(6, dtype=torch.float64) + 10 * rmesh.rank
+    sent0 = rmesh.sent_bytes
+    got = rmesh.sendrecv(
+        [(peer, torch.empty(0, dtype=torch.float64), 0), (peer, full, 1)],
+        [(peer, (0,), torch.float64, 0), (peer, (6,), torch.float64, 1)])
+    if rmesh.rank == 0:
+        _save(d, name, empty=got[0].numpy(), full=got[1].numpy(),
+              sent=np.array(rmesh.sent_bytes - sent0))
