@@ -83,6 +83,7 @@ from typing import Optional
 
 import numpy as np
 import torch
+from torch.profiler import record_function
 
 from ..config.parameter_input import ParameterInput
 from ..core.boundaries import check_reflecting_mhd
@@ -557,10 +558,12 @@ class SmrSimulation:
         pack = self._dt_pack()
         if not (with_tags and self.adaptive
                 and self.ncycle % self.driver.check_interval == 0):
-            return pack.tolist(), None
+            with record_function("host_read"):
+                return pack.tolist(), None
         parts = self.driver.dispatch_tags(self.state)
         flat = torch.cat([pack] + [t.to(pack.dtype) for _, t in parts])
-        vals = flat.cpu().numpy()
+        with record_function("host_read"):
+            vals = flat.cpu().numpy()
         tags = self.driver.assemble_tags(parts, vals[3:].astype(np.int32))
         return vals[:3].tolist(), tags
 
@@ -614,6 +617,14 @@ class SmrSimulation:
         self._write_hdf5(dt)
         self._write_rst()
 
+    def _split_source(self, name, src, stepper, dt):
+        """A split source over the state at full dt in the range ``name``,
+        then the ghost fill."""
+        with record_function(name):
+            state = src(self.state, dt, self.t)
+        with record_function("boundary_fill"):
+            self.state = stepper.fill_ghosts(state)
+
     def _run_split(self, zones_per_block):
         """The JAX driver's non-pipelined cycle: remesh check, the dt (one
         host read of the estimate, dt_diff and the pgen's dt), then the
@@ -622,64 +633,65 @@ class SmrSimulation:
         -> (zone-cycles, remeshes)."""
         zone_cycles = n_remesh = 0
         while self._running():
-            if self.adaptive and \
-                    self.ncycle % self.driver.check_interval == 0:
-                self.state, changed = self.driver.maybe_remesh(self.state)
-                if changed:
-                    n_remesh += 1
-                    if not self.quiet and self.ncycle_out_mesh < 0:
-                        self._print_mesh(zones_per_block)
-                    if self.tracer_state is not None:
-                        # re-bin the tracers onto the new leaf table
-                        self.tracers = SmrTracers(
-                            self.pin, self.driver.smesh, self.cfg,
-                            device=self.device)
-                        self.tracer_state = self.tracers.adopt(
-                            self.tracer_state)
-            st = self._stepper_now()
-            if st.sts:
-                dt_j, dt_diff = st.estimate_dt_with_diff(self.state)
-            else:
-                dt_j, dt_diff = st.estimate_dt(self.state), None
-            parts = (dt_j, dt_j if dt_diff is None else dt_diff,
-                     self._problem_dt())
-            vals = torch.stack([torch.as_tensor(
-                v, dtype=dt_j.dtype, device=dt_j.device).reshape(())
-                for v in parts]).tolist()
-            dt_raw = min(vals[0], vals[2])
-            if self.tm_dt is not None:
-                dt_raw = min(dt_raw, 2.0 * self.tm_dt)
-            self.tm_dt = dt_raw
-            dt = min(dt_raw, self.tlim - self.t)
-            src_strang = st.problem_source_strang
-            src_fo = st.problem_source_first_order
-            if st.sts:
-                # the Strang wrap: a half super-step on each side of the
-                # hyperbolic cycle (hydro_driver.cpp:456-458)
-                self.state = st.sts_half_step(self.state, 0.5 * dt, vals[1])
-            if src_strang is not None:
-                # AddSplitSourcesStrang (hydro_driver.cpp:460-470)
-                self.state = st.fill_ghosts(
-                    src_strang(self.state, dt, self.t))
-            self.state = st.step(self.state, dt, self._c_h(dt), self.t)
-            if src_strang is not None:
-                self.state = st.fill_ghosts(
-                    src_strang(self.state, dt, self.t))
-            if src_fo is not None:
-                # AddSplitSourcesFirstOrder, once per cycle at full dt
-                # (hydro_driver.cpp:548-561)
-                self.state = st.fill_ghosts(src_fo(self.state, dt, self.t))
-            if st.sts:
-                self.state = st.sts_half_step(self.state, 0.5 * dt, vals[1])
-            if self.tracer_state is not None:
-                # advect with the last-filled velocities, then resample
-                prims = self._prims()
-                self.tracer_state = self.tracers.fill(self.tracers.advect(
-                    self.tracer_state, prims, dt), prims)
-            self.t += dt
-            self.ncycle += 1
-            zone_cycles += zones_per_block * sum(
-                v.shape[0] for v in self.state.values())
+            with record_function("cycle"):
+                if self.adaptive and \
+                        self.ncycle % self.driver.check_interval == 0:
+                    self.state, changed = self.driver.maybe_remesh(self.state)
+                    if changed:
+                        n_remesh += 1
+                        if not self.quiet and self.ncycle_out_mesh < 0:
+                            self._print_mesh(zones_per_block)
+                        if self.tracer_state is not None:
+                            # re-bin the tracers onto the new leaf table
+                            self.tracers = SmrTracers(
+                                self.pin, self.driver.smesh, self.cfg,
+                                device=self.device)
+                            self.tracer_state = self.tracers.adopt(
+                                self.tracer_state)
+                st = self._stepper_now()
+                if st.sts:
+                    dt_j, dt_diff = st.estimate_dt_with_diff(self.state)
+                else:
+                    dt_j, dt_diff = st.estimate_dt(self.state), None
+                parts = (dt_j, dt_j if dt_diff is None else dt_diff,
+                         self._problem_dt())
+                stacked = torch.stack([torch.as_tensor(
+                    v, dtype=dt_j.dtype, device=dt_j.device).reshape(())
+                    for v in parts])
+                with record_function("host_read"):
+                    vals = stacked.tolist()
+                dt_raw = min(vals[0], vals[2])
+                if self.tm_dt is not None:
+                    dt_raw = min(dt_raw, 2.0 * self.tm_dt)
+                self.tm_dt = dt_raw
+                dt = min(dt_raw, self.tlim - self.t)
+                src_strang = st.problem_source_strang
+                src_fo = st.problem_source_first_order
+                if st.sts:
+                    # the Strang wrap: a half super-step on each side of the
+                    # hyperbolic cycle (hydro_driver.cpp:456-458)
+                    self.state = st.sts_half_step(self.state, 0.5 * dt, vals[1])
+                if src_strang is not None:
+                    # AddSplitSourcesStrang (hydro_driver.cpp:460-470)
+                    self._split_source("strang_source", src_strang, st, dt)
+                self.state = st.step(self.state, dt, self._c_h(dt), self.t)
+                if src_strang is not None:
+                    self._split_source("strang_source", src_strang, st, dt)
+                if src_fo is not None:
+                    # AddSplitSourcesFirstOrder, once per cycle at full dt
+                    # (hydro_driver.cpp:548-561)
+                    self._split_source("first_order_source", src_fo, st, dt)
+                if st.sts:
+                    self.state = st.sts_half_step(self.state, 0.5 * dt, vals[1])
+                if self.tracer_state is not None:
+                    # advect with the last-filled velocities, then resample
+                    prims = self._prims()
+                    self.tracer_state = self.tracers.fill(self.tracers.advect(
+                        self.tracer_state, prims, dt), prims)
+                self.t += dt
+                self.ncycle += 1
+                zone_cycles += zones_per_block * sum(
+                    v.shape[0] for v in self.state.values())
             self._end_cycle(dt, zones_per_block)
         return zone_cycles, n_remesh
 
@@ -690,28 +702,29 @@ class SmrSimulation:
         n_remesh = 0
         pack, tags = self._read_next() if self._running() else (None, None)
         while self._running():
-            if tags is not None:
-                # the tags describe the state the previous step left
-                self.state, changed = self.driver.maybe_remesh(self.state,
-                                                               tags)
-                if changed:
-                    n_remesh += 1
-                    if not self.quiet and self.ncycle_out_mesh < 0:
-                        self._print_mesh(zones_per_block)
-                    # the state changed under the dt read with the tags
-                    pack, _ = self._read_next(with_tags=False)
-            dt_raw, dt, c_h = pack
-            self.state = self._stepper_now().step(self.state, dt, c_h,
-                                                  self.t)
-            self.tm_dt = dt_raw
-            self.t += dt
-            self.ncycle += 1
-            zone_cycles += zones_per_block * sum(
-                v.shape[0] for v in self.state.values())
-            # the next cycle's dt (and tags), read after this cycle's step
-            # is enqueued
-            pack, tags = (self._read_next() if self._running()
-                          else (None, None))
+            with record_function("cycle"):
+                if tags is not None:
+                    # the tags describe the state the previous step left
+                    self.state, changed = self.driver.maybe_remesh(self.state,
+                                                                   tags)
+                    if changed:
+                        n_remesh += 1
+                        if not self.quiet and self.ncycle_out_mesh < 0:
+                            self._print_mesh(zones_per_block)
+                        # the state changed under the dt read with the tags
+                        pack, _ = self._read_next(with_tags=False)
+                dt_raw, dt, c_h = pack
+                self.state = self._stepper_now().step(self.state, dt, c_h,
+                                                      self.t)
+                self.tm_dt = dt_raw
+                self.t += dt
+                self.ncycle += 1
+                zone_cycles += zones_per_block * sum(
+                    v.shape[0] for v in self.state.values())
+                # the next cycle's dt (and tags), read after this cycle's step
+                # is enqueued
+                pack, tags = (self._read_next() if self._running()
+                              else (None, None))
             self._end_cycle(dt, zones_per_block)
         return zone_cycles, n_remesh
 

@@ -50,11 +50,10 @@ ranks, where the JAX package drops them.
 
 from __future__ import annotations
 
-import time
-
 import numpy as np
 import torch
 import torch.nn.functional as F
+from torch.profiler import record_function
 
 from ..core.amr_forest import COPY, PROLONG, RESTRICT
 from ..eos.adiabatic import cons_to_prim
@@ -75,18 +74,16 @@ def _edge_pad(interior, base):
                             base.ng3, base.ng3), mode="replicate")
 
 
-def transfer(smesh: SmrMesh, state, tags, timings=None):
+def transfer(smesh: SmrMesh, state, tags):
     """Apply per-leaf tags to the forest and move the block data; -> (new
     SmrMesh, ``{level: tensor}`` whose interiors are valid and whose ghosts
     are not filled).
 
     ``state``: ``{level: [nb_level, nvar, NZ, NY, NX]}`` whose ghosts are
     valid (prolongation reads a one-cell halo of the coarse octant).
-    ``tags``: int array over the old mesh's global leaf ids.  ``timings``:
-    a dict that gets the host milliseconds of the forest update
-    (``forest_ms``) and of the transfer's enqueueing (``transfer_ms``).
+    ``tags``: int array over the old mesh's global leaf ids.  The forest
+    update runs in the profiler range ``remesh_forest``.
     """
-    t0 = time.perf_counter()
     base = smesh.base
     ndim = base.ndim
     nz, ny, nx = base.mbnx3, base.mbnx2, base.mbnx1
@@ -106,10 +103,10 @@ def transfer(smesh: SmrMesh, state, tags, timings=None):
     first = next(iter(state.values()))
     nvar, dtype, device = first.shape[1], first.dtype, first.device
 
-    kind, old_id, octant = smesh.forest.update(
-        np.ascontiguousarray(tags, np.int32))
-    new_sm = SmrMesh.from_forest(base, smesh.forest)
-    t1 = time.perf_counter()
+    with record_function("remesh_forest"):
+        kind, old_id, octant = smesh.forest.update(
+            np.ascontiguousarray(tags, np.int32))
+        new_sm = SmrMesh.from_forest(base, smesh.forest)
 
     def ix(a):
         return torch.as_tensor(np.asarray(a, np.int64), device=device)
@@ -182,9 +179,6 @@ def transfer(smesh: SmrMesh, state, tags, timings=None):
                                                                  dims=ndim)
             out.index_copy_(0, ix(res_dst), _edge_pad(merged, base))
         new_state[lev] = out
-    if timings is not None:
-        timings["forest_ms"] = 1e3 * (t1 - t0)
-        timings["transfer_ms"] = 1e3 * (time.perf_counter() - t1)
     return new_sm, new_state
 
 
@@ -204,9 +198,12 @@ class AmrHydro:
     ``layout``): step plus periodic retag and remesh, with one ``SmrHydro``
     (over ranks ``ShardedSmrHydro``) cached per leaf table.
 
-    ``remesh_log`` keeps, per remesh, whether the leaf table changed, whether
-    its topology was new, and the host milliseconds of the forest update,
-    the transfer, the new topology's plans and the ghost fill.
+    ``remesh_log`` keeps, per remesh, whether the leaf table changed and
+    whether its topology was new.  A remesh runs in profiler ranges:
+    ``remesh_transfer`` (the forest update, in ``remesh_forest``, and the
+    blocks' move), ``remesh_plans`` (the stepper of the leaf table, its
+    plans built where the topology is new) and ``remesh_fill`` (the ghost
+    fill); its tags reach the host in a ``host_read``.
 
     The problem's sources depend on the leaves' coordinates, so each new
     leaf table builds its own from the factories (``factory(smesh)``; the
@@ -336,10 +333,14 @@ class AmrHydro:
                    for r in range(self.rmesh.world)]
             got = self.rmesh.all_gather(mine.to(torch.int32),
                                         sizes=[i.size for i in ids])
-            tags[np.concatenate(ids)] = torch.cat(got).cpu().numpy()
+            gathered = torch.cat(got)
+            with record_function("host_read"):
+                tags[np.concatenate(ids)] = gathered.cpu().numpy()
             return tags
         if flat is None:
-            flat = torch.cat([t for _, t in parts]).cpu().numpy()
+            mine = torch.cat([t for _, t in parts])
+            with record_function("host_read"):
+                flat = mine.cpu().numpy()
         o = 0
         for ids, _ in parts:
             tags[ids] = flat[o:o + ids.size]
@@ -376,26 +377,22 @@ class AmrHydro:
         if not tags.any():
             return state, False
         old_sig = self._signature()
-        log = {}
-        if self.rmesh is not None:
-            t0 = time.perf_counter()
-            self.smesh, self._owner, new_state = transfer_sharded(
-                sm, state, tags, self._owner,
-                lambda m: OWNERS[self.layout](m, self.rmesh.world),
-                self.rmesh)
-            log["transfer_ms"] = 1e3 * (time.perf_counter() - t0)
-        else:
-            self.smesh, new_state = transfer(sm, self.exact_state(state),
-                                             tags, log)
+        with record_function("remesh_transfer"):
+            if self.rmesh is not None:
+                self.smesh, self._owner, new_state = transfer_sharded(
+                    sm, state, tags, self._owner,
+                    lambda m: OWNERS[self.layout](m, self.rmesh.world),
+                    self.rmesh)
+            else:
+                self.smesh, new_state = transfer(sm, self.exact_state(state),
+                                                 tags)
         sig = self._signature()
-        log["changed"] = sig != old_sig
-        log["new_topology"] = sig not in self._steppers
-        t0 = time.perf_counter()
-        self._stepper = self._get_stepper()
-        t1 = time.perf_counter()
-        state = self._stepper.fill_ghosts(new_state)
-        log["plans_ms"] = 1e3 * (t1 - t0)
-        log["fill_ms"] = 1e3 * (time.perf_counter() - t1)
+        log = {"changed": sig != old_sig,
+               "new_topology": sig not in self._steppers}
+        with record_function("remesh_plans"):
+            self._stepper = self._get_stepper()
+        with record_function("remesh_fill"):
+            state = self._stepper.fill_ghosts(new_state)
         self.remesh_log.append(log)
         return state, log["changed"]
 
@@ -406,7 +403,9 @@ class AmrHydro:
         for n in range(ncycles):
             if n % self.check_interval == 0:
                 state, _ = self.maybe_remesh(state)
-            dt = float(self._stepper.estimate_dt(state))
+            dt_dev = self._stepper.estimate_dt(state)
+            with record_function("host_read"):
+                dt = float(dt_dev)
             state = self._stepper.step(state, dt, c_h)
         return state
 

@@ -45,6 +45,7 @@ from __future__ import annotations
 
 import numpy as np
 import torch
+from torch.profiler import record_function
 
 from ..core.amr_forest import COPY, PROLONG, RESTRICT
 from ..refinement.prolong_restrict import prolongate_minmod, restrict_average
@@ -484,9 +485,10 @@ def transfer_sharded(smesh: SmrMesh, state, tags, owner, owners_fn, rmesh):
     like = next(iter(state.values()))
     nvar, dtype, device = like.shape[1], like.dtype, like.device
 
-    kind, old_id, octant = smesh.forest.update(
-        np.ascontiguousarray(tags, np.int32))
-    new_sm = SmrMesh.from_forest(base, smesh.forest)
+    with record_function("remesh_forest"):
+        kind, old_id, octant = smesh.forest.update(
+            np.ascontiguousarray(tags, np.int32))
+        new_sm = SmrMesh.from_forest(base, smesh.forest)
     new_owner = owners_fn(new_sm)
 
     def ix(a):

@@ -63,6 +63,7 @@ import os
 
 import numpy as np
 import torch
+from torch.profiler import record_function
 
 from ..core.indices import (GLMMHD, IB1, IB2, IB3, IDN, IEN, IM1, IM2, IM3,
                             IPS)
@@ -263,7 +264,10 @@ class SmrHydro:
         sweep, or, where the candidate state has a bad interior cell,
         recomputed from the plain fluxes after the 4-pass rescue."""
         u_cand = gam0 * u0f + gam1 * u1 + beta_dt * negdiv
-        if not bool(fofc_bad_cells(self.cfg, u_cand, self._interior).any()):
+        any_bad = fofc_bad_cells(self.cfg, u_cand, self._interior).any()
+        with record_function("host_read"):
+            rescue = bool(any_bad)
+        if not rescue:
             return negdiv, slabs
         self.fofc_rescues += 1
         lm = self.level_mesh[lev]

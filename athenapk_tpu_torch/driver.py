@@ -58,8 +58,15 @@ prim of the cycle's final state, before the problem's
 CLI: ``-i deck.in``, ``-r file.rhdf`` (resume; overrides apply to the
 stored deck), ``-t TRACE_DIR`` (the run inside ``torch.profiler.profile``,
 CPU and on the card CUDA activity, exported as a Chrome trace to
-``TRACE_DIR/trace.json``; ``solver.hydro_pkg`` names its phases with
-``record_function``), ``--device cpu``.
+``TRACE_DIR/trace.json``), ``--device cpu``.
+
+Profiler ranges (``torch.profiler.record_function``, always on; a trace
+shows them): ``cycle`` around each cycle of the loop, from the dt clamp to
+the next dt (the refined driver's loops alike); ``strang_source`` and
+``first_order_source`` around the split sources, each followed by a
+``boundary_fill``; ``host_read`` around each read of the device to the
+host; ``solver.hydro_pkg`` names the phases of a stage, the problem's
+sources (``pgen.cluster``) and the remesh (``amr.remesh``) theirs.
 
 Every problem of the JAX package runs, the galaxy cluster included
 (``pgen.cluster``: its unsplit source joins every stage, its stellar
@@ -82,6 +89,7 @@ from typing import Optional
 import numpy as np
 import torch
 import torch.distributed as dist
+from torch.profiler import record_function
 
 from .config.parameter_input import ParameterInput
 from .core.mesh import Mesh
@@ -448,17 +456,23 @@ class Simulation:
         if pkg.sts:
             self.u = pkg.sts_half_step(self.u, 0.5 * dt_eff, self.dt_diff)
         if self.src_strang is not None:
-            self.u = pkg.apply_boundaries(
-                self.src_strang(self.u, dt_eff, self.t))
+            self._split_source("strang_source", self.src_strang, dt_eff)
         self.u = pkg.step(self.u, dt_eff, c_h, self.t)
         if self.src_strang is not None:
-            self.u = pkg.apply_boundaries(
-                self.src_strang(self.u, dt_eff, self.t))
+            self._split_source("strang_source", self.src_strang, dt_eff)
         if self.src_first_order is not None:
-            self.u = pkg.apply_boundaries(
-                self.src_first_order(self.u, dt_eff, self.t))
+            self._split_source("first_order_source", self.src_first_order,
+                               dt_eff)
         if pkg.sts:
             self.u = pkg.sts_half_step(self.u, 0.5 * dt_eff, self.dt_diff)
+
+    def _split_source(self, name, src, dt_eff):
+        """A split source over the state at full dt in the range ``name``,
+        then the ghost fill."""
+        with record_function(name):
+            u = src(self.u, dt_eff, self.t)
+        with record_function("boundary_fill"):
+            self.u = self.pkg.apply_boundaries(u)
 
     def _do_outputs(self, force=False):
         due = [out for out in self.outputs if force or out.due(self.t)]
@@ -507,28 +521,29 @@ class Simulation:
             if self.ncycle == self.perf_cycle_offset:
                 self._sync()   # pending work before the perf clock starts
                 perf_start = time.time()
-            dt_eff = min(dt, self.tlim - self.t)
-            c_h = self.pkg.c_h_from_dt_hyp(dt_hyp)
-            if split:
-                self._cycle(dt_eff, c_h)
-            else:
-                self.u, (dt_new, dt_hyp, self.dt_diff) = \
-                    self.pkg.step_with_dt(self.u, dt_eff, c_h, self.t)
-            if self.tracer_state is not None:
-                self._move_tracers(dt_eff)
-            self.t += dt_eff
-            self.ncycle += 1
-            if self.tracer_state is not None \
-                    and self._fill_tracers_hook is not None:
-                self.tracer_state = self._fill_tracers_hook(
-                    self.pin, self.mesh, self.cfg, self.tracer_state,
-                    self.ncycle, self.t, dt_eff)
-            if perf_start is not None:
-                perf_cycles += 1
-            self.tm_dt = dt_eff
-            if split:
-                dt_new, dt_hyp = self._estimate()
-            dt = min(2.0 * dt, dt_new)
+            with record_function("cycle"):
+                dt_eff = min(dt, self.tlim - self.t)
+                c_h = self.pkg.c_h_from_dt_hyp(dt_hyp)
+                if split:
+                    self._cycle(dt_eff, c_h)
+                else:
+                    self.u, (dt_new, dt_hyp, self.dt_diff) = \
+                        self.pkg.step_with_dt(self.u, dt_eff, c_h, self.t)
+                if self.tracer_state is not None:
+                    self._move_tracers(dt_eff)
+                self.t += dt_eff
+                self.ncycle += 1
+                if self.tracer_state is not None \
+                        and self._fill_tracers_hook is not None:
+                    self.tracer_state = self._fill_tracers_hook(
+                        self.pin, self.mesh, self.cfg, self.tracer_state,
+                        self.ncycle, self.t, dt_eff)
+                if perf_start is not None:
+                    perf_cycles += 1
+                self.tm_dt = dt_eff
+                if split:
+                    dt_new, dt_hyp = self._estimate()
+                dt = min(2.0 * dt, dt_new)
 
             if not self.quiet and self.ncycle_out > 0 and \
                     self.ncycle % self.ncycle_out == 0:
@@ -677,7 +692,8 @@ def main(argv=None):
     """CLI: python -m athenapk_tpu_torch.driver -i deck.in [ovr...]
             python -m athenapk_tpu_torch.driver -r file.rhdf [ovr...]
        Options: --device cuda|cpu; -t TRACE_DIR (a torch.profiler trace of
-       the run in TRACE_DIR/trace.json)."""
+       the run in TRACE_DIR/trace.json, with the ranges of the module
+       docstring)."""
     argv = list(argv if argv is not None else sys.argv[1:])
     opts = {}
     for flag in ("--device", "-t"):

@@ -20,6 +20,7 @@ from typing import List, Sequence, Tuple
 
 import numpy as np
 import torch
+from torch.profiler import record_function
 
 from ..core.ieee import sqrt
 from ..core.indices import IDN, IM1, IM2, IM3, IEN, IB1, IB2, IB3, GLMMHD
@@ -36,8 +37,9 @@ def _block_sums(q, mesh):
     """Per-block interior sums in the state dtype, handed to the host in
     f64 (the f64 combine over blocks keeps f32 runs accurate, as the JAX
     package does)."""
-    return torch.sum(_interior(q, mesh), dim=(1, 2, 3)).cpu().numpy() \
-        .astype(np.float64)
+    sums = torch.sum(_interior(q, mesh), dim=(1, 2, 3))
+    with record_function("host_read"):
+        return sums.cpu().numpy().astype(np.float64)
 
 
 def hydro_history_columns(fluid: str):

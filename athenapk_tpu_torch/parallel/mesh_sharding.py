@@ -34,6 +34,7 @@ import dataclasses
 import numpy as np
 import torch
 import torch.distributed as dist
+from torch.profiler import record_function
 
 
 def choose_backend(device_type: str, world: int, n_cuda: int) -> str:
@@ -174,7 +175,9 @@ class RankMesh:
                              device=self.device)
             got = [torch.zeros_like(n) for _ in range(self.world)]
             dist.all_gather(got, n)
-            sizes = torch.cat(got).tolist()
+            gathered = torch.cat(got)
+            with record_function("host_read"):
+                sizes = gathered.tolist()
         pad = torch.zeros((max(sizes),) + tuple(t.shape[1:]), dtype=t.dtype,
                           device=self.device)
         pad[:t.shape[0]] = t

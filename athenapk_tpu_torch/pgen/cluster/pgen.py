@@ -18,7 +18,10 @@ at full dt; the accretion dt caps the step; ``history_columns`` adds
 ``cold_mass``, ``agn_extent`` and ``agn_feedback_power`` to the uniform
 ``.hst`` (the refined driver has no cluster columns, as in the JAX
 package).  No source reads the host: the accretion rate, the tower's
-scale and the region mass stay 0-d tensors.
+scale and the region mass stay 0-d tensors.  Each source runs in a
+profiler range of its name (``gravity``, ``agn_feedback``,
+``snia_feedback``, ``stellar_feedback``, ``clips``); the history columns
+read the host in ``host_read`` ranges.
 """
 
 from __future__ import annotations
@@ -29,6 +32,7 @@ import weakref
 
 import numpy as np
 import torch
+from torch.profiler import record_function
 
 from ...core.ieee import sqrt
 from ...core.indices import (GLMMHD, IB1, IB2, IB3, IDN, IEN, IM1, IM2,
@@ -434,13 +438,16 @@ def _unsplit_groups(pkg, mhd, groups, beta_dt, t, sums=None):
     feedback (with the fixed-field tower; ``sums`` its cross-group sums),
     SN Ia."""
     if pkg.gravity_srcterm:
+        with record_function("gravity"):
+            for g in groups:
+                gravitational_field_source(pkg.gravity, g["u"], g["prim"],
+                                           beta_dt, g["x"], g["y"], g["z"],
+                                           g["r"])
+    with record_function("agn_feedback"):
+        pkg.agn_feedback.apply_groups(groups, beta_dt, t, mhd, sums=sums)
+    with record_function("snia_feedback"):
         for g in groups:
-            gravitational_field_source(pkg.gravity, g["u"], g["prim"],
-                                       beta_dt, g["x"], g["y"], g["z"],
-                                       g["r"])
-    pkg.agn_feedback.apply_groups(groups, beta_dt, t, mhd, sums=sums)
-    for g in groups:
-        pkg.snia_feedback.apply(g["u"], g["prim"], beta_dt, g["r"])
+            pkg.snia_feedback.apply(g["u"], g["prim"], beta_dt, g["r"])
 
 
 def _group(u, prim, coords, vol, valid, level=None):
@@ -518,6 +525,15 @@ def _split_sources(pkg):
     return not (pkg.stellar_feedback.disabled and pkg.clip_r <= 0.0)
 
 
+def _split_sources_on(pkg, u, prim, dt, r, mhd):
+    """Stellar feedback, then the clips, on one group of blocks in place;
+    -> ``u``."""
+    with record_function("stellar_feedback"):
+        pkg.stellar_feedback.apply(u, prim, dt, r)
+    with record_function("clips"):
+        return _apply_clips(pkg, u, r, mhd)
+
+
 def problem_source_first_order(pin, mesh, cfg, eos):
     """The cluster's split sources (``ClusterSplitSrcTerm``,
     cluster.cpp:85-93, as ProblemSourceFirstOrder, main.cpp:106): stellar
@@ -531,9 +547,7 @@ def problem_source_first_order(pin, mesh, cfg, eos):
 
     def src(u, dt, t):
         u, prim = cons_to_prim(eos, u, cfg.fluid, cfg.nscalars)
-        r = coords.on(u)[3]
-        pkg.stellar_feedback.apply(u, prim, dt, r)
-        return _apply_clips(pkg, u, r, mhd)
+        return _split_sources_on(pkg, u, prim, dt, coords.on(u)[3], mhd)
 
     return src
 
@@ -551,9 +565,8 @@ def problem_source_first_order_smr(pin, smesh, cfg, eos):
         out = {}
         for lev, u in state.items():
             u, prim = cons_to_prim(eos, u, cfg.fluid, cfg.nscalars)
-            r = coords[lev].on(u)[3]
-            pkg.stellar_feedback.apply(u, prim, dt, r)
-            out[lev] = _apply_clips(pkg, u, r, mhd)
+            out[lev] = _split_sources_on(pkg, u, prim, dt,
+                                         coords[lev].on(u)[3], mhd)
         return out
 
     return src
@@ -694,8 +707,10 @@ def history_columns(pin, mesh, cfg, eos):
         def _cold_gas(u, w, mesh_):
             wi = w[sl]
             internal_e = wi[:, IPR] / (gm1 * wi[:, IDN])
-            return float(torch.sum(torch.where(
-                internal_e < e_thresh, wi[:, IDN], 0.0))) * mesh.cell_volume
+            cold = torch.sum(torch.where(internal_e < e_thresh, wi[:, IDN],
+                                         0.0))
+            with record_function("host_read"):
+                return float(cold) * mesh.cell_volume
 
         cols.append(("cold_mass", _cold_gas))
     if tracer_thresh >= 0.0 and cfg.nscalars > 0:
@@ -709,8 +724,10 @@ def history_columns(pin, mesh, cfg, eos):
             conc = ui[:, nbase] / ui[:, IDN]
             x, y, z, _ = coords.on(u)
             r2 = (x ** 2 + y ** 2 + z ** 2)[isl]
-            return float(sqrt(torch.amax(torch.where(
-                conc > tracer_thresh, r2, 0.0))))
+            extent = sqrt(torch.amax(torch.where(conc > tracer_thresh, r2,
+                                                 0.0)))
+            with record_function("host_read"):
+                return float(extent)
 
         cols.append(("agn_extent", _agn_extent))
     masks = {}
@@ -719,7 +736,9 @@ def history_columns(pin, mesh, cfg, eos):
         fb = pkg.agn_feedback
         mdot = 0.0 if fb.triggering is None else fb.triggering.accretion_rate(
             w, coords.on(u)[3], mesh.cell_volume, _valid(mesh, u, masks))
-        return float(fb.power_and_mass_rate(mdot)[0])
+        power = fb.power_and_mass_rate(mdot)[0]
+        with record_function("host_read"):
+            return float(power)
 
     cols.append(("agn_feedback_power", _feedback_power))
     return cols

@@ -37,6 +37,7 @@ import weakref
 
 import numpy as np
 import torch
+from torch.profiler import record_function
 
 from ..core.ieee import sqrt
 from ..core.indices import (GLMMHD, IB1, IB2, IB3, IDN, IEN, IM1, IM2, IM3,
@@ -293,9 +294,10 @@ def problem_fill_tracers(pin, mesh, cfg, state, ncycle, time, dt):
     corr_s = torch.where(aw, s[..., :1] * s, 0.0).sum(dim=(0, 1)) / n_act
     corr_sdot = torch.where(aw, sdot[..., :1] * sdot, 0.0).sum(
         dim=(0, 1)) / n_act
-    row_vals = torch.cat([torch.stack([s0.sum() / n_act,
-                                       sdot0.sum() / n_act]),
-                          corr_s, corr_sdot, tlb]).tolist()
+    vals = torch.cat([torch.stack([s0.sum() / n_act, sdot0.sum() / n_act]),
+                      corr_s, corr_sdot, tlb])
+    with record_function("host_read"):
+        row_vals = vals.tolist()
 
     with open("correlations.csv", "w" if ncycle == 0 else "a") as fh:
         if ncycle == 0:

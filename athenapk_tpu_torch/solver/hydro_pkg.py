@@ -67,7 +67,14 @@ splits a stage alike: ``fused_stage`` (the whole-stage call),
 ``fused_lane_sweep`` (the sweep kernel's -div(F) and the update),
 ``calculate_fluxes`` and ``flux_divergence_update`` (the null solver's
 stage), ``first_order_flux_correct``, ``dedner_source``,
-``tabular_cooling``, ``problem_source`` and ``boundary_fill``.
+``tabular_cooling``, ``problem_source`` and ``boundary_fill``.  Inside and
+beside them: ``cons_to_prim`` (the EOS with floors), ``stage_update`` (the
+2S combination ``gam0 u0 + gam1 u1 + beta_dt (-div F)``, nested in
+``fused_lane_sweep``, ``flux_divergence_update`` or
+``first_order_flux_correct``), ``estimate_timestep`` (the CFL reduction and
+the minima's stack; on the stage rung the emitted bound's minimum) and
+``host_read`` (each read of the device to the host, nested in the range of
+the work it serves).
 """
 
 from __future__ import annotations
@@ -277,7 +284,9 @@ class HydroPackage:
 
     # ------------------------------------------------------------------ prim
     def cons_to_prim(self, u):
-        return cons_to_prim(self.eos, u, self.cfg.fluid, self.cfg.nscalars)
+        with record_function("cons_to_prim"):
+            return cons_to_prim(self.eos, u, self.cfg.fluid,
+                                self.cfg.nscalars)
 
     # ---------------------------------------------------- whole-stage rungs
     def _is_3d(self):
@@ -445,7 +454,8 @@ class HydroPackage:
             with record_function("calculate_fluxes"):
                 negdiv = self._diff_negdiv(prim) if self._unsplit_diff \
                     else torch.zeros_like(prim)
-            with record_function("flux_divergence_update"):
+            with record_function("flux_divergence_update"), \
+                    record_function("stage_update"):
                 u_new = gam0 * u0 + gam1 * u1 + beta_dt * negdiv
         else:
             with record_function("fused_lane_sweep"):
@@ -453,10 +463,14 @@ class HydroPackage:
                                             self.eos, recon)
                 if self._unsplit_diff:
                     negdiv += self._diff_negdiv(prim)
-                u_new = gam0 * u0 + gam1 * u1 + beta_dt * negdiv
+                with record_function("stage_update"):
+                    u_new = gam0 * u0 + gam1 * u1 + beta_dt * negdiv
         if self.cfg.first_order_flux_correct:
             with record_function("first_order_flux_correct"):
-                if bool(self._fofc_bad_cells(u_new).any()):
+                any_bad = self._fofc_bad_cells(u_new).any()
+                with record_function("host_read"):
+                    rescue = bool(any_bad)
+                if rescue:
                     # the JAX package's lax.cond: a stage with a bad
                     # candidate cell is recomputed through the plain fluxes
                     # and the 4-pass rescue
@@ -464,8 +478,9 @@ class HydroPackage:
                     fluxes = self._first_order_flux_correct(
                         u0, u1, prim, self._compute_fluxes(prim, c_h, recon),
                         gam0, gam1, beta_dt, c_h)
-                    u_new = gam0 * u0 + gam1 * u1 \
-                        - beta_dt * self._flux_divergence(fluxes)
+                    div = self._flux_divergence(fluxes)
+                    with record_function("stage_update"):
+                        u_new = gam0 * u0 + gam1 * u1 - beta_dt * div
         return self._stage_epilogue(u_new, prim, beta_dt, c_h, t)
 
     def step(self, u, dt, c_h, t=0.0, emit_dt: bool = False):
@@ -509,7 +524,10 @@ class HydroPackage:
         cons_to_prim or reduction pass over the new state runs."""
         if self._use_fused_stage_dt():
             u_new, raw = self.step(u, dt, c_h, t, emit_dt=True)
-            dt_hyp = self.cfg.cfl * float(torch.min(raw))
+            with record_function("estimate_timestep"):
+                least = torch.min(raw)
+                with record_function("host_read"):
+                    dt_hyp = self.cfg.cfl * float(least)
             dt_full = dt_hyp
             if self.cfg.max_dt > 0.0:
                 dt_full = min(dt_full, self.cfg.max_dt)
@@ -548,25 +566,29 @@ class HydroPackage:
         float64 vector of the raw minima to theirs before they combine, so
         every rank gets the one-rank dt."""
         cfg = self.cfg
-        w = prim[self.mesh.interior_slices]
-        mins = {"hyp": torch.min(stage.raw_cfl_dt(
-            w, self.mesh, cfg, self.eos, self._active_dirs)), "cap": dt_cap}
         dc = self.diffusion
-        if dc.any_enabled and dc.integrator != "none":
-            mins["diff"] = estimate_diff_dt(dc, prim, self.mesh, cfg.cfl)
-        if self.cooling is not None:
-            mins["cool"] = self.cooling.estimate_timestep(prim, self.mesh)
-        # the device minima (the diffusive and cooling dt may be floats) in
-        # one read of the host
-        lazy = {k: v for k, v in mins.items() if torch.is_tensor(v)}
-        mins.update(zip(lazy, torch.stack(
-            [v.to(mins["hyp"].dtype).reshape(()) for v in lazy.values()]
-        ).tolist()))
-        if reduce_min is not None:
-            keys = sorted(mins)
-            mins.update(zip(keys, reduce_min(torch.tensor(
-                [float(mins[k]) for k in keys], dtype=torch.float64)
-            ).tolist()))
+        with record_function("estimate_timestep"):
+            w = prim[self.mesh.interior_slices]
+            mins = {"hyp": torch.min(stage.raw_cfl_dt(
+                w, self.mesh, cfg, self.eos, self._active_dirs)),
+                "cap": dt_cap}
+            if dc.any_enabled and dc.integrator != "none":
+                mins["diff"] = estimate_diff_dt(dc, prim, self.mesh, cfg.cfl)
+            if self.cooling is not None:
+                mins["cool"] = self.cooling.estimate_timestep(prim, self.mesh)
+            # the device minima (the diffusive and cooling dt may be
+            # floats) in one read of the host
+            lazy = {k: v for k, v in mins.items() if torch.is_tensor(v)}
+            stacked = torch.stack(
+                [v.to(mins["hyp"].dtype).reshape(()) for v in lazy.values()])
+            with record_function("host_read"):
+                mins.update(zip(lazy, stacked.tolist()))
+            if reduce_min is not None:
+                keys = sorted(mins)
+                reduced = reduce_min(torch.tensor(
+                    [float(mins[k]) for k in keys], dtype=torch.float64))
+                with record_function("host_read"):
+                    mins.update(zip(keys, reduced.tolist()))
         dt_diff = mins.get("diff", math.inf)
         dt_cool = mins.get("cool", math.inf)
         dt_hyp = cfg.cfl * mins["hyp"]

@@ -11,7 +11,7 @@ integrators:
   in lock step over all cells, each with its own sub-time and step.  The
   JAX package's ``lax.while_loop`` runs while any cell has time left (at
   most ``4 * max_iter`` passes); here that test is one host read per pass,
-  counted in ``host_reads``.
+  counted in ``host_reads`` and marked by a ``host_read`` profiler range.
 
 The table is a two-column text file (log10 T [K], log10 Lambda [cgs]),
 evenly spaced in log T; Lambda is converted to code units with
@@ -29,6 +29,7 @@ import math
 
 import numpy as np
 import torch
+from torch.profiler import record_function
 
 from ..core.indices import GLMMHD, IB1, IB2, IB3, IDN, IEN, IM1, IM2, IM3, IPR
 
@@ -327,7 +328,10 @@ class TabularCooling:
         # attempts also take passes here, hence the headroom
         while it < 4 * self.max_iter:
             self.host_reads += 1
-            if not bool(torch.any(sub_t < left)):
+            left_any = torch.any(sub_t < left)
+            with record_function("host_read"):
+                more = bool(left_any)
+            if not more:
                 break
             active = (sub_t < left) & (f(e) != 0.0) & (e > e_floor)
             h = torch.minimum(sub_dt, dt - sub_t)

@@ -2052,29 +2052,6 @@ def remesh_kinds(old, new):
     return out
 
 
-def remesh_host_ms(entries):
-    """Mean host milliseconds of the remesh log's entries, split into the
-    forest update, the transfer's enqueueing, the new topology's plans and
-    the ghost fill's enqueueing, for the remeshes that changed the leaf
-    table and for those that did not (a check whose tags are not all 0
-    remeshes, as in the JAX package, even if the forest keeps its leaves)."""
-    out = {}
-    for label, sel in (("changed", [e for e in entries if e["changed"]]),
-                       ("unchanged", [e for e in entries
-                                      if not e["changed"]])):
-        if not sel:
-            continue
-        row = {k: sum(e[k] for e in sel) / len(sel)
-               for k in ("forest_ms", "transfer_ms", "plans_ms", "fill_ms")}
-        row["count"] = len(sel)
-        row["new_topologies"] = sum(e["new_topology"] for e in sel)
-        new = [e["plans_ms"] for e in sel if e["new_topology"]]
-        row["plans_ms_per_new_topology"] = (sum(new) / len(new) if new
-                                            else None)
-        out[label] = row
-    return out
-
-
 def phase_amr_path(path, ncycles, warmup):
     rung, n, per_level = AMR_PATHS[path]
     log(f"== phase 4: adaptive path {path} (the run_bench_adaptive deck, "
@@ -2111,8 +2088,6 @@ def phase_amr_path(path, ncycles, warmup):
         else (counts[1], counts[0])
     changed_run = sum(e["changed"] for e in drv.remesh_log[n_init:])
     window = drv.remesh_log[n_warm:]
-    host = remesh_host_ms(drv.remesh_log[n_init:])
-    host_init = remesh_host_ms(drv.remesh_log[:n_init])
     zcps = float(rates[-1]) if len(rates) == 2 else None
     log(f"  launches: {'stage' if rung == 'stage' else 'negdiv'}-faces "
         f"kernel {face} (expected {want}: {per_level} per level and cycle "
@@ -2124,13 +2099,6 @@ def phase_amr_path(path, ncycles, warmup):
         f"{len(window)} remeshes in the window in all; leaves at the start "
         f"{leaves0}, at the end {leaves_of(sim)}; steppers cached "
         f"{len(drv._steppers)}")
-    for label, row in [(f"initial refinement, {k}", v)
-                       for k, v in host_init.items()] + list(host.items()):
-        log(f"  host ms per remesh ({label}, {row['count']}): forest "
-            f"{row['forest_ms']:.3f}, transfer {row['transfer_ms']:.3f}, "
-            f"plans {row['plans_ms']:.3f} (per new topology: "
-            f"{row['plans_ms_per_new_topology']}, {row['new_topologies']} "
-            f"new), fill {row['fill_ms']:.3f}")
     log(f"  zone-cycles/wallsecond over the window: {zcps}")
     if sim.ncycle != ncycles or len(nlev) != ncycles or face != want \
             or other != 0 or counts[2:] != (0, 0) or zcps is None:
@@ -2152,8 +2120,7 @@ def phase_amr_path(path, ncycles, warmup):
         remeshes_window=sim.perf_remeshes, remeshes_run=changed_run,
         remesh_checks_window=len(window), leaves_start=leaves0,
         leaves_end=leaves_of(sim), launches=face,
-        launches_per_cycle=face / ncycles, host_ms_per_remesh=host,
-        host_ms_per_initial_remesh=host_init,
+        launches_per_cycle=face / ncycles,
         steppers_cached=len(drv._steppers), mass_start=m0, mass_end=m1)
 
 
@@ -2951,10 +2918,9 @@ def phase_amr_profile(sim, ncycles, what):
     for name, ms in sorted(host.items()):
         log(f"  host time in {name}: {ms / ncycles:.4f} ms/cycle (nested "
             f"ranges included)")
-    host_log = remesh_host_ms(window)
     log(f"  remeshes in the window: {len(window)}, "
         f"{sum(e['changed'] for e in window)} of them changing the leaf "
-        f"table; host ms {host_log}")
+        f"table")
     idle = max(0.0, 1.0 - busy / span_ms)
     log(f"  device busy {busy / ncycles:.4f} ms/cycle over a "
         f"{span_ms / ncycles:.4f} ms/cycle window: idle share {idle:.3f}")
@@ -2963,7 +2929,6 @@ def phase_amr_profile(sim, ncycles, what):
             "host_ms_per_cycle": {k: v / ncycles for k, v in host.items()},
             "remeshes": len(window),
             "remeshes_changed": sum(e["changed"] for e in window),
-            "remesh_host_ms": host_log,
             "busy_ms_per_cycle": busy / ncycles,
             "window_ms_per_cycle": span_ms / ncycles, "idle_share": idle}
 
@@ -3391,9 +3356,7 @@ def phase_cloud_adaptive(rung, n, ncycles, warmup):
                      launches_per_cycle=face / ncycles,
                      remeshes_window=sim.perf_remeshes,
                      remeshes_run=changed, leaves_start=leaves0,
-                     leaves_end=leaves_of(sim), leaves_per_cycle=per_cycle,
-                     host_ms_per_remesh=remesh_host_ms(
-                         drv.remesh_log[n_init:]))
+                     leaves_end=leaves_of(sim), leaves_per_cycle=per_cycle)
 
 
 def phase_cloud_whole_steps():
