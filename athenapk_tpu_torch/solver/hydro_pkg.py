@@ -4,8 +4,9 @@ Counterpart of ``athenapk_tpu/solver/hydro_pkg.py`` (reference
 ``src/hydro/hydro.cpp`` ``Hydro::Initialize``/``CalculateFluxes`` and
 ``src/hydro/hydro_driver.cpp`` ``HydroDriver::MakeTaskCollection``).  Runs
 eagerly: a stage is straight-line tensor code, ``advance_cycles`` a Python
-loop.  Each stage's -div(F) goes through ``sweep.fused_negdiv`` (the CUDA
-kernel on the card, its plain twin on the CPU).
+loop.  Each stage's -div(F) goes through ``sweep.fused_negdiv`` and each
+conversion to prim through ``eos.adiabatic_cuda.fused_cons_to_prim`` (the
+CUDA kernels on the card, their plain twins on the CPU).
 
 Two opt-in rungs, read from the environment once, when the package is
 built (the names are the JAX package's, so a reader finds the
@@ -92,7 +93,8 @@ from ..core.indices import (IDN, IPS, IB1, IB2, IB3, IM1, IM2, IM3, IEN,
                             EULER, GLMMHD, nvar_for_fluid)
 from ..core.mesh import Mesh
 from ..diffusion import DiffusionConfig, calc_diff_fluxes, estimate_diff_dt
-from ..eos.adiabatic import EOS, cons_to_prim
+from ..eos import adiabatic_cuda
+from ..eos.adiabatic import EOS
 from ..recon import nghost_for
 from ..riemann import solve_riemann
 from . import stage, sweep
@@ -284,9 +286,12 @@ class HydroPackage:
 
     # ------------------------------------------------------------------ prim
     def cons_to_prim(self, u):
+        """``(u', prim)``: the EOS kernel on the card, its plain twin on the
+        CPU (``eos.adiabatic_cuda.fused_cons_to_prim``).  With no floor or
+        ceiling on, ``u'`` is ``u`` itself: no caller writes into either."""
         with record_function("cons_to_prim"):
-            return cons_to_prim(self.eos, u, self.cfg.fluid,
-                                self.cfg.nscalars)
+            return adiabatic_cuda.fused_cons_to_prim(
+                self.eos, u, self.cfg.fluid, self.cfg.nscalars)
 
     # ---------------------------------------------------- whole-stage rungs
     def _is_3d(self):

@@ -198,21 +198,25 @@ def build_units(scalars=False):
         for r in KERNEL_RECONS.values() for t in KERNEL_DTYPES.values()]
 
 
-def build_library(source=None, scalars=False):
+def build_library(source=None, scalars=False, units=None):
     """Compile one kernel source of ``csrc/`` (default: the sweep's) for
     sm_90a into ``build/``, keyed by the hash of the source and of the
     header it includes, so editing either rebuilds.  Each source makes two
     libraries: the kernels without scalars, and (``scalars``,
     ``lib<name>_scalars_<hash>.so``) the fluid kernels' instantiations for
     decks with scalars with the scalar kernels, built and loaded only when
-    a deck has scalars.  Each unit of ``build_units`` is one ``nvcc``
-    process, all started together; the objects link into one library.
-    Returns ``(path, compiler_log)``; the log holds ptxas' register and
-    shared memory report."""
+    a deck has scalars.  Each unit of ``build_units`` (or of ``units``, a
+    list of ``-D`` flag tuples, for a source that makes one library; the
+    list then keys the library too) is one ``nvcc`` process, all started
+    together; the objects link into one library.  Returns ``(path,
+    compiler_log)``; the log holds ptxas' register and shared memory
+    report."""
     source = Path(source) if source is not None else CSRC
     digest = hashlib.sha256()
     for path in (source,) + HEADERS:
         digest.update(path.read_bytes())
+    if units is not None:
+        digest.update(repr([list(unit) for unit in units]).encode())
     kind = "_scalars" if scalars else ""
     lib = BUILD_DIR / f"lib{source.stem}{kind}_{digest.hexdigest()[:12]}.so"
     if lib.exists():
@@ -223,7 +227,8 @@ def build_library(source=None, scalars=False):
     flags = [_nvcc(), "-gencode", "arch=compute_90a,code=sm_90a",
              "-std=c++17", "-O3", "--fmad=false"]
     procs = []
-    for k, defines in enumerate(build_units(scalars)):
+    units = build_units(scalars) if units is None else units
+    for k, defines in enumerate(units):
         obj = work / f"unit{k}.o"
         cmd = flags + ["-Xptxas", "-v", "-Xcompiler", "-fPIC", "-c",
                        *defines, "-o", str(obj), str(source)]

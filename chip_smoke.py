@@ -44,7 +44,9 @@ Phases (each one fails the run if it fails):
    after: the ``bench.py:run_bench`` deck (3-D MHD linear wave, 256^3,
    HLLD + PPM + VL2, ghost-free, f32) on the sweep rung (the default), on
    the whole-stage rung (``ATHENAPK_PALLAS_STAGE=1``) and on the hybrid
-   rung (``ATHENAPK_PALLAS_HYBRID=1``); the Orszag-Tang vortex (2-D
+   rung (``ATHENAPK_PALLAS_HYBRID=1``), the EOS kernel's launches among
+   the counts (3 a cycle on the sweep rung, 2 on the hybrid, none on the
+   stage rung, and one for the run's initial dt); the Orszag-Tang vortex (2-D
    GLM-MHD, 2048^2, f32); Sod (1-D Euler, HLLC + PLM, 1024 cells, f64) to
    its ``tlim`` against the exact Riemann solution, and the kernel against
    plain on its final state; the refined-mesh paths through
@@ -93,7 +95,8 @@ Phases (each one fails the run if it fails):
    through the ``_smr`` hook on the stage-faces (#7) and the negdiv-faces
    (#6/#2) rung, with the leaves and the forcing's share;
 5. whole steps in f64 for 5 cycles, once through the kernels and once
-   with their plain versions forced, state and every dt compared: the
+   with their plain versions forced (the plain EOS too: those runs
+   launch no kernel of the port), state and every dt compared: the
    main deck at 32^3 on each rung, the vortex at 64^2, Sod at 256,
    ``inputs/blast_3d_smr.in`` on both refined rungs and the 2-D refined
    blast at 256^2 (with seeded noise off the blasts' symmetric ties), and
@@ -126,7 +129,10 @@ Phases (each one fails the run if it fails):
    path E and F case at its own final state (#1, #3, #6/#2, and #7 at path
    F's refined level arrays); the two scalar kernels at path G''s inputs
    against their plain twins (from the same mass fluxes), with their
-   bounds, and the #1 and #3 calls with the scalar;
+   bounds, and the #1 and #3 calls with the scalar; the EOS kernel at the
+   main deck's state against the plain EOS, f32 and the same state in f64,
+   with no limit and with every floor and ceiling on, bit for bit, each
+   with its bound from the bytes of the rows read and written;
 7. profile: a torch.profiler trace of 3 cycles of each rung of the main
    deck, of path E's GLM-MHD RK3 + WENO-Z + HLLE, of path F's first three
    cycles (with the rescue), of the vortex and of each refined path (the
@@ -226,6 +232,7 @@ The last lines are the kernels' JSON line, the card line and
 
 import argparse
 import contextlib
+import dataclasses
 import io
 import json
 import math
@@ -729,6 +736,10 @@ AMR_PATHS = {"D": ("stage", 128, 2), "D'": ("negdiv", 64, 6)}
 # kernel launches per cycle of the main deck (VL2: a DC and a PPM stage),
 # (sweep kernel, stage kernel)
 RUNG_LAUNCHES = {"sweep": (6, 0), "stage": (0, 2), "hybrid": (3, 1)}
+# EOS kernel launches per cycle of the main deck: one per stage outside the
+# stage kernel and one for the dt where no stage emits it (a run adds one
+# for its initial dt)
+RUNG_EOS_LAUNCHES = {"sweep": 3, "stage": 0, "hybrid": 2}
 SOD_L1_TOL = 1.0e-3   # 1024 cells; 6.9e-4 with HLLC + PLM + VL2 (64: 7.6e-3)
 
 
@@ -791,6 +802,13 @@ def reset_counts():
     PORT.sweep.negdiv_faces_cuda.launches = 0
     PORT.sweep.negdiv_scalars_cuda.launches = 0
     PORT.stage.stage_scalars_cuda.launches = 0
+    PORT.adiabatic_cuda.cons_to_prim_cuda.launches = 0
+
+
+def eos_launches():
+    """Launches of the EOS kernel (``eos.adiabatic_cuda``) since the last
+    ``reset_counts``."""
+    return PORT.adiabatic_cuda.cons_to_prim_cuda.launches
 
 
 def read_counts():
@@ -1473,15 +1491,20 @@ def phase_main_deck(rung, n, ncycles, warmup):
         f"nghost {sim.mesh.nghost}, dtype {sim.u.dtype}, "
         f"device {sim.u.device}")
     n_sweep, n_stage, zcps = run_sim(sim)
+    n_eos = eos_launches()
     if zcps is None:
         raise AssertionError("main path printed no zone-cycles line")
     want = tuple(k * ncycles for k in RUNG_LAUNCHES[rung])
+    want_eos = RUNG_EOS_LAUNCHES[rung] * ncycles + 1
     log(f"  launches: sweep kernel {n_sweep}, stage kernel {n_stage} "
         f"(expected {want[0]} and {want[1]}: {RUNG_LAUNCHES[rung]} per "
-        f"cycle)")
-    if sim.ncycle != ncycles or (n_sweep, n_stage) != want:
+        f"cycle); EOS kernel {n_eos} (expected {want_eos}: "
+        f"{RUNG_EOS_LAUNCHES[rung]} per cycle and the initial dt)")
+    if sim.ncycle != ncycles or (n_sweep, n_stage) != want \
+            or n_eos != want_eos:
         raise AssertionError(f"{rung} rung ran {sim.ncycle} cycles, "
-                             f"{n_sweep} sweep and {n_stage} stage launches")
+                             f"{n_sweep} sweep, {n_stage} stage and {n_eos} "
+                             f"EOS launches")
     if not bool(torch.isfinite(sim.u).all()):
         raise AssertionError("main path state is not finite")
     # a 1e-6 linear wave stays a 1e-6 perturbation of the background
@@ -1489,7 +1512,7 @@ def phase_main_deck(rung, n, ncycles, warmup):
     log(f"  state finite; max |u - u(t=0)| = {drift:.3e} at t = {sim.t:.6e}")
     if drift > 1e-5:
         raise AssertionError(f"linear wave left the linear regime: {drift}")
-    return sim, (n_sweep, n_stage), zcps
+    return sim, (n_sweep, n_stage, n_eos), zcps
 
 
 def phase_orszag_tang(n, ncycles, warmup):
@@ -1669,7 +1692,7 @@ def phase_fofc_whole_steps():
     state and every dt to STEP_TOL; mass across levels kept."""
     log("== phase 5: path F, kernels against plain over whole steps (f64, 5 "
         "cycles) ==")
-    sweep = PORT.sweep
+    sweep, eos = PORT.sweep, PORT.adiabatic_cuda
     cases = [("FOFC blast 64^3", fofc_deck(64, 5, "double"), False),
              ("FOFC blast, refined, 32^3 base", fofc_deck(
                  32, 5, "double", refined=True, mb=8), True)]
@@ -1682,7 +1705,8 @@ def phase_fofc_whole_steps():
             for old in outdir.glob("*.hst"):
                 old.unlink()
             cwd = os.getcwd()
-            dispatch = (sweep.fused_negdiv, sweep.fused_negdiv_faces)
+            dispatch = (sweep.fused_negdiv, sweep.fused_negdiv_faces,
+                        eos.fused_cons_to_prim)
             os.chdir(outdir)
             try:
                 sim = make_smr_sim(deck + hst_block, "stage") if refined \
@@ -1692,12 +1716,15 @@ def phase_fofc_whole_steps():
                 if name == "plain":
                     sweep.fused_negdiv = sweep.negdiv_plain
                     sweep.fused_negdiv_faces = sweep.negdiv_faces_plain
+                    eos.fused_cons_to_prim = PORT.adiabatic.cons_to_prim
                 reset_counts()
                 with contextlib.redirect_stdout(io.StringIO()):
                     sim.run()
-                counts = read_counts() + read_face_counts()
+                counts = read_counts() + read_face_counts() \
+                    + (eos_launches(),)
             finally:
-                sweep.fused_negdiv, sweep.fused_negdiv_faces = dispatch
+                sweep.fused_negdiv, sweep.fused_negdiv_faces, \
+                    eos.fused_cons_to_prim = dispatch
                 os.chdir(cwd)
             if (sum(counts) == 0) != (name == "plain"):
                 raise AssertionError(f"{label}: {name} run launched {counts}")
@@ -1728,7 +1755,7 @@ def phase_fofc_whole_steps():
 def phase_whole_steps(seed):
     log("== phase 5: kernels against plain over whole steps (f64, 5 "
         "cycles) ==")
-    sweep, stage = PORT.sweep, PORT.stage
+    sweep, stage, eos = PORT.sweep, PORT.stage, PORT.adiabatic_cuda
     hst_block = "\n<parthenon/output1>\nfile_type = hst\n"
     cases = [(f"main deck 32^3, {rung} rung", rung, BENCH_DECK.format(
                   n=32, ncycles=5, warmup=0, precision="double"))
@@ -1753,19 +1780,22 @@ def phase_whole_steps(seed):
                     1.0 + 1e-3 * rng.standard_normal(tuple(sim.u.shape)),
                     device=sim.u.device)
             cwd = os.getcwd()
-            dispatch = (sweep.fused_negdiv, stage.fused_stage)
+            dispatch = (sweep.fused_negdiv, stage.fused_stage,
+                        eos.fused_cons_to_prim)
             os.chdir(outdir)
             try:
                 if name == "plain":
                     # the package reaches its kernels through these names
                     sweep.fused_negdiv = sweep.negdiv_plain
                     stage.fused_stage = stage.stage_plain
+                    eos.fused_cons_to_prim = PORT.adiabatic.cons_to_prim
                 reset_counts()
                 with contextlib.redirect_stdout(io.StringIO()):
                     sim.run()
-                counts = read_counts()
+                counts = read_counts() + (eos_launches(),)
             finally:
-                sweep.fused_negdiv, stage.fused_stage = dispatch
+                sweep.fused_negdiv, stage.fused_stage, \
+                    eos.fused_cons_to_prim = dispatch
                 os.chdir(cwd)
             if (sum(counts) == 0) != (name == "plain"):
                 raise AssertionError(f"{label}: {name} run launched {counts}")
@@ -2459,6 +2489,126 @@ def phase_stage_timings(sim, launches, reps):
     }
 
 
+def eos_limits(eos, prim):
+    """Every floor and ceiling of ``eos`` on, each at a quantile of
+    ``prim``'s own density, pressure, specific internal energy or speed (of
+    every 7th cell), so that each trips in a share of the cells: the floors
+    at the medians, the ceilings at the upper quartiles."""
+    rho, p = prim[:, 0].double(), prim[:, 4].double()
+    e = p / ((eos.gamma - 1.0) * rho)
+    v = prim[:, 1:4].double().square().sum(dim=1).sqrt()
+
+    def q(x, k):
+        return float(torch.quantile(x.flatten()[::7], k))
+    return dataclasses.replace(
+        eos, density_floor=q(rho, 0.5), pressure_floor=q(p, 0.5),
+        internal_e_floor=q(e, 0.5), velocity_ceiling=q(v, 0.75),
+        internal_e_ceiling=q(e, 0.75))
+
+
+def phase_eos_timings(sim, launches_by_path, reps):
+    """The EOS kernel (``eos.adiabatic_cuda.cons_to_prim_cuda``) against
+    the plain ``eos.adiabatic.cons_to_prim`` at ``sim``'s state (the main
+    deck's after its run), f32 as it runs and the same state in f64, each
+    with the deck's EOS (no limit: the kernel writes prim only and hands the
+    input back as the floored cons) and with every floor and ceiling on
+    (``eos_limits``: it writes the floored cons too).  Prim and the floored
+    cons must equal the plain version's bit for bit, the input must stay
+    unwritten, and each limit case must change the state.  Each call is
+    timed, with its bound from the bytes of the rows read and written and
+    the operations the plain version needs on the f32 data."""
+    log("== phase 6: timings of the EOS kernel at the main deck's state ==")
+    ad, kern = PORT.adiabatic, PORT.adiabatic_cuda.cons_to_prim_cuda
+    fluid, ns = sim.cfg.fluid, sim.cfg.nscalars
+    eoses = {"no limit": sim.eos,
+             "every limit": eos_limits(sim.eos, ad.cons_to_prim(
+                 sim.eos, sim.u, fluid, ns)[1])}
+    if PORT.adiabatic_cuda.limits_on(sim.eos):
+        raise AssertionError("the main deck's EOS has a limit on")
+    ops, per_call, failed = {}, {}, []
+    for dtype in (torch.float32, torch.float64):
+        u = sim.u.to(dtype).contiguous()
+        kept = u.clone()
+        tag = str(dtype).replace("torch.", "")
+        for case, eos in eoses.items():
+            got_u, got_w = kern(eos, u, fluid, ns)
+            ref_u, ref_w = ad.cons_to_prim(eos, u, fluid, ns)
+            torch.cuda.synchronize()
+            abs_err = max((got_w - ref_w).abs().max().item(),
+                          (got_u - ref_u).abs().max().item())
+            bitwise = torch.equal(got_w, ref_w) and torch.equal(got_u, ref_u)
+            aliased = got_u is u
+            changed = not torch.equal(ref_u, u)
+            unwritten = torch.equal(u, kept)
+            del got_u, got_w, ref_u, ref_w
+            torch.cuda.empty_cache()
+            limited = case != "no limit"
+            ok = bitwise and unwritten and aliased != limited \
+                and changed == limited
+            if not ok:
+                failed.append(f"{tag} {case}: bit for bit {bitwise}, input "
+                              f"unwritten {unwritten}, cons is the input "
+                              f"{aliased}, state changed {changed}")
+            if case not in ops:
+                # both outputs' operations (the stack moves data only)
+                ops[case] = count_ops(lambda: torch.stack(ad.cons_to_prim(
+                    eos, u, fluid, ns)))[0]
+                torch.cuda.empty_cache()
+            ms = cuda_ms(lambda: kern(eos, u, fluid, ns), reps)
+            plain_ms = cuda_ms(lambda: ad.cons_to_prim(eos, u, fluid, ns), 3)
+            torch.cuda.empty_cache()
+            rows_out = 2 if limited else 1
+            nbytes = (1 + rows_out) * u.numel() * u.element_size()
+            b = bound_of(nbytes, ops[case], ms, f64=dtype == torch.float64)
+            per_call[f"{tag}, {case}"] = dict(
+                ms=ms, plain_ms=plain_ms, bytes=nbytes, ops=ops[case],
+                max_abs_err=abs_err, bit_for_bit=bitwise,
+                bytes_per_s=nbytes / ms * 1e3, **b)
+            same = "bit for bit" if bitwise else "NOT bit for bit"
+            log(f"  {tag} {case}: kernel against plain max abs err "
+                f"{abs_err:.3e} ({same}), input unwritten {unwritten}, the "
+                f"floored cons "
+                f"{'is the input' if aliased else 'a new tensor'}; kernel "
+                f"{ms:.4f} ms ({nbytes / ms / 1e9:.3f} TB/s), plain "
+                f"{plain_ms:.4f} ms; bound {b['bound_ms']:.4f} ms (bytes "
+                f"{b['bytes_ms']:.4f} ms for {nbytes:.4e} B, operations "
+                f"{b['ops_ms']:.4f} ms for {ops[case]:.4e}); "
+                f"{100 * b['share_of_bound']:.2f} % of the bound")
+        del u, kept
+        torch.cuda.empty_cache()
+    if failed:
+        raise AssertionError(f"EOS kernel against plain: {failed}")
+    main = per_call["float32, no limit"]
+    mesh = sim.mesh
+    return {
+        "name": "cons_to_prim",
+        "route": "cuda",
+        "source": "athenapk_tpu_torch/csrc/cons_to_prim.cu",
+        "replaces": "none: the JAX package's EOS (athenapk_tpu/eos/"
+                    "adiabatic.py:71) is XLA's, fused into the ops around it",
+        "launches": launches_by_path["main deck, sweep rung"],
+        "launches_by_path": launches_by_path,
+        "launches_note": "each run's launches include one for its initial "
+                         "dt",
+        "max_abs_err": max(r["max_abs_err"] for r in per_call.values()),
+        "max_rel_err": 0.0 if all(r["bit_for_bit"]
+                                  for r in per_call.values()) else None,
+        "ms": main["ms"],
+        "plain_ms": main["plain_ms"],
+        "bound_ms": main["bound_ms"],
+        "share_of_bound": main["share_of_bound"],
+        "bound_by": main["bound_by"],
+        "library_ms": None,
+        "library_note": "no single PyTorch call converts cons to prim with "
+                        "the floors and ceilings",
+        "unit": f"per launch (one call) at the main deck's state after its "
+                f"run, {mesh.nx1}x{mesh.nx2}x{mesh.nx3} ghost-free "
+                f"{sim.cfg.fluid}; the top-level numbers are the float32 call "
+                f"without a limit, as the main path runs it",
+        "per_call": per_call,
+    }
+
+
 def phase_case_timings(runs, reps, f64=False):
     """A timing row per case at its path's own inputs (the state the path's
     run ended with, f32): the deck's call of the sweep kernel (one per
@@ -2601,6 +2751,8 @@ def phase_profile(sim, ncycles, what):
                if m else f"fused_stage {recons[int(s.group(1))]}" if s
                else "scalar kernels (negdiv_scalars, stage_scalars)"
                if "scalars_kernel" in e["name"]
+               else "cons_to_prim (the EOS kernel)"
+               if "cons_to_prim_kernel" in e["name"]
                else "a kernel of the port (unparsed)"
                if re.search("negdiv_sweep|fused_stage", e["name"])
                else "cooling (plain PyTorch)" if ts is not None and any(
@@ -4051,7 +4203,7 @@ def phase_source_whole_steps(cases=None, what="the diffusion and source "
     the same randoms."""
     log(f"== phase 5: {what}, kernels against plain over whole steps (f64, "
         "5 cycles) ==")
-    sweep, stage = PORT.sweep, PORT.stage
+    sweep, stage, eos = PORT.sweep, PORT.stage, PORT.adiabatic_cuda
     names = ("fused_negdiv", "fused_negdiv_faces")
     snames = ("fused_stage", "fused_stage_faces")
     plain = {"fused_negdiv": sweep.negdiv_plain,
@@ -4068,6 +4220,7 @@ def phase_source_whole_steps(cases=None, what="the diffusion and source "
                 old.unlink()
             saved = {n: getattr(sweep, n) for n in names}
             saved.update({n: getattr(stage, n) for n in snames})
+            saved_eos = eos.fused_cons_to_prim
             cwd = os.getcwd()
             os.chdir(outdir)
             try:
@@ -4080,18 +4233,23 @@ def phase_source_whole_steps(cases=None, what="the diffusion and source "
                         setattr(sweep, n, plain[n])
                     for n in snames:
                         setattr(stage, n, plain[n])
+                    eos.fused_cons_to_prim = PORT.adiabatic.cons_to_prim
                 reset_counts()
                 with contextlib.redirect_stdout(io.StringIO()):
                     sim.run()
                 counts = read_counts() + read_face_counts()
+                n_eos = eos_launches()
             finally:
                 for n in names:
                     setattr(sweep, n, saved[n])
                 for n in snames:
                     setattr(stage, n, saved[n])
+                eos.fused_cons_to_prim = saved_eos
                 os.chdir(cwd)
-            if (sum(counts) == 0) != (name == "plain"):
-                raise AssertionError(f"{label}: {name} run launched {counts}")
+            if (sum(counts) == 0) != (name == "plain") \
+                    or (name == "plain" and n_eos):
+                raise AssertionError(f"{label}: {name} run launched {counts} "
+                                     f"and {n_eos} EOS kernels")
             if refined:
                 st = sim._stepper_now()
                 state = {lev: v.cpu().numpy() for lev, v in sim.state.items()}
@@ -5761,6 +5919,7 @@ def load_port():
     from athenapk_tpu_torch.driver import Simulation
     from athenapk_tpu_torch.outputs.restart import (restart_payload,
                                                     restart_payload_smr)
+    from athenapk_tpu_torch.eos import adiabatic, adiabatic_cuda
     from athenapk_tpu_torch.eos.adiabatic import (EOS, cons_to_prim,
                                                   prim_to_cons)
     from athenapk_tpu_torch.recon import schemes
@@ -5783,7 +5942,8 @@ def load_port():
         amr_forest=amr_forest, AmrHydro=AmrHydro, SmrHydro=SmrHydro,
         SmrState=SmrState, schemes=schemes, driver=driver,
         restart_payload=restart_payload,
-        restart_payload_smr=restart_payload_smr)
+        restart_payload_smr=restart_payload_smr, adiabatic=adiabatic,
+        adiabatic_cuda=adiabatic_cuda)
 
 
 def main(argv=None):
@@ -5899,6 +6059,8 @@ def main(argv=None):
         "main deck, sweep rung": counts["sweep"][1],
         "main deck, stage rung": counts["stage"][1],
         "main deck, hybrid rung": counts["hybrid"][1]}
+    eos_entry = phase_eos_timings(sims["sweep"], {
+        f"main deck, {rung} rung": counts[rung][2] for rung in RUNGS}, 10)
     flat_entry = phase_sweep_timings(
         ot, ot_launches, 10, "negdiv_sweep_2d",
         "athenapk_tpu/solver/pallas_sweep.py:343", "the Orszag-Tang deck")
@@ -6160,7 +6322,7 @@ def main(argv=None):
 
     print(json.dumps({"kernels": [sweep_entry, stage_entry, flat_entry,
                                   faces_entry, nd3_entry, nd2_entry]
-                      + scalar_entries}), flush=True)
+                      + scalar_entries + [eos_entry]}), flush=True)
     print(card, flush=True)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

@@ -7,7 +7,8 @@ an adaptive mesh hands them, and refined-mesh decks, static and adaptive,
 through ``SmrSimulation`` on the card; the adaptive remesh on the card
 against the CPU; every kernel route with passive scalars against its
 plain version (the fluid kernels' instantiations for decks with scalars
-and the two scalar kernels).
+and the two scalar kernels); the EOS kernel against the plain EOS, bit for
+bit, and its launches in a wave cycle on both rungs.
 
 Every test here needs a CUDA card (the kernel has no CPU mode) and skips
 with that reason elsewhere.  The file imports neither jax nor the JAX
@@ -1519,3 +1520,111 @@ def test_sharded_cluster_on_card_two_ranks(card, tmp_path, monkeypatch):
     assert nums["dts"] == dts and nums["collectives"] == [6, 6]
     for lev, v in ref.items():
         np.testing.assert_array_equal(out[f"L{lev}"], v.cpu().numpy())
+
+
+# ------------------------------------------------------------ the EOS kernel
+import zlib  # noqa: E402
+
+from athenapk_tpu_torch.eos import adiabatic_cuda  # noqa: E402
+from athenapk_tpu_torch.eos.adiabatic import cons_to_prim  # noqa: E402
+from torch_decks import EOS_LIMITS, eos_cons  # noqa: E402
+
+# (nb, nz, ny, nx): one ghost-free block; three 8^3 blocks with 3 ghosts;
+# an odd nx (f32 takes the kernel's one-cell loads where nz*ny*nx % 4 != 0,
+# f64 where it is odd)
+EOS_SHAPES = {"ghostfree-nb1": (1, 16, 16, 16),
+              "ghosted-nb3": (3, 14, 14, 14),
+              "odd-nx-nb3": (3, 5, 3, 7)}
+
+
+@pytest.mark.parametrize("shape", sorted(EOS_SHAPES))
+@pytest.mark.parametrize("limit", sorted(EOS_LIMITS))
+@pytest.mark.parametrize("nscalars", [0, 1, 2])
+@pytest.mark.parametrize("dtype", [torch.float64, torch.float32],
+                         ids=["f64", "f32"])
+@pytest.mark.parametrize("fluid", ["euler", "glmmhd"])
+def test_eos_kernel_matches_plain_bit_for_bit(card, fluid, dtype, nscalars,
+                                              limit, shape):
+    """One launch gives the plain EOS's prim and floored cons bit for bit
+    (NaN where it has NaN), on a state that trips the limit; the input is
+    never written; with no limit on the returned cons is the input itself,
+    with one on a tensor of its own."""
+    eos = EOS(gamma=5.0 / 3.0, **EOS_LIMITS[limit])
+    seed = zlib.crc32(f"{fluid}/{dtype}/{nscalars}/{limit}/{shape}".encode())
+    u = torch.tensor(eos_cons(fluid, nscalars, seed, EOS_SHAPES[shape]),
+                     dtype=dtype, device=card)
+    kept = u.clone()
+    before = adiabatic_cuda.cons_to_prim_cuda.launches
+    got_u, got_w = adiabatic_cuda.fused_cons_to_prim(eos, u, fluid, nscalars)
+    torch.cuda.synchronize()
+    assert adiabatic_cuda.cons_to_prim_cuda.launches == before + 1
+    ref_u, ref_w = cons_to_prim(eos, u, fluid, nscalars)
+    assert torch.equal(u, kept)
+    if limit == "none":
+        assert got_u is u
+    else:
+        assert got_u.data_ptr() != u.data_ptr()
+        assert not torch.equal(ref_u, u)      # the state trips the limit
+    for got, ref in ((got_w, ref_w), (got_u, ref_u)):
+        assert got.dtype == ref.dtype and got.shape == ref.shape
+        torch.testing.assert_close(got, ref, rtol=0.0, atol=0.0,
+                                   equal_nan=True)
+
+
+def test_eos_wrapper_refuses_what_the_kernel_does_not_take(card):
+    eos = EOS(gamma=5.0 / 3.0)
+    u = torch.tensor(eos_cons("glmmhd", 0, 3, (1, 4, 6, 8)), device=card)
+    before = adiabatic_cuda.cons_to_prim_cuda.launches
+    with pytest.raises(ValueError, match="CUDA"):
+        adiabatic_cuda.cons_to_prim_cuda(eos, u.cpu(), "glmmhd")
+    with pytest.raises(ValueError, match="contiguous"):
+        adiabatic_cuda.cons_to_prim_cuda(eos, u.transpose(2, 4), "glmmhd")
+    with pytest.raises(TypeError):
+        adiabatic_cuda.cons_to_prim_cuda(eos, u.long(), "glmmhd")
+    with pytest.raises(ValueError):
+        adiabatic_cuda.cons_to_prim_cuda(eos, u, "glmmhd", nscalars=1)
+    with pytest.raises(ValueError, match="ceiling"):
+        adiabatic_cuda.cons_to_prim_cuda(
+            EOS(gamma=5.0 / 3.0, velocity_ceiling=1e301), u, "glmmhd")
+    assert adiabatic_cuda.cons_to_prim_cuda.launches == before
+
+
+RK3_WAVE_DECK = WAVE_DECK.replace("integrator = vl2", "integrator = rk3") \
+    .replace("reconstruction = ppm", "reconstruction = wenoz") \
+    .replace("riemann = hlld", "riemann = hlle")
+
+
+@pytest.mark.parametrize("rung,per_cycle", [("sweep", 4), ("stage", 0)])
+def test_wave_cycle_eos_launches_on_card(card, rung, per_cycle,
+                                         monkeypatch):
+    """Three RK3 cycles of the benchmark's wave deck (ghost-free, WENO-Z +
+    HLLE, f64) on the card: the sweep rung launches the EOS kernel once a
+    stage and once for the dt, the stage rung never; on the sweep rung the
+    cycles equal, bit for bit, the same cycles with the plain EOS."""
+    monkeypatch.delenv("ATHENAPK_PALLAS_HYBRID", raising=False)
+    if rung == "stage":
+        monkeypatch.setenv("ATHENAPK_PALLAS_STAGE", "1")
+    else:
+        monkeypatch.delenv("ATHENAPK_PALLAS_STAGE", raising=False)
+
+    def cycles():
+        """The state and dt after three cycles, and the EOS kernel's
+        launches in them."""
+        sim = Simulation(ParameterInput.from_string(RK3_WAVE_DECK),
+                         quiet=True)
+        u, dt = sim.u, sim.pkg.estimate_timestep(
+            sim.pkg.cons_to_prim(sim.u)[1])[0]
+        before = adiabatic_cuda.cons_to_prim_cuda.launches
+        for _ in range(3):
+            u, (dt, _, _) = sim.pkg.step_with_dt(u, dt, 0.5)
+        torch.cuda.synchronize()
+        return u, dt, adiabatic_cuda.cons_to_prim_cuda.launches - before
+
+    u, dt, launched = cycles()
+    assert launched == 3 * per_cycle
+    if rung == "sweep":
+        monkeypatch.setattr(adiabatic_cuda, "fused_cons_to_prim",
+                            cons_to_prim)
+        u_plain, dt_plain, launched = cycles()
+        assert launched == 0
+        assert torch.equal(u, u_plain) and dt == dt_plain

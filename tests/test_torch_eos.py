@@ -16,6 +16,7 @@ import torch
 
 from athenapk_tpu.eos import adiabatic as jeos
 from athenapk_tpu_torch.eos import adiabatic as teos
+from torch_decks import eos_cons
 
 torch.set_num_threads(2)
 
@@ -32,21 +33,6 @@ EOS_CASES = {
 }
 
 
-def _cons(fluid, nscalars, seed):
-    rng = np.random.default_rng(seed)
-    nvar = (9 if fluid == "glmmhd" else 5) + nscalars
-    shape = (2, nvar, 4, 5, 6)
-    u = rng.standard_normal(shape)
-    u[:, 0] = rng.uniform(0.05, 2.0, shape[:1] + shape[2:])   # some < dfloor
-    ke = 0.5 * (u[:, 1] ** 2 + u[:, 2] ** 2 + u[:, 3] ** 2) / u[:, 0]
-    eb = 0.5 * (u[:, 5] ** 2 + u[:, 6] ** 2 + u[:, 7] ** 2) \
-        if fluid == "glmmhd" else 0.0
-    # internal energy from slightly negative to large: trips p/e floors
-    # and the internal-energy ceiling
-    u[:, 4] = ke + eb + rng.uniform(-0.05, 4.0, ke.shape)
-    return u
-
-
 def _rel(a, b):
     a = np.asarray(a)
     b = np.asarray(b)
@@ -59,7 +45,7 @@ def _rel(a, b):
 def test_cons_to_prim_matches_jax(case, fluid, nscalars):
     kw = EOS_CASES[case]
     seed = zlib.crc32(f"{case}/{fluid}/{nscalars}".encode())
-    u = _cons(fluid, nscalars, seed)
+    u = eos_cons(fluid, nscalars, seed)
     j_u, j_w = jeos.cons_to_prim(jeos.EOS(gamma=5.0 / 3.0, **kw),
                                  jnp.asarray(u), fluid, nscalars)
     t_u, t_w = teos.cons_to_prim(teos.EOS(gamma=5.0 / 3.0, **kw),
@@ -75,7 +61,7 @@ def test_cons_to_prim_matches_jax(case, fluid, nscalars):
 
 def test_floor_cases_trip_every_floor():
     """The drawn states really exercise each floor and ceiling."""
-    u = _cons("glmmhd", 0, seed=1)
+    u = eos_cons("glmmhd", 0, seed=1)
     eos = teos.EOS(gamma=5.0 / 3.0)
     _, w = teos.cons_to_prim(eos, torch.tensor(u), "glmmhd")
     rho = u[:, 0]

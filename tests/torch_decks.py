@@ -1,6 +1,7 @@
 """Decks of the ported problem generators, shared by the CPU parity tests
-(``test_torch_pgens.py``) and the card tests (``test_torch_cuda.py``).
-Imports nothing of jax, so it loads where only the port is installed."""
+(``test_torch_pgens.py``) and the card tests (``test_torch_cuda.py``), and
+the EOS's drawn states (``eos_cons``, ``EOS_LIMITS``).  Imports nothing of
+jax, so it loads where only the port is installed."""
 
 import numpy as np
 
@@ -1047,3 +1048,34 @@ def cluster_adaptive_deck(table, n=32, mb=8, half=0.04, nlim=4,
 type = pressure_gradient
 threshold_pressure_gradient = 0.08
 """
+
+
+# one EOS limit at a time, each tripped by ``eos_cons``'s states (the values
+# of test_torch_eos.py's floor cases)
+EOS_LIMITS = {
+    "none": {},
+    "dfloor": dict(density_floor=0.3),
+    "pfloor": dict(pressure_floor=0.1),
+    "efloor": dict(internal_e_floor=0.3),
+    "vceil": dict(velocity_ceiling=0.8),
+    "eceil": dict(internal_e_ceiling=1.0),
+}
+
+
+def eos_cons(fluid, nscalars, seed, cells=(2, 4, 5, 6)):
+    """Random conserved states ``[nb, nvar, nz, ny, nx]`` (``cells`` =
+    ``(nb, nz, ny, nx)``; numpy, f64) on which some cells trip every floor
+    and ceiling of the EOS: density from 0.05 to 2, internal energy from
+    slightly negative to large."""
+    rng = np.random.default_rng(seed)
+    nvar = (9 if fluid == "glmmhd" else 5) + nscalars
+    shape = (cells[0], nvar) + tuple(cells[1:])
+    u = rng.standard_normal(shape)
+    u[:, 0] = rng.uniform(0.05, 2.0, shape[:1] + shape[2:])   # some < dfloor
+    ke = 0.5 * (u[:, 1] ** 2 + u[:, 2] ** 2 + u[:, 3] ** 2) / u[:, 0]
+    eb = 0.5 * (u[:, 5] ** 2 + u[:, 6] ** 2 + u[:, 7] ** 2) \
+        if fluid == "glmmhd" else 0.0
+    # internal energy from slightly negative to large: trips p/e floors
+    # and the internal-energy ceiling
+    u[:, 4] = ke + eb + rng.uniform(-0.05, 4.0, ke.shape)
+    return u
