@@ -73,7 +73,8 @@ beside them: ``cons_to_prim`` (the EOS with floors), ``stage_update`` (the
 2S combination ``gam0 u0 + gam1 u1 + beta_dt (-div F)``, nested in
 ``fused_lane_sweep``, ``flux_divergence_update`` or
 ``first_order_flux_correct``), ``estimate_timestep`` (the CFL reduction and
-the minima's stack; on the stage rung the emitted bound's minimum) and
+the minima's stack, with the cooling's dt limit in ``cooling_dt``; on the
+stage rung the emitted bound's minimum) and
 ``host_read`` (each read of the device to the host, nested in the range of
 the work it serves).
 """
@@ -580,7 +581,9 @@ class HydroPackage:
             if dc.any_enabled and dc.integrator != "none":
                 mins["diff"] = estimate_diff_dt(dc, prim, self.mesh, cfg.cfl)
             if self.cooling is not None:
-                mins["cool"] = self.cooling.estimate_timestep(prim, self.mesh)
+                with record_function("cooling_dt"):
+                    mins["cool"] = self.cooling.estimate_timestep(prim,
+                                                                  self.mesh)
             # the device minima (the diffusive and cooling dt may be
             # floats) in one read of the host
             lazy = {k: v for k, v in mins.items() if torch.is_tensor(v)}

@@ -146,3 +146,44 @@ def test_every_host_read_lies_in_a_host_read_range(deck, tmp_path,
     bare = [r for r in reads if not any(inside(r, h) for h in ranges)]
     assert not bare, f"{len(bare)} of {len(reads)} reads outside host_read"
     assert all(any(inside(r, h) for r in reads) for h in ranges)
+
+
+@pytest.fixture(scope="module")
+def cluster_ranges(tmp_path_factory):
+    """``[(name, start, end)]`` of every range of 2 cycles of the cluster
+    deck at 16^3 over +-0.00625 Mpc (0.78 kpc cells, so that the kpc-sized
+    accretion region, jet and tower hold cells), Townsend cooling on."""
+    table = write_cluster_table(tmp_path_factory.mktemp("cluster")
+                                / "cluster.cool")
+    sim = Simulation(ParameterInput.from_string(cluster_deck(
+        n=16, half=0.00625, nlim=2, table=table)), quiet=True, device="cpu")
+    with profile(activities=[ProfilerActivity.CPU]) as prof:
+        sim.run()
+    assert sim.ncycle == 2 and torch.isfinite(sim.u).all()
+    return [(e.name, e.time_range.start, e.time_range.end)
+            for e in prof.events() if e.device_type.name == "CPU"]
+
+
+@pytest.mark.parametrize("name, outer", [
+    ("agn_triggering", "agn_feedback"),
+    ("magnetic_tower", "agn_feedback"),
+    ("agn_feedback", "problem_source"),
+    ("cooling_dt", "estimate_timestep"),
+    ("tabular_cooling", "cycle"),
+])
+def test_cluster_source_ranges_nest(cluster_ranges, name, outer):
+    """The cluster's AGN triggering and tower inside its ``agn_feedback``
+    range, the cooling's dt limit inside ``estimate_timestep``."""
+    spans = [s for s in cluster_ranges if s[0] == name]
+    outers = [s for s in cluster_ranges if s[0] == outer]
+    assert spans
+    assert all(any(inside(s, o) for o in outers) for s in spans)
+
+
+def test_cluster_split_source_eos_in_its_range(cluster_ranges):
+    """The split sources' own conversion to prim runs in a
+    ``cons_to_prim`` range, once a cycle."""
+    split = [s for s in cluster_ranges if s[0] == "first_order_source"]
+    eos = [s for s in cluster_ranges if s[0] == "cons_to_prim"
+           and any(inside(s, f) for f in split)]
+    assert len(split) == 2 and len(eos) == 2
