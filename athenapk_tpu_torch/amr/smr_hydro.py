@@ -349,8 +349,10 @@ class SmrHydro:
                     out[lev], prims.get(lev), beta_dt, c_h, lev)
             if self.cooling is not None:
                 # pointwise unsplit cooling per level and stage, after the
-                # Dedner damping (the uniform path's order)
-                out[lev] = self.cooling.apply(out[lev], beta_dt, cfg.fluid)
+                # Dedner damping (the uniform path's order), in place on
+                # the fresh stage result
+                out[lev] = self.cooling.apply_in_place(out[lev], beta_dt,
+                                                       cfg.fluid)
         if self.problem_source_unsplit is not None:
             # per-level sources with cross-level reductions
             # (AddUnsplitSources)

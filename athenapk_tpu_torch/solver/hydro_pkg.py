@@ -361,7 +361,8 @@ class HydroPackage:
                 u_new = self._dedner_source(u_new, prim, beta_dt, c_h)
         if self.cooling is not None:
             with record_function("tabular_cooling"):
-                u_new = self.cooling.apply(u_new, beta_dt, self.cfg.fluid)
+                u_new = self.cooling.apply_in_place(u_new, beta_dt,
+                                                    self.cfg.fluid)
         if self.problem_source_unsplit is not None:
             with record_function("problem_source"):
                 u_new = self.problem_source_unsplit(u_new, prim, self.mesh,

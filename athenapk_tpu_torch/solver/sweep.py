@@ -198,10 +198,14 @@ def build_units(scalars=False):
         for r in KERNEL_RECONS.values() for t in KERNEL_DTYPES.values()]
 
 
-def build_library(source=None, scalars=False, units=None):
+def build_library(source=None, scalars=False, units=None, fmad=False):
     """Compile one kernel source of ``csrc/`` (default: the sweep's) for
     sm_90a into ``build/``, keyed by the hash of the source and of the
-    header it includes, so editing either rebuilds.  Each source makes two
+    header it includes, so editing either rebuilds.  Without FMA
+    contraction (``--fmad=false``), or with it where ``fmad`` (a source
+    whose own products and sums are rounded intrinsics, so that only the
+    math library's ``pow`` contracts, as it does in PyTorch's build; the
+    library's name is keyed by it).  Each source makes two
     libraries: the kernels without scalars, and (``scalars``,
     ``lib<name>_scalars_<hash>.so``) the fluid kernels' instantiations for
     decks with scalars with the scalar kernels, built and loaded only when
@@ -217,6 +221,8 @@ def build_library(source=None, scalars=False, units=None):
         digest.update(path.read_bytes())
     if units is not None:
         digest.update(repr([list(unit) for unit in units]).encode())
+    if fmad:
+        digest.update(b"--fmad=true")
     kind = "_scalars" if scalars else ""
     lib = BUILD_DIR / f"lib{source.stem}{kind}_{digest.hexdigest()[:12]}.so"
     if lib.exists():
@@ -225,7 +231,7 @@ def build_library(source=None, scalars=False, units=None):
     work = lib.with_name(f"{lib.stem}.{os.getpid()}.units")
     work.mkdir(exist_ok=True)
     flags = [_nvcc(), "-gencode", "arch=compute_90a,code=sm_90a",
-             "-std=c++17", "-O3", "--fmad=false"]
+             "-std=c++17", "-O3", f"--fmad={'true' if fmad else 'false'}"]
     procs = []
     units = build_units(scalars) if units is None else units
     for k, defines in enumerate(units):
@@ -323,8 +329,9 @@ def ptxas_summary(compiler_log, occupancy=False):
     this or any checkout's kernels): kernel, dtype and template switches,
     registers and spills, from ``nvcc -Xptxas -v``.  With ``occupancy``,
     also the dynamic shared memory and resident blocks per SM that this
-    checkout's kernels ask the current card for (``kernel_occupancy``); a
-    block is 128 threads, 4 warps."""
+    checkout's fluid and scalar kernels ask the current card for
+    (``kernel_occupancy``); a block is 128 threads, 4 warps.  Any other
+    entry function (the cooling's, say) is named by its mangled name."""
     from . import stage
     query = {"negdiv_sweep": lambda dt, k: kernel_occupancy(
                  dt, k[2], k[0], k[1], k[3] if len(k) > 3 else 0),
@@ -360,12 +367,14 @@ def ptxas_summary(compiler_log, occupancy=False):
             current = (f"{kernel} {names[m.group(2)]} {recons[k[0]]} "
                        f"{what}{scal}")
             spill = ""
+        elif m := re.search(r"Compiling entry function '(\w+)'", line):
+            current, kernel, spill = m.group(1), None, ""
         elif current and "spill stores" in line:
             spill = line.strip()
         elif current and "registers" in line:
             regs = re.search(r"Used (\d+) registers", line).group(1)
             text = f"{current}: {regs} registers, {spill}"
-            if occupancy:
+            if occupancy and kernel in query:
                 smem, blocks = query[kernel](dtype, k)
                 warps = threads[kernel] // 32 * blocks
                 text += (f"; {smem} bytes of dynamic shared memory, "

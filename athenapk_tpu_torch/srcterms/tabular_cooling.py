@@ -18,9 +18,11 @@ evenly spaced in log T; Lambda is converted to code units with
 ``lambda_units_cgs`` and the ``<units>`` block.  de/dt = -Lambda(T)
 (X / m_h)^2 rho per unit mass, T = mbar (gamma - 1) e / k_B.
 
-Runs on whatever device the state is on (plain PyTorch: the cooling is
+The plain code runs on whatever device the state is on (the cooling is
 plain JAX in the reference too).  On a CPU tensor ``log10`` and ``pow``
 are numpy's, for the reason ``core/ieee.py`` gives for the square root.
+On a CUDA tensor the Townsend update and the dt are hand-written kernels
+(``tabular_cooling_cuda``) with the plain code's numbers.
 """
 
 from __future__ import annotations
@@ -145,6 +147,9 @@ class TabularCooling:
         self._np = {"log_lambdas": log_lambdas, "temps": temps,
                     "lambdas": lambdas, "alpha_k": alpha_k, "Y_k": Y_k}
         self._tab = {}
+        # the device pointers of _tab's tables for the kernels, by (device,
+        # dtype) (tabular_cooling_cuda._table_pointers)
+        self.kernel_tables = {}
         self.lambda_final = float(lambdas[-1])
         self.temp_final = float(temps[-1])
 
@@ -231,7 +236,25 @@ class TabularCooling:
     # ------------------------------------------------------------- integrate
     def apply(self, cons, dt, fluid: str):
         """``cons`` with the cooling source applied over ``dt`` (a new
-        tensor)."""
+        tensor: ``apply_in_place`` on a copy)."""
+        return self.apply_in_place(cons.clone(), dt, fluid)
+
+    def apply_in_place(self, cons, dt, fluid: str):
+        """The cooling source over ``dt`` applied to ``cons`` itself, which
+        is returned; only its energy row changes (the stage epilogues hand
+        over the fresh stage result, saving a copy of the state).  The
+        Townsend update goes through ``tabular_cooling_cuda.fused_townsend``
+        (one kernel on the card); the subcycling is plain on every
+        device."""
+        if self.integrator == "townsend":
+            # imported here: the kernels' module imports the solver
+            # package, which imports this module
+            from .tabular_cooling_cuda import fused_townsend
+            return fused_townsend(self, cons, dt, fluid)
+        return self.cool_plain(cons, dt, fluid)
+
+    def cool_plain(self, cons, dt, fluid: str):
+        """The plain update of ``apply_in_place``, in place on ``cons``."""
         e0, rho = self._internal_e(cons, fluid == GLMMHD)
         if self.integrator == "townsend":
             e1 = self._townsend(e0, rho, dt)
@@ -239,9 +262,8 @@ class TabularCooling:
             e1 = self._subcycle(e0, rho, dt)
         else:
             raise ValueError(f"unknown cooling integrator {self.integrator}")
-        out = cons.clone()
-        out[:, IEN] = cons[:, IEN] + rho * (e1 - e0)
-        return out
+        cons[:, IEN] += rho * (e1 - e0)
+        return cons
 
     def _townsend(self, e0, rho, dt):
         """The exact Townsend (2009) update."""
@@ -356,9 +378,16 @@ class TabularCooling:
     def estimate_timestep(self, prim, mesh):
         """The cooling-CFL dt, cfl * min |e / (de/dt)| over the interior
         cells (``TabularCooling::EstimateTimeStep``): a 0-d tensor on the
-        state's device, or ``math.inf`` when the cooling CFL is off."""
+        state's device, or ``math.inf`` when the cooling CFL is off; through
+        ``tabular_cooling_cuda.fused_cooling_dt`` (one kernel on the
+        card)."""
         if self.cooling_time_cfl <= 0.0 or math.isnan(self.cooling_time_cfl):
             return math.inf
+        from .tabular_cooling_cuda import fused_cooling_dt
+        return fused_cooling_dt(self, prim, mesh)
+
+    def cooling_dt_plain(self, prim, mesh):
+        """The plain minimum of ``estimate_timestep`` (its CFL on)."""
         w = prim[mesh.interior_slices]
         rho = w[:, IDN]
         gm1 = self.gamma - 1.0

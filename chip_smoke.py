@@ -132,7 +132,10 @@ Phases (each one fails the run if it fails):
    bounds, and the #1 and #3 calls with the scalar; the EOS kernel at the
    main deck's state against the plain EOS, f32 and the same state in f64,
    with no limit and with every floor and ceiling on, bit for bit, each
-   with its bound from the bytes of the rows read and written;
+   with its bound from the bytes of the rows read and written; the cooling
+   kernels (the Townsend update in place and the dt) at 324^3 against the
+   plain code, f64 on path K''s state tiled and f32 on drawn gas, bit for
+   bit, each with its bytes bound and the plain code's time;
 7. profile: a torch.profiler trace of 3 cycles of each rung of the main
    deck, of path E's GLM-MHD RK3 + WENO-Z + HLLE, of path F's first three
    cycles (with the rescue), of the vortex and of each refined path (the
@@ -803,6 +806,31 @@ def reset_counts():
     PORT.sweep.negdiv_scalars_cuda.launches = 0
     PORT.stage.stage_scalars_cuda.launches = 0
     PORT.adiabatic_cuda.cons_to_prim_cuda.launches = 0
+    PORT.tabular_cooling_cuda.townsend_cuda.launches = 0
+    PORT.tabular_cooling_cuda.cooling_dt_cuda.launches = 0
+
+
+def cooling_launches():
+    """Calls of the cooling kernels (``srcterms.tabular_cooling_cuda``)
+    since the last ``reset_counts``: ``(updates, dts)``.  An update is one
+    launch, a dt two (the blocks' partial minima, then their minimum)."""
+    t = PORT.tabular_cooling_cuda
+    return t.townsend_cuda.launches, t.cooling_dt_cuda.launches
+
+
+@contextlib.contextmanager
+def plain_cooling():
+    """The cooling's plain versions (``TabularCooling.cool_plain`` and
+    ``cooling_dt_plain``) forced in place of its kernels' dispatchers while
+    the block runs."""
+    t = PORT.tabular_cooling_cuda
+    saved = t.fused_townsend, t.fused_cooling_dt
+    t.fused_townsend = lambda c, u, dt, fluid: c.cool_plain(u, dt, fluid)
+    t.fused_cooling_dt = lambda c, w, mesh: c.cooling_dt_plain(w, mesh)
+    try:
+        yield
+    finally:
+        t.fused_townsend, t.fused_cooling_dt = saved
 
 
 def eos_launches():
@@ -821,14 +849,18 @@ def read_face_counts():
 
 
 def all_launches():
-    """Every launch counter of the port's kernels, summed."""
+    """The launches of the fluid, scalar and cooling kernels, summed from
+    their counters (a cooling dt call is two launches)."""
+    n_up, n_dt = cooling_launches()
     return sum(read_counts() + read_face_counts()) \
         + PORT.sweep.negdiv_scalars_cuda.launches \
-        + PORT.stage.stage_scalars_cuda.launches
+        + PORT.stage.stage_scalars_cuda.launches + n_up + 2 * n_dt
 
 
+COOLING_KERNEL = re.compile(r"townsend_cool_kernel|cooling_dt_(?:min_)?kernel")
 PORT_KERNEL = re.compile(r"negdiv_sweep_kernel|fused_stage_kernel|"
-                         r"scalars_kernel")
+                         r"scalars_kernel|" + COOLING_KERNEL.pattern)
+COOLING_KEY = "tabular_cooling (the cooling kernels)"
 
 
 class TraceLost(Exception):
@@ -1108,7 +1140,8 @@ def phase_build():
         ("fused_stage (scalars)",
          lambda: PORT.stage.build_library(scalars=True)),
         ("amr_forest (g++)",
-         lambda: (PORT.amr_forest.build_library(), "")))]
+         lambda: (PORT.amr_forest.build_library(), "")),
+        ("tabular_cooling", PORT.tabular_cooling_cuda.build_library))]
     for t in threads:
         t.start()
     for t in threads:
@@ -2609,6 +2642,166 @@ def phase_eos_timings(sim, launches_by_path, reps):
     }
 
 
+# the cooling's constants in units of the proton mass and the centimetre
+# and second, all inside float32 (the cluster deck's ~1e130 are not)
+F32_COOLING = """
+<hydro>
+gamma = 1.6666666666666667
+He_mass_fraction = 0.25
+
+<units>
+code_length_cgs = 1.0
+code_mass_cgs = 1.6726e-24
+code_time_cgs = 1.0
+
+<cooling>
+enable_cooling = tabular
+table_filename = {table}
+lambda_units_cgs = 1.0
+integrator = townsend
+cfl = 0.1
+"""
+
+
+def drawn_cluster_gas(tc, shape, seed):
+    """A GLM-MHD state with one scalar, ``shape`` cells, f64 on the card:
+    gas at 1e4-1e9 K and densities 0.1-10, moving and magnetised."""
+    gen = torch.Generator(device="cuda").manual_seed(seed)
+
+    def uniform(lo, hi):
+        return lo + (hi - lo) * torch.rand(shape, generator=gen,
+                                           device="cuda", dtype=torch.float64)
+
+    def normal():
+        return torch.randn(shape, generator=gen, device="cuda",
+                           dtype=torch.float64)
+    rho = 10.0 ** uniform(-1.0, 1.0)
+    e = 10.0 ** uniform(4.0, 9.0) / tc.mbar_gm1_over_kb
+    u = torch.empty((1, 10) + shape, device="cuda", dtype=torch.float64)
+    u[0, 0] = rho
+    for v in (1, 2, 3):
+        u[0, v] = rho * 1e-3 * e.sqrt() * normal()
+    for v in (5, 6, 7):
+        u[0, v] = 1e-2 * (rho * e).sqrt() * normal()
+    u[0, 4] = rho * e + 0.5 * (u[0, 1:4] ** 2).sum(dim=0) / rho \
+        + 0.5 * (u[0, 5:8] ** 2).sum(dim=0)
+    u[0, 8] = normal()
+    u[0, 9] = uniform(0.0, 1.0) * rho
+    return u
+
+
+def phase_cooling_timings(reps, seed):
+    """The cooling kernels (``srcterms.tabular_cooling_cuda``) against the
+    plain code at the benchmark cluster's size, 320^3 with 2 ghosts (324^3
+    cells) in one GLM-MHD block with one scalar: f64 on path K''s state at
+    64^3 (the cluster deck's first cycle) tiled over the box, with the deck's
+    cooling and half its dt (a VL2 stage's); f32 on drawn gas with the same
+    table in units that keep every constant inside float32.  The in-place
+    update and the dt must equal the plain code bit for bit; each is timed
+    beside its bytes bound (rows read and written once; the operations,
+    pow and log10 among them, are not counted) and the plain code's time
+    (the update's with ``apply``'s clone, as the parent ran it)."""
+    log("== phase 6: timings of the cooling kernels at 324^3 (the "
+        "benchmark cluster's size) ==")
+    # the card tests' comparison (tests/ is on the path: load_port)
+    from test_torch_cooling_kernel import same_bits
+    tcc = PORT.tabular_cooling_cuda
+    n, g = 320, 2
+    big = n + 2 * g
+    mesh = PORT.Mesh(nx1=n, nx2=n, nx3=n, mbnx1=n, mbnx2=n, mbnx3=n,
+                     x1min=-1.0, x1max=1.0, x2min=-1.0, x2max=1.0,
+                     x3min=-1.0, x3max=1.0, nghost=g)
+    sim = make_sim(cluster_deck("K'", 64, 1))
+    sim.run()
+    dt64, _ = sim._estimate()
+    tile = -(-big // sim.u.shape[-1])
+    u64 = sim.u.repeat(1, 1, tile, tile, tile)[..., :big, :big, :big] \
+        .contiguous()
+    tc64 = sim.pkg.cooling
+    del sim
+    tc32 = PORT.driver.make_cooling(PORT.ParameterInput.from_string(
+        F32_COOLING.format(table=cluster_table())))
+    u32 = drawn_cluster_gas(tc32, (big,) * 3, seed).float()
+    cases = {"float64": (tc64, u64, 0.5 * dt64),
+             "float32": (tc32, u32, 1.0e12)}
+    per_call, failed = {}, []
+    for tag, (tc, u, beta_dt) in cases.items():
+        f64 = u.dtype == torch.float64
+        eos = PORT.EOS(gamma=tc.gamma)
+        prim = PORT.cons_to_prim(eos, u, "glmmhd", 1)[1]
+        got = tcc.townsend_cuda(tc, u.clone(), beta_dt, "glmmhd")
+        ref = tc.cool_plain(u.clone(), beta_dt, "glmmhd")
+        torch.cuda.synchronize()
+        up_bits = same_bits(got, ref)
+        changed = int((got[:, 4] != u[:, 4]).sum())
+        del got, ref
+        got_dt = tcc.cooling_dt_cuda(tc, prim, mesh)
+        ref_dt = tc.cooling_dt_plain(prim, mesh)
+        dt_bits = same_bits(got_dt, ref_dt)
+        dt_value = float(ref_dt)
+        torch.cuda.empty_cache()
+        if not (up_bits and dt_bits and changed > 0):
+            failed.append(f"{tag}: update bit for bit {up_bits} ({changed} "
+                          f"energies changed), dt bit for bit {dt_bits}")
+        work = u.clone()
+        ms_up = cuda_ms(lambda: tcc.townsend_cuda(tc, work, beta_dt,
+                                                  "glmmhd"), reps)
+        del work
+        plain_up = cuda_ms(lambda: tc.cool_plain(u.clone(), beta_dt,
+                                                 "glmmhd"), 2)
+        torch.cuda.empty_cache()
+        ms_dt = cuda_ms(lambda: tcc.cooling_dt_cuda(tc, prim, mesh), reps)
+        plain_dt = cuda_ms(lambda: tc.cooling_dt_plain(prim, mesh), 2)
+        torch.cuda.empty_cache()
+        esize = u.element_size()
+        bytes_up = (8 + 1) * big ** 3 * esize
+        bytes_dt = 2 * n ** 3 * esize
+        b_up = bound_of(bytes_up, 0, ms_up, f64=f64)
+        b_dt = bound_of(bytes_dt, 0, ms_dt, f64=f64)
+        per_call[tag] = dict(
+            update=dict(ms=ms_up, plain_ms=plain_up, bytes=bytes_up,
+                        bit_for_bit=up_bits, energies_changed=changed,
+                        bytes_per_s=bytes_up / ms_up * 1e3, **b_up),
+            dt=dict(ms=ms_dt, plain_ms=plain_dt, bytes=bytes_dt,
+                    bit_for_bit=dt_bits, dt=dt_value,
+                    bytes_per_s=bytes_dt / ms_dt * 1e3, **b_dt))
+        for name, ms, plain, b, bits in (
+                ("update", ms_up, plain_up, b_up, up_bits),
+                ("dt", ms_dt, plain_dt, b_dt, dt_bits)):
+            log(f"  {tag} {name}: kernel "
+                f"{'bit for bit' if bits else 'NOT bit for bit'} with "
+                f"plain; kernel {ms:.4f} ms, plain {plain:.4f} ms "
+                f"({plain / ms:.1f}x); bytes bound {b['bytes_ms']:.4f} ms, "
+                f"{100 * b['share_of_bound']:.2f} % of it")
+        del u, prim
+        torch.cuda.empty_cache()
+    if failed:
+        raise AssertionError(f"cooling kernels against plain: {failed}")
+    main = per_call["float64"]
+    return {
+        "name": "tabular_cooling",
+        "route": "cuda",
+        "source": "athenapk_tpu_torch/csrc/tabular_cooling.cu",
+        "replaces": "none: the JAX package's cooling (athenapk_tpu/"
+                    "srcterms/tabular_cooling.py) is XLA's",
+        "ms": main["update"]["ms"],
+        "plain_ms": main["update"]["plain_ms"],
+        "bound_ms": main["update"]["bound_ms"],
+        "share_of_bound": main["update"]["share_of_bound"],
+        "bound_by": "bytes (operations not counted)",
+        "dt_ms": main["dt"]["ms"],
+        "dt_plain_ms": main["dt"]["plain_ms"],
+        "dt_share_of_bound": main["dt"]["share_of_bound"],
+        "max_rel_err": 0.0,
+        "library_ms": None,
+        "library_note": "no single PyTorch call integrates the cooling",
+        "unit": "per call at 324^3 (320^3 and 2 ghosts), GLM-MHD with one "
+                "scalar; the top-level numbers are the f64 update in place "
+                "and the f64 dt over the interior",
+        "per_call": per_call,
+    }
+
+
 def phase_case_timings(runs, reps, f64=False):
     """A timing row per case at its path's own inputs (the state the path's
     run ended with, f32): the deck's call of the sweep kernel (one per
@@ -2708,12 +2901,12 @@ def phase_profile(sim, ncycles, what):
     cooling = sim.pkg.cooling
     if cooling is not None:
         # the cooling's plain kernels are told apart by a profiler range
-        apply = cooling.apply
+        apply = cooling.apply_in_place
 
         def ranged(*a, **k):
             with record_function("cooling"):
                 return apply(*a, **k)
-        cooling.apply = ranged
+        cooling.apply_in_place = ranged
     torch.cuda.synchronize()
     n0 = all_launches()
     try:
@@ -2724,7 +2917,7 @@ def phase_profile(sim, ncycles, what):
             torch.cuda.synchronize()
     finally:
         if cooling is not None:
-            del cooling.apply
+            del cooling.apply_in_place
     trace = ROOT / "build" / "chip_smoke" / "trace.json"
     trace.parent.mkdir(parents=True, exist_ok=True)
     prof.export_chrome_trace(str(trace))
@@ -2755,6 +2948,7 @@ def phase_profile(sim, ncycles, what):
                if "cons_to_prim_kernel" in e["name"]
                else "a kernel of the port (unparsed)"
                if re.search("negdiv_sweep|fused_stage", e["name"])
+               else COOLING_KEY if COOLING_KERNEL.search(e["name"])
                else "cooling (plain PyTorch)" if ts is not None and any(
                    a["ts"] <= ts <= a["ts"] + a["dur"] for a in ranges)
                else "other kernels (plain PyTorch)")
@@ -2938,6 +3132,8 @@ def phase_smr_profile(sim, ncycles, what):
                   f"{m.group(2)}"
         elif s:
             key = f"fused_stage (faces) {recons[int(s.group(1))]}"
+        elif COOLING_KERNEL.search(e["name"]):
+            key = COOLING_KEY
         else:
             key = "other glue (plain PyTorch)"
             for a in spans:
@@ -2985,7 +3181,7 @@ def phase_amr_profile(sim, ncycles, what):
                (PORT.SmrState, "fill_ghosts", "amr.fill"),
                (PORT.AmrHydro, "dispatch_tags", "amr.tags"),
                (PORT.AmrHydro, "maybe_remesh", "amr.remesh"),
-               (PORT.TabularCooling, "apply", "amr.cooling"))
+               (PORT.TabularCooling, "apply_in_place", "amr.cooling"))
 
     def wrap(fn, label):
         def call(*a, **k):
@@ -3042,6 +3238,8 @@ def phase_amr_profile(sim, ncycles, what):
             key = "face kernels (#7 or #6/#2)"
         elif "scalars_kernel" in name:
             key = "scalar kernels"
+        elif COOLING_KERNEL.search(name):
+            key = COOLING_KEY
         elif "amr.cooling" in labels:
             key = "amr.cooling (plain PyTorch)"
         elif "amr.remesh" in labels:
@@ -3355,10 +3553,12 @@ def phase_cloud_uniform(rung, n, ncycles, warmup):
     wall = time.time() - t1
     scal = (PORT.sweep.negdiv_scalars_cuda.launches,
             PORT.stage.stage_scalars_cuda.launches)
+    cool = cooling_launches()
     reads = cooling.host_reads - reads0
     share = meter["s"] / wall
     log(f"  launches: sweep {n_sweep}, stage {n_stage}, scalar kernels "
-        f"(negdiv, stage) {scal}; cooling loop: {reads / ncycles:.1f} host "
+        f"(negdiv, stage) {scal}, cooling (update, dt) {cool}; cooling "
+        f"loop: {reads / ncycles:.1f} host "
         f"reads per cycle, {1e3 * meter['s'] / ncycles:.3f} ms per cycle "
         f"of the loop (synchronised), {100 * share:.1f} % of the run's "
         f"wall time ({wall:.3f} s for {ncycles} cycles); zone-cycles/"
@@ -3366,13 +3566,16 @@ def phase_cloud_uniform(rung, n, ncycles, warmup):
     want_stage = 2 * ncycles if rung == "stage" else 0
     want_sweep = 0 if rung == "stage" else 6 * ncycles
     finite = bool(torch.isfinite(sim.u).all())
+    # the rk12 update is plain; the dt a cycle and the initial dt are not
     if (n_sweep, n_stage) != (want_sweep, want_stage) or zcps is None \
-            or scal != (want_sweep, want_stage) or not finite:
+            or scal != (want_sweep, want_stage) or not finite \
+            or cool != (0, ncycles + 1):
         raise AssertionError(f"path G' ({rung}): launches "
-                             f"{(n_sweep, n_stage)}, scalar {scal}, finite "
-                             f"{finite}")
+                             f"{(n_sweep, n_stage)}, scalar {scal}, cooling "
+                             f"{cool}, finite {finite}")
     return sim, dict(zone_cycles_per_s=zcps, launches=n_sweep + n_stage,
                      scalar_launches=sum(scal),
+                     cooling_launches=dict(update=cool[0], dt=cool[1]),
                      cooling_reads_per_cycle=reads / ncycles,
                      cooling_loop_ms_per_cycle=1e3 * meter["s"] / ncycles,
                      cooling_loop_share=share, cycles=ncycles)
@@ -3482,6 +3685,7 @@ def phase_cloud_adaptive(rung, n, ncycles, warmup):
     counts = read_face_counts() + read_counts()
     scal = (PORT.sweep.negdiv_scalars_cuda.launches,
             PORT.stage.stage_scalars_cuda.launches)
+    cool = cooling_launches()
     text = out.getvalue()
     rates = re.findall(r"zone-cycles/wallsecond = (\S+)", text)
     per_cycle = [m.group(1) for m in
@@ -3492,19 +3696,25 @@ def phase_cloud_adaptive(rung, n, ncycles, warmup):
     changed = sum(e["changed"] for e in drv.remesh_log[n_init:])
     log(f"  leaves per cycle: {' '.join(per_cycle)}")
     log(f"  launches: face kernel {face} ({face / ncycles:.2f} per cycle), "
-        f"all wrappers {counts}, scalar kernels (negdiv, stage) {scal}; "
-        f"remesh checks in the window {len(window)}, remeshes that changed "
-        f"the leaf table: {sim.perf_remeshes} in the window, {changed} over "
+        f"all wrappers {counts}, scalar kernels (negdiv, stage) {scal}, "
+        f"cooling (update, dt) {cool}; remesh checks in the window "
+        f"{len(window)}, remeshes that changed the leaf table: "
+        f"{sim.perf_remeshes} in the window, {changed} over "
         f"the run after the initial refinement; leaves at the end "
         f"{leaves_of(sim)}; zone-cycles/wallsecond over the window {zcps}")
     finite = all(bool(torch.isfinite(v).all()) for v in sim.state.values())
+    # the levels a cycle holds change with the remeshes: each cycle takes
+    # at least one update a stage and one dt
     if sim.ncycle != ncycles or zcps is None or face == 0 or not finite \
-            or sum(scal) != face:
+            or sum(scal) != face or cool[0] < 2 * ncycles \
+            or cool[1] < ncycles:
         raise AssertionError(f"path G ({rung}): {sim.ncycle} cycles, "
-                             f"launches {counts}, scalar {scal}, finite "
-                             f"{finite}")
+                             f"launches {counts}, scalar {scal}, cooling "
+                             f"{cool}, finite {finite}")
     return sim, dict(zone_cycles_per_s=zcps, cycles_timed=ncycles - warmup,
-                     launches=face, scalar_launches=sum(scal),
+                     cycles=ncycles, launches=face,
+                     scalar_launches=sum(scal),
+                     cooling_launches=dict(update=cool[0], dt=cool[1]),
                      launches_per_cycle=face / ncycles,
                      remeshes_window=sim.perf_remeshes,
                      remeshes_run=changed, leaves_start=leaves0,
@@ -3513,7 +3723,8 @@ def phase_cloud_adaptive(rung, n, ncycles, warmup):
 
 def phase_cloud_whole_steps():
     """Path G's deck in f64 at base 32x96x32 (16^3 blocks), 5 cycles
-    through the kernels and with the plain versions forced, side by side:
+    through the kernels and with the plain versions (the faces' and the
+    cooling's, which then launch nothing) forced, side by side:
     leaf tables equal, state and every step to STEP_TOL, on both rungs."""
     log("== phase 5: path G's deck, kernels against plain over whole steps "
         "(f64, base 32x96x32, 5 cycles) ==")
@@ -3534,14 +3745,20 @@ def phase_cloud_whole_steps():
                         stage.fused_stage_faces = stage.stage_faces_plain
                     sim.nlim = k
                     reset_counts()
-                    sim.run()
+                    with plain_cooling() if name == "plain" \
+                            else contextlib.nullcontext():
+                        sim.run()
                     counts = read_face_counts()
+                    cool = cooling_launches()
                 finally:
                     sweep.fused_negdiv_faces, stage.fused_stage_faces = \
                         dispatch
-                if (sum(counts) == 0) != (name == "plain"):
+                if (sum(counts) == 0) != (name == "plain") \
+                        or (min(cool) == 0) != (name == "plain") \
+                        or (max(cool) == 0) != (name == "plain"):
                     raise AssertionError(f"path G f64 ({rung}): {name} run "
-                                         f"launched {counts}")
+                                         f"launched {counts} and cooling "
+                                         f"(update, dt) {cool}")
                 launches += sum(counts)
             kern, plain = sims["kernel"], sims["plain"]
             if any(not np.array_equal(a, b) for a, b in
@@ -4195,7 +4412,8 @@ def phase_source_whole_steps(cases=None, what="the diffusion and source "
                              "decks"):
     """Phase 5's diffusion and source decks (or ``cases``, as
     ``source_whole_step_cases`` gives them): 5 f64 cycles through the
-    kernels and with every kernel's plain version forced; state and every
+    kernels and with every kernel's plain version forced (the fluid's, the
+    EOS's and the cooling's, none of which may launch); state and every
     dt to STEP_TOL, the same RKL2 stage counts (and FOFC rescues), mass
     across levels to 1e-13 on refined meshes (where the problem injects
     mass, the kernel run's change of mass to STEP_TOL of the plain run's).
@@ -4235,10 +4453,13 @@ def phase_source_whole_steps(cases=None, what="the diffusion and source "
                         setattr(stage, n, plain[n])
                     eos.fused_cons_to_prim = PORT.adiabatic.cons_to_prim
                 reset_counts()
-                with contextlib.redirect_stdout(io.StringIO()):
+                with contextlib.redirect_stdout(io.StringIO()), (
+                        plain_cooling() if name == "plain"
+                        else contextlib.nullcontext()):
                     sim.run()
                 counts = read_counts() + read_face_counts()
                 n_eos = eos_launches()
+                n_cool = cooling_launches()
             finally:
                 for n in names:
                     setattr(sweep, n, saved[n])
@@ -4246,10 +4467,16 @@ def phase_source_whole_steps(cases=None, what="the diffusion and source "
                     setattr(stage, n, saved[n])
                 eos.fused_cons_to_prim = saved_eos
                 os.chdir(cwd)
+            # the kernel run takes the cooling kernels where the deck cools
+            # (an update a stage, a dt a cycle), the plain run none
+            cools = name == "kernel" and "enable_cooling = tabular" in deck
             if (sum(counts) == 0) != (name == "plain") \
-                    or (name == "plain" and n_eos):
-                raise AssertionError(f"{label}: {name} run launched {counts} "
-                                     f"and {n_eos} EOS kernels")
+                    or (name == "plain" and n_eos) \
+                    or (min(n_cool) > 0) != cools \
+                    or (max(n_cool) > 0) != cools:
+                raise AssertionError(f"{label}: {name} run launched {counts}"
+                                     f", {n_eos} EOS kernels and {n_cool} "
+                                     f"cooling kernels (update, dt)")
             if refined:
                 st = sim._stepper_now()
                 state = {lev: v.cpu().numpy() for lev, v in sim.state.items()}
@@ -4260,23 +4487,24 @@ def phase_source_whole_steps(cases=None, what="the diffusion and source "
                 extra = (sim.pkg.rkl2_stages, sim.pkg.fofc_rescues)
                 drift = 0.0
             runs[name] = (state, np.loadtxt(next(outdir.glob("*.hst"))),
-                          extra, drift, sum(counts), sim.ncycle)
+                          extra, drift, sum(counts), sim.ncycle, n_cool)
             if "rand_blast" in label and not sim.t > 0.00125:
                 raise AssertionError(f"{label}: t = {sim.t}, the window "
                                      "holds no blast")
-        (uk, hk, ek, dk, nk, ck), (up, hp, ep, dp, _, cp) = \
+        (uk, hk, ek, dk, nk, ck, nc), (up, hp, ep, dp, _, cp, _) = \
             runs["kernel"], runs["plain"]
         err_u = max(float(np.abs(uk[lev] - up[lev]).max()
                           / np.abs(up[lev]).max()) for lev in up)
         err_dt = float(np.abs(hk[:, 1] - hp[:, 1]).max()
                        / np.abs(hp[:, 1]).max())
         worst[label] = dict(state=err_u, dt=err_dt, launches=nk,
+                            cooling_launches=dict(update=nc[0], dt=nc[1]),
                             rkl2_stages=ek[0], rescues=ek[1],
                             mass_drift=dk)
         log(f"  {label:48s} state {err_u:.3e}, dt {err_dt:.3e} (tol "
-            f"{STEP_TOL:.0e}); launches {nk}; RKL2 stages {ek[0]} / "
-            f"{ep[0]}, rescues {ek[1]} / {ep[1]} (kernels / plain); mass "
-            f"drift {dk:.3e}")
+            f"{STEP_TOL:.0e}); launches {nk}, cooling (update, dt) {nc}; "
+            f"RKL2 stages {ek[0]} / {ep[0]}, rescues {ek[1]} / {ep[1]} "
+            f"(kernels / plain); mass drift {dk:.3e}")
         injects = "problem_id = cluster" in deck
         drift_ok = (abs(dk - dp) <= STEP_TOL * dp) if injects \
             else dk <= 1e-13
@@ -4861,20 +5089,26 @@ def phase_cluster_uniform(path, rung, n, ncycles, warmup):
     n_sweep, n_stage, zcps = run_sim(sim)
     n_ns = PORT.sweep.negdiv_scalars_cuda.launches
     n_ss = PORT.stage.stage_scalars_cuda.launches
+    n_up, n_dt = cooling_launches()
     per = RUNG_LAUNCHES[rung]
+    # the cooling: an update a stage, a dt a cycle and the initial dt
+    cool = (2 * ncycles, ncycles + 1) if sim.pkg.cooling is not None \
+        else (0, 0)
     want = (per[0] * ncycles, per[1] * ncycles, per[0] * ncycles,
-            per[1] * ncycles)
-    got = (n_sweep, n_stage, n_ns, n_ss)
+            per[1] * ncycles) + cool
+    got = (n_sweep, n_stage, n_ns, n_ss, n_up, n_dt)
     finite = bool(torch.isfinite(sim.u).all())
     log(f"  launches: sweep {n_sweep}, stage {n_stage}, negdiv_scalars "
-        f"{n_ns}, stage_scalars {n_ss} (expected {want}); zone-cycles/"
-        f"wallsecond {zcps}; finite {finite}")
+        f"{n_ns}, stage_scalars {n_ss}, cooling update {n_up}, cooling dt "
+        f"{n_dt} (expected {want}); zone-cycles/wallsecond {zcps}; finite "
+        f"{finite}")
     if got != want or zcps is None or not finite:
         raise AssertionError(f"path {path} ({rung}): launches {got}, "
                              f"finite {finite}")
     return sim, dict(zone_cycles_per_s=zcps, cells=cells,
                      launches=n_sweep + n_stage,
                      scalar_launches=n_ns + n_ss,
+                     cooling_launches=dict(update=n_up, dt=n_dt),
                      launches_per_cycle=(n_sweep + n_stage) / ncycles,
                      cycles=ncycles)
 
@@ -4900,21 +5134,26 @@ def phase_cluster_refined(rung, n, ncycles, warmup):
     (n_sf, n_nf, n_sweep, n_stage), zcps = run_smr(sim, ncycles, warmup)
     n_ns = PORT.sweep.negdiv_scalars_cuda.launches
     n_ss = PORT.stage.stage_scalars_cuda.launches
+    n_up, n_dt = cooling_launches()
     nlev = len(leaves)
     per = {"stage": (2 * nlev, 0), "negdiv": (0, 6 * nlev)}[rung]
+    # the cooling per level: an update a stage, a dt a cycle (each of the
+    # two runs takes its first dt in its first cycle)
     want = (per[0] * ncycles, per[1] * ncycles, 0, 0,
-            per[1] * ncycles, per[0] * ncycles)
-    got = (n_sf, n_nf, n_sweep, n_stage, n_ns, n_ss)
+            per[1] * ncycles, per[0] * ncycles, 2 * nlev * ncycles,
+            nlev * ncycles)
+    got = (n_sf, n_nf, n_sweep, n_stage, n_ns, n_ss, n_up, n_dt)
     finite = all(bool(torch.isfinite(v).all()) for v in sim.state.values())
     log(f"  launches: stage-faces {n_sf}, negdiv-faces {n_nf}, sweep "
         f"{n_sweep}, stage {n_stage}, negdiv_scalars {n_ns}, stage_scalars "
-        f"{n_ss} (expected {want}); zone-cycles/wallsecond {zcps}; finite "
-        f"{finite}")
+        f"{n_ss}, cooling update {n_up}, cooling dt {n_dt} (expected "
+        f"{want}); zone-cycles/wallsecond {zcps}; finite {finite}")
     if got != want or zcps is None or not finite:
         raise AssertionError(f"path K ({rung}): launches {got}, finite "
                              f"{finite}")
     return sim, dict(zone_cycles_per_s=zcps, leaves=leaves, cells=cells,
                      launches=n_sf + n_nf, scalar_launches=n_ns + n_ss,
+                     cooling_launches=dict(update=n_up, dt=n_dt),
                      launches_per_cycle=(n_sf + n_nf) / ncycles,
                      cycles=ncycles)
 
@@ -5927,6 +6166,7 @@ def load_port():
     from athenapk_tpu_torch.solver.hydro_pkg import (HydroConfig,
                                                      rkl2_stage_count)
     from athenapk_tpu_torch.srcterms import TabularCooling
+    from athenapk_tpu_torch.srcterms import tabular_cooling_cuda
     from athenapk_tpu_torch.srcterms.tabular_cooling import PASS_COUNTS
     from athenapk_tpu_torch.utils import exact_riemann
     # the decks shared with the CPU tests (numpy only)
@@ -5943,7 +6183,8 @@ def load_port():
         SmrState=SmrState, schemes=schemes, driver=driver,
         restart_payload=restart_payload,
         restart_payload_smr=restart_payload_smr, adiabatic=adiabatic,
-        adiabatic_cuda=adiabatic_cuda)
+        adiabatic_cuda=adiabatic_cuda,
+        tabular_cooling_cuda=tabular_cooling_cuda)
 
 
 def main(argv=None):
@@ -6061,6 +6302,7 @@ def main(argv=None):
         "main deck, hybrid rung": counts["hybrid"][1]}
     eos_entry = phase_eos_timings(sims["sweep"], {
         f"main deck, {rung} rung": counts[rung][2] for rung in RUNGS}, 10)
+    cooling_entry = phase_cooling_timings(10, args.seed)
     flat_entry = phase_sweep_timings(
         ot, ot_launches, 10, "negdiv_sweep_2d",
         "athenapk_tpu/solver/pallas_sweep.py:343", "the Orszag-Tang deck")
@@ -6238,6 +6480,27 @@ def main(argv=None):
         scalar_entries[1 if rung == "stage" else 0]["launches_by_path"][
             key] = num["scalar_launches"]
     sweep_entry["cluster_decks_whole_steps_f64"] = cluster_steps
+    # the cooling kernels' calls (update, dt) by path, from each run's
+    # counters, and per cycle
+    cool_by_path, cool_per_cycle = {}, {}
+    cool_runs = [(f"path {path} (cluster), {rung} rung", num, num["cycles"])
+                 for (path, rung), num in path_k.items()]
+    cool_runs += [(f"path G' (cloud, rk12), {r} rung", v[1], v[1]["cycles"])
+                  for r, v in cloud_u.items()]
+    cool_runs += [(f"path G (adaptive cloud), {r} rung", v[1],
+                   v[1]["cycles"]) for r, v in cloud_a.items()]
+    cool_runs += [(f"phase 5 {label}, kernel run", num, 5)
+                  for label, num in cluster_steps.items()]
+    for key, num, ncycles in cool_runs:
+        cool_by_path[key] = num["cooling_launches"]
+        cool_per_cycle[key] = {k: n / ncycles
+                               for k, n in num["cooling_launches"].items()}
+    cooling_entry["launches"] = cool_by_path["path K' (cluster), sweep rung"]
+    cooling_entry["launches_by_path"] = cool_by_path
+    cooling_entry["launches_per_cycle"] = cool_per_cycle
+    cooling_entry["launches_note"] = (
+        "calls of the update and of the dt; a dt call is two launches; "
+        "the uniform paths' runs include one dt for their initial dt")
     # the multi-rank paths: each rank's launches from its own run (its
     # counts set to 0 just before, read just after), summed over the ranks
     # (entry, launch counter, whether the entry's per-cycle counts come
@@ -6322,7 +6585,8 @@ def main(argv=None):
 
     print(json.dumps({"kernels": [sweep_entry, stage_entry, flat_entry,
                                   faces_entry, nd3_entry, nd2_entry]
-                      + scalar_entries + [eos_entry]}), flush=True)
+                      + scalar_entries + [eos_entry, cooling_entry]}),
+          flush=True)
     print(card, flush=True)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

@@ -225,6 +225,22 @@ def test_ptxas_summary_reads_each_instantiation():
     ]
 
 
+def test_ptxas_summary_names_other_entry_functions_by_their_mangled_name():
+    """An entry function that is not a fluid or scalar kernel (the cooling
+    kernels') gets its line under its mangled name, even with
+    ``occupancy``, for which no card is asked."""
+    name = "_ZN7cooling20townsend_cool_kernelIdLb1ELi2EEEvPT_iix"
+    log = "\n".join([
+        f"ptxas info    : Compiling entry function '{name}' for 'sm_90a'",
+        "    0 bytes stack frame, 0 bytes spill stores, 0 bytes spill loads",
+        "ptxas info    : Used 64 registers, used 1 barriers",
+    ])
+    want = [f"{name}: 64 registers, 0 bytes stack frame, 0 bytes spill "
+            "stores, 0 bytes spill loads"]
+    assert sweep.ptxas_summary(log) == want
+    assert sweep.ptxas_summary(log, occupancy=True) == want
+
+
 def test_decks_with_scalars_build_their_own_library(monkeypatch, tmp_path):
     """The instantiations for decks with scalars (and the scalar kernels)
     build into a second library of each source, named apart, so that a
