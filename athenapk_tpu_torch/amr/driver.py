@@ -36,10 +36,10 @@ builds the whole initial state where the problem has one (the cluster),
 gives the ghost fill its boundary conditions, ``check_refinement_block``
 tags blocks beside the criterion (adaptive meshes, combined by ``max``);
 tabular cooling is built as the uniform driver builds it
-(``driver.make_cooling``) and acts on every level.
+(``deck.make_cooling``) and acts on every level.
 
 Diffusion is built as the uniform driver builds it
-(``driver.make_diffusion``): unsplit diffusion joins every stage
+(``deck.make_diffusion``): unsplit diffusion joins every stage
 (``SmrHydro``), RKL2 wraps the cycle.  The problem's source hooks are the
 JAX driver's (``athenapk_tpu/amr/driver.py:119-140, 225-282``):
 ``problem_source_unsplit_smr`` joins every stage; for the split sources
@@ -87,77 +87,22 @@ from torch.profiler import record_function
 
 from ..config.parameter_input import ParameterInput
 from ..core.boundaries import check_reflecting_mhd
+from ..core.device import DTYPES, resolve_device
 from ..core.mesh import Mesh
+from ..deck import (check_h5py, make_cooling, make_diffusion,
+                    swarm_variables, tracers_to_device)
 from ..eos.adiabatic import EOS, cons_to_prim
+from ..outputs.hdf5 import write_phdf_smr
 from ..outputs.history import HistoryOutput
+from ..outputs.restart import write_restart_smr
 from ..pgen import get_pgen
 from ..refinement.criteria import RefinementConfig
 from ..solver.hydro_pkg import HydroConfig
 from ..tracers.smr_tracers import SmrTracers, compact_swarm_smr
 from .remesh import AmrHydro
-from .smr import SmrMesh, smr_regions_from_deck
+from .smr import (LevelLeafView, SmrMesh, leaf_mesh,
+                  smr_regions_from_deck)
 from .smr_hydro import SmrHydro
-
-
-def leaf_mesh(smesh: SmrMesh, gid: int) -> Mesh:
-    """One-block Mesh covering one leaf (for per-leaf problem set-up)."""
-    b = smesh.base
-    lev = int(smesh.levels[gid])
-    x0, y0, z0 = smesh.block_origin(gid)
-    d1, d2, d3 = smesh.dx(lev)
-    return Mesh(nx1=b.mbnx1, nx2=b.mbnx2, nx3=b.mbnx3,
-                mbnx1=b.mbnx1, mbnx2=b.mbnx2, mbnx3=b.mbnx3,
-                x1min=x0, x1max=x0 + d1 * b.mbnx1,
-                x2min=y0, x2max=y0 + d2 * b.mbnx2,
-                x3min=z0, x3max=z0 + d3 * b.mbnx3,
-                nghost=b.nghost)
-
-
-class LevelLeafView:
-    """Mesh-like view of one refinement level's leaves, so that a uniform
-    mesh's problem hook (a split-source factory, say) runs unchanged on a
-    refined mesh: the block axis is the level's leaves, ``cell_centers_mesh``
-    gives each leaf's own coordinates, dx is the level's, and the domain
-    extents stay global (factories read them for whole-domain
-    constants)."""
-
-    def __init__(self, smesh: SmrMesh, lev: int):
-        b = smesh.base
-        self._smesh = smesh
-        self._ids = smesh.level_ids[lev]
-        self.nblocks = len(self._ids)
-        self.nghost = b.nghost
-        self.ng1, self.ng2, self.ng3 = b.ng1, b.ng2, b.ng3
-        self.NX, self.NY, self.NZ = b.NX, b.NY, b.NZ
-        self.block_shape = b.block_shape
-        self.mbnx1, self.mbnx2, self.mbnx3 = b.mbnx1, b.mbnx2, b.mbnx3
-        self.dx1, self.dx2, self.dx3 = smesh.dx(lev)
-        self.dx = (self.dx1, self.dx2, self.dx3)
-        self.min_dx = smesh.min_dx(lev)
-        self.cell_volume = self.dx1 * self.dx2 * self.dx3
-        self.x1min, self.x1max = b.x1min, b.x1max
-        self.x2min, self.x2max = b.x2min, b.x2max
-        self.x3min, self.x3max = b.x3min, b.x3max
-        self.nx1, self.nx2, self.nx3 = b.nx1, b.nx2, b.nx3
-        self.interior_slices = b.interior_slices
-        self.ndim = b.ndim
-
-    def cell_centers(self, dtype=np.float64):
-        nb = self.nblocks
-        x = np.empty((nb, self.NX), dtype=dtype)
-        y = np.empty((nb, self.NY), dtype=dtype)
-        z = np.empty((nb, self.NZ), dtype=dtype)
-        for li, gid in enumerate(self._ids):
-            xs, ys, zs = self._smesh.cell_centers_leaf(gid)
-            x[li] = np.ravel(xs)
-            y[li] = np.ravel(ys)
-            z[li] = np.ravel(zs)
-        return x, y, z
-
-    def cell_centers_mesh(self, dtype=np.float64):
-        x, y, z = self.cell_centers(dtype)
-        return (x[:, None, None, :], y[:, None, :, None],
-                z[:, :, None, None])
 
 
 def adapt_split_source(factory, pin, smesh, cfg, eos):
@@ -184,8 +129,6 @@ def init_state_from_pgen(smesh: SmrMesh, pgen, pin, cfg, eos,
     """``{level: [nb, nvar, NZ, NY, NX]}`` from the uniform problem
     generator applied leaf by leaf (ghosts unfilled), on the card unless
     the caller asks for the CPU."""
-    from ..driver import resolve_device
-
     device = resolve_device(device)
     state = {}
     for lev, ids in smesh.level_ids.items():
@@ -201,10 +144,6 @@ class SmrSimulation:
 
     def __init__(self, pin: ParameterInput, quiet: bool = False,
                  device="cuda", restart: Optional[dict] = None):
-        from ..driver import (DTYPES, check_h5py, make_cooling,
-                              make_diffusion, resolve_device,
-                              swarm_variables)
-
         self.pin = pin
         self.quiet = quiet
         self.device = resolve_device(device)
@@ -378,8 +317,6 @@ class SmrSimulation:
         forcing, the derefinement counters, the tracers and the output
         triggers (hdf5 outputs, rst outputs, then the ``.hst`` one); the
         ``.hst`` file is appended to.  Returns ``self``."""
-        from ..driver import tracers_to_device
-
         self.load_state(payload["state"], payload["t"], payload["ncycle"],
                         dt=payload.get("dt"),
                         forcing=payload.get("few_modes_ft"))
@@ -501,7 +438,6 @@ class SmrSimulation:
             for lev in sorted(self.state)])
 
     def _write_rst(self, force=False):
-        from ..outputs.restart import write_restart_smr
         for out in self._rst_outs:
             if not force and (out["dt"] < 0.0 or self.t < out["next"]):
                 continue
@@ -515,7 +451,6 @@ class SmrSimulation:
 
     def _write_hdf5(self, dt, force=False):
         """The due hdf5 outputs (``dt < 0``: the final dump only)."""
-        from ..outputs.hdf5 import write_phdf_smr
         for out in self._hdf5_outs:
             if not force and (out["dt"] < 0.0 or self.t < out["next"]):
                 continue

@@ -56,6 +56,7 @@ import torch.nn.functional as F
 from torch.profiler import record_function
 
 from ..core.amr_forest import COPY, PROLONG, RESTRICT
+from ..core.device import resolve_device
 from ..eos.adiabatic import cons_to_prim
 from ..refinement.criteria import check_refinement
 from ..refinement.prolong_restrict import prolongate_minmod, restrict_average
@@ -221,8 +222,6 @@ class AmrHydro:
                  diffusion=None, problem_source_factory=None,
                  problem_first_order_factory=None,
                  problem_strang_factory=None, rmesh=None, layout="flat"):
-        from ..driver import resolve_device
-
         if layout not in OWNERS:
             raise ValueError(f"unknown AMR layout {layout!r}")
         if rmesh is not None and (problem_first_order_factory is not None

@@ -29,6 +29,10 @@ without the variable axis, which its cloud hook then misreads; its
 ``scatter`` fill passes the variable axis and is the one the port's
 results are held against.)  Not ported: the ``scatter`` and ``buffered``
 A/B fills (they give the same bits).
+
+``leaf_mesh`` and ``LevelLeafView`` let a uniform mesh's problem hooks run
+on a refined mesh: a one-block ``Mesh`` of one leaf, and a mesh-like view
+of one level's leaves.
 """
 
 from __future__ import annotations
@@ -39,6 +43,7 @@ import numpy as np
 import torch
 
 from ..core.amr_forest import AmrForest
+from ..core.device import resolve_device
 from ..core.indices import IM1, IM2, IM3
 from ..core.mesh import Mesh
 from ..refinement.prolong_restrict import prolongate_minmod, restrict_average
@@ -267,6 +272,67 @@ class SmrMesh:
         return (x[None, None, :], y[None, :, None], z[:, None, None])
 
 
+def leaf_mesh(smesh: SmrMesh, gid: int) -> Mesh:
+    """One-block Mesh covering one leaf (for per-leaf problem set-up)."""
+    b = smesh.base
+    lev = int(smesh.levels[gid])
+    x0, y0, z0 = smesh.block_origin(gid)
+    d1, d2, d3 = smesh.dx(lev)
+    return Mesh(nx1=b.mbnx1, nx2=b.mbnx2, nx3=b.mbnx3,
+                mbnx1=b.mbnx1, mbnx2=b.mbnx2, mbnx3=b.mbnx3,
+                x1min=x0, x1max=x0 + d1 * b.mbnx1,
+                x2min=y0, x2max=y0 + d2 * b.mbnx2,
+                x3min=z0, x3max=z0 + d3 * b.mbnx3,
+                nghost=b.nghost)
+
+
+class LevelLeafView:
+    """Mesh-like view of one refinement level's leaves, so that a uniform
+    mesh's problem hook (a split-source factory, say) runs unchanged on a
+    refined mesh: the block axis is the level's leaves, ``cell_centers_mesh``
+    gives each leaf's own coordinates, dx is the level's, and the domain
+    extents stay global (factories read them for whole-domain
+    constants)."""
+
+    def __init__(self, smesh: SmrMesh, lev: int):
+        b = smesh.base
+        self._smesh = smesh
+        self._ids = smesh.level_ids[lev]
+        self.nblocks = len(self._ids)
+        self.nghost = b.nghost
+        self.ng1, self.ng2, self.ng3 = b.ng1, b.ng2, b.ng3
+        self.NX, self.NY, self.NZ = b.NX, b.NY, b.NZ
+        self.block_shape = b.block_shape
+        self.mbnx1, self.mbnx2, self.mbnx3 = b.mbnx1, b.mbnx2, b.mbnx3
+        self.dx1, self.dx2, self.dx3 = smesh.dx(lev)
+        self.dx = (self.dx1, self.dx2, self.dx3)
+        self.min_dx = smesh.min_dx(lev)
+        self.cell_volume = self.dx1 * self.dx2 * self.dx3
+        self.x1min, self.x1max = b.x1min, b.x1max
+        self.x2min, self.x2max = b.x2min, b.x2max
+        self.x3min, self.x3max = b.x3min, b.x3max
+        self.nx1, self.nx2, self.nx3 = b.nx1, b.nx2, b.nx3
+        self.interior_slices = b.interior_slices
+        self.ndim = b.ndim
+
+    def cell_centers(self, dtype=np.float64):
+        nb = self.nblocks
+        x = np.empty((nb, self.NX), dtype=dtype)
+        y = np.empty((nb, self.NY), dtype=dtype)
+        z = np.empty((nb, self.NZ), dtype=dtype)
+        for li, gid in enumerate(self._ids):
+            xs, ys, zs = self._smesh.cell_centers_leaf(gid)
+            x[li] = np.ravel(xs)
+            y[li] = np.ravel(ys)
+            z[li] = np.ravel(zs)
+        return x, y, z
+
+    def cell_centers_mesh(self, dtype=np.float64):
+        x, y, z = self.cell_centers(dtype)
+        return (x[:, None, None, :], y[:, None, :, None],
+                z[:, :, None, None])
+
+
 class SmrState:
     """Ghost-fill plans of a refined mesh and the fill itself.  Index
     tensors live on ``device``, where the state is: the card unless the
@@ -274,8 +340,6 @@ class SmrState:
 
     def __init__(self, smesh: SmrMesh, nvar: int, device="cuda",
                  custom_bcs=None):
-        from ..driver import resolve_device
-
         self.smesh = smesh
         self.nvar = nvar
         self.custom_bcs = custom_bcs or {}

@@ -65,8 +65,9 @@ import numpy as np
 import torch
 from torch.profiler import record_function
 
-from ..core.indices import (GLMMHD, IB1, IB2, IB3, IDN, IEN, IM1, IM2, IM3,
-                            IPS)
+from ..core.device import resolve_device
+from ..core.indices import (AXIS_OF_DIR, GLMMHD, IB1, IB2, IB3, IDN, IEN,
+                            IM1, IM2, IM3, IPS)
 from ..diffusion import calc_diff_fluxes, estimate_diff_dt
 from ..eos.adiabatic import cons_to_prim
 from ..recon import nghost_for
@@ -75,7 +76,7 @@ from ..solver.hydro_pkg import (first_order_flux_correct, fofc_bad_cells,
                                 interior_mask, rkl2_super_step,
                                 stage_needs_prim)
 from ..solver.integrators import INTEGRATORS
-from ..solver.sweep import AXIS_OF_DIR, active_dirs
+from ..solver.sweep import active_dirs
 from .smr import SmrMesh, SmrState
 
 
@@ -85,8 +86,6 @@ class SmrHydro:
                  diffusion=None, problem_source_unsplit=None,
                  problem_source_first_order=None,
                  problem_source_strang=None):
-        from ..driver import resolve_device
-
         b = smesh.base
         if b.nghost < nghost_for(cfg.reconstruction):
             raise ValueError(

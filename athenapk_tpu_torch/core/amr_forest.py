@@ -5,7 +5,7 @@ table (the reference keeps it in Parthenon's C++ forest-of-trees mesh):
 leaf bookkeeping and 2:1-balanced refinement.  The C++ source is shared
 with the JAX package; this binding builds its own copy of the library with
 ``g++`` into the port's ``build/`` directory, keyed by a hash of the source
-(as ``solver/sweep.build_library`` builds the kernels), and never writes
+(as ``core.kernels.build_library`` builds the kernels), and never writes
 under ``native/``, whose library belongs to the JAX package's binding.
 """
 
@@ -20,9 +20,9 @@ from pathlib import Path
 
 import numpy as np
 
-ROOT = Path(__file__).resolve().parents[2]
-SOURCE = ROOT / "native" / "amr_forest.cc"
-BUILD_DIR = ROOT / "build"
+from .kernels import BUILD_DIR
+
+SOURCE = Path(__file__).resolve().parents[2] / "native" / "amr_forest.cc"
 
 COPY, PROLONG, RESTRICT = 0, 1, 2
 

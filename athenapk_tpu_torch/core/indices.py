@@ -27,6 +27,8 @@ IPR = 4
 AXIS_X = 4
 AXIS_Y = 3
 AXIS_Z = 2
+# the state's axis of each direction
+AXIS_OF_DIR = {1: AXIS_X, 2: AXIS_Y, 3: AXIS_Z}
 
 # direction ids (1-indexed like the reference's X1DIR..X3DIR)
 X1DIR = 1

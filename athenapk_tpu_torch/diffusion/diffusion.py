@@ -31,13 +31,11 @@ from typing import Dict, Optional
 
 import torch
 
-from ..core.ieee import sqrt
-from ..core.indices import (AXIS_X, AXIS_Y, AXIS_Z, IB1, IB2, IB3, IDN, IEN,
-                            IPR, IV1, IV2, IV3)
-from ..srcterms.tabular_cooling import _pow
+from ..core.ieee import power, sqrt
+from ..core.indices import (AXIS_OF_DIR, IB1, IB2, IB3, IDN, IEN, IPR, IV1,
+                            IV2, IV3)
 
 _TINY = 1.0e-20
-_AXIS_OF_DIR = {1: AXIS_X, 2: AXIS_Y, 3: AXIS_Z}
 
 
 # ------------------------------------------------------------------ limiters
@@ -159,14 +157,14 @@ def _chi(dc: DiffusionConfig, p, rho):
         return dc.thermal_diff_coeff
     # Spitzer: kappa = c T_cgs^{5/2}; chi = kappa mbar/kb / rho
     T_cgs = dc.mbar_over_kb * p / rho
-    return dc.thermal_diff_coeff * _pow(T_cgs, 2.5) * dc.mbar_over_kb / rho
+    return dc.thermal_diff_coeff * power(T_cgs, 2.5) * dc.mbar_over_kb / rho
 
 
 def _face_derivs_T(prim, dirn, dims, dx):
     """(dT_x, dT_y, dT_z) at the faces of direction ``dirn``: the normal
     derivative and the lim4-limited off-axis ones
     (``conduction.cpp:265-...``), in global component order."""
-    ax = _AXIS_OF_DIR[dirn]
+    ax = AXIS_OF_DIR[dirn]
     T = prim[:, IPR] / prim[:, IDN]
     out = {}
     out[dirn] = (T - _sh(T, -1, ax - 1)) / dx[dirn - 1]
@@ -176,7 +174,7 @@ def _face_derivs_T(prim, dirn, dims, dx):
         if d2 not in dims:
             out[d2] = torch.zeros_like(T)
             continue
-        ax2 = _AXIS_OF_DIR[d2] - 1   # component tensors have no var axis
+        ax2 = AXIS_OF_DIR[d2] - 1   # component tensors have no var axis
         A = _sh(T, +1, ax2) - T
         B = T - _sh(T, -1, ax2)
         C = _sh(A, -1, ax - 1)
@@ -202,7 +200,7 @@ def conduction_fluxes(dc: DiffusionConfig, prim, mesh, dims):
     p = prim[:, IPR]
     T = p / rho
     for d in dims:
-        ax = _AXIS_OF_DIR[d] - 1
+        ax = AXIS_OF_DIR[d] - 1
         denf = _favg(rho, ax)
         if simple:
             dTdn = (T - _sh(T, -1, ax)) / mesh.dx[d - 1]
@@ -251,7 +249,7 @@ def viscosity_fluxes(dc: DiffusionConfig, prim, mesh, dims):
     dx = mesh.dx
     out = {}
     for d in dims:
-        ax = _AXIS_OF_DIR[d] - 1
+        ax = AXIS_OF_DIR[d] - 1
         # cyclic (normal, t1, t2) = (d, d+1, d+2)
         t1 = d % 3 + 1
         t2 = t1 % 3 + 1
@@ -261,7 +259,7 @@ def viscosity_fluxes(dc: DiffusionConfig, prim, mesh, dims):
 
         def cderiv(q, dd):
             """Centred derivative in dd, averaged onto the d-face."""
-            ax2 = _AXIS_OF_DIR[dd] - 1
+            ax2 = AXIS_OF_DIR[dd] - 1
             return (favg(_sh(q, +1, ax2)) - favg(_sh(q, -1, ax2))) / (
                 2.0 * dx[dd - 1])
 
@@ -303,7 +301,7 @@ def resistivity_fluxes(dc: DiffusionConfig, prim, mesh, dims):
     dx = mesh.dx
     out = {}
     for d in dims:
-        ax = _AXIS_OF_DIR[d] - 1
+        ax = AXIS_OF_DIR[d] - 1
         t1 = d % 3 + 1
         t2 = t1 % 3 + 1
 
@@ -313,7 +311,7 @@ def resistivity_fluxes(dc: DiffusionConfig, prim, mesh, dims):
         def cderiv(q, dd):
             if dd not in dims:
                 return torch.zeros_like(q)
-            ax2 = _AXIS_OF_DIR[dd] - 1
+            ax2 = AXIS_OF_DIR[dd] - 1
             return (favg(_sh(q, +1, ax2)) - favg(_sh(q, -1, ax2))) / (
                 2.0 * dx[dd - 1])
 

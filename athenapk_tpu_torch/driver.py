@@ -89,97 +89,21 @@ from typing import Optional
 import numpy as np
 import torch
 import torch.distributed as dist
-from torch.profiler import record_function
+from torch.profiler import ProfilerActivity, profile, record_function
 
+from .amr.driver import SmrSimulation
 from .config.parameter_input import ParameterInput
+from .core.device import DTYPES, resolve_device
 from .core.mesh import Mesh
+from .deck import (check_h5py, make_cooling, make_diffusion, swarm_variables,
+                   tracers_to_device)
 from .eos.adiabatic import EOS
+from .outputs.hdf5 import write_phdf
 from .outputs.history import HistoryOutput
+from .outputs.restart import read_restart, write_restart, write_restart_smr
 from .pgen import get_pgen
 from .solver.hydro_pkg import HydroConfig, HydroPackage
-
-DTYPES = {"double": torch.float64, "single": torch.float32}
-
-
-def resolve_device(device) -> torch.device:
-    """``torch.device`` for ``device``; refuses CUDA where there is none
-    rather than quietly running on the CPU."""
-    dev = torch.device(device)
-    if dev.type == "cuda" and not torch.cuda.is_available():
-        raise RuntimeError("no CUDA device is available; ask for the CPU "
-                           "explicitly (device='cpu', or --device cpu)")
-    return dev
-
-
-def check_h5py(pin) -> None:
-    """Import h5py now (an ImportError naming it) if the deck has an hdf5
-    or rst output block, rather than at the run's first dump."""
-    if any(pin.get_string(blk, "file_type") in ("hdf5", "rst")
-           for blk in pin.output_blocks()):
-        from .outputs.hdf5 import require_h5py
-        require_h5py()
-
-
-def swarm_variables(pin, blk):
-    """``{swarm: [variable]}`` of an hdf5 output block's ``swarms``
-    (``swarms = tracers``, ``tracers_variables = id, x, y, z, rho``; the
-    reference's ``docs/input.md:353-366``)."""
-    out = {}
-    for sname in pin.get_or_add_string(blk, "swarms", "").split():
-        sname = sname.strip(",")
-        if not sname:
-            continue
-        if sname != "tracers":
-            raise ValueError(f"unknown swarm '{sname}' in {blk}")
-        raw = pin.get_or_add_string(blk, f"{sname}_variables", "id, x, y, z")
-        out[sname] = [v.strip() for v in raw.replace(",", " ").split()]
-    return out
-
-
-def tracers_to_device(tracers, device):
-    """A payload's tracer arrays (numpy, or any array) as tensors on
-    ``device``, dtypes kept."""
-    return {k: torch.as_tensor(np.array(v), device=device)
-            for k, v in tracers.items()}
-
-
-def _units_and_mu(pin):
-    """The deck's ``Units`` (or None without ``<units>``) and the mean
-    molecular weight (None without ``<units>`` and
-    ``hydro/He_mass_fraction``)."""
-    from .utils.units import Units, mean_molecular_weights
-    units = Units(pin) if pin.has_block("units") else None
-    mu = None
-    if units is not None and pin.has("hydro", "He_mass_fraction"):
-        mu, _ = mean_molecular_weights(
-            pin.get_real("hydro", "He_mass_fraction"))
-    return units, mu
-
-
-def make_cooling(pin):
-    """The deck's ``TabularCooling`` (``<cooling> enable_cooling =
-    tabular``, built from ``<units>`` and ``hydro/He_mass_fraction``), or
-    None."""
-    if pin.get_or_add_string("cooling", "enable_cooling", "none") \
-            != "tabular":
-        return None
-    from .srcterms.tabular_cooling import TabularCooling
-    units, mu = _units_and_mu(pin)
-    if mu is None:
-        raise ValueError("tabular cooling requires <units> block and "
-                         "hydro/He_mass_fraction")
-    he_x = pin.get_real("hydro", "He_mass_fraction")
-    mbar_over_kb = mu * units.mh() / units.k_boltzmann()
-    return TabularCooling(pin, units, pin.get_real("hydro", "gamma"), mu,
-                          he_x, mbar_over_kb)
-
-
-def make_diffusion(pin):
-    """The deck's ``DiffusionConfig`` (all processes off without a
-    ``<diffusion>`` block)."""
-    from .diffusion import DiffusionConfig
-    units, mu = _units_and_mu(pin)
-    return DiffusionConfig.from_parameter_input(pin, units=units, mu=mu)
+from .tracers import Tracers, compact_swarm
 
 
 def load_payload(sim, payload):
@@ -284,7 +208,6 @@ class Simulation:
 
         # tracers; the problem may add per-particle fields
         # (ProblemInitTracerData) and a per-cycle fill hook
-        from .tracers import Tracers
         extra = getattr(self.pgen, "tracer_extra_fields", None)
         self.tracers = Tracers(pin, self.mesh, self.cfg,
                                extra_fields=extra(pin) if extra else None,
@@ -589,7 +512,6 @@ class _Hdf5Output:
         return self.dt >= 0.0 and t >= self.next_time
 
     def write(self, t, dt, u, w, mesh):
-        from .outputs.hdf5 import write_phdf
         sim = self.sim
         fname = f"{sim.problem_id}.out_{self.oid}.{self.count:05d}.phdf"
         kw = {}
@@ -598,7 +520,6 @@ class _Hdf5Output:
         if "prim" in self.variables:
             kw["prim"] = w.cpu().numpy()
         if self.swarm_vars and sim.tracer_state is not None:
-            from .tracers import compact_swarm
             kw["swarms"] = {name: compact_swarm(sim.tracer_state, vs)
                             for name, vs in self.swarm_vars.items()}
         # NCycle holds the dump's count, as in the JAX package
@@ -623,7 +544,6 @@ class _RestartOutput:
         return self.dt >= 0.0 and t >= self.next_time
 
     def write(self, t, dt, u, w, mesh):
-        from .outputs.restart import write_restart
         fname = (f"{self.sim.problem_id}.out_{self.oid}."
                  f"{self.count:05d}.rhdf")
         # the trigger advances BEFORE the write, so the checkpoint holds
@@ -638,7 +558,6 @@ def run_from_file(path: str, overrides=None, quiet=False, device="cuda"):
     pin = ParameterInput.from_file(path, overrides)
     mode = pin.get_or_add_string("parthenon/mesh", "refinement", "none")
     if mode in ("static", "adaptive"):
-        from .amr.driver import SmrSimulation
         return SmrSimulation(pin, quiet=quiet, device=device).run()
     if mode != "none":
         raise ValueError(
@@ -652,12 +571,10 @@ def run_from_restart(path: str, overrides=None, quiet=False,
     """Resume the checkpoint ``path`` (either package's ``.rhdf``) with
     ``overrides`` applied to its stored deck; a refined-mesh checkpoint
     (its payload has ``levels``) resumes in ``SmrSimulation``."""
-    from .outputs.restart import read_restart
     pin, payload = read_restart(path)
     if overrides:
         pin.apply_overrides(overrides)
     if "levels" in payload:
-        from .amr.driver import SmrSimulation
         return SmrSimulation(pin, quiet=quiet, device=device,
                              restart=payload).run()
     return Simulation(pin, quiet=quiet, device=device,
@@ -666,18 +583,16 @@ def run_from_restart(path: str, overrides=None, quiet=False,
 
 def write_restart_file(sim, fname):
     """Write ``sim``'s checkpoint (uniform or refined) to ``fname``."""
-    from .outputs import restart
     if hasattr(sim, "_smesh_now"):
-        restart.write_restart_smr(fname, sim)
+        write_restart_smr(fname, sim)
     else:
-        restart.write_restart(fname, sim)
+        write_restart(fname, sim)
 
 
 def traced(trace_dir, fn, device):
     """``fn()`` inside ``torch.profiler.profile`` (CPU activity, and CUDA
     activity on a CUDA device), its Chrome trace exported to
     ``trace_dir/trace.json``; -> ``fn()``'s result."""
-    from torch.profiler import ProfilerActivity, profile
     acts = [ProfilerActivity.CPU]
     if torch.device(device).type == "cuda":
         acts.append(ProfilerActivity.CUDA)

@@ -15,42 +15,37 @@ returned, not a copy.
   the other.
 
 The kernel is built with ``nvcc`` into ``build/`` at first use
-(``sweep.build_library``) and loaded with ``ctypes``.
+(``core.kernels``).
 """
 
 from __future__ import annotations
 
 import ctypes
-import functools
 import math
 
 import torch
 
+from ..core import kernels
 from ..core.indices import GLMMHD, NGLMMHD, NHYDRO
-from ..solver import sweep
 from . import adiabatic
 
-CSRC = sweep.CSRC_DIR / "cons_to_prim.cu"
+CSRC = kernels.CSRC_DIR / "cons_to_prim.cu"
+UNITS = [()]
+ENTRIES = {"eos_cons_to_prim": (
+    [ctypes.c_void_p] * 3 + [ctypes.c_int] * 4 + [ctypes.c_longlong]
+    + [ctypes.c_double] * 6 + [ctypes.c_void_p], ctypes.c_int)}
 # a ceiling at or above this is off in the kernel (hydro_device.cuh)
 NO_CEILING = 1.0e300
 
 
 def build_library():
-    """Compile ``csrc/cons_to_prim.cu`` (see ``sweep.build_library``): one
-    translation unit."""
-    return sweep.build_library(CSRC, units=[()])
+    """Compile ``csrc/cons_to_prim.cu``: one translation unit."""
+    return kernels.build_library(CSRC, UNITS)
 
 
-@functools.cache
 def _library():
     """The loaded library, built at first use."""
-    path, _ = build_library()
-    lib = ctypes.CDLL(str(path))
-    lib.eos_cons_to_prim.argtypes = [ctypes.c_void_p] * 3 \
-        + [ctypes.c_int] * 4 + [ctypes.c_longlong] \
-        + [ctypes.c_double] * 6 + [ctypes.c_void_p]
-    lib.eos_cons_to_prim.restype = ctypes.c_int
-    return lib
+    return kernels.load(CSRC, UNITS, ENTRIES)
 
 
 def limits_on(eos):
@@ -70,20 +65,11 @@ def cons_to_prim_cuda(eos, cons, fluid, nscalars=0):
     the kernel does not take; ``cons_to_prim_cuda.launches`` counts the
     launches."""
     nbase = NGLMMHD if fluid == GLMMHD else NHYDRO
-    if not cons.is_cuda:
-        raise ValueError("cons_to_prim_cuda needs a CUDA tensor")
-    if cons.dtype not in sweep.KERNEL_DTYPES:
-        raise TypeError("cons_to_prim_cuda takes float32 or float64, got "
-                        f"{cons.dtype}")
-    if nscalars < 0 or cons.dim() != 5 or cons.shape[1] != nbase + nscalars:
+    kernels.check_tensor("cons_to_prim_cuda", cons)
+    if nscalars < 0 or cons.shape[1] != nbase + nscalars:
         raise ValueError(f"cons_to_prim_cuda: the state must be [nb, "
                          f"{nbase + nscalars}, nz, ny, nx], got "
                          f"{list(cons.shape)}")
-    if not cons.is_contiguous():
-        raise ValueError("cons_to_prim_cuda needs a contiguous tensor")
-    if cons.numel() == 0:
-        raise ValueError("cons_to_prim_cuda: an empty state never reaches "
-                         "a launch")
     ceilings = (eos.velocity_ceiling, eos.internal_e_ceiling)
     if any(math.isfinite(c) and c >= NO_CEILING for c in ceilings):
         raise ValueError(f"cons_to_prim_cuda: a finite ceiling >= "
@@ -92,16 +78,14 @@ def cons_to_prim_cuda(eos, cons, fluid, nscalars=0):
     prim = torch.empty_like(cons)
     cons_out = torch.empty_like(cons) if limits_on(eos) else cons
     with torch.cuda.device(cons.device):
-        rc = _library().eos_cons_to_prim(
-            cons.data_ptr(),
+        kernels.launch(
+            _library().eos_cons_to_prim, cons.data_ptr(),
             cons_out.data_ptr() if cons_out is not cons else None,
-            prim.data_ptr(), sweep.KERNEL_DTYPES[cons.dtype], nbase, nb,
+            prim.data_ptr(), kernels.KERNEL_DTYPES[cons.dtype], nbase, nb,
             nvar, nz * ny * nx, float(eos.gamma), float(eos.density_floor),
             float(eos.pressure_floor), float(eos.internal_e_floor),
             float(eos.velocity_ceiling), float(eos.internal_e_ceiling),
             torch.cuda.current_stream(cons.device).cuda_stream)
-    if rc != 0:
-        raise RuntimeError(f"cons_to_prim launch failed with cudaError {rc}")
     cons_to_prim_cuda.launches += 1
     return cons_out, prim
 

@@ -27,7 +27,7 @@ A rung that differs in a build flag or a source edit is a checkout of its
 own (a ``git archive`` with the one change made).
 
 Before its timings each ROOT's kernels are built and their build report is
-printed by this checkout's ``sweep.ptxas_summary``: one line per
+printed by this checkout's ``kernels.ptxas_summary``: one line per
 instantiation with registers and spills, and for this checkout's own
 kernels also dynamic shared memory and resident warps per SM.  Then one
 JSON line per ROOT, and at the end the card's name and power limit.  Needs
@@ -40,7 +40,8 @@ import subprocess
 import sys
 from pathlib import Path
 
-from .solver import sweep
+from .core import kernels
+from .solver import stage, sweep
 
 HERE = Path(__file__).resolve().parent
 
@@ -200,8 +201,9 @@ def main(argv=None):
             return res.returncode
         build, timings = res.stdout.strip().splitlines()[-2:]
         own = Path(root).resolve() == HERE.parent
-        for line in sweep.ptxas_summary(json.loads(build)["build_log"],
-                                        occupancy=own):
+        for line in kernels.ptxas_summary(json.loads(build)["build_log"],
+                                          sweep.PTXAS | stage.PTXAS,
+                                          occupancy=own):
             print("  ptxas:", line, flush=True)
         print(timings, flush=True)
     print(subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",

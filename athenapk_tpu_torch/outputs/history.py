@@ -23,8 +23,8 @@ import torch
 from torch.profiler import record_function
 
 from ..core.ieee import sqrt
-from ..core.indices import IDN, IM1, IM2, IM3, IEN, IB1, IB2, IB3, GLMMHD
-from ..solver.sweep import AXIS_OF_DIR
+from ..core.indices import (AXIS_OF_DIR, GLMMHD, IB1, IB2, IB3, IDN, IEN,
+                            IM1, IM2, IM3)
 
 
 def _interior(q, mesh):

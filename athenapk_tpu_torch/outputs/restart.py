@@ -36,6 +36,8 @@ import os
 
 import numpy as np
 
+from ..config.parameter_input import ParameterInput
+from ..pgen import turbulence
 from .hdf5 import require_h5py
 
 
@@ -56,8 +58,6 @@ def _forcing_state(cache, pin):
 def restart_payload(sim):
     """The restart payload of a uniform ``driver.Simulation`` as it stands
     (numpy arrays and plain values)."""
-    from ..pgen import turbulence
-
     payload = dict(
         t=float(sim.t), ncycle=int(sim.ncycle),
         dt=float(sim.tm_dt if sim.tm_dt is not None else 0.0),
@@ -79,8 +79,6 @@ def restart_payload_smr(sim):
     triggers (hdf5 outputs, then rst outputs, then the ``.hst`` one: the
     JAX package's order), the tracers, the derefinement counters (adaptive
     meshes) and the forcing."""
-    from ..pgen import turbulence
-
     sm = sim._smesh_now()
     trig = [(o["next"], o["count"]) for o in sim._hdf5_outs + sim._rst_outs]
     trig.append((sim._hst.next_time if sim._hst is not None else 0.0, 0))
@@ -182,8 +180,6 @@ def write_restart_smr(fname, sim):
 def read_restart(fname):
     """-> ``(pin, payload)`` of a ``.rhdf`` file of either package."""
     h5py = require_h5py()
-    from ..config.parameter_input import ParameterInput
-
     with h5py.File(fname, "r") as fh:
         pin = ParameterInput.from_string(fh["Input"][()].decode())
         if fh["Info"].attrs.get("Refined", 0):

@@ -3,31 +3,27 @@
 Counterpart of ``athenapk_tpu/solver/hydro_pkg.py`` (reference
 ``src/hydro/hydro.cpp`` ``Hydro::Initialize``/``CalculateFluxes`` and
 ``src/hydro/hydro_driver.cpp`` ``HydroDriver::MakeTaskCollection``).  Runs
-eagerly: a stage is straight-line tensor code, ``advance_cycles`` a Python
-loop.  Each stage's -div(F) goes through ``sweep.fused_negdiv`` and each
-conversion to prim through ``eos.adiabatic_cuda.fused_cons_to_prim`` (the
-CUDA kernels on the card, their plain twins on the CPU).
+eagerly: a stage is straight-line tensor code.  Each stage's -div(F) goes
+through ``sweep.fused_negdiv`` and each conversion to prim through
+``eos.adiabatic_cuda.fused_cons_to_prim`` (the CUDA kernels on the card,
+their plain twins on the CPU).
 
-Two opt-in rungs, read from the environment once, when the package is
-built (the names are the JAX package's, so a reader finds the
-counterpart):
-
-* ``ATHENAPK_PALLAS_STAGE=1`` — every stage of a 3-D deck is one call of
-  ``stage.fused_stage`` (cons_to_prim + -div(F) + the stage update; on the
-  ghost-free layout the last stage also emits the CFL bound, so no
-  separate cons_to_prim or dt pass runs in a cycle);
-* ``ATHENAPK_PALLAS_HYBRID=1`` — only the donor-cell stages (VL2's
-  predictor) take ``stage.fused_stage``; full-order stages keep the sweep.
+One opt-in rung, read from the environment once, when the package is
+built (the name is the JAX package's, so a reader finds the
+counterpart): with ``ATHENAPK_PALLAS_STAGE=1`` every stage of a 3-D deck
+is one call of ``stage.fused_stage`` (cons_to_prim + -div(F) + the stage
+update; on the ghost-free layout the last stage also emits the CFL bound,
+so no separate cons_to_prim or dt pass runs in a cycle).
 
 The default is the sweep path.  A deck with ``first_order_flux_correct =
 true`` always runs the sweep path, as in the JAX package: its rescue reads
-the unfused prim, u0 and u1, so neither rung applies (the package says so
-once when ``ATHENAPK_PALLAS_STAGE=1`` or ``ATHENAPK_PALLAS_HYBRID=1`` is
-set).  Each stage of such a deck reads one flag from the card: whether the
-sweep's candidate state has an interior cell with rho <= 0 or p <= 0 (or
-NaN).  If it has, the stage is recomputed with the plain fluxes, the
-first-order (DC + LLF) flux correction and their divergence, as PyTorch
-operations on the card; ``fofc_rescues`` counts those stages.
+the unfused prim, u0 and u1, so the rung does not apply (the package says
+so once when ``ATHENAPK_PALLAS_STAGE=1`` is set).  Each stage of such a
+deck reads one flag from the card: whether the sweep's candidate state
+has an interior cell with rho <= 0 or p <= 0 (or NaN).  If it has, the
+stage is recomputed with the plain fluxes, the first-order (DC + LLF) flux
+correction and their divergence, as PyTorch operations on the card;
+``fofc_rescues`` counts those stages.
 
 State layout: conserved ``u`` is ``[nblocks, nvar, NZ, NY, NX]`` (ghost-
 inclusive); fluxes are co-indexed with cells (index i = face i-1/2).
@@ -90,8 +86,8 @@ import torch
 from torch.profiler import record_function
 
 from ..core.boundaries import check_reflecting_mhd, make_boundary_fn
-from ..core.indices import (IDN, IPS, IB1, IB2, IB3, IM1, IM2, IM3, IEN,
-                            EULER, GLMMHD, nvar_for_fluid)
+from ..core.indices import (AXIS_OF_DIR, IDN, IPS, IB1, IB2, IB3, IM1, IM2,
+                            IM3, IEN, EULER, GLMMHD, nvar_for_fluid)
 from ..core.mesh import Mesh
 from ..diffusion import DiffusionConfig, calc_diff_fluxes, estimate_diff_dt
 from ..eos import adiabatic_cuda
@@ -100,7 +96,7 @@ from ..recon import nghost_for
 from ..riemann import solve_riemann
 from . import stage, sweep
 from .integrators import INTEGRATORS
-from .sweep import AXIS_OF_DIR, active_dirs
+from .sweep import active_dirs
 
 
 def _p_like(cfg, u_new):
@@ -240,8 +236,7 @@ class HydroPackage:
     The JAX package pairs each function with its jitted wrapper (``_step``
     and ``step``, ``_step_with_dt`` and ``step_with_dt``, ...); eager
     PyTorch needs one method each: ``step``, ``step_with_dt``,
-    ``estimate_timestep``, ``cons_to_prim``, ``advance_cycles`` and
-    ``sts_half_step``."""
+    ``estimate_timestep``, ``cons_to_prim`` and ``sts_half_step``."""
 
     def __init__(self, mesh: Mesh, cfg: HydroConfig, eos: EOS,
                  problem_source_unsplit: Optional[Callable] = None,
@@ -276,12 +271,10 @@ class HydroPackage:
                 f"{need}, got {mesh.nghost} (set parthenon/mesh/nghost)")
         self._active_dirs = active_dirs(mesh)
         self._stage_rung = os.environ.get("ATHENAPK_PALLAS_STAGE") == "1"
-        self._hybrid_rung = os.environ.get("ATHENAPK_PALLAS_HYBRID") == "1"
-        if cfg.first_order_flux_correct and (self._stage_rung
-                                             or self._hybrid_rung):
-            print("first_order_flux_correct: the stage and hybrid rungs do "
-                  "not apply (the rescue reads the unfused prim, u0 and u1); "
-                  "this deck runs the sweep kernel")
+        if cfg.first_order_flux_correct and self._stage_rung:
+            print("first_order_flux_correct: the stage rung does not apply "
+                  "(the rescue reads the unfused prim, u0 and u1); this deck "
+                  "runs the sweep kernel")
         self._interior = {}       # interior masks per device
         self.fofc_rescues = 0     # stages that took the first-order rescue
 
@@ -307,17 +300,6 @@ class HydroPackage:
         ghosted), a Riemann solver, and nothing else in the stage needs the
         raw face fluxes (no first-order flux correction)."""
         return (self._stage_rung and self._is_3d()
-                and self.cfg.riemann != "none"
-                and not self.cfg.first_order_flux_correct)
-
-    def _use_hybrid_dc_stage(self):
-        """Hybrid rung: donor-cell stages (VL2's predictor; every stage of
-        a ``reconstruction = dc`` deck) through the whole-stage function,
-        full-order stages through the sweep.  Ghost-free 3-D only."""
-        return (self._hybrid_rung
-                and (self.cfg.integrator == "vl2"
-                     or self.cfg.reconstruction == "dc")
-                and self.mesh.nghost == 0 and self._is_3d()
                 and self.cfg.riemann != "none"
                 and not self.cfg.first_order_flux_correct)
 
@@ -502,7 +484,6 @@ class HydroPackage:
         u1 = u
         raw_dt = None
         fused_stage = self._use_fused_stage()
-        hybrid_dc = not fused_stage and self._use_hybrid_dc_stage()
         if emit_dt and not self._use_fused_stage_dt():
             raise ValueError("emit_dt needs the whole-stage rung on the "
                              "ghost-free layout with calc_dt_hyp")
@@ -511,7 +492,7 @@ class HydroPackage:
             recon = cfg.reconstruction
             if cfg.integrator == "vl2" and s == 0:
                 recon = "dc"   # first-order predictor (hydro.cpp:459-464)
-            if fused_stage or (hybrid_dc and recon == "dc"):
+            if fused_stage:
                 # cons_to_prim happens inside the stage function
                 out = self._fused_stage_update(
                     u0, u1, tab["gam0"][s], tab["gam1"][s],
@@ -542,24 +523,6 @@ class HydroPackage:
         u_new = self.step(u, dt, c_h, t)
         _, prim = self.cons_to_prim(u_new)
         return u_new, self.estimate_timestep(prim)
-
-    def advance_cycles(self, u, t, dt, dt_hyp, tlim, n_cycles):
-        """Run up to ``n_cycles`` cycles: per-cycle dt from the estimate
-        (2x growth cap, tlim clamp), c_h from the previous hyperbolic dt.
-        Returns ``(u', t', dt_next, dt_hyp', n_taken)``; cycles past tlim
-        are not taken."""
-        taken = 0
-        for _ in range(n_cycles):
-            if not t < tlim * (1.0 - 1e-14):
-                break
-            dt_eff = min(dt, tlim - t)
-            u, (dt_next, dt_hyp_new, _) = self.step_with_dt(
-                u, dt_eff, self.c_h_from_dt_hyp(dt_hyp))
-            t = t + dt_eff
-            dt = min(2.0 * dt_eff, float(dt_next))
-            dt_hyp = float(dt_hyp_new)
-            taken += 1
-        return u, t, dt, dt_hyp, taken
 
     # ------------------------------------------------------------------- dt
     def estimate_timestep(self, prim, dt_cap=math.inf, reduce_min=None):

@@ -18,7 +18,7 @@ shift wraps within a block, as in ``solver/sweep.py``.
   Euler with LLF, HLLE or HLLC, GLM-MHD with LLF, HLLE or HLLD; DC, PLM,
   PPM, WENO3, LimO3 or WENO-Z, as ``make_fused_stage`` takes them; f32 and
   f64), one launch per stage, built with ``nvcc`` into ``build/`` at first
-  use.
+  use (``core.kernels``).
 * ``fused_stage`` — takes the plain version for a CPU tensor and the kernel
   for any other; it never falls back from one to the other.
 
@@ -40,12 +40,13 @@ import ctypes
 
 import torch
 
+from ..core import kernels
 from ..core.indices import EULER, IB1, IB2, IB3, IDN, IPR
 from ..eos.adiabatic import (cons_to_prim, fast_magnetosonic_speed,
                              sound_speed)
 from . import sweep
 
-CSRC = sweep.CSRC_DIR / "fused_stage.cu"
+CSRC = kernels.CSRC_DIR / "fused_stage.cu"
 
 
 def _check_layout(mesh, emit_dt):
@@ -128,55 +129,55 @@ def stage_scalars_plain(u0, u1, mfluxes, gam0, gam1, beta_dt, mesh, cfg, eos,
 
 
 # ------------------------------------------------------------------- CUDA
-_libs = {}
-
-
 def build_library(scalars=False):
     """Compile ``csrc/fused_stage.cu`` (see ``sweep.build_library``)."""
-    return sweep.build_library(CSRC, scalars)
+    return kernels.build_library(CSRC, sweep.build_units(scalars),
+                                 scalars=scalars)
+
+
+ENTRIES = {
+    "fused_stage": ([ctypes.c_void_p] * 8 + [ctypes.c_int] * 9
+                    + [ctypes.c_double] * 7
+                    + [ctypes.POINTER(ctypes.c_double)] * 2
+                    + [ctypes.c_void_p] * 4, ctypes.c_int),
+    "fused_stage_tiles": ([ctypes.c_int] * 4, ctypes.c_int),
+    "fused_stage_occupancy": ([ctypes.c_int] * 5
+                              + [ctypes.POINTER(ctypes.c_int)],
+                              ctypes.c_int)}
+SCALAR_ENTRIES = {
+    "stage_scalars": ([ctypes.c_void_p] * 7 + [ctypes.c_int] * 9
+                      + [ctypes.c_double] * 6
+                      + [ctypes.POINTER(ctypes.c_double)] * 2
+                      + [ctypes.c_void_p] * 4, ctypes.c_int),
+    "stage_scalars_occupancy": ([ctypes.c_int] * 2
+                                + [ctypes.POINTER(ctypes.c_int)],
+                                ctypes.c_int)}
 
 
 def _library(scalars=False):
     """The loaded library of decks without scalars or (``scalars``) of
     decks with scalars, built at first use."""
     scalars = bool(scalars)
-    if scalars not in _libs:
-        path, _ = build_library(scalars)
-        lib = ctypes.CDLL(str(path))
-        lib.fused_stage.argtypes = [ctypes.c_void_p] * 8 \
-            + [ctypes.c_int] * 9 + [ctypes.c_double] * 7 \
-            + [ctypes.POINTER(ctypes.c_double)] * 2 + [ctypes.c_void_p] * 4
-        lib.fused_stage.restype = ctypes.c_int
-        if scalars:
-            lib.stage_scalars.argtypes = [ctypes.c_void_p] * 7 \
-                + [ctypes.c_int] * 9 + [ctypes.c_double] * 6 \
-                + [ctypes.POINTER(ctypes.c_double)] * 2 \
-                + [ctypes.c_void_p] * 4
-            lib.stage_scalars.restype = ctypes.c_int
-            lib.stage_scalars_occupancy.argtypes = [ctypes.c_int] * 2 \
-                + [ctypes.POINTER(ctypes.c_int)]
-            lib.stage_scalars_occupancy.restype = ctypes.c_int
-        lib.fused_stage_tiles.argtypes = [ctypes.c_int] * 4
-        lib.fused_stage_tiles.restype = ctypes.c_int
-        lib.fused_stage_occupancy.argtypes = [ctypes.c_int] * 5 \
-            + [ctypes.POINTER(ctypes.c_int)]
-        lib.fused_stage_occupancy.restype = ctypes.c_int
-        _libs[scalars] = lib
-    return _libs[scalars]
+    return kernels.load(CSRC, sweep.build_units(scalars),
+                        {**ENTRIES, **SCALAR_ENTRIES} if scalars else ENTRIES,
+                        scalars=scalars)
 
 
-def kernel_occupancy(dtype, solver, recon, faces, scal=0):
-    """``(dynamic shared memory in bytes, resident blocks per SM)`` of the
-    instantiation the stage kernel launches for the kernel codes ``dtype``,
-    ``solver``, ``recon`` (``sweep.KERNEL_DTYPES`` ... values), with or
-    without ``faces``, for a deck without (``scal = 0``) or with scalars,
-    on the current card; a block is 128 threads."""
-    out = (ctypes.c_int * 2)()
-    rc = _library(scal).fused_stage_occupancy(dtype, solver, recon,
-                                              int(faces), int(scal), out)
-    if rc != 0:
-        raise RuntimeError(f"fused_stage_occupancy failed with cudaError {rc}")
-    return out[0], out[1]
+# how ``kernels.ptxas_summary`` names an instantiation of the stage's
+# kernels from its template switches (reconstruction, solver, faces,
+# scalars), its threads per block, and its occupancy query
+PTXAS = {
+    "fused_stage": (
+        lambda k: (f"{sweep.RECON_NAMES[k[0]]} {sweep.SOLVER_NAMES[k[1]]}"
+                   f"{' faces' if k[2] else ''}"
+                   f"{' +scalars' if sweep.scalars_switch(k) else ''}"), 128,
+        lambda dt, k: kernels.occupancy_of(
+            _library(sweep.scalars_switch(k)).fused_stage_occupancy, dt,
+            k[1], k[0], k[2], sweep.scalars_switch(k))),
+    "stage_scalars": (
+        lambda k: f"{sweep.RECON_NAMES[k[0]]} all directions", 128,
+        lambda dt, k: kernels.occupancy_of(
+            _library(True).stage_scalars_occupancy, dt, k[0]))}
 
 
 def stage_scalars_cuda(u0, u1, u_new, prim, slabs, mfluxes, gam0, gam1,
@@ -187,18 +188,17 @@ def stage_scalars_cuda(u0, u1, u_new, prim, slabs, mfluxes, gam0, gam1,
     ``slabs`` (either may be None).  ``stage_scalars_cuda.launches``
     counts the launches."""
     nb, nvar, nz, ny, nx = u0.shape
-    rc = _library(True).stage_scalars(
-        u0.data_ptr(), u1.data_ptr(), u_new.data_ptr(),
+    kernels.launch(
+        _library(True).stage_scalars, u0.data_ptr(), u1.data_ptr(),
+        u_new.data_ptr(),
         prim.data_ptr() if prim is not None else None,
         *(slabs[d].data_ptr() if slabs else None for d in (1, 2, 3)),
-        mesh.nghost if slabs else 0, sweep.KERNEL_DTYPES[u0.dtype],
+        mesh.nghost if slabs else 0, kernels.KERNEL_DTYPES[u0.dtype],
         sweep.KERNEL_RECONS[recon], nb, nvar, sweep.scalar_base(cfg), nz, ny,
         nx, float(mesh.dx1), float(mesh.dx2), float(mesh.dx3), float(gam0),
         float(gam1), float(beta_dt), _eos_args(eos), _recon_k(mesh),
         *(mfluxes[d].data_ptr() for d in (1, 2, 3)),
         torch.cuda.current_stream(u0.device).cuda_stream)
-    if rc != 0:
-        raise RuntimeError(f"stage_scalars launch failed with cudaError {rc}")
     stage_scalars_cuda.launches += 1
 
 
@@ -244,13 +244,13 @@ def _stage_launch(name, u0, u1, gam0, gam1, beta_dt, c_h, mesh, cfg, eos,
                               device=u0.device) for d in (1, 2, 3)} \
         if cfg.nscalars else None
     with torch.cuda.device(u0.device):
-        rc = lib.fused_stage(
-            u0.data_ptr(), u1.data_ptr(), u_new.data_ptr(),
+        kernels.launch(
+            lib.fused_stage, u0.data_ptr(), u1.data_ptr(), u_new.data_ptr(),
             raw_dt.data_ptr() if emit_dt else None,
             prim.data_ptr() if emit_prim else None,
             *(slabs[d].data_ptr() if faces else None for d in (1, 2, 3)),
             mesh.nghost if faces else 0,
-            sweep.KERNEL_DTYPES[u0.dtype],
+            kernels.KERNEL_DTYPES[u0.dtype],
             sweep.KERNEL_SOLVERS[cfg.fluid, cfg.riemann],
             sweep.KERNEL_RECONS[recon], nb, nvar, nz, ny, nx,
             float(mesh.dx1), float(mesh.dx2), float(mesh.dx3), float(gam0),
@@ -258,9 +258,6 @@ def _stage_launch(name, u0, u1, gam0, gam1, beta_dt, c_h, mesh, cfg, eos,
             _recon_k(mesh),
             *(mfluxes[d].data_ptr() if mfluxes else None for d in (1, 2, 3)),
             torch.cuda.current_stream(u0.device).cuda_stream)
-        if rc != 0:
-            raise RuntimeError(f"fused_stage launch failed with cudaError "
-                               f"{rc}")
         if mfluxes:
             stage_scalars_cuda(u0, u1, u_new, prim, slabs, mfluxes, gam0,
                                gam1, beta_dt, mesh, cfg, eos, recon)

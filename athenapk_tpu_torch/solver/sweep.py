@@ -14,9 +14,8 @@ the ghost-free layout and lands in the ghost rim otherwise.
   (``csrc/negdiv_sweep.cu``: Euler with LLF, HLLE or HLLC, GLM-MHD with
   LLF, HLLE or HLLD; DC, PLM, PPM, WENO3, LimO3 or WENO-Z), one launch per
   active direction accumulating into the output.  It is built with
-  ``nvcc`` into ``build/`` at first use (one translation unit per
-  reconstruction and dtype, compiled in parallel) and loaded with
-  ``ctypes``.
+  ``nvcc`` into ``build/`` at first use (``core.kernels``; one translation
+  unit per reconstruction and dtype, compiled in parallel).
 * ``fused_negdiv`` — takes the plain version for a CPU tensor and the
   kernel for a CUDA tensor; it never falls back from one to the other.
 
@@ -36,41 +35,29 @@ coarse-fine flux correction reads (``amr/smr_hydro.py``).
 ``negdiv_faces_plain``, ``negdiv_faces_cuda`` (the same kernel with its
 face output) and ``fused_negdiv_faces`` return ``(negdiv, {d: faces})``.
 
-``build_library``, ``ptxas_summary`` and ``check_kernel_config`` also
-serve the whole-stage kernel (``solver/stage.py``).
+``build_units``, ``check_kernel_config``, ``check_kernel_tensor`` and the
+switch codes also serve the whole-stage kernel (``solver/stage.py``).
 """
 
 from __future__ import annotations
 
 import ctypes
-import hashlib
-import os
-import re
-import shutil
-import subprocess
-from pathlib import Path
+import functools
 
 import torch
 
-from ..core.indices import (AXIS_X, AXIS_Y, AXIS_Z, EULER, GLMMHD,
-                            NGLMMHD, NHYDRO)
+from ..core import kernels
+from ..core.indices import AXIS_OF_DIR, EULER, GLMMHD, NGLMMHD, NHYDRO
 from ..recon import positivity_mask, reconstruct, schemes
 from ..riemann import solve_riemann
 
-AXIS_OF_DIR = {1: AXIS_X, 2: AXIS_Y, 3: AXIS_Z}
-
-CSRC_DIR = Path(__file__).resolve().parents[1] / "csrc"
-CSRC = CSRC_DIR / "negdiv_sweep.cu"
-# device functions that every kernel source includes
-HEADERS = (CSRC_DIR / "hydro_device.cuh",)
-BUILD_DIR = Path(__file__).resolve().parents[2] / "build"
+CSRC = kernels.CSRC_DIR / "negdiv_sweep.cu"
 
 # codes of the kernels' template switches (csrc/hydro_device.cuh)
 KERNEL_RECONS = {"dc": 0, "plm": 1, "ppm": 2, "weno3": 3, "limo3": 4,
                  "wenoz": 5}
 KERNEL_SOLVERS = {(EULER, "hlle"): 0, (EULER, "hllc"): 1, (GLMMHD, "hlld"): 2,
                   (EULER, "llf"): 3, (GLMMHD, "llf"): 4, (GLMMHD, "hlle"): 5}
-KERNEL_DTYPES = {torch.float32: 0, torch.float64: 1}
 
 
 def active_dirs(mesh):
@@ -175,213 +162,80 @@ def face_shape(q, d):
 
 
 # ------------------------------------------------------------------- CUDA
-def _nvcc():
-    nvcc = shutil.which("nvcc")
-    if nvcc is None:
-        cuda_home = os.environ.get("CUDA_HOME", "/usr/local/cuda")
-        nvcc = os.path.join(cuda_home, "bin", "nvcc")
-    if not os.path.exists(nvcc):
-        raise RuntimeError("nvcc not found: the CUDA kernels are built "
-                           "from csrc/*.cu on first use")
-    return nvcc
-
-
+@functools.cache
 def build_units(scalars=False):
     """The translation units of a kernel source: ``-D`` flags of one unit
     per (reconstruction, dtype) and, first, the entry points', for the
     library of decks without scalars or (``scalars``) the one of decks
-    with scalars."""
+    with scalars (cached: every launch looks its library up by them)."""
     s = int(bool(scalars))
-    return [(f"-DHYDRO_ENTRY_SCAL={s}",)] + [
+    return ((f"-DHYDRO_ENTRY_SCAL={s}",),) + tuple(
         (f"-DHYDRO_UNIT_RECON={r}", f"-DHYDRO_UNIT_DTYPE={t}",
          f"-DHYDRO_UNIT_SCAL={s}")
-        for r in KERNEL_RECONS.values() for t in KERNEL_DTYPES.values()]
+        for r in KERNEL_RECONS.values()
+        for t in kernels.KERNEL_DTYPES.values())
 
 
-def build_library(source=None, scalars=False, units=None, fmad=False):
-    """Compile one kernel source of ``csrc/`` (default: the sweep's) for
-    sm_90a into ``build/``, keyed by the hash of the source and of the
-    header it includes, so editing either rebuilds.  Without FMA
-    contraction (``--fmad=false``), or with it where ``fmad`` (a source
-    whose own products and sums are rounded intrinsics, so that only the
-    math library's ``pow`` contracts, as it does in PyTorch's build; the
-    library's name is keyed by it).  Each source makes two
-    libraries: the kernels without scalars, and (``scalars``,
-    ``lib<name>_scalars_<hash>.so``) the fluid kernels' instantiations for
-    decks with scalars with the scalar kernels, built and loaded only when
-    a deck has scalars.  Each unit of ``build_units`` (or of ``units``, a
-    list of ``-D`` flag tuples, for a source that makes one library; the
-    list then keys the library too) is one ``nvcc`` process, all started
-    together; the objects link into one library.  Returns ``(path,
-    compiler_log)``; the log holds ptxas' register and shared memory
-    report."""
-    source = Path(source) if source is not None else CSRC
-    digest = hashlib.sha256()
-    for path in (source,) + HEADERS:
-        digest.update(path.read_bytes())
-    if units is not None:
-        digest.update(repr([list(unit) for unit in units]).encode())
-    if fmad:
-        digest.update(b"--fmad=true")
-    kind = "_scalars" if scalars else ""
-    lib = BUILD_DIR / f"lib{source.stem}{kind}_{digest.hexdigest()[:12]}.so"
-    if lib.exists():
-        return lib, ""
-    BUILD_DIR.mkdir(parents=True, exist_ok=True)
-    work = lib.with_name(f"{lib.stem}.{os.getpid()}.units")
-    work.mkdir(exist_ok=True)
-    flags = [_nvcc(), "-gencode", "arch=compute_90a,code=sm_90a",
-             "-std=c++17", "-O3", f"--fmad={'true' if fmad else 'false'}"]
-    procs = []
-    units = build_units(scalars) if units is None else units
-    for k, defines in enumerate(units):
-        obj = work / f"unit{k}.o"
-        cmd = flags + ["-Xptxas", "-v", "-Xcompiler", "-fPIC", "-c",
-                       *defines, "-o", str(obj), str(source)]
-        procs.append((obj, subprocess.Popen(
-            cmd, stdout=subprocess.PIPE, stderr=subprocess.STDOUT,
-            text=True)))
-    log, failed = [], []
-    for obj, proc in procs:
-        out, _ = proc.communicate()
-        log.append(out)
-        if proc.returncode != 0:
-            failed.append(f"{obj.name} ({proc.returncode}):\n{out}")
-    if failed:
-        raise RuntimeError("nvcc failed: " + "\n".join(failed))
-    tmp = lib.with_name(f"{lib.name}.{os.getpid()}.tmp")
-    res = subprocess.run(flags + ["-shared", "-o", str(tmp)]
-                         + [str(obj) for obj, _ in procs],
-                         capture_output=True, text=True)
-    if res.returncode != 0:
-        raise RuntimeError(f"nvcc link failed ({res.returncode}):\n"
-                           f"{res.stdout}{res.stderr}")
-    os.replace(tmp, lib)
-    shutil.rmtree(work, ignore_errors=True)
-    return lib, "".join(log)
+def build_library(scalars=False):
+    """Compile ``csrc/negdiv_sweep.cu`` (``kernels.build_library``): the
+    library of decks without scalars or (``scalars``) of decks with
+    scalars, whose fluid kernels also write the faces' mass fluxes and
+    which holds the scalar kernel."""
+    return kernels.build_library(CSRC, build_units(scalars), scalars=scalars)
 
 
-_libs = {}
+ENTRIES = {
+    "negdiv_sweep": ([ctypes.c_void_p, ctypes.c_void_p]
+                     + [ctypes.c_int] * 9 + [ctypes.c_double] * 5
+                     + [ctypes.c_int, ctypes.c_void_p, ctypes.c_int,
+                        ctypes.c_void_p, ctypes.c_void_p], ctypes.c_int),
+    "negdiv_sweep_occupancy": ([ctypes.c_int] * 5
+                               + [ctypes.POINTER(ctypes.c_int)],
+                               ctypes.c_int)}
+SCALAR_ENTRIES = {
+    "negdiv_scalars": ([ctypes.c_void_p] * 2 + [ctypes.c_int] * 9
+                       + [ctypes.c_double] * 3
+                       + [ctypes.c_int, ctypes.c_void_p, ctypes.c_int,
+                          ctypes.c_void_p, ctypes.c_void_p], ctypes.c_int),
+    "negdiv_scalars_occupancy": ([ctypes.c_int] * 3
+                                 + [ctypes.POINTER(ctypes.c_int)],
+                                 ctypes.c_int)}
 
 
 def _library(scalars=False):
     """The loaded library of decks without scalars or (``scalars``) of
     decks with scalars, built at first use."""
     scalars = bool(scalars)
-    if scalars not in _libs:
-        path, _ = build_library(scalars=scalars)
-        lib = ctypes.CDLL(str(path))
-        fn = lib.negdiv_sweep
-        fn.argtypes = [ctypes.c_void_p, ctypes.c_void_p] \
-            + [ctypes.c_int] * 9 + [ctypes.c_double] * 5 \
-            + [ctypes.c_int, ctypes.c_void_p, ctypes.c_int, ctypes.c_void_p,
-               ctypes.c_void_p]
-        fn.restype = ctypes.c_int
-        lib.negdiv_sweep_occupancy.argtypes = [ctypes.c_int] * 5 \
-            + [ctypes.POINTER(ctypes.c_int)]
-        lib.negdiv_sweep_occupancy.restype = ctypes.c_int
-        if scalars:
-            lib.negdiv_scalars.argtypes = [ctypes.c_void_p] * 2 \
-                + [ctypes.c_int] * 9 + [ctypes.c_double] * 3 \
-                + [ctypes.c_int, ctypes.c_void_p, ctypes.c_int,
-                   ctypes.c_void_p, ctypes.c_void_p]
-            lib.negdiv_scalars.restype = ctypes.c_int
-            lib.negdiv_scalars_occupancy.argtypes = [ctypes.c_int] * 3 \
-                + [ctypes.POINTER(ctypes.c_int)]
-            lib.negdiv_scalars_occupancy.restype = ctypes.c_int
-        _libs[scalars] = lib
-    return _libs[scalars]
+    return kernels.load(CSRC, build_units(scalars),
+                        {**ENTRIES, **SCALAR_ENTRIES} if scalars else ENTRIES,
+                        scalars=scalars)
 
 
-def kernel_occupancy(dtype, solver, recon, d, scal=0):
-    """``(dynamic shared memory in bytes, resident blocks per SM)`` of the
-    instantiation ``negdiv_cuda`` launches for the kernel codes ``dtype``,
-    ``solver``, ``recon`` (``KERNEL_DTYPES`` ... values), direction ``d``
-    and a deck without (``scal = 0``) or with scalars, on the current card;
-    a block is 128 threads."""
-    out = (ctypes.c_int * 2)()
-    rc = _library(scal).negdiv_sweep_occupancy(dtype, solver, recon, d,
-                                               scal, out)
-    if rc != 0:
-        raise RuntimeError(f"negdiv_sweep_occupancy failed with cudaError {rc}")
-    return out[0], out[1]
+RECON_NAMES = sorted(KERNEL_RECONS, key=KERNEL_RECONS.get)
+SOLVER_NAMES = [f"{f}-{r}" for f, r in sorted(KERNEL_SOLVERS,
+                                              key=KERNEL_SOLVERS.get)]
 
 
-def scalar_occupancy(kernel, dtype, recon, d=None):
-    """``(dynamic shared memory, resident blocks per SM)`` of a scalar
-    kernel's instantiation (``"negdiv_scalars"`` of direction ``d``, or
-    ``"stage_scalars"``) on the current card; a block is 256 threads
-    (negdiv_scalars) or 128 (stage_scalars)."""
-    out = (ctypes.c_int * 2)()
-    if kernel == "negdiv_scalars":
-        rc = _library(True).negdiv_scalars_occupancy(dtype, recon, d, out)
-    else:
-        from . import stage
-        rc = stage._library(True).stage_scalars_occupancy(dtype, recon,
-                                                          out)
-    if rc != 0:
-        raise RuntimeError(f"{kernel}_occupancy failed with cudaError {rc}")
-    return out[0], out[1]
+def scalars_switch(k):
+    """The template switch of a fluid kernel's instantiation for decks with
+    scalars (its fourth; a build from before it has three)."""
+    return k[3] if len(k) > 3 else 0
 
 
-def ptxas_summary(compiler_log, occupancy=False):
-    """One line per kernel instantiation in a ``build_library`` log (of
-    this or any checkout's kernels): kernel, dtype and template switches,
-    registers and spills, from ``nvcc -Xptxas -v``.  With ``occupancy``,
-    also the dynamic shared memory and resident blocks per SM that this
-    checkout's fluid and scalar kernels ask the current card for
-    (``kernel_occupancy``); a block is 128 threads, 4 warps.  Any other
-    entry function (the cooling's, say) is named by its mangled name."""
-    from . import stage
-    query = {"negdiv_sweep": lambda dt, k: kernel_occupancy(
-                 dt, k[2], k[0], k[1], k[3] if len(k) > 3 else 0),
-             "fused_stage": lambda dt, k: stage.kernel_occupancy(
-                 dt, k[1], k[0], k[2], k[3] if len(k) > 3 else 0),
-             "negdiv_scalars": lambda dt, k: scalar_occupancy(
-                 "negdiv_scalars", dt, k[0], k[1]),
-             "stage_scalars": lambda dt, k: scalar_occupancy(
-                 "stage_scalars", dt, k[0])}
-    threads = {"negdiv_sweep": 128, "fused_stage": 128,
-               "negdiv_scalars": 256, "stage_scalars": 128}
-    names = {"f": "f32", "d": "f64"}
-    recons = sorted(KERNEL_RECONS, key=KERNEL_RECONS.get)
-    solvers = [f"{f}-{r}" for f, r in sorted(KERNEL_SOLVERS,
-                                             key=KERNEL_SOLVERS.get)]
-    lines, current = [], None
-    for line in compiler_log.splitlines():
-        m = re.search(r"Compiling entry function .*(negdiv_sweep|fused_stage|"
-                      r"negdiv_scalars|stage_scalars)"
-                      r"_kernelI([fd])((?:L[ib]\d+E)+)E", line)
-        if m:
-            k = [int(x) for x in re.findall(r"L[ib](\d+)E", m.group(3))]
-            kernel, dtype = m.group(1), "fd".index(m.group(2))
-            # the instantiation for decks with scalars (a fourth switch;
-            # a build from before it has three) is marked "+scalars"
-            scal = " +scalars" if kernel in ("negdiv_sweep", "fused_stage") \
-                and len(k) > 3 and k[3] else ""
-            what = {"negdiv_sweep": lambda: f"dir {k[1]} {solvers[k[2]]}",
-                    "fused_stage": lambda: solvers[k[1]] + (
-                        " faces" if k[2] else ""),
-                    "negdiv_scalars": lambda: f"dir {k[1]}",
-                    "stage_scalars": lambda: "all directions"}[kernel]()
-            current = (f"{kernel} {names[m.group(2)]} {recons[k[0]]} "
-                       f"{what}{scal}")
-            spill = ""
-        elif m := re.search(r"Compiling entry function '(\w+)'", line):
-            current, kernel, spill = m.group(1), None, ""
-        elif current and "spill stores" in line:
-            spill = line.strip()
-        elif current and "registers" in line:
-            regs = re.search(r"Used (\d+) registers", line).group(1)
-            text = f"{current}: {regs} registers, {spill}"
-            if occupancy and kernel in query:
-                smem, blocks = query[kernel](dtype, k)
-                warps = threads[kernel] // 32 * blocks
-                text += (f"; {smem} bytes of dynamic shared memory, "
-                         f"{blocks} blocks = {warps} warps per SM")
-            lines.append(text)
-            current = None
-    return lines
+# how ``kernels.ptxas_summary`` names an instantiation of the sweep's
+# kernels from its template switches (reconstruction, direction, solver,
+# scalars), its threads per block, and its occupancy query
+PTXAS = {
+    "negdiv_sweep": (
+        lambda k: (f"{RECON_NAMES[k[0]]} dir {k[1]} {SOLVER_NAMES[k[2]]}"
+                   f"{' +scalars' if scalars_switch(k) else ''}"), 128,
+        lambda dt, k: kernels.occupancy_of(
+            _library(scalars_switch(k)).negdiv_sweep_occupancy, dt, k[2],
+            k[0], k[1], scalars_switch(k))),
+    "negdiv_scalars": (
+        lambda k: f"{RECON_NAMES[k[0]]} dir {k[1]}", 256,
+        lambda dt, k: kernels.occupancy_of(
+            _library(True).negdiv_scalars_occupancy, dt, k[0], k[1]))}
 
 
 def recon_constants(dx):
@@ -408,22 +262,12 @@ def check_kernel_config(cfg, recon):
 def check_kernel_tensor(name, q, mesh, cfg):
     """Raise unless ``q`` is a contiguous f32/f64 CUDA state tensor
     ``[nb, nvar, NZ, NY, NX]`` of ``mesh``'s block shape."""
-    if not q.is_cuda:
-        raise ValueError(f"{name} needs a CUDA tensor")
-    if q.dtype not in KERNEL_DTYPES:
-        raise TypeError(f"{name} takes float32 or float64, got {q.dtype}")
-    if q.dim() != 5 or q.shape[1] != cfg.nvar \
+    kernels.check_tensor(name, q)
+    if q.shape[1] != cfg.nvar \
             or tuple(q.shape[2:]) != tuple(mesh.block_shape):
         raise ValueError(f"{name}: the state must be [nb, {cfg.nvar}, "
                          f"{', '.join(map(str, mesh.block_shape))}], "
                          f"got {list(q.shape)}")
-    if not q.is_contiguous():
-        raise ValueError(f"{name} needs a contiguous tensor")
-    if q.shape[0] == 0:
-        # a refined level with no leaves (a zero-sized grid is a launch
-        # error, not a no-op)
-        raise ValueError(f"{name}: a level with no blocks never reaches a "
-                         "launch")
 
 
 def negdiv_scalars_cuda(prim, out, slab, mflux, d, mesh, cfg, recon,
@@ -435,16 +279,14 @@ def negdiv_scalars_cuda(prim, out, slab, mflux, d, mesh, cfg, recon,
     launches."""
     nb, nvar, nz, ny, nx = prim.shape
     dx = float(mesh.dx[d - 1])
-    rc = _library(True).negdiv_scalars(
-        prim.data_ptr(), out.data_ptr(), KERNEL_DTYPES[prim.dtype],
-        KERNEL_RECONS[recon], d, nb, nvar, scalar_base(cfg), nz, ny, nx, dx,
+    kernels.launch(
+        _library(True).negdiv_scalars, prim.data_ptr(), out.data_ptr(),
+        kernels.KERNEL_DTYPES[prim.dtype], KERNEL_RECONS[recon], d, nb, nvar,
+        scalar_base(cfg), nz, ny, nx, dx,
         *recon_constants(dx), int(accumulate),
         slab.data_ptr() if slab is not None else None,
         (mesh.ng1, mesh.ng2, mesh.ng3)[d - 1], mflux.data_ptr(),
         torch.cuda.current_stream(prim.device).cuda_stream)
-    if rc != 0:
-        raise RuntimeError(f"negdiv_scalars launch (direction {d}) failed "
-                           f"with cudaError {rc}")
     negdiv_scalars_cuda.launches += 1
 
 
@@ -476,18 +318,15 @@ def _sweep_launches(name, prim, c_h, mesh, cfg, eos, recon, faces):
         stream = torch.cuda.current_stream(prim.device).cuda_stream
         for k, d in enumerate(dirs):
             dx = float(mesh.dx[d - 1])
-            rc = fn(prim.data_ptr(), out.data_ptr(),
-                    KERNEL_DTYPES[prim.dtype],
-                    KERNEL_SOLVERS[cfg.fluid, cfg.riemann],
-                    KERNEL_RECONS[recon], d, nb, nvar, nz, ny, nx,
-                    dx, float(eos.gamma), float(c_h), *recon_constants(dx),
-                    int(k > 0),
-                    slabs[d].data_ptr() if faces else None,
-                    (mesh.ng1, mesh.ng2, mesh.ng3)[d - 1],
-                    mflux.data_ptr() if mflux is not None else None, stream)
-            if rc != 0:
-                raise RuntimeError(f"negdiv_sweep launch (direction {d}) "
-                                   f"failed with cudaError {rc}")
+            kernels.launch(
+                fn, prim.data_ptr(), out.data_ptr(),
+                kernels.KERNEL_DTYPES[prim.dtype],
+                KERNEL_SOLVERS[cfg.fluid, cfg.riemann],
+                KERNEL_RECONS[recon], d, nb, nvar, nz, ny, nx,
+                dx, float(eos.gamma), float(c_h), *recon_constants(dx),
+                int(k > 0), slabs[d].data_ptr() if faces else None,
+                (mesh.ng1, mesh.ng2, mesh.ng3)[d - 1],
+                mflux.data_ptr() if mflux is not None else None, stream)
             if mflux is not None:
                 negdiv_scalars_cuda(prim, out, slabs[d] if faces else None,
                                     mflux, d, mesh, cfg, recon, k > 0)

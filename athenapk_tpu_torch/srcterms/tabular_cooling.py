@@ -33,7 +33,9 @@ import numpy as np
 import torch
 from torch.profiler import record_function
 
+from ..core.ieee import power
 from ..core.indices import GLMMHD, IB1, IB2, IB3, IDN, IEN, IM1, IM2, IM3, IPR
+from . import tabular_cooling_cuda
 
 
 def _log10(x):
@@ -43,18 +45,6 @@ def _log10(x):
     with np.errstate(all="ignore"):
         np.log10(x.numpy(), out=out.numpy())
     return out
-
-
-def _pow(a, b):
-    """``a ** b``: a and b tensors, or one of them a Python float."""
-    ref = a if torch.is_tensor(a) else b
-    if ref.device.type != "cpu":
-        return torch.pow(a, b)
-    na = a.numpy() if torch.is_tensor(a) else a
-    nb = b.numpy() if torch.is_tensor(b) else b
-    with np.errstate(all="ignore"):
-        out = np.power(na, nb)
-    return torch.from_numpy(np.asarray(out, dtype=ref.numpy().dtype))
 
 
 # What ``TabularCooling.pass_log`` counts per subcycling pass: the active
@@ -185,7 +175,7 @@ class TabularCooling:
                           + ll[-1])
         log_lambda = torch.where(log_temp > self.log_temp_final,
                                  log_lambda_ext, log_lambda_interp)
-        lam = _pow(10.0, log_lambda)
+        lam = power(10.0, log_lambda)
         out = -lam * self.x_h_over_mh2 * rho
         invalid = (e < 0) | torch.isnan(e) | (log_temp < self.log_temp_start)
         return torch.where(invalid, 0.0, out)
@@ -247,10 +237,8 @@ class TabularCooling:
         (one kernel on the card); the subcycling is plain on every
         device."""
         if self.integrator == "townsend":
-            # imported here: the kernels' module imports the solver
-            # package, which imports this module
-            from .tabular_cooling_cuda import fused_townsend
-            return fused_townsend(self, cons, dt, fluid)
+            return tabular_cooling_cuda.fused_townsend(self, cons, dt,
+                                                       fluid)
         return self.cool_plain(cons, dt, fluid)
 
     def cool_plain(self, cons, dt, fluid: str):
@@ -283,14 +271,14 @@ class TabularCooling:
         lam_fin = self.lambda_final
         t_fin = self.temp_final
         tef = Y_k[idx] + (lam_fin / lambdas[idx]) * (temps[idx] / t_fin) \
-            * (_pow(temps[idx] / temp, a_m1) - 1.0) / a_m1
+            * (power(temps[idx] / temp, a_m1) - 1.0) / a_m1
         n_h2_by_rho = rho * self.x_h_over_mh2
         tef_adj = tef + lam_fin * dt / t_fin * mgk * n_h2_by_rho
         # bin walk down: the largest k with Y_k[k] >= tef_adj (Y_k falls)
         kstar = (Y_k >= tef_adj[..., None]).sum(dim=-1) - 1
         idx2 = torch.minimum(idx, torch.clamp(kstar, min=0))
         one_m_a = 1.0 - alpha_k[idx2]
-        temp_new = temps[idx2] * _pow(
+        temp_new = temps[idx2] * power(
             1.0 - one_m_a * (lambdas[idx2] / lam_fin)
             * (t_fin / temps[idx2]) * (tef_adj - Y_k[idx2]),
             1.0 / one_m_a)
@@ -365,7 +353,7 @@ class TabularCooling:
             e = torch.where(accept, torch.clamp(y_h, min=e_floor), e)
             sub_t = torch.where(accept, sub_t + h, sub_t)
             # the optimal next step (0.95 h (tol / err)^order), clamped
-            new_dt = 0.95 * h * _pow(tol / torch.clamp(err, min=1e-300),
+            new_dt = 0.95 * h * power(tol / torch.clamp(err, min=1e-300),
                                      order)
             new_dt = torch.clamp(new_dt, min_sub_dt, dt)
             sub_dt = torch.where(active, new_dt, sub_dt)
@@ -383,8 +371,7 @@ class TabularCooling:
         card)."""
         if self.cooling_time_cfl <= 0.0 or math.isnan(self.cooling_time_cfl):
             return math.inf
-        from .tabular_cooling_cuda import fused_cooling_dt
-        return fused_cooling_dt(self, prim, mesh)
+        return tabular_cooling_cuda.fused_cooling_dt(self, prim, mesh)
 
     def cooling_dt_plain(self, prim, mesh):
         """The plain minimum of ``estimate_timestep`` (its CFL on)."""

@@ -17,23 +17,22 @@ for bit.
   the kernel for any other; they never fall back from one to the other.
 
 Both raise on anything the kernels do not take.  The library is built with
-``nvcc`` into ``build/`` at first use (``sweep.build_library``) and loaded
-with ``ctypes``.
+``nvcc`` into ``build/`` at first use (``core.kernels``).
 """
 
 from __future__ import annotations
 
 import ctypes
-import functools
 import math
 
 import numpy as np
 import torch
 
+from ..core import kernels
 from ..core.indices import GLMMHD, IPR, NGLMMHD, NHYDRO
-from ..solver import sweep
 
-CSRC = sweep.CSRC_DIR / "tabular_cooling.cu"
+CSRC = kernels.CSRC_DIR / "tabular_cooling.cu"
+UNITS = [()]
 # the tables sit in each block's shared memory: 4 n - 2 values for the
 # update, under the 48 KB a launch takes without opting in
 MAX_ROWS = 1024
@@ -49,32 +48,30 @@ class CoolArgs(ctypes.Structure):
         "lts", "dlt", "ltf", "half_ltf", "gm1", "e_floor_dt", "cfl")]
 
 
+ENTRIES = {
+    "cooling_townsend": ([ctypes.c_void_p] + [ctypes.c_int] * 4
+                         + [ctypes.c_longlong, ctypes.c_void_p, ctypes.c_int,
+                            ctypes.POINTER(CoolArgs), ctypes.c_void_p],
+                         ctypes.c_int),
+    "cooling_dt": ([ctypes.c_void_p, ctypes.c_int,
+                    ctypes.POINTER(ctypes.c_int),
+                    ctypes.POINTER(ctypes.c_longlong), ctypes.c_void_p,
+                    ctypes.c_int, ctypes.POINTER(CoolArgs), ctypes.c_void_p,
+                    ctypes.c_int, ctypes.c_void_p, ctypes.c_void_p],
+                   ctypes.c_int)}
+
+
 def build_library():
-    """Compile ``csrc/tabular_cooling.cu`` (see ``sweep.build_library``):
-    one translation unit, with FMA contraction on (the source's own
-    arithmetic is rounded intrinsics: only libdevice's ``pow`` contracts,
-    as in PyTorch's build of ``torch.pow``)."""
-    return sweep.build_library(CSRC, units=[()], fmad=True)
+    """Compile ``csrc/tabular_cooling.cu``: one translation unit, with FMA
+    contraction on (the source's own arithmetic is rounded intrinsics: only
+    libdevice's ``pow`` contracts, as in PyTorch's build of
+    ``torch.pow``)."""
+    return kernels.build_library(CSRC, UNITS, fmad=True)
 
 
-@functools.cache
 def _library():
     """The loaded library, built at first use."""
-    path, _ = build_library()
-    lib = ctypes.CDLL(str(path))
-    lib.cooling_townsend.argtypes = [ctypes.c_void_p] + [ctypes.c_int] * 4 \
-        + [ctypes.c_longlong, ctypes.c_void_p, ctypes.c_int,
-           ctypes.POINTER(CoolArgs), ctypes.c_void_p]
-    lib.cooling_townsend.restype = ctypes.c_int
-    lib.cooling_dt.argtypes = [ctypes.c_void_p, ctypes.c_int,
-                               ctypes.POINTER(ctypes.c_int),
-                               ctypes.POINTER(ctypes.c_longlong),
-                               ctypes.c_void_p, ctypes.c_int,
-                               ctypes.POINTER(CoolArgs), ctypes.c_void_p,
-                               ctypes.c_int, ctypes.c_void_p,
-                               ctypes.c_void_p]
-    lib.cooling_dt.restype = ctypes.c_int
-    return lib
+    return kernels.load(CSRC, UNITS, ENTRIES, fmad=True)
 
 
 def _args(cooling, coef=0.0):
@@ -92,18 +89,13 @@ def _args(cooling, coef=0.0):
         cfl=cooling.cooling_time_cfl)
 
 
-def _check(name, x, rows):
+def _check(name, x, rows, contiguous=True):
     """Raise unless ``x`` is a float32/float64 CUDA tensor ``[nb, nvar, nz,
-    ny, nx]`` with at least ``rows`` rows and some cells."""
-    if not x.is_cuda:
-        raise ValueError(f"{name} needs a CUDA tensor")
-    if x.dtype not in sweep.KERNEL_DTYPES:
-        raise TypeError(f"{name} takes float32 or float64, got {x.dtype}")
-    if x.dim() != 5 or x.shape[1] < rows:
+    ny, nx]`` (``kernels.check_tensor``) with at least ``rows`` rows."""
+    kernels.check_tensor(name, x, contiguous)
+    if x.shape[1] < rows:
         raise ValueError(f"{name}: the state must be [nb, nvar >= {rows}, "
                          f"nz, ny, nx], got {list(x.shape)}")
-    if x.numel() == 0:
-        raise ValueError(f"{name}: an empty state never reaches a launch")
 
 
 def _table_pointers(cooling, like):
@@ -138,8 +130,6 @@ def townsend_cuda(cooling, cons, dt, fluid):
     ``townsend_cuda.launches`` counts the launches."""
     mhd = fluid == GLMMHD
     _check("townsend_cuda", cons, NGLMMHD if mhd else NHYDRO)
-    if not cons.is_contiguous():
-        raise ValueError("townsend_cuda needs a contiguous tensor")
     if cooling.integrator != "townsend":
         raise ValueError(f"townsend_cuda: the cooling's integrator is "
                          f"{cooling.integrator}")
@@ -151,13 +141,11 @@ def townsend_cuda(cooling, cons, dt, fluid):
     args = _args(cooling, cooling.lambda_final * dt / cooling.temp_final
                  * cooling.mbar_gm1_over_kb)
     with torch.cuda.device(cons.device):
-        rc = _library().cooling_townsend(
-            cons.data_ptr(), sweep.KERNEL_DTYPES[cons.dtype], int(mhd), nb,
-            nvar, nz * ny * nx, tables, cooling.n_temp, ctypes.byref(args),
+        kernels.launch(
+            _library().cooling_townsend, cons.data_ptr(),
+            kernels.KERNEL_DTYPES[cons.dtype], int(mhd), nb, nvar,
+            nz * ny * nx, tables, cooling.n_temp, ctypes.byref(args),
             torch.cuda.current_stream(cons.device).cuda_stream)
-    if rc != 0:
-        raise RuntimeError(f"cooling_townsend launch failed with cudaError "
-                           f"{rc}")
     townsend_cuda.launches += 1
     return cons
 
@@ -172,7 +160,8 @@ def cooling_dt_cuda(cooling, prim, mesh):
     interior view's strides, on the current stream, with
     ``TabularCooling.cooling_dt_plain``'s number.  Raises on anything the
     kernel does not take; ``cooling_dt_cuda.launches`` counts the calls."""
-    _check("cooling_dt_cuda", prim, IPR + 1)
+    # the kernel reads the interior view through its strides
+    _check("cooling_dt_cuda", prim, IPR + 1, contiguous=False)
     w = prim[mesh.interior_slices]
     if w.numel() == 0:
         raise ValueError("cooling_dt_cuda: the interior holds no cell")
@@ -187,13 +176,12 @@ def cooling_dt_cuda(cooling, prim, mesh):
     out = torch.empty((), dtype=prim.dtype, device=prim.device)
     args = _args(cooling)
     with torch.cuda.device(prim.device):
-        rc = _library().cooling_dt(
-            w.data_ptr(), sweep.KERNEL_DTYPES[prim.dtype], size, stride,
-            tables, cooling.n_temp, ctypes.byref(args), parts.data_ptr(),
+        kernels.launch(
+            _library().cooling_dt, w.data_ptr(),
+            kernels.KERNEL_DTYPES[prim.dtype], size, stride, tables,
+            cooling.n_temp, ctypes.byref(args), parts.data_ptr(),
             parts.numel(), out.data_ptr(),
             torch.cuda.current_stream(prim.device).cuda_stream)
-    if rc != 0:
-        raise RuntimeError(f"cooling_dt launch failed with cudaError {rc}")
     cooling_dt_cuda.launches += 1
     return out
 

@@ -24,6 +24,7 @@ from __future__ import annotations
 import numpy as np
 import torch
 
+from ..core.device import resolve_device
 from ..core.indices import GLMMHD, IV1, IV2, IV3
 from .tracers import (F64, I32, sampled_components, trilinear,
                       wrap_periodic)
@@ -31,8 +32,6 @@ from .tracers import (F64, I32, sampled_components, trilinear,
 
 class SmrTracers:
     def __init__(self, pin, smesh, cfg, device="cuda"):
-        from ..driver import resolve_device
-
         self.enabled = pin.get_or_add_bool("tracers", "enabled", False)
         self.smesh = smesh
         self.mhd = cfg.fluid == GLMMHD

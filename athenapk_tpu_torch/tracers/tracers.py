@@ -35,6 +35,7 @@ from __future__ import annotations
 import numpy as np
 import torch
 
+from ..core.device import resolve_device
 from ..core.indices import GLMMHD, IB1, IB2, IB3, IDN, IPR, IV1, IV2, IV3
 
 F64 = torch.float64
@@ -139,8 +140,6 @@ def sampled_components(mhd):
 
 class Tracers:
     def __init__(self, pin, mesh, cfg, extra_fields=None, device="cuda"):
-        from ..driver import resolve_device
-
         self.enabled = pin.get_or_add_bool("tracers", "enabled", False)
         self.mesh = mesh
         self.mhd = cfg.fluid == GLMMHD

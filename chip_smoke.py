@@ -42,10 +42,9 @@ Phases (each one fails the run if it fails):
 4. main paths, each through ``Simulation(pin)`` for 12 cycles (2 warm-up)
    with every kernel's launch count set to 0 just before and read just
    after: the ``bench.py:run_bench`` deck (3-D MHD linear wave, 256^3,
-   HLLD + PPM + VL2, ghost-free, f32) on the sweep rung (the default), on
-   the whole-stage rung (``ATHENAPK_PALLAS_STAGE=1``) and on the hybrid
-   rung (``ATHENAPK_PALLAS_HYBRID=1``), the EOS kernel's launches among
-   the counts (3 a cycle on the sweep rung, 2 on the hybrid, none on the
+   HLLD + PPM + VL2, ghost-free, f32) on the sweep rung (the default) and
+   on the whole-stage rung (``ATHENAPK_PALLAS_STAGE=1``), the EOS kernel's
+   launches among the counts (3 a cycle on the sweep rung, none on the
    stage rung, and one for the run's initial dt); the Orszag-Tang vortex (2-D
    GLM-MHD, 2048^2, f32); Sod (1-D Euler, HLLC + PLM, 1024 cells, f64) to
    its ``tlim`` against the exact Riemann solution, and the kernel against
@@ -724,8 +723,7 @@ RECON_NAMES = ["dc", "plm", "ppm", "weno3", "limo3", "wenoz"]
 SOLVER_PAIRS = [("euler", "hlle"), ("euler", "hllc"), ("glmmhd", "hlld"),
                 ("euler", "llf"), ("glmmhd", "llf"), ("glmmhd", "hlle")]
 
-RUNGS = {"sweep": None, "stage": "ATHENAPK_PALLAS_STAGE",
-         "hybrid": "ATHENAPK_PALLAS_HYBRID"}
+RUNGS = {"sweep": None, "stage": "ATHENAPK_PALLAS_STAGE"}
 # refined-mesh paths: (deck, rung, face-kernel launches per cycle:
 # stage-faces, negdiv-faces); A = 2 levels x 2 stages, B = 3 directions x
 # 2 levels x 2 stages, C = 2 directions x 2 levels x 2 stages
@@ -738,11 +736,11 @@ SMR_PATHS = {"A": ("3d", "stage", (4, 0)), "B": ("3d", "negdiv", (0, 12)),
 AMR_PATHS = {"D": ("stage", 128, 2), "D'": ("negdiv", 64, 6)}
 # kernel launches per cycle of the main deck (VL2: a DC and a PPM stage),
 # (sweep kernel, stage kernel)
-RUNG_LAUNCHES = {"sweep": (6, 0), "stage": (0, 2), "hybrid": (3, 1)}
+RUNG_LAUNCHES = {"sweep": (6, 0), "stage": (0, 2)}
 # EOS kernel launches per cycle of the main deck: one per stage outside the
 # stage kernel and one for the dt where no stage emits it (a run adds one
 # for its initial dt)
-RUNG_EOS_LAUNCHES = {"sweep": 3, "stage": 0, "hybrid": 2}
+RUNG_EOS_LAUNCHES = {"sweep": 3, "stage": 0}
 SOD_L1_TOL = 1.0e-3   # 1024 cells; 6.9e-4 with HLLC + PLM + VL2 (64: 7.6e-3)
 
 
@@ -1149,8 +1147,10 @@ def phase_build():
     if len(results) != len(threads):
         raise RuntimeError("a kernel did not build")   # its thread raised
     spilling = []
+    ptxas = PORT.sweep.PTXAS | PORT.stage.PTXAS
     for name, (path, compiler_log, secs) in results.items():
-        summary = PORT.sweep.ptxas_summary(compiler_log, occupancy=True)
+        summary = PORT.kernels.ptxas_summary(compiler_log, ptxas,
+                                             occupancy=True)
         spilling += [ln for ln in summary if "0 bytes spill stores" not in ln]
         regs = [int(re.search(r"(\d+) registers", ln).group(1))
                 for ln in summary]
@@ -6152,7 +6152,7 @@ def load_port():
     from athenapk_tpu_torch.amr.smr import SmrState
     from athenapk_tpu_torch.amr.smr_hydro import SmrHydro
     from athenapk_tpu_torch.config.parameter_input import ParameterInput
-    from athenapk_tpu_torch.core import amr_forest
+    from athenapk_tpu_torch.core import amr_forest, kernels
     from athenapk_tpu_torch.core.mesh import Mesh
     from athenapk_tpu_torch import driver
     from athenapk_tpu_torch.driver import Simulation
@@ -6179,7 +6179,8 @@ def load_port():
         EOS=EOS, cons_to_prim=cons_to_prim, prim_to_cons=prim_to_cons,
         stage=stage, sweep=sweep, HydroConfig=HydroConfig,
         exact_riemann=exact_riemann, SmrSimulation=SmrSimulation,
-        amr_forest=amr_forest, AmrHydro=AmrHydro, SmrHydro=SmrHydro,
+        amr_forest=amr_forest, kernels=kernels, AmrHydro=AmrHydro,
+        SmrHydro=SmrHydro,
         SmrState=SmrState, schemes=schemes, driver=driver,
         restart_payload=restart_payload,
         restart_payload_smr=restart_payload_smr, adiabatic=adiabatic,
@@ -6285,7 +6286,6 @@ def main(argv=None):
     sim = sims["stage"]
     by_path = {"main deck, sweep rung": counts["sweep"][0],
                "main deck, stage rung": counts["stage"][0],
-               "main deck, hybrid rung": counts["hybrid"][0],
                "Orszag-Tang 2048^2": ot_launches, "Sod 1024": sod_launches}
     cycles = {path: sims["sweep"].ncycle for path in by_path}
     cycles["Orszag-Tang 2048^2"] = ot.ncycle
@@ -6298,8 +6298,7 @@ def main(argv=None):
     stage_entry = phase_stage_timings(sim, counts["stage"][1], 10)
     stage_entry["launches_by_path"] = {
         "main deck, sweep rung": counts["sweep"][1],
-        "main deck, stage rung": counts["stage"][1],
-        "main deck, hybrid rung": counts["hybrid"][1]}
+        "main deck, stage rung": counts["stage"][1]}
     eos_entry = phase_eos_timings(sims["sweep"], {
         f"main deck, {rung} rung": counts[rung][2] for rung in RUNGS}, 10)
     cooling_entry = phase_cooling_timings(10, args.seed)
@@ -6569,8 +6568,7 @@ def main(argv=None):
     sweep_entry["zone_cycles_per_s"] = zcps["sweep"]
     sweep_entry["main_path_profile"] = profiles["sweep"]
     stage_entry["zone_cycles_per_s"] = {k: zcps[k] for k in RUNGS}
-    stage_entry["main_path_profile"] = {k: profiles[k]
-                                        for k in ("stage", "hybrid")}
+    stage_entry["main_path_profile"] = {"stage": profiles["stage"]}
     flat_entry["zone_cycles_per_s"] = zcps["orszag_tang_2048"]
     flat_entry["main_path_profile"] = profiles["orszag_tang_2048"]
     for entry in (sweep_entry, stage_entry, flat_entry):

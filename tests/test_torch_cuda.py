@@ -447,16 +447,17 @@ def _run_deck(deck, device, outdir, noise=0.0):
 
 
 @pytest.mark.parametrize("rung,stage_launches,sweep_launches", [
-    ("ATHENAPK_PALLAS_STAGE", 10, 0), ("ATHENAPK_PALLAS_HYBRID", 5, 15)])
+    ("ATHENAPK_PALLAS_STAGE", 10, 0), ("default", 0, 30)])
 def test_wave_deck_on_the_rungs_on_card(card, rung, stage_launches,
                                         sweep_launches, tmp_path,
                                         monkeypatch):
-    """Five f64 cycles of the 3-D MHD wave on the stage and hybrid rungs on
-    the card against the default path on the CPU: state 1e-10, every dt."""
-    for name in ("ATHENAPK_PALLAS_STAGE", "ATHENAPK_PALLAS_HYBRID"):
-        monkeypatch.delenv(name, raising=False)
+    """Five f64 cycles of the 3-D MHD wave on the stage rung and on the
+    default sweep path on the card against the default path on the CPU:
+    state 1e-10, every dt."""
+    monkeypatch.delenv("ATHENAPK_PALLAS_STAGE", raising=False)
     ref, href = _run_deck(WAVE_DECK, "cpu", tmp_path / "cpu")
-    monkeypatch.setenv(rung, "1")
+    if rung != "default":
+        monkeypatch.setenv(rung, "1")
     n_stage, n_sweep = stage.stage_cuda.launches, sweep.negdiv_cuda.launches
     sim, hst = _run_deck(WAVE_DECK, "cuda", tmp_path / "card")
     assert sim.u.is_cuda and sim.ncycle == 5
@@ -525,7 +526,7 @@ def test_fofc_blast_kernel_matches_plain_on_card(card, tmp_path,
 
 # every deck runs on the card, the advection deck with a scalar too
 DECK_RUNS = [(case, rung) for case in sorted(CASES) for rung in (
-    ("sweep", "stage", "hybrid")
+    ("sweep", "stage")
     if CASES[case].get("nx", (1, 1, 1))[2] > 1 else ("sweep",))]
 
 
@@ -538,8 +539,7 @@ def test_pgen_decks_on_card_match_cpu(card, case, rung, tmp_path,
     state times seeded noise: state 1e-10."""
     text = deck(**{**CASES[case], "merge": "auto"}) \
         + "\n<parthenon/output1>\nfile_type = hst\n"
-    for name in ("ATHENAPK_PALLAS_STAGE", "ATHENAPK_PALLAS_HYBRID"):
-        monkeypatch.delenv(name, raising=False)
+    monkeypatch.delenv("ATHENAPK_PALLAS_STAGE", raising=False)
     ref, href = _run_deck(text, "cpu", tmp_path / "cpu", noise=1e-3)
     if rung != "sweep":
         monkeypatch.setenv(f"ATHENAPK_PALLAS_{rung.upper()}", "1")
@@ -547,7 +547,7 @@ def test_pgen_decks_on_card_match_cpu(card, case, rung, tmp_path,
     sim, hst = _run_deck(text, "cuda", tmp_path / "card", noise=1e-3)
     ndir = len(sweep.active_dirs(sim.mesh))
     nstages = {"vl2": 2, "rk3": 3}[sim.cfg.integrator]
-    want_stage = {"sweep": 0, "stage": nstages, "hybrid": 1}[rung]
+    want_stage = {"sweep": 0, "stage": nstages}[rung]
     assert sim.u.is_cuda and sim.ncycle == ref.ncycle == 5
     assert stage.stage_cuda.launches - n_stage == 5 * want_stage
     assert sweep.negdiv_cuda.launches - n_sweep \
@@ -1112,7 +1112,6 @@ def test_source_decks_on_card_match_cpu(card, case, rung, tmp_path,
     """Diffusion (unsplit, RKL2), turbulence and rand_blast decks: 5 f64
     cycles on the card against the CPU, state and every dt to 1e-10; the
     kernels launched on every stage, the same RKL2 stage counts."""
-    monkeypatch.delenv("ATHENAPK_PALLAS_HYBRID", raising=False)
     if rung == "stage":
         monkeypatch.setenv("ATHENAPK_PALLAS_STAGE", "1")
     else:
@@ -1345,7 +1344,6 @@ def test_cluster_deck_on_card_matches_cpu(card, rung, precision, tmp_path,
     card against the CPU on both uniform rungs: the +scalars fluid kernel
     and one scalar kernel per launch, the state to 1e-10 (f64) or 1e-4
     (f32) of each variable's largest value."""
-    monkeypatch.delenv("ATHENAPK_PALLAS_HYBRID", raising=False)
     monkeypatch.setenv("ATHENAPK_PALLAS_STAGE",
                        "1" if rung == "stage" else "0")
     monkeypatch.chdir(tmp_path)
@@ -1446,7 +1444,6 @@ def test_cluster_variants_on_card_match_cpu(card, variant, tmp_path,
     every ``.hst`` column to 1e-10 relative, and, for the Bondi modes, the
     accretion dt of the final state."""
     monkeypatch.delenv("ATHENAPK_PALLAS_STAGE", raising=False)
-    monkeypatch.delenv("ATHENAPK_PALLAS_HYBRID", raising=False)
     text = CLUSTER_VARIANTS[variant](_cluster_text(
         tmp_path, "double", n=16, nlim=3)) + HST_BLOCK
     sims, hst = {}, {}
@@ -1601,7 +1598,6 @@ def test_wave_cycle_eos_launches_on_card(card, rung, per_cycle,
     HLLE, f64) on the card: the sweep rung launches the EOS kernel once a
     stage and once for the dt, the stage rung never; on the sweep rung the
     cycles equal, bit for bit, the same cycles with the plain EOS."""
-    monkeypatch.delenv("ATHENAPK_PALLAS_HYBRID", raising=False)
     if rung == "stage":
         monkeypatch.setenv("ATHENAPK_PALLAS_STAGE", "1")
     else:

@@ -14,10 +14,10 @@ import zlib
 import pytest
 import torch
 
+from athenapk_tpu_torch.core import kernels
 from athenapk_tpu_torch.core.mesh import Mesh
 from athenapk_tpu_torch.eos import adiabatic, adiabatic_cuda
 from athenapk_tpu_torch.eos.adiabatic import EOS
-from athenapk_tpu_torch.solver import sweep
 from athenapk_tpu_torch.solver.hydro_pkg import HydroConfig, HydroPackage
 from benchmark.harness.cell import csrc_launches
 from benchmark.harness.trace import CSRC_KERNEL, short_name
@@ -100,16 +100,16 @@ def test_eos_launches_are_not_summed_by_csrc_launches(monkeypatch):
 def test_library_is_keyed_by_its_unit_list(monkeypatch, tmp_path):
     """A source built from a unit list of its own gets a library name per
     list: a library built from one list is never taken for another."""
-    monkeypatch.setattr(sweep, "BUILD_DIR", tmp_path / "build")
-    monkeypatch.setattr(sweep.shutil, "which", lambda name: None)
+    monkeypatch.setattr(kernels, "BUILD_DIR", tmp_path / "build")
+    monkeypatch.setattr(kernels.shutil, "which", lambda name: None)
     monkeypatch.setenv("CUDA_HOME", str(tmp_path / "no_cuda"))
     (tmp_path / "build").mkdir()
     digest = hashlib.sha256()
-    for path in (adiabatic_cuda.CSRC,) + sweep.HEADERS:
+    for path in (adiabatic_cuda.CSRC,) + kernels.HEADERS:
         digest.update(path.read_bytes())
     digest.update(repr([[]]).encode())
     lib = tmp_path / "build" / f"libcons_to_prim_{digest.hexdigest()[:12]}.so"
     lib.write_bytes(b"")
     assert adiabatic_cuda.build_library() == (lib, "")
     with pytest.raises(RuntimeError, match="nvcc not found"):
-        sweep.build_library(adiabatic_cuda.CSRC, units=[("-DOTHER=1",)])
+        kernels.build_library(adiabatic_cuda.CSRC, [("-DOTHER=1",)])

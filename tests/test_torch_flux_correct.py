@@ -244,14 +244,13 @@ def test_fofc_smr_blast_matches_jax():
 
 
 def test_fofc_routes_to_the_sweep(monkeypatch, capsys):
-    """With FOFC neither whole-stage rung applies: asked for, the package
-    says so once and runs the sweep path."""
+    """With FOFC the whole-stage rung does not apply: asked for, the
+    package says so once and runs the sweep path."""
     monkeypatch.setenv("ATHENAPK_PALLAS_STAGE", "1")
     over = ["parthenon/time/nlim=1", "parthenon/mesh/nghost=0"] + _cube(8)
     sim = TSim(TPin.from_string(DECK, over), quiet=True, device="cpu")
     assert capsys.readouterr().out.count("runs the sweep kernel") == 1
     assert sim.pkg._stage_rung and not sim.pkg._use_fused_stage()
-    assert not sim.pkg._use_hybrid_dc_stage()
     plain = TSim(TPin.from_string(
         DECK, over + ["hydro/first_order_flux_correct=false"]), quiet=True,
         device="cpu")

@@ -130,30 +130,6 @@ def test_step_matches_jax(fluid, riemann, recon, integrator):
     assert _rel(ref, got.numpy()) <= TOL
 
 
-def test_advance_cycles_matches_stepping_and_stops_at_tlim():
-    """The cycle loop against the JAX package's ``lax.scan`` loop: state,
-    time, next dt and cycles taken, unclamped and with tlim inside the
-    second cycle (that cycle is clamped, then no more are taken)."""
-    kw = _mesh_kw(mb=8, g=0)
-    cfgs = dict(fluid="glmmhd", riemann="hlld", reconstruction="ppm")
-    jpkg = JPkg(JMesh(**kw), JCfg(**cfgs), JEOS(gamma=5.0 / 3.0))
-    tpkg = HydroPackage(Mesh(**kw), HydroConfig(**cfgs), EOS(gamma=5.0 / 3.0))
-    u0 = _state(Mesh(**kw), "glmmhd", seed=5)
-    _, w0 = tpkg.cons_to_prim(torch.tensor(u0))
-    dt, dt_hyp, _ = tpkg.estimate_timestep(w0)
-
-    for tlim, n_cycles, n_taken in ((1e9, 3, 3), (1.5 * dt, 5, 2)):
-        ref = jpkg._advance_cycles(jnp.asarray(u0), 0.0, dt, dt_hyp, tlim,
-                                   n_cycles)
-        got = tpkg.advance_cycles(torch.tensor(u0), 0.0, dt, dt_hyp, tlim,
-                                  n_cycles)
-        assert _rel(ref[0], got[0].numpy()) <= TOL
-        for r, g in zip(ref[1:4], got[1:4]):
-            assert g == pytest.approx(float(r), rel=TOL)
-        assert got[4] == int(ref[4]) == n_taken
-    assert got[1] == pytest.approx(1.5 * dt, rel=1e-14)
-
-
 def test_history_row_matches_jax(tmp_path):
     kw = _mesh_kw(g=2)
     mesh = Mesh(**kw)

@@ -4,6 +4,8 @@ card tests and their deck helper, which run where only the port is
 installed, nor the rank functions of the multi-rank tests, which run in
 spawned processes that import only the port.
 
+And the port's imports point one way: down the layers of ``LAYERS``.
+
 Checked on the sources with ``ast``, because an interpreter may have jax
 in ``sys.modules`` already at start-up, which would make a runtime check
 prove nothing.
@@ -77,3 +79,87 @@ def test_checker_catches_forbidden_imports(tmp_path):
                    "import athenapk_tpu_torch\nimportlib.import_module('jaxlib')\n")
     found = [mod for _, mod in _imports(src) if _is_forbidden(mod)]
     assert found == ["jax.numpy", "athenapk_tpu.core", "jaxlib"]
+
+
+# The port's layers, bottom to top (README's module map draws them).  A
+# module imports its own layer or lower ones, inside functions too.
+LAYERS = (
+    ("core", "config", "utils", "__init__"),
+    ("eos", "recon", "riemann", "srcterms", "diffusion", "refinement"),
+    ("solver",),
+    ("amr", "tracers", "outputs", "pgen", "parallel"),
+    ("deck",),
+    ("amr.driver",),
+    ("driver",),
+    ("kernel_ab",),
+)
+
+
+def _layer(parts):
+    """The layer (1 at the bottom) of the port's module ``parts`` (its
+    dotted name below the package, as a tuple); the package itself is in
+    the bottom one."""
+    for key in (".".join(parts[:2]), parts[0] if parts else "__init__"):
+        for n, names in enumerate(LAYERS):
+            if key in names:
+                return n + 1
+    raise KeyError(".".join(parts))
+
+
+def _port_imports(path: Path, package: Path):
+    """``(line, parts)`` of every import of the port's modules in ``path``
+    (a module of ``package``), relative or absolute, at any depth: the
+    module imported from, with each imported name (a name may be a
+    module)."""
+    own = path.relative_to(package).with_suffix("").parts
+    pkg = list(own[:-1])
+    tree = ast.parse(path.read_text(), filename=str(path))
+    for node in ast.walk(tree):
+        if isinstance(node, ast.ImportFrom):
+            if node.level:
+                base = pkg[:len(pkg) - node.level + 1]
+            elif (node.module or "").split(".")[0] == package.name:
+                base = []
+            else:
+                continue
+            mod = base + (node.module.split(".") if node.module else [])
+            if not node.level:
+                mod = mod[1:]
+            for alias in node.names:
+                yield node.lineno, tuple(mod + [alias.name])
+        elif isinstance(node, ast.Import):
+            for alias in node.names:
+                parts = alias.name.split(".")
+                if parts[0] == package.name:
+                    yield node.lineno, tuple(parts[1:])
+
+
+def _upward_imports(package: Path):
+    bad = []
+    for path in sorted(package.rglob("*.py")):
+        own = _layer(path.relative_to(package).with_suffix("").parts)
+        for line, parts in _port_imports(path, package):
+            if _layer(parts) > own:
+                bad.append(f"{path.relative_to(package)}:{line}: "
+                           f"{'.'.join(parts)} (layer {_layer(parts)} "
+                           f"above {own})")
+    return bad
+
+
+def test_imports_point_down_the_layers():
+    assert not _upward_imports(ROOT / "athenapk_tpu_torch")
+
+
+def test_layer_check_catches_an_upward_import(tmp_path):
+    package = tmp_path / "athenapk_tpu_torch"
+    (package / "eos").mkdir(parents=True)
+    (package / "eos" / "m.py").write_text(
+        "from ..core import kernels\nfrom . import adiabatic\n"
+        "from ..solver import sweep\n\n\ndef f():\n"
+        "    from ..driver import resolve_device\n"
+        "    from athenapk_tpu_torch.amr.driver import SmrSimulation\n")
+    (package / "deck.py").write_text("from .amr import driver\n")
+    found = [line.split(" (")[0] for line in _upward_imports(package)]
+    assert found == ["deck.py:1: amr.driver", "eos/m.py:3: solver.sweep",
+                     "eos/m.py:7: driver.resolve_device",
+                     "eos/m.py:8: amr.driver.SmrSimulation"]

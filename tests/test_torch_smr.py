@@ -189,8 +189,8 @@ def test_forest_binding_builds_under_build_and_not_native(tmp_path):
                                   "init_state_from_pgen"])
 def test_refined_building_blocks_default_to_the_card(what, monkeypatch):
     """Called without a device, each asks for the card: with none there,
-    it raises ``driver.resolve_device``'s error instead of running on the
-    CPU."""
+    it raises ``core.device.resolve_device``'s error instead of running on
+    the CPU."""
     from athenapk_tpu_torch.amr.driver import init_state_from_pgen
     from athenapk_tpu_torch.amr.smr_hydro import SmrHydro
     from athenapk_tpu_torch.eos.adiabatic import EOS

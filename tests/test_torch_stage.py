@@ -9,9 +9,9 @@ run in interpret mode in f32, as ``tests/test_pallas_sweep.py`` runs it
 (1e-5, that test's tolerance).  The states trip the density, pressure and
 internal-energy floors, and ``u1`` differs from ``u0``.
 
-The whole-stage and hybrid rungs of ``HydroPackage`` (picked by
-``ATHENAPK_PALLAS_STAGE`` / ``ATHENAPK_PALLAS_HYBRID``) are held against
-the port's default sweep path and the JAX package's XLA step.
+The whole-stage rung of ``HydroPackage`` (picked by
+``ATHENAPK_PALLAS_STAGE``) is held against the port's default sweep path
+and the JAX package's XLA step.
 
 The CUDA kernel itself runs only on the card (``tests/test_torch_cuda.py``).
 """
@@ -216,19 +216,16 @@ def test_stage_refuses_other_layouts(fn):
 
 # ------------------------------------------------------- HydroPackage rungs
 def _rung_packages(monkeypatch, kw, fluid, riemann, recon, **cfgs):
-    """JAX package (XLA step) and the port's default, stage and hybrid
-    packages; the rungs are read when a package is built."""
+    """JAX package (XLA step) and the port's default and stage packages;
+    the rung is read when a package is built."""
     for name in ("ATHENAPK_PALLAS_SWEEP", "ATHENAPK_PALLAS_STAGE",
-                 "ATHENAPK_PALLAS_HYBRID", "ATHENAPK_PALLAS_V2"):
+                 "ATHENAPK_PALLAS_V2"):
         monkeypatch.delenv(name, raising=False)
     jpkg, default = _packages(kw, fluid, riemann, recon, **cfgs)
     monkeypatch.setenv("ATHENAPK_PALLAS_STAGE", "1")
     _, staged = _packages(kw, fluid, riemann, recon, **cfgs)
     monkeypatch.delenv("ATHENAPK_PALLAS_STAGE")
-    monkeypatch.setenv("ATHENAPK_PALLAS_HYBRID", "1")
-    _, hybrid = _packages(kw, fluid, riemann, recon, **cfgs)
-    monkeypatch.delenv("ATHENAPK_PALLAS_HYBRID")
-    return jpkg, default, staged, hybrid
+    return jpkg, default, staged
 
 
 @pytest.mark.parametrize("fluid,riemann,source,max_dt", [
@@ -239,17 +236,15 @@ def _rung_packages(monkeypatch, kw, fluid, riemann, recon, **cfgs):
 def test_step_with_dt_rungs_match_default_and_jax(monkeypatch, fluid, riemann,
                                                   source, max_dt):
     kw = _mesh_kw()
-    jpkg, default, staged, hybrid = _rung_packages(
+    jpkg, default, staged = _rung_packages(
         monkeypatch, kw, fluid, riemann, "ppm", integrator="vl2",
         glmmhd_source=source, max_dt=max_dt)
-    assert not default._use_fused_stage() and not default._use_hybrid_dc_stage()
-    assert staged._use_fused_stage() and not staged._use_hybrid_dc_stage()
-    assert hybrid._use_hybrid_dc_stage() and not hybrid._use_fused_stage()
+    assert not default._use_fused_stage()
+    assert staged._use_fused_stage()
     # the extended Dedner source reads prim after the kernel, so the last
     # stage cannot hand out the next dt
     assert staged._use_fused_stage_dt() == (source == "dedner_plain")
     assert staged._stage_needs_prim() == (source == "dedner_extended")
-    assert not hybrid._use_fused_stage_dt()
 
     u0, _ = _states(default.mesh, fluid, seed=6)
     dt, c_h = 1e-3, (1.2 if fluid == "glmmhd" else 0.0)
@@ -259,8 +254,7 @@ def test_step_with_dt_rungs_match_default_and_jax(monkeypatch, fluid, riemann,
     monkeypatch.setattr(stage, "fused_stage", lambda *a, **k: (
         calls.append(a[9]), stage.stage_plain(*a, **k))[1])
     for name, pkg, want in (("default", default, []),
-                            ("stage", staged, ["dc", "ppm"]),
-                            ("hybrid", hybrid, ["dc"])):
+                            ("stage", staged, ["dc", "ppm"])):
         del calls[:]
         u, dts = pkg.step_with_dt(torch.tensor(u0), dt, c_h)
         assert calls == want, name
@@ -273,19 +267,18 @@ def test_step_with_dt_rungs_match_default_and_jax(monkeypatch, fluid, riemann,
 def test_stage_rung_on_ghosted_blocks_matches_default(monkeypatch):
     """Ghosted multi-block layout: the stage rung is taken (the wrap lands
     in the ghost rim, the boundary fill overwrites it), the dt comes from
-    the ordinary estimate, and the hybrid rung is refused."""
+    the ordinary estimate."""
     kw = _mesh_kw(mb=8, g=3)
-    jpkg, default, staged, hybrid = _rung_packages(
+    jpkg, default, staged = _rung_packages(
         monkeypatch, kw, "euler", "hllc", "ppm", integrator="vl2")
     assert staged._use_fused_stage() and not staged._use_fused_stage_dt()
-    assert not hybrid._use_hybrid_dc_stage()
     with pytest.raises(ValueError, match="emit_dt"):
         staged.step(torch.zeros(1), 1e-3, 0.0, emit_dt=True)
     u0, _ = _states(default.mesh, "euler", seed=7)
     u0 = default.apply_boundaries(torch.tensor(u0))
     ju, jdts = jpkg.step_with_dt(jnp.asarray(u0.numpy()), jnp.asarray(1e-3),
                                  jnp.asarray(0.0), 0.0)
-    for pkg in (default, staged, hybrid):
+    for pkg in (default, staged):
         u, dts = pkg.step_with_dt(u0, 1e-3, 0.0)
         assert _rel(ju, u.numpy()) <= TOL
         assert dts[0] == pytest.approx(float(jdts[0]), rel=TOL)
@@ -293,25 +286,22 @@ def test_stage_rung_on_ghosted_blocks_matches_default(monkeypatch):
 
 def test_rung_eligibility(monkeypatch):
     """Twins of the JAX package's eligibility rules: 3-D only, no
-    first-order flux correction, the hybrid rung only for donor-cell
-    stages."""
+    first-order flux correction."""
     flat = _mesh_kw(nx3=1)
-    _, default, staged, hybrid = _rung_packages(
+    _, default, staged = _rung_packages(
         monkeypatch, flat, "glmmhd", "hlld", "ppm", integrator="vl2")
-    assert not staged._use_fused_stage() and not hybrid._use_hybrid_dc_stage()
+    assert not staged._use_fused_stage()
     assert not staged._use_fused_stage_dt()
 
-    _, default, staged, hybrid = _rung_packages(
+    _, default, staged = _rung_packages(
         monkeypatch, _mesh_kw(), "glmmhd", "hlld", "ppm", integrator="rk2")
     assert staged._use_fused_stage() and staged._use_fused_stage_dt()
-    assert not hybrid._use_hybrid_dc_stage()      # no donor-cell stage
-    # the rungs are fixed when the package is built
+    # the rung is fixed when the package is built
     monkeypatch.setenv("ATHENAPK_PALLAS_STAGE", "1")
     assert not default._use_fused_stage()
-    for pkg in (staged, hybrid):
-        pkg.cfg = dataclasses.replace(pkg.cfg, first_order_flux_correct=True,
-                                      integrator="vl2")
-        assert not pkg._use_fused_stage() and not pkg._use_hybrid_dc_stage()
+    staged.cfg = dataclasses.replace(staged.cfg, first_order_flux_correct=True,
+                                     integrator="vl2")
+    assert not staged._use_fused_stage()
     no_hyp = dataclasses.replace(staged.cfg, first_order_flux_correct=False,
                                  calc_dt_hyp=False)
     staged.cfg = no_hyp
@@ -361,22 +351,21 @@ file_type = hst
 """
 
 
-@pytest.mark.parametrize("rung", ["ATHENAPK_PALLAS_STAGE",
-                                  "ATHENAPK_PALLAS_HYBRID"])
+@pytest.mark.parametrize("rung", ["ATHENAPK_PALLAS_STAGE", "default"])
 def test_wave_deck_on_the_rungs_matches_jax(rung, tmp_path, monkeypatch):
     """The 3-D MHD wave at 16^3 for 5 cycles: the JAX ``Simulation`` (XLA
-    step) against the port's on the stage and hybrid rungs.  State 1e-10
-    (rounding-order differences only), every cycle's dt in the history."""
-    for name in ("ATHENAPK_PALLAS_SWEEP", "ATHENAPK_PALLAS_STAGE",
-                 "ATHENAPK_PALLAS_HYBRID"):
+    step) against the port's on the stage rung and on the default sweep
+    path.  State 1e-10 (rounding-order differences only), every cycle's dt
+    in the history."""
+    for name in ("ATHENAPK_PALLAS_SWEEP", "ATHENAPK_PALLAS_STAGE"):
         monkeypatch.delenv(name, raising=False)
     js = JSim(JPin.from_string(WAVE_DECK), quiet=True)
-    monkeypatch.setenv(rung, "1")
+    if rung != "default":
+        monkeypatch.setenv(rung, "1")
     ts = TSim(TPin.from_string(WAVE_DECK), quiet=True, device="cpu")
-    monkeypatch.delenv(rung)
+    monkeypatch.delenv(rung, raising=False)
     assert ts.mesh.nghost == 0 and ts.mesh.nblocks == 1
     assert ts.pkg._use_fused_stage() == (rung == "ATHENAPK_PALLAS_STAGE")
-    assert ts.pkg._use_hybrid_dc_stage() == (rung == "ATHENAPK_PALLAS_HYBRID")
     ts.load_state(np.asarray(js.u), js.t, js.ncycle)
     calls = []
     monkeypatch.setattr(stage, "fused_stage", lambda *a, **k: (
@@ -385,7 +374,7 @@ def test_wave_deck_on_the_rungs_matches_jax(rung, tmp_path, monkeypatch):
         os.makedirs(tmp_path / sub)
         monkeypatch.chdir(tmp_path / sub)
         sim.run()
-    assert len(calls) == (10 if rung == "ATHENAPK_PALLAS_STAGE" else 5)
+    assert len(calls) == (10 if rung == "ATHENAPK_PALLAS_STAGE" else 0)
     a, b = np.asarray(js.u), ts.u.numpy()
     assert ts.ncycle == js.ncycle == 5
     assert np.abs(a - b).max() <= 1e-10 * np.abs(a).max()

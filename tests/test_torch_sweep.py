@@ -24,9 +24,10 @@ from athenapk_tpu.eos.adiabatic import EOS as JEOS
 from athenapk_tpu.solver.hydro_pkg import HydroConfig as JCfg
 from athenapk_tpu.solver.hydro_pkg import HydroPackage as JPkg
 from athenapk_tpu.solver.pallas_sweep import make_fused_negdiv
+from athenapk_tpu_torch.core import kernels
 from athenapk_tpu_torch.core.mesh import Mesh
 from athenapk_tpu_torch.eos.adiabatic import EOS
-from athenapk_tpu_torch.solver import sweep
+from athenapk_tpu_torch.solver import stage, sweep
 from athenapk_tpu_torch.solver.hydro_pkg import HydroConfig, HydroPackage
 
 torch.set_num_threads(2)
@@ -155,8 +156,8 @@ def test_non_cpu_tensor_never_takes_the_plain_path():
 
 
 def test_build_without_nvcc_raises(monkeypatch, tmp_path):
-    monkeypatch.setattr(sweep, "BUILD_DIR", tmp_path / "build")
-    monkeypatch.setattr(sweep.shutil, "which", lambda name: None)
+    monkeypatch.setattr(kernels, "BUILD_DIR", tmp_path / "build")
+    monkeypatch.setattr(kernels.shutil, "which", lambda name: None)
     monkeypatch.setenv("CUDA_HOME", str(tmp_path / "no_cuda"))
     with pytest.raises(RuntimeError, match="nvcc not found"):
         sweep.build_library()
@@ -165,27 +166,30 @@ def test_build_without_nvcc_raises(monkeypatch, tmp_path):
 @pytest.mark.parametrize("source", ["negdiv_sweep.cu", "fused_stage.cu"])
 def test_library_is_keyed_by_source_and_header(source, monkeypatch, tmp_path):
     """``build_library`` names the library after the hash of the source it
-    compiles and of the header that source includes, so editing either
-    rebuilds; a library of that name is taken as built."""
+    compiles, of the header that source includes and of its unit list, so
+    editing any of them rebuilds; a library of that name is taken as
+    built."""
     csrc = tmp_path / "csrc"
     csrc.mkdir()
-    for path in (sweep.CSRC_DIR / source,) + sweep.HEADERS:
+    for path in (kernels.CSRC_DIR / source,) + kernels.HEADERS:
         (csrc / path.name).write_bytes(path.read_bytes())
-    header = csrc / sweep.HEADERS[0].name
-    monkeypatch.setattr(sweep, "BUILD_DIR", tmp_path / "build")
-    monkeypatch.setattr(sweep, "HEADERS", (header,))
-    monkeypatch.setattr(sweep.shutil, "which", lambda name: None)
+    header = csrc / kernels.HEADERS[0].name
+    units = sweep.build_units()
+    monkeypatch.setattr(kernels, "BUILD_DIR", tmp_path / "build")
+    monkeypatch.setattr(kernels, "HEADERS", (header,))
+    monkeypatch.setattr(kernels.shutil, "which", lambda name: None)
     monkeypatch.setenv("CUDA_HOME", str(tmp_path / "no_cuda"))
 
     def library_name():
         """Put a file of the expected name in place; ``build_library``
         must then return it without asking for ``nvcc``."""
         (tmp_path / "build").mkdir(exist_ok=True)
-        digest = hashlib.sha256((csrc / source).read_bytes()
-                                + header.read_bytes()).hexdigest()[:12]
+        digest = hashlib.sha256(
+            (csrc / source).read_bytes() + header.read_bytes()
+            + repr([list(u) for u in units]).encode()).hexdigest()[:12]
         lib = tmp_path / "build" / f"lib{source[:-3]}_{digest}.so"
         lib.write_bytes(b"")
-        path, log = sweep.build_library(csrc / source)
+        path, log = kernels.build_library(csrc / source, units)
         assert path == lib and log == ""
         return path.name
 
@@ -199,7 +203,7 @@ def test_library_is_keyed_by_source_and_header(source, monkeypatch, tmp_path):
     # here, where there is no nvcc)
     header.write_text(header.read_text() + "\n// again\n")
     with pytest.raises(RuntimeError, match="nvcc not found"):
-        sweep.build_library(csrc / source)
+        kernels.build_library(csrc / source, units)
 
 
 def test_ptxas_summary_reads_each_instantiation():
@@ -217,7 +221,7 @@ def test_ptxas_summary_reads_each_instantiation():
         "    0 bytes stack frame, 8 bytes spill stores, 8 bytes spill loads",
         "ptxas info    : Used 255 registers, used 1 barriers",
     ])
-    assert sweep.ptxas_summary(log) == [
+    assert kernels.ptxas_summary(log, sweep.PTXAS | stage.PTXAS) == [
         "negdiv_sweep f32 ppm dir 1 glmmhd-hlld: 96 registers, 0 bytes "
         "stack frame, 0 bytes spill stores, 0 bytes spill loads",
         "fused_stage f64 plm euler-hlle faces: 255 registers, 0 bytes stack "
@@ -237,8 +241,9 @@ def test_ptxas_summary_names_other_entry_functions_by_their_mangled_name():
     ])
     want = [f"{name}: 64 registers, 0 bytes stack frame, 0 bytes spill "
             "stores, 0 bytes spill loads"]
-    assert sweep.ptxas_summary(log) == want
-    assert sweep.ptxas_summary(log, occupancy=True) == want
+    ptxas = sweep.PTXAS | stage.PTXAS
+    assert kernels.ptxas_summary(log, ptxas) == want
+    assert kernels.ptxas_summary(log, ptxas, occupancy=True) == want
 
 
 def test_decks_with_scalars_build_their_own_library(monkeypatch, tmp_path):
@@ -250,15 +255,16 @@ def test_decks_with_scalars_build_their_own_library(monkeypatch, tmp_path):
         units = sweep.build_units(scalars)
         assert units[0] == (f"-DHYDRO_ENTRY_SCAL={int(scalars)}",)
         assert len(units) == 1 + len(sweep.KERNEL_RECONS) * len(
-            sweep.KERNEL_DTYPES)
+            kernels.KERNEL_DTYPES)
         assert all(u[-1] == f"-DHYDRO_UNIT_SCAL={int(scalars)}"
                    for u in units[1:])
-    monkeypatch.setattr(sweep, "BUILD_DIR", tmp_path / "build")
-    monkeypatch.setattr(sweep.shutil, "which", lambda name: None)
+    monkeypatch.setattr(kernels, "BUILD_DIR", tmp_path / "build")
+    monkeypatch.setattr(kernels.shutil, "which", lambda name: None)
     monkeypatch.setenv("CUDA_HOME", str(tmp_path / "no_cuda"))
     digest = hashlib.sha256()
-    for path in (sweep.CSRC,) + sweep.HEADERS:
+    for path in (sweep.CSRC,) + kernels.HEADERS:
         digest.update(path.read_bytes())
+    digest.update(repr([list(u) for u in sweep.build_units(True)]).encode())
     (tmp_path / "build").mkdir()
     lib = (tmp_path / "build"
            / f"libnegdiv_sweep_scalars_{digest.hexdigest()[:12]}.so")
