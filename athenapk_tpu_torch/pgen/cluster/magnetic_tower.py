@@ -65,6 +65,28 @@ class MagneticTower:
             raise ValueError(f"unknown tower potential {self.potential}")
         return jc.jet_vec_to_sim(cth, sth, b_r, b_th, b_h, t)
 
+    def radius(self, dtype):
+        """The radius of the origin beyond which the field and the Gaussian
+        mass are exactly 0 in ``dtype``: both carry exp(-(r^2 + h^2) / l^2),
+        and the jet frame keeps r^2 + h^2 = x^2 + y^2 + z^2; exp(-q) is 0
+        past q = -ln(the smallest subnormal), and 4 more leave it e^-4 of
+        that.  The donut's field adds its slab's height."""
+        fi = torch.finfo(dtype)
+        q = -math.log(fi.tiny * fi.eps) + 4.0
+        out = 0.0
+        if self.l_scale > 0:
+            out = self.l_scale * math.sqrt(q)
+            if self.potential == "donut":
+                out = math.hypot(out, self.offset + self.thickness)
+        if self.l_mass_scale > 0.0:
+            out = max(out, self.l_mass_scale * math.sqrt(q))
+        return out
+
+    def mass_profile(self, x, y, z, t):
+        """The Gaussian of the mass injection, exp(-(r^2 + h^2) / l^2)."""
+        r, _, _, h = self.jet_coords.sim_to_jet(x, y, z, t)
+        return torch.exp(-(r ** 2 + h ** 2) / self.l_mass_scale ** 2)
+
     def _mass_source(self, u, x, y, z, t, mass_rate, beta_dt):
         """The Gaussian mass injection at ``mass_rate`` (the fixed rate
         where that is not positive; a float where nothing triggers, else a
@@ -75,8 +97,7 @@ class MagneticTower:
         else:
             rate = mass_rate if mass_rate > 0.0 else self.fixed_mass_rate
         norm = math.pi ** 1.5 * self.l_mass_scale ** 3
-        r, _, _, h = self.jet_coords.sim_to_jet(x, y, z, t)
-        dens = rate * torch.exp(-(r ** 2 + h ** 2) / self.l_mass_scale ** 2)
+        dens = rate * self.mass_profile(x, y, z, t)
         u[:, IDN] += beta_dt * dens / norm
 
     # ------------------------------------------------------------- inject

@@ -18,12 +18,15 @@ at full dt; the accretion dt caps the step; ``history_columns`` adds
 ``cold_mass``, ``agn_extent`` and ``agn_feedback_power`` to the uniform
 ``.hst`` (the refined driver has no cluster columns, as in the JAX
 package).  No source reads the host: the accretion rate, the tower's
-scale and the region mass stay 0-d tensors.  Each source runs in a
-profiler range of its name (``gravity``, ``agn_feedback``,
-``snia_feedback``, ``stellar_feedback``, ``clips``; inside
-``agn_feedback``, ``agn_triggering`` and ``magnetic_tower``); the split
-sources' and the refined accretion dt's own conversions to prim run in
-``cons_to_prim`` ranges; the history columns read the host in
+scale and the region mass stay 0-d tensors.  On a uniform mesh the
+sources bounded by a sphere (the AGN's channels, stellar feedback, the
+clips) run on the index box that holds it (``regions``); gravity and SN
+Ia, and every source on a refined mesh, run on the whole group.  Each
+source runs in a profiler range of its name (``gravity``,
+``agn_feedback``, ``snia_feedback``, ``stellar_feedback``, ``clips``;
+inside ``agn_feedback``, ``agn_triggering`` and ``magnetic_tower``); the
+split sources' and the refined accretion dt's own conversions to prim
+run in ``cons_to_prim`` ranges; the history columns read the host in
 ``host_read`` ranges.
 """
 
@@ -46,6 +49,7 @@ from ...eos.adiabatic import cons_to_prim
 from ...solver.hydro_pkg import interior_mask
 from ...utils.few_modes_ft import FewModesFT, FewModesFTSmr, make_random_modes
 from ...utils.units import Units, mean_molecular_weights
+from . import regions
 from .agn_feedback import AGNFeedback
 from .agn_triggering import AGNTriggering
 from .entropy_profiles import ACCEPTEntropyProfile
@@ -131,13 +135,15 @@ def needs_ghosts_at_init(pin):
 
 class _Coords:
     """Cell-centre coordinates of a group of blocks: host f64 grids
-    ``x[nb,1,1,NX]``, ``y[nb,1,NY,1]``, ``z[nb,NZ,1,1]``, and on each
-    device and dtype a state comes in, ``(x, y, z, r)`` tensors (``r`` the
-    radius over the whole block)."""
+    ``x[nb,1,1,NX]``, ``y[nb,1,NY,1]``, ``z[nb,NZ,1,1]``, on each device
+    and dtype a state comes in, ``(x, y, z, r)`` tensors (``r`` the radius
+    over the whole block), and for each radius a source asks for, the
+    index box that holds its sphere (``regions.index_box``)."""
 
     def __init__(self, x, y, z):
         self.host = (x, y, z)
         self._on = {}
+        self._boxes = {}
 
     @classmethod
     def of_mesh(cls, mesh):
@@ -153,6 +159,13 @@ class _Coords:
                        for c in self.host)
             self._on[key] = (x, y, z, sqrt(x ** 2 + y ** 2 + z ** 2))
         return self._on[key]
+
+    def box(self, radius):
+        """``regions.index_box`` of ``radius`` on these blocks (host
+        arithmetic, once per radius)."""
+        if radius not in self._boxes:
+            self._boxes[radius] = regions.index_box(self.host, radius)
+        return self._boxes[radius]
 
 
 def _level_coords(smesh, leaves=None):
@@ -454,10 +467,13 @@ def _unsplit_groups(pkg, mhd, groups, beta_dt, t, sums=None):
             pkg.snia_feedback.apply(g["u"], g["prim"], beta_dt, g["r"])
 
 
-def _group(u, prim, coords, vol, valid, level=None):
+def _group(u, prim, coords, vol, valid, level=None, boxed=False):
+    """A group of blocks for the sources; ``boxed``: it offers the index
+    boxes of ``coords`` (``regions.of``), which the uniform hooks take and
+    the refined ones, whose sums run per leaf, do not."""
     x, y, z, r = coords.on(u)
     return dict(u=u, prim=prim, x=x, y=y, z=z, r=r, vol=vol, valid=valid,
-                level=level)
+                level=level, box=coords.box if boxed else None)
 
 
 def _valid(mesh, like, cache):
@@ -484,7 +500,8 @@ def problem_source_unsplit(pin, mesh, cfg, eos):
     def src(u, prim, mesh_, beta_dt, t):
         u = u.clone()
         _unsplit_groups(pkg, mhd, [_group(u, prim, coords, mesh.cell_volume,
-                                          _valid(mesh, u, masks))],
+                                          _valid(mesh, u, masks),
+                                          boxed=True)],
                         beta_dt, t)
         return u
 
@@ -527,13 +544,20 @@ def _split_sources(pkg):
     return not (pkg.stellar_feedback.disabled and pkg.clip_r <= 0.0)
 
 
-def _split_sources_on(pkg, u, prim, dt, r, mhd):
-    """Stellar feedback, then the clips, on one group of blocks in place;
-    -> ``u``."""
+def _split_sources_on(pkg, g, dt, mhd):
+    """Stellar feedback, then the clips, on one group of blocks in place,
+    each on the index box of its sphere where the group offers one; ->
+    the group's ``u``."""
     with record_function("stellar_feedback"):
-        pkg.stellar_feedback.apply(u, prim, dt, r)
+        if not pkg.stellar_feedback.disabled:
+            gs = regions.of(g, "stellar_feedback",
+                            pkg.stellar_feedback.stellar_radius)
+            pkg.stellar_feedback.apply(gs["u"], gs["prim"], dt, gs["r"])
     with record_function("clips"):
-        return _apply_clips(pkg, u, r, mhd)
+        if pkg.clip_r > 0.0:
+            gc = regions.of(g, "clips", pkg.clip_r)
+            _apply_clips(pkg, gc["u"], gc["r"], mhd)
+    return g["u"]
 
 
 def problem_source_first_order(pin, mesh, cfg, eos):
@@ -550,7 +574,8 @@ def problem_source_first_order(pin, mesh, cfg, eos):
     def src(u, dt, t):
         with record_function("cons_to_prim"):
             u, prim = cons_to_prim(eos, u, cfg.fluid, cfg.nscalars)
-        return _split_sources_on(pkg, u, prim, dt, coords.on(u)[3], mhd)
+        return _split_sources_on(pkg, _group(u, prim, coords, None, None,
+                                             boxed=True), dt, mhd)
 
     return src
 
@@ -569,8 +594,8 @@ def problem_source_first_order_smr(pin, smesh, cfg, eos):
         for lev, u in state.items():
             with record_function("cons_to_prim"):
                 u, prim = cons_to_prim(eos, u, cfg.fluid, cfg.nscalars)
-            out[lev] = _split_sources_on(pkg, u, prim, dt,
-                                         coords[lev].on(u)[3], mhd)
+            out[lev] = _split_sources_on(
+                pkg, _group(u, prim, coords[lev], None, None), dt, mhd)
         return out
 
     return src
@@ -651,8 +676,6 @@ def _apply_clips(pkg, u, r, mhd):
     """The cluster clips (``cluster_clips.cpp``), in place: inside clip_r,
     the density floor and the velocity, Alfven-speed and temperature
     ceilings."""
-    if pkg.clip_r <= 0.0:
-        return u
     gm1 = pkg.gamma - 1.0
     inside = r < pkg.clip_r
     rho = u[:, IDN].clone()
