@@ -8,7 +8,9 @@ length in cycles is set from the probe cycles' time so that it lasts about
 ``--seconds``.  A per-cycle probe on the program's cycle call keeps each
 cycle's dt, copies the states entering a cycle drawn from the seed and the
 next one to the host on a side stream, and, with ``--trace 1``, opens the
-traced stretch over the window's last ``TRACE_CYCLES`` cycles.
+traced stretch over the window's last ``TRACE_CYCLES`` cycles.  A state is
+one tensor, or a tuple of tensors (a refined mesh's levels, in a fixed
+order): the host copies take the same form, a pinned buffer per tensor.
 """
 
 from __future__ import annotations
@@ -25,6 +27,7 @@ import numpy as np
 import torch
 
 from . import compare
+from .compare import each, tensors
 from .spec import ROOT
 from .trace import CAPTURE, WINDOW, Trace, host_reads
 
@@ -49,9 +52,10 @@ def cache_env():
 class CycleProbe:
     """Called before each cycle of the program with the state entering it:
     keeps the previous cycle's dt, copies the states entering cycles ``k``
-    and ``k + 1`` into ``buffers`` (host memory; from a CUDA ``device`` on
-    a side stream, so the copy overlaps the cycle), with their dt, c_h and
-    t, and calls ``on_trace`` before cycle ``trace_start``."""
+    and ``k + 1`` into ``buffers`` (host memory, in the state's form; from
+    a CUDA ``device`` on a side stream, so the copy overlaps the cycle),
+    with their dt, c_h and t, and calls ``on_trace`` before cycle
+    ``trace_start``.  On any other cycle it touches no tensor."""
 
     def __init__(self, k, buffers, device, trace_start=None,
                  on_trace=None):
@@ -72,16 +76,21 @@ class CycleProbe:
             self.on_trace()
         if cyc in (self.k, self.k + 1):
             buf = self.buffers[cyc - self.k]
+            src = tensors(u)
+            pairs = list(zip(tensors(buf), src, strict=True))
             with torch.profiler.record_function(CAPTURE):
-                if u.is_cuda:
+                if src[0].is_cuda:
                     side = self.side
-                    side.wait_stream(torch.cuda.current_stream(u.device))
+                    side.wait_stream(torch.cuda.current_stream(src[0].device))
                     with torch.cuda.stream(side):
-                        buf.copy_(u, non_blocking=True)
-                    u.record_stream(side)
+                        for b, x in pairs:
+                            b.copy_(x, non_blocking=True)
+                    for x in src:
+                        x.record_stream(side)
                     self.events.append(side.record_event())
                 else:
-                    buf.copy_(u)
+                    for b, x in pairs:
+                        b.copy_(x)
             self.captured[cyc] = dict(u=buf, dt=float(dt), c_h=float(c_h),
                                       t=float(t), dt_prev=self.prev_dt)
         self.prev_dt = float(dt)
@@ -131,10 +140,10 @@ def _run(cell, seed, seconds, trace, device, t_start, overrides, tmp,
     with contextlib.redirect_stdout(log):
         sim = prog.build(deck, device)
         u = prog.state(sim)
-        u0_prog = u.detach().to("cpu", copy=True)
-        buffers = [torch.empty(u.shape, dtype=u.dtype,
-                               pin_memory=device.type == "cuda")
-                   for _ in range(2)]
+        u0_prog = each(u, lambda x: x.detach().to("cpu", copy=True))
+        buffers = [each(u, lambda x: torch.empty(
+            x.shape, dtype=x.dtype, pin_memory=device.type == "cuda"))
+            for _ in range(2)]
         del u
         prog.run_more(sim, WARMUP_CYCLES)
         sync(device)

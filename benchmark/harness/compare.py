@@ -15,9 +15,16 @@ the units of B times a speed, and on a divergence-free state it holds
 rounding alone, so its own magnitude is no scale).  A group that is zero in
 the reference must be zero in the program.
 
+A state is one tensor ``[nb, nvar, NZ, NY, NX]`` or, on a refined mesh, a
+tuple of such tensors, one per level in a fixed order: a group's scale is
+then the reference's largest magnitude of the group over all levels, and
+its gap the largest over all levels.
+
 ``readings`` takes these numbers for a reference with the interface of the
-plain driver's ``PlainSim``; a configuration whose reference module defines
-its own ``readings`` (with the same arguments) is judged by that one.
+plain driver's ``PlainSim`` (``initial_state``, ``next_dt`` and ``cycle``
+over states of the program's form); a configuration whose reference module
+defines its own ``readings`` (with the same arguments) is judged by that
+one.
 """
 
 from __future__ import annotations
@@ -42,17 +49,38 @@ def groups(fluid, nvar):
     return out
 
 
+def tensors(u):
+    """A state's tensors: ``(u,)`` for one tensor, else its levels."""
+    return (u,) if isinstance(u, torch.Tensor) else tuple(u)
+
+
+def each(u, fn):
+    """``fn`` of each tensor of the state ``u``, in ``u``'s form."""
+    return fn(u) if isinstance(u, torch.Tensor) else tuple(
+        fn(x) for x in u)
+
+
+def _largest(values):
+    """The largest of ``values``; NaN if any is NaN."""
+    return (math.nan if any(math.isnan(v) for v in values)
+            else max(values))
+
+
 def state_error(got, ref, fluid, c_h):
-    """max over the groups of max |got - ref| / the group's scale."""
-    got = torch.as_tensor(got).to(ref.device, torch.float64)
-    ref = ref.to(torch.float64)
-    scales = {name: ref[:, rows].abs().max().item()
-              for name, rows in groups(fluid, ref.shape[1])}
+    """max over the groups of max |got - ref| / the group's scale, each
+    over every level of the states ``got`` and ``ref`` (of one form)."""
+    refs = [x.to(torch.float64) for x in tensors(ref)]
+    gots = [torch.as_tensor(g).to(r.device, torch.float64)
+            for g, r in zip(tensors(got), refs, strict=True)]
+    nvar = refs[0].shape[1]
+    scales = {name: _largest([r[:, rows].abs().max().item() for r in refs])
+              for name, rows in groups(fluid, nvar)}
     if "psi" in scales:
         scales["psi"] = c_h * scales["field"]
     worst = 0.0
-    for name, rows in groups(fluid, ref.shape[1]):
-        gap = (got[:, rows] - ref[:, rows]).abs().max().item()
+    for name, rows in groups(fluid, nvar):
+        gap = _largest([(g[:, rows] - r[:, rows]).abs().max().item()
+                        for g, r in zip(gots, refs)])
         scale = scales[name]
         if math.isnan(gap):
             err = math.inf
@@ -78,7 +106,7 @@ def readings(ref, u0_prog, cap, fluid, model=None):
     cycle k), else those ``model`` computes in the program's place."""
     k = min(cap)
     a, b = cap[k], cap[k + 1]
-    ua = a["u"].to(ref.device, ref.dtype)
+    ua = each(a["u"], lambda x: x.to(ref.device, ref.dtype))
     u0_ref = ref.initial_state()
     if model is None:
         start = u0_prog
@@ -86,17 +114,18 @@ def readings(ref, u0_prog, cap, fluid, model=None):
         got_u = b["u"]
     else:
         start = model.initial_state()
-        ua_m = a["u"].to(model.device, model.dtype)
+        ua_m = each(a["u"], lambda x: x.to(model.device, model.dtype))
         dt_m, c_h_m = model.next_dt(ua_m, a["t"], a["dt_prev"])
-        dt1_m, c_h1_m = model.next_dt(b["u"].to(model.device, model.dtype),
-                                      b["t"], dt_m)
+        dt1_m, c_h1_m = model.next_dt(
+            each(b["u"], lambda x: x.to(model.device, model.dtype)),
+            b["t"], dt_m)
         got_dt = [dt_m, c_h_m, dt1_m, c_h1_m]
         got_u = model.cycle(ua_m, dt_m, c_h_m, a["t"])
         del ua_m
     start_err = state_error(start, u0_ref, fluid, a["c_h"])
     del u0_ref, start
     dt_ref, c_h_ref = ref.next_dt(ua, a["t"], a["dt_prev"])
-    ub = b["u"].to(ref.device, ref.dtype)
+    ub = each(b["u"], lambda x: x.to(ref.device, ref.dtype))
     dt1_ref, c_h1_ref = ref.next_dt(ub, b["t"], got_dt[0])
     del ub
     dt_err = max(rel_gap(g, w) for g, w in zip(

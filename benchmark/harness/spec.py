@@ -5,8 +5,9 @@
   precision, ``assumed``, ``reduced``, the limits of the comparison that
   decides ``correct`` (``limits``) and the program that runs it
   (``program``: ``benchmark/programs/<program>.py``, which states the
-  chips it uses); its plain reference is
-  ``benchmark/reference/<config>.py``;
+  chips it uses: ``uniform`` or ``smr``, a state of one tensor or of one
+  tensor per level); its plain reference is
+  ``benchmark/reference/<config>.py``, over states of the program's form;
 * a traffic mix: ``benchmark/traffic/<traffic>.json``, holding the deck
   keys the seed draws (``draws``);
 * a per-layer metric: the reader ``benchmark/metrics/<metric>.py``.

@@ -31,6 +31,9 @@ CSRC_KERNEL = re.compile(r"\b(negdiv_sweep|negdiv_scalars|fused_stage|"
 NEGDIV = re.compile(r"negdiv_sweep_kernel<(\w+), (\d+), (\d+), (\d+)"
                     r"(?:, (\w+))?>")
 SCALARS = re.compile(r"negdiv_scalars_kernel<(\w+), (\d+), (\d+)>")
+STAGE = re.compile(r"fused_stage_kernel<(\w+), (\d+), (\d+), (\w+), "
+                   r"(\w+)>")
+STAGE_SCALARS = re.compile(r"stage_scalars_kernel<(\w+), (\d+)>")
 
 
 @contextlib.contextmanager
@@ -76,7 +79,8 @@ class Trace:
     microseconds), ``window`` (start, end) in microseconds, the cycles it
     holds, the host reads counted over it, the launches of the port's own
     kernels the program counted over it (``launched``), and the state's
-    layout (``shape``, ``itemsize``, ``fluid``, ``nscalars``) for the
+    layout (``shape``, ``itemsize``, ``fluid``, ``nscalars``, and on a
+    refined mesh ``levels``; ``programs/uniform.py`` lists them) for the
     readers that count bytes."""
 
     def __init__(self, events, cycles, host_reads=None, layout=None,
@@ -214,18 +218,32 @@ def short_name(name):
     return name[:120]
 
 
+def _true(flag):
+    return flag in ("true", "1")
+
+
 def parse_kernel(name):
-    """``(kernel, dtype, switches)`` of a sweep or scalar kernel's name:
-    ``("negdiv_sweep", "double", {"recon", "dir", "solver", "scal"})`` or
-    ``("negdiv_scalars", "double", {"recon", "dir"})``; None for another."""
+    """``(kernel, dtype, switches)`` of the name of one of the port's
+    kernels: ``("negdiv_sweep", "double", {"recon", "dir", "solver",
+    "scal"})``, ``("negdiv_scalars", "double", {"recon", "dir"})``,
+    ``("fused_stage", "double", {"recon", "solver", "faces", "scal"})`` or
+    ``("stage_scalars", "double", {"recon"})``; None for another."""
     m = NEGDIV.search(name)
     if m:
         return ("negdiv_sweep", m.group(1), dict(
             recon=int(m.group(2)), dir=int(m.group(3)),
             solver=int(m.group(4)),
-            scal=m.group(5) in ("true", "1")))
+            scal=_true(m.group(5))))
     m = SCALARS.search(name)
     if m:
         return ("negdiv_scalars", m.group(1), dict(recon=int(m.group(2)),
                                                    dir=int(m.group(3))))
+    m = STAGE.search(name)
+    if m:
+        return ("fused_stage", m.group(1), dict(
+            recon=int(m.group(2)), solver=int(m.group(3)),
+            faces=_true(m.group(4)), scal=_true(m.group(5))))
+    m = STAGE_SCALARS.search(name)
+    if m:
+        return ("stage_scalars", m.group(1), dict(recon=int(m.group(2))))
     return None

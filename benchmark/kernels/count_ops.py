@@ -1,7 +1,12 @@
 """The operations each kernel case needs per cell, counted once on the
 plain reference (``benchmark/reference/plain``) and kept as data in
 ``benchmark/kernels/<kernel>.<case>.json``, which the roofline reader
-reads.  Run on the CPU from the root of a checkout:
+reads: per direction for the sweeps (``negdiv_sweep``, ``negdiv_scalars``),
+and for the stage kernels (``fused_stage``, ``stage_scalars``), which do
+all three directions in one launch, in the kernel's order: the x sweep with
+the EOS (or the scalars' primitive), + the y sweep, + the z sweep with the
+2S update (cumulative counts of the plain stage, differenced).  Run on the
+CPU from the root of a checkout:
 
     python3 -m benchmark.kernels.count_ops [CASE ...]
 
@@ -138,8 +143,8 @@ N = 32
 
 
 def state_of(config):
-    """The configuration's initial prim at N^3 on the CPU, with its
-    reference ``PlainSim``."""
+    """The configuration's initial state and prim at N^3 on the CPU, with
+    its reference ``PlainSim``."""
     from benchmark.harness.spec import BENCH_DIR, load_json, load_module
     cfg = load_json(BENCH_DIR / "configs" / f"{config}.json")
     deck = {b: dict(kv) for b, kv in cfg["deck"].items()}
@@ -152,8 +157,9 @@ def state_of(config):
     ref = load_module(BENCH_DIR / "reference" / f"{config}.py",
                       "benchmark.reference")
     sim = ref.sim(text, "cpu")
-    _, prim = sim.hydro.cons_to_prim(sim.initial_state())
-    return sim, prim
+    u = sim.initial_state()
+    _, prim = sim.hydro.cons_to_prim(u)
+    return sim, u, prim
 
 
 def counts(sim, prim, kernel, recon):
@@ -191,6 +197,79 @@ def counts(sim, prim, kernel, recon):
     return out
 
 
+def stage_counts(sim, u0, prim, kernel, recon):
+    """Operations per cell (per cell and scalar for ``stage_scalars``) of
+    the stage kernel's work on each direction, in its order (module
+    docstring): a stage ``gam0 u0f + gam1 u1 + beta_dt (-div F)`` with
+    ``u1`` another state than ``u0``."""
+    from benchmark.reference.plain.core.indices import IDN
+    from benchmark.reference.plain.recon.schemes import reconstruct
+    from benchmark.reference.plain.solver import hydro as h
+    mesh, cfg, eos = sim.mesh, sim.cfg, sim.eos
+    nv = 9 if cfg.fluid == "glmmhd" else 5
+    ns = prim.shape[1] - nv
+    dirs = h.active_dirs(mesh)
+    u1 = 0.9 * u0
+    gam0, gam1, beta_dt = 0.5, 0.5, 0.25
+
+    def negdiv(f, d):
+        ax, dx = h.AXIS_OF_DIR[d], mesh.dx[d - 1]
+        return -((torch.roll(f, -1, dims=ax) - f) / dx)
+
+    if kernel == "fused_stage":
+        def through(upto):
+            def fn():
+                u0f, w = sim.hydro.cons_to_prim(u0)
+                nd = None
+                for d in dirs[:upto]:
+                    r = negdiv(h.directional_flux(
+                        w, 0.5, d, mesh.dx[d - 1], cfg, eos, recon), d)
+                    nd = r if nd is None else nd + r
+                if upto == len(dirs):
+                    nd = gam0 * u0f + gam1 * u1 + beta_dt * nd
+                return nd[:, :nv]
+            return fn
+        per = prim.numel() // prim.shape[1]
+    else:
+        with torch.no_grad():
+            mflux = {d: h.directional_flux(prim, 0.5, d, mesh.dx[d - 1], cfg,
+                                           eos, recon)[:, IDN].clone()
+                     for d in dirs}
+
+        def through(upto):
+            def fn():
+                rho = u0[:, IDN:IDN + 1]
+                if eos.density_floor > 0.0:
+                    rho = torch.clamp(rho, min=eos.density_floor)
+                w = u0[:, nv:] * (1.0 / rho)
+                nd = None
+                for d in dirs[:upto]:
+                    ax = h.AXIS_OF_DIR[d]
+                    qm, qp = reconstruct(recon, w, ax, mesh.dx[d - 1],
+                                         positivity_mask=[False] * ns)
+                    wl = torch.roll(qp, 1, dims=ax)
+                    fd = mflux[d][:, None]
+                    r = negdiv(torch.where(fd >= 0.0, fd * wl, fd * qm), d)
+                    nd = r if nd is None else nd + r
+                if upto == len(dirs):
+                    nd = gam0 * u0[:, nv:] + gam1 * u1[:, nv:] + beta_dt * nd
+                return nd
+            return fn
+        per = (prim.numel() // prim.shape[1]) * ns
+    out, before = {}, 0.0
+    for i, d in enumerate(dirs, start=1):
+        ops, _, _ = count_ops(through(i))
+        out[str(d)] = ops / per - before
+        before = ops / per
+    return out
+
+
+# the key of each kernel's counts in its file
+COUNT_KEY = {"negdiv_sweep": "ops_per_cell", "fused_stage": "ops_per_cell",
+             "negdiv_scalars": "ops_per_cell_per_scalar",
+             "stage_scalars": "ops_per_cell_per_scalar"}
+
+
 def main(argv=None):
     """Count again the cases of the named files of ``benchmark/kernels/``
     (all by default): each holds its ``kernel``, the kernel's ``template``
@@ -205,10 +284,12 @@ def main(argv=None):
         config, kernel = data["config"], data["kernel"]
         if config not in states:
             states[config] = state_of(config)
-        sim, prim = states[config]
-        per = counts(sim, prim, kernel, data["recon"])
-        data["ops_per_cell" if kernel == "negdiv_sweep"
-             else "ops_per_cell_per_scalar"] = per
+        sim, u, prim = states[config]
+        if kernel in ("fused_stage", "stage_scalars"):
+            per = stage_counts(sim, u, prim, kernel, data["recon"])
+        else:
+            per = counts(sim, prim, kernel, data["recon"])
+        data[COUNT_KEY[kernel]] = per
         data["counted_on"] = (f"{config}'s initial state at {N}^3 "
                               "(benchmark/kernels/count_ops.py)")
         path.write_text(json.dumps(data, indent=1) + "\n")

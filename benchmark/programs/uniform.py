@@ -2,23 +2,30 @@
 
 A configuration names the module that builds and drives its program
 (``"program"`` in its file); this one serves every deck that the port's
-``driver.Simulation`` runs on one uniform mesh.  A refined or ranked program
-is a module of its own beside this one, with the same names:
+``driver.Simulation`` runs on one uniform mesh; ``smr.py`` serves static
+refined meshes, and a ranked program would be a module of its own beside
+them.  Each has the same names:
 
 * ``CHIPS``: the cards one run of the program uses;
 * ``build(deck, device)``: the program, built through the CLI's own path
   (``ParameterInput`` -> ``Simulation``), with its initial state;
-* ``state(sim)``: the state the cycles advance (the probe's copies are
-  shaped from it);
+* ``state(sim)``: the state the cycles advance, one tensor or a tuple of
+  tensors (a refined mesh's levels, in a fixed order), the program's own
+  tensors: no concatenation, copy or allocation (the probe's copies are
+  shaped from them);
 * ``run_more(sim, ncycles)``: ``ncycles`` more cycles through the entry the
   window times, ending in a synchronise;
 * ``install_probe(sim, before)``: call ``before(ncycle, u, dt, c_h, t)``
-  before each cycle with the state entering it;
+  before each cycle with the state entering it, in ``state``'s form and
+  as cheaply (it runs inside the window);
 * ``install_ranges(sim)``: the harness's own ranges for a traced run;
 * ``check_window(sim, last)``: raise if the window did not end at cycle
   ``last``;
 * ``zones(sim)``, ``layout(sim)``: the mesh's cells, and the state's layout
-  for the roofline (``shape``, ``itemsize``, ``fluid``, ``nscalars``).
+  for the roofline (``shape``, ``itemsize``, ``fluid``, ``nscalars``; on a
+  refined mesh ``levels``, each level's block count, with ``shape`` over
+  all of them; ``stage_prim`` and ``stage_faces`` where the stage kernel
+  writes prim or the face slabs, ``harness/roofline.py``).
 """
 
 from __future__ import annotations
